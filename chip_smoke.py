@@ -1,0 +1,329 @@
+"""Smoke run of the PyTorch/CUDA port (kart_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py        # from the repository root
+
+Phases (each prints one line; any failure raises and exits non-zero):
+  0. the device, and nvidia-smi's name and power limit; nvcc builds the
+     port's kernels from kart_tpu_torch/csrc into kart_tpu_torch/_build;
+  1. the NW kernel against its plain PyTorch version on the card, 4,096
+     random fragment pairs per tile (16, 32, 64, 128): byte-equal planes, and
+     every backtrace equal to the host DP's (nw_alignment);
+  2. the FM-stepper kernel against its plain version on the card, one
+     mapper chunk of 4,000 reads of 150 bp at l_max 160 on the E. coli-scale
+     genome: equal output;
+  3. the slice: 4,000 simulated 150 bp pairs mapped by the port's CLI
+     (-backend python) on the card; kernel launch counts, NW coverage and
+     memo misses checked; the first 500 pairs mapped again with -cpu must
+     give the same SAM records.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device the script exits
+non-zero and prints no result.  The script reaches kart_tpu's host layers
+only through the port, and JAX is never imported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+sys.modules["jax"] = None  # the port must run without JAX: any import of it fails
+
+import numpy as np  # noqa: E402
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(ROOT, "chip_smoke_data")
+TILES = (16, 32, 64, 128)
+N_NW = 4096
+B_FM, READ_LEN, L_MAX_FM = 4000, 150, 160  # a mapper chunk of 150 bp reads
+N_PAIRS, N_CPU_PAIRS = 4000, 500
+_ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms over `reps` runs after one warm-up."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fragment_pairs(rng, n: int, lm: int) -> list[tuple[bytes, bytes]]:
+    """n (s1, s2) pairs of length <= lm: s2 derives from s1 by ~8%
+    substitutions, deletions and insertions; about a third carry Ns."""
+    pairs = []
+    for _ in range(n):
+        a = _ACGT[rng.integers(0, 4, int(rng.integers(1, lm + 1)))]
+        b = []
+        for c in a:
+            u = rng.random()
+            if u < 0.03:
+                continue
+            b.append(int(_ACGT[rng.integers(0, 4)]) if u < 0.06 else int(c))
+            if rng.random() < 0.02:
+                b.append(int(_ACGT[rng.integers(0, 4)]))
+        a, b = bytearray(a.tobytes()), bytearray(b or [int(a[0])])[:lm]
+        if rng.random() < 0.33:
+            a[int(rng.integers(0, len(a)))] = ord("N")
+            b[int(rng.integers(0, len(b)))] = ord("N")
+        pairs.append((bytes(a), bytes(b)))
+    return pairs
+
+
+def phase_nw(rng) -> dict:
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops.nw import encode_tile, nw_backtrace, nw_batch_planes_plain
+    from kart_tpu_torch.pipeline.conquer import nw_alignment
+
+    ms = plain_ms = 0.0
+    err = 0
+    parts = []
+    for lm in TILES:
+        pairs = fragment_pairs(rng, N_NW, lm)
+        c1, c2 = (torch.from_numpy(c).cuda() for c in encode_tile(pairs, lm))
+        got = kernels.nw_planes(c1, c2, lm=lm)
+        want = nw_batch_planes_plain(c1, c2, lm=lm)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).flatten(1).any(1).sum())
+            raise AssertionError(f"NW lm={lm}: planes of {bad} pairs differ from the plain version")
+        eq = got.cpu().numpy()
+        for k, (a, b) in enumerate(pairs):
+            if nw_backtrace(eq[k], a, b) != nw_alignment(a, b):
+                raise AssertionError(f"NW lm={lm}: pair {k} backtrace differs from nw_alignment")
+        t_k = cuda_ms(lambda: kernels.nw_planes(c1, c2, lm=lm), 20)
+        t_p = cuda_ms(lambda: nw_batch_planes_plain(c1, c2, lm=lm), 3)
+        ms, plain_ms = ms + t_k, plain_ms + t_p
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        parts.append(f"lm={lm} kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+    print(f"phase 1 nw: {N_NW} pairs per tile, planes equal, backtraces equal; " + "; ".join(parts))
+    return dict(ms=ms, plain_ms=plain_ms, err=err)
+
+
+def build_genome_index() -> str:
+    """bench.py's E. coli-scale repeat genome (seed 7), indexed once."""
+    from kart_tpu_torch.index import build_index, index_files_exist
+
+    os.makedirs(DATA, exist_ok=True)
+    fa, prefix = os.path.join(DATA, "genome.fa"), os.path.join(DATA, "idx")
+    if not (os.path.exists(fa) and index_files_exist(prefix) and os.path.exists(prefix + ".saf")):
+        sys.path.insert(0, ROOT)
+        import bench
+
+        seq = bench.make_repeat_genome(np.random.default_rng(7)).tobytes()
+        with open(fa, "wb") as f:
+            f.write(b">bench_ecoli_synthetic_repeats\n")
+            for j in range(0, len(seq), 70):
+                f.write(seq[j : j + 70] + b"\n")
+        build_index(fa, prefix, verbose=False)
+    return prefix
+
+
+def phase_fm(gidx) -> dict:
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops.fm_search import FMIndexTensors, seed_scan_plain
+    from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+
+    rng = np.random.default_rng(11)
+    codes = gidx.ref_codes
+    starts = rng.integers(0, gidx.two_genome_size - READ_LEN, B_FM)
+    reads = np.full((B_FM, L_MAX_FM), 4, np.int32)
+    reads[:, :READ_LEN] = codes[starts[:, None] + np.arange(READ_LEN)]
+    sub = rng.random((B_FM, READ_LEN)) < 0.01
+    reads[:, :READ_LEN][sub] = (reads[:, :READ_LEN][sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    reads[rng.random(B_FM) < 0.05, int(rng.integers(0, READ_LEN))] = 4
+    rlens = np.full(B_FM, READ_LEN, np.int32)
+    msl = compute_min_seed_length(gidx.two_genome_size)
+    max_seeds = L_MAX_FM // (msl + 1) + 1
+    fm = FMIndexTensors.from_genome_index(gidx, "cuda")
+    r, rl = torch.from_numpy(reads).cuda(), torch.from_numpy(rlens).cuda()
+    kw = dict(max_seeds=max_seeds, l_max=L_MAX_FM)
+    got = kernels.fm_seed_scan(fm, r, rl, msl, **kw)
+    want = seed_scan_plain(fm, r, rl, msl, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).any(1).sum())
+        raise AssertionError(f"FM stepper: {bad} of {B_FM} reads differ from the plain version")
+    t_k = cuda_ms(lambda: kernels.fm_seed_scan(fm, r, rl, msl, **kw), 20)
+    t_p = cuda_ms(lambda: seed_scan_plain(fm, r, rl, msl, **kw), 3)
+    print(
+        f"phase 2 fm_seed_scan: B={B_FM} l_max={L_MAX_FM} max_seeds={max_seeds}"
+        f" min_seed={msl}, output equal ({int(got[:, 0].sum())} seeds);"
+        f" kernel {t_k:.4f} ms plain {t_p:.4f} ms"
+    )
+    return dict(ms=t_k, plain_ms=t_p, err=int((got - want).abs().max()))
+
+
+def simulate_pairs(fa: str, out1: str, out2: str, n_pairs: int) -> None:
+    """bench.simulate_reads' recipe for n_pairs pairs (the same reads as its
+    first n_pairs): insert 500±50, 1% substitutions, indels at 0.001/bp."""
+    with open(fa, "rb") as f:
+        genome = np.frombuffer(b"".join(f.read().split(b"\n")[1:]), np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[_ACGT] = np.frombuffer(b"TGCA", np.uint8)
+    rng = np.random.default_rng(20260817)
+    qline = b"I" * READ_LEN
+    with open(out1, "wb") as f1, open(out2, "wb") as f2:
+        for i in range(n_pairs):
+            insert = max(2 * READ_LEN, int(rng.normal(500, 50)))
+            p = int(rng.integers(0, len(genome) - insert))
+            frag = genome[p : p + insert].copy()
+            nerr = rng.binomial(len(frag), 0.01)
+            if nerr:
+                idx = rng.integers(0, len(frag), size=nerr)
+                frag[idx] = _ACGT[rng.integers(0, 4, size=nerr)]
+            if rng.random() < 0.001 * insert:
+                q = int(rng.integers(10, len(frag) - 10))
+                if rng.random() < 0.5:
+                    frag = np.delete(frag, slice(q, q + int(rng.integers(1, 4))))
+                else:
+                    frag = np.insert(frag, q, _ACGT[rng.integers(0, 4, int(rng.integers(1, 4)))])
+            hdr = f"@{i}:Pos={p + 1}\t".encode()
+            f1.write(hdr + b"/1\n" + frag[:READ_LEN].tobytes() + b"\n+\n" + qline + b"\n")
+            f2.write(hdr + b"/2\n" + comp[frag[-READ_LEN:][::-1]].tobytes() + b"\n+\n" + qline + b"\n")
+
+
+def run_cli(argv: list[str]) -> str:
+    from kart_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["kart-tpu-torch", *argv])
+    if rc != 0:
+        raise AssertionError(f"cli exited {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def sam_records(path: str) -> list[bytes]:
+    with open(path, "rb") as f:
+        return [ln for ln in f.read().splitlines() if not ln.startswith(b"@")]
+
+
+def phase_slice(prefix: str) -> dict:
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops.nw import nw_stats
+
+    r1, r2 = os.path.join(DATA, "r1.fq"), os.path.join(DATA, "r2.fq")
+    simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_PAIRS)
+    sam_gpu = os.path.join(DATA, "gpu.sam")
+
+    kernels.fm_seed_scan.launches = 0
+    kernels.nw_planes.launches = 0
+    nw_stats.update(device=0, host=0)
+    t0 = time.perf_counter()
+    log = run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", sam_gpu, "-backend", "python", "-silent"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fm_seed_scan=kernels.fm_seed_scan.launches, nw_planes=kernels.nw_planes.launches)
+    nw = dict(nw_stats)
+
+    misses = int(re.search(r"memo misses = (\d+)", log).group(1))
+    sens = re.search(r"sensitivity = ([\d.]+)%", log).group(1)
+    paired = re.search(r"paired sequences = \d+ \(([\d.]+)%\)", log).group(1)
+    recs = sam_records(sam_gpu)
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if nw["device"] == 0 or misses != 0:
+        raise AssertionError(f"NW not served by the device batch: {nw}, memo misses {misses}")
+    if len(recs) != 2 * N_PAIRS:
+        raise AssertionError(f"{len(recs)} SAM records for {2 * N_PAIRS} reads")
+    # read 1 is the fragment's forward start: POS should be the simulated one
+    near = total = 0
+    for rec in recs:
+        f = rec.split(b"\t")
+        if int(f[1]) & 0x40 and not int(f[1]) & 0x4:
+            total += 1
+            near += abs(int(f[3]) - int(f[0].split(b"Pos=")[1])) <= 10
+    if near < 0.9 * N_PAIRS:
+        raise AssertionError(f"only {near} of {N_PAIRS} read-1 records at their simulated position")
+
+    # the first 500 pairs again on the CPU (plain versions): same records
+    r1c, r2c = os.path.join(DATA, "r1_cpu.fq"), os.path.join(DATA, "r2_cpu.fq")
+    for src, dst in ((r1, r1c), (r2, r2c)):
+        with open(src, "rb") as f:
+            lines = f.read().split(b"\n")[: 4 * N_CPU_PAIRS]
+        with open(dst, "wb") as f:
+            f.write(b"\n".join(lines) + b"\n")
+    sam_cpu = os.path.join(DATA, "cpu.sam")
+    run_cli(["-i", prefix, "-f", r1c, "-f2", r2c, "-o", sam_cpu, "-backend", "python", "-silent", "-cpu"])
+    if sam_records(sam_cpu) != recs[: 2 * N_CPU_PAIRS]:
+        raise AssertionError("the -cpu SAM of the first pairs differs from the GPU run's")
+    print(
+        f"phase 3 slice: {2 * N_PAIRS} reads in {wall:.3f} s = {2 * N_PAIRS / wall:.1f} reads/s;"
+        f" mapped {sens}%, paired {paired}%, read-1 at simulated position {near}/{total};"
+        f" launches {launches}; nw_stats {nw}; memo misses {misses};"
+        f" first {N_CPU_PAIRS} pairs: -cpu SAM records equal"
+    )
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.index import load_index
+
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    log = kernels.build()
+    ptxas = "; ".join(
+        ln.split("ptxas info    : ")[-1] for ln in log.splitlines() if "registers" in ln or "spill" in ln
+    )
+    print(
+        f"phase 0 device: {name} ({smi}); torch {torch.__version__} cuda {torch.version.cuda};"
+        f" kernels built in {time.perf_counter() - t0:.1f} s; ptxas: {ptxas or 'up to date'}"
+    )
+
+    nw = phase_nw(np.random.default_rng(2024))
+    t0 = time.perf_counter()
+    prefix = build_genome_index()
+    gidx = load_index(prefix)
+    print(f"setup: genome {gidx.genome_size} bp indexed and loaded in {time.perf_counter() - t0:.1f} s")
+    fm = phase_fm(gidx)
+    launches = phase_slice(prefix)
+    if any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None):
+        raise AssertionError("JAX was imported")
+
+    record = {"kernels": [
+        dict(name="fm_seed_scan", route="cuda", source="kart_tpu_torch/csrc/fm_seed_scan.cu",
+             replaces="kart_tpu/ops/fm_search.py:165", launches=launches["fm_seed_scan"],
+             max_abs_err=fm["err"], ms=fm["ms"], plain_ms=fm["plain_ms"]),
+        dict(name="nw_planes", route="cuda", source="kart_tpu_torch/csrc/nw.cu",
+             replaces="kart_tpu/ops/nw.py:55 and kart_tpu/ops/nw.py:160",
+             launches=launches["nw_planes"], max_abs_err=nw["err"], ms=nw["ms"], plain_ms=nw["plain_ms"]),
+    ]}
+    print(smi)
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
