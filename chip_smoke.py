@@ -14,7 +14,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
   3. the slice: 4,000 simulated 150 bp pairs mapped by the port's CLI
      (-backend python) on the card; kernel launch counts, NW coverage and
      memo misses checked; the first 500 pairs mapped again with -cpu must
-     give the same SAM records.
+     give the same SAM records;
+  4. the 13-mer funnel, expand/resolve/pack and the FM re-seed against their
+     plain versions on the card at the device-pipelined mode's shape: one
+     dispatch group of 32,000 reads of 150 bp at l_max 160 (1% substitutions,
+     Ns in 5% of reads), stream budget 96,000 with pack16; again with hit
+     budget 1 and hit_cap 16 so that lanes are flagged, and the re-seed batch
+     of those lanes through the FM stepper;
+  5. the gather probe, python -m kart_tpu_torch.tools.bench_gather at its
+     defaults: every formulation's ns/element, and the row-gather kernel
+     byte-equal to table[rid];
+  6. the device-pipelined slice: bench.py's 100,000 pairs of 150 bp mapped
+     by the port's CLI with KART_SEED_MODE=device; reads/s, set-up time,
+     groups, launches and flagged lanes per group; its SAM records must equal
+     the port's native-mode run's (host C++ engine), and the first 2,000
+     pairs mapped again with -cpu must give the same records.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  The script reaches kart_tpu's host layers
@@ -42,6 +56,8 @@ TILES = (16, 32, 64, 128)
 N_NW = 4096
 B_FM, READ_LEN, L_MAX_FM = 4000, 150, 160  # a mapper chunk of 150 bp reads
 N_PAIRS, N_CPU_PAIRS = 4000, 500
+B_GROUP, L_MAX_GROUP = 32000, 160  # one device-pipelined dispatch group
+N_DEV_PAIRS, N_DEV_CPU_PAIRS = 100_000, 2000  # bench.py's read set
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -131,6 +147,20 @@ def build_genome_index() -> str:
                 f.write(seq[j : j + 70] + b"\n")
         build_index(fa, prefix, verbose=False)
     return prefix
+
+
+def group_reads(gidx, rng, B: int, l_max: int) -> np.ndarray:
+    """(B, l_max) int8 codes padded 4: 150 bp cut from the genome, 1%
+    substitutions, one N in 5% of the reads."""
+    codes = gidx.ref_codes
+    starts = rng.integers(0, gidx.two_genome_size - READ_LEN, B)
+    reads = np.full((B, l_max), 4, np.int8)
+    reads[:, :READ_LEN] = codes[starts[:, None] + np.arange(READ_LEN)]
+    sub = rng.random((B, READ_LEN)) < 0.01
+    reads[:, :READ_LEN][sub] = (reads[:, :READ_LEN][sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    ns = np.nonzero(rng.random(B) < 0.05)[0]
+    reads[ns, rng.integers(0, READ_LEN, len(ns))] = 4
+    return reads
 
 
 def phase_fm(gidx) -> dict:
@@ -275,6 +305,191 @@ def phase_slice(prefix: str) -> dict:
     return launches
 
 
+def require_equal(got, want, what: str) -> int:
+    """Raise unless the two tensors are equal; returns the max abs error (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        bad = int((got != want).reshape(got.shape[0], -1).any(1).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{what}: differs from the plain version ({bad} rows)")
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def phase_funnel(gidx, tb) -> dict:
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops.fm_search import FMIndexTensors, seed_scan_plain
+    from kart_tpu_torch.ops.kmer_seed import (
+        HIT_BUDGET, SLAB_ROWS, KmerTablesTensors, hit_cap_for, kmer_seed_scan_plain,
+    )
+    from kart_tpu_torch.ops.pack import pack_reads_2bit, unpack_reads_plain
+    from kart_tpu_torch.ops.resolve import resolve_pack_plain
+    from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+
+    B, L = B_GROUP, L_MAX_GROUP
+    reads = group_reads(gidx, np.random.default_rng(13), B, L)
+    rlens = np.full(B, READ_LEN, np.int32)
+    msl = compute_min_seed_length(gidx.two_genome_size)
+    ms = L // (msl + 1) + 1
+    tt = KmerTablesTensors.from_tables(tb, "cuda")
+
+    def up(words, amb_r, amb_p, rl):
+        return (torch.from_numpy(words.view(np.int32)).cuda(), torch.from_numpy(amb_r).cuda(),
+                torch.from_numpy(amb_p).cuda(), torch.from_numpy(rl).cuda())
+
+    w, ar, ap, rl = up(*pack_reads_2bit(reads), rlens)
+    kw = dict(max_seeds=ms, l_max=L, hit_cap=hit_cap_for(tb.max_mult), rounds=L // 10 + 4,
+              slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET)
+
+    def funnel(**k):
+        return kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **k)
+
+    def funnel_plain(**k):
+        return kmer_seed_scan_plain(tt, unpack_reads_plain(w, ar, ap, L), rl, msl, **k)
+
+    got = funnel(**kw)
+    err = require_equal(got, funnel_plain(**kw), "kmer_funnel")
+    t_f, t_fp = cuda_ms(lambda: funnel(**kw), 10), cuda_ms(lambda: funnel_plain(**kw), 1)
+    H = 3 * B
+    rk = dict(max_seeds=ms, has_ok=True, occ_budget=H, pack16=True)
+    err = max(err, require_equal(kernels.resolve_pack(tt.sa_full, got, **rk),
+                                 resolve_pack_plain(tt.sa_full, got, **rk), "resolve_pack"))
+    t_r = cuda_ms(lambda: kernels.resolve_pack(tt.sa_full, got, **rk), 10)
+    t_rp = cuda_ms(lambda: resolve_pack_plain(tt.sa_full, got, **rk), 3)
+    flag0 = int((got[:, 1] == 0).sum())
+
+    # hit budget 1 and hit_cap 16: lanes flag, and their seeds must still match
+    kw1 = dict(kw, hit_cap=16, hit_budget=1)
+    got1 = funnel(**kw1)
+    err = max(err, require_equal(got1, funnel_plain(**kw1), "kmer_funnel (hit budget 1)"))
+    err = max(err, require_equal(kernels.resolve_pack(tt.sa_full, got1, **rk),
+                                 resolve_pack_plain(tt.sa_full, got1, **rk),
+                                 "resolve_pack (hit budget 1)"))
+    bad = torch.nonzero(got1[:, 1] == 0).flatten().cpu().numpy()
+    if len(bad) == 0:
+        raise AssertionError("hit budget 1 and hit_cap 16 flagged no lane")
+
+    # the re-seed batch of the flagged lanes: unpack, FM stepper, resolve
+    nb = min(len(bad), 16000)
+    Bb = 2048 if nb <= 2048 else 16000
+    reads_b = np.full((Bb, L), 4, np.int8)
+    reads_b[:nb] = reads[bad[:nb]]
+    rl_b = np.zeros(Bb, np.int32)
+    rl_b[:nb] = READ_LEN
+    wb, arb, apb, rlb = up(*pack_reads_2bit(reads_b), rl_b)
+    ur = kernels.unpack_reads(wb, arb, apb, l_max=L)
+    err = max(err, require_equal(ur, unpack_reads_plain(wb, arb, apb, L), "unpack_reads"))
+    fm = FMIndexTensors.from_genome_index(gidx, "cuda")
+    fk = dict(max_seeds=ms, l_max=L)
+    seeds = kernels.fm_seed_scan(fm, ur, rlb, msl, **fk)
+    err_fm = require_equal(seeds, seed_scan_plain(fm, ur, rlb, msl, **fk), "fm_seed_scan (re-seed)")
+    rb = dict(max_seeds=ms, has_ok=False, occ_budget=Bb * 64, pack16=True)
+    err = max(err, require_equal(kernels.resolve_pack(tt.sa_full, seeds, **rb),
+                                 resolve_pack_plain(tt.sa_full, seeds, **rb),
+                                 "resolve_pack (re-seed)"))
+    t_u = cuda_ms(lambda: kernels.unpack_reads(wb, arb, apb, l_max=L), 10)
+    t_up = cuda_ms(lambda: unpack_reads_plain(wb, arb, apb, L), 10)
+    t_fm = cuda_ms(lambda: kernels.fm_seed_scan(fm, ur, rlb, msl, **fk), 10)
+    t_rb = cuda_ms(lambda: kernels.resolve_pack(tt.sa_full, seeds, **rb), 10)
+    t_rbp = cuda_ms(lambda: resolve_pack_plain(tt.sa_full, seeds, **rb), 3)
+    print(
+        f"phase 4 funnel: B={B} l_max={L} slab={SLAB_ROWS} hit budget {HIT_BUDGET}"
+        f" hit_cap {kw['hit_cap']}: kmer_funnel equal ({int(got[:, 0].sum())} seeds,"
+        f" {flag0} lanes flagged), kernel {t_f:.4f} ms plain {t_fp:.4f} ms;"
+        f" resolve_pack H={H} pack16 equal, kernel {t_r:.4f} ms plain {t_rp:.4f} ms;"
+        f" hit budget 1 hit_cap 16: equal, {len(bad)} lanes flagged; re-seed batch of {nb}"
+        f" at B={Bb}: unpack_reads equal, kernel {t_u:.4f} ms plain {t_up:.4f} ms;"
+        f" fm_seed_scan equal, kernel {t_fm:.4f} ms; resolve_pack H={Bb * 64} equal,"
+        f" kernel {t_rb:.4f} ms plain {t_rbp:.4f} ms"
+    )
+    return dict(funnel=dict(ms=t_f, plain_ms=t_fp, err=err),
+                resolve=dict(ms=t_r, plain_ms=t_rp, err=err), fm_err=err_fm)
+
+
+def phase_gather() -> dict:
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.tools import bench_gather
+
+    kernels.row_gather.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = bench_gather.main([])
+    launches = kernels.row_gather.launches
+    by = {r["formulation"]: r for r in res}
+    kern, plain = by["pallas_dma_row128x8"], by["row_128"]
+    print("phase 5 gather: row_gather equal to table[rid]; ns/element: "
+          + ", ".join(f"{r['formulation']} {r['ns_per_elem']}" for r in res))
+    return dict(ms=kern["us_total"] / 1e3, plain_ms=plain["us_total"] / 1e3, err=0,
+                launches=launches)
+
+
+def phase_device_slice(prefix: str) -> dict:
+    import torch
+
+    from kart_tpu_torch import kernels
+
+    r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
+    simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_DEV_PAIRS)
+    sam_dev, sam_nat = os.path.join(DATA, "dev.sam"), os.path.join(DATA, "native.sam")
+    names = ("kmer_funnel", "resolve_pack", "fm_seed_scan", "unpack_reads")
+    for k in names:
+        getattr(kernels, k).launches = 0
+    os.environ["KART_SEED_MODE"] = "device"
+    try:
+        t0 = time.perf_counter()
+        log = run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", sam_dev, "-silent"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(kernels, k).launches for k in names}
+        m = re.search(r"set-up ([\d.]+) s .*mapping ([\d.]+) s", log)
+        setup_s, map_s = float(m.group(1)), float(m.group(2))
+        g = re.search(r"groups on cuda = (\d+), flagged lanes = (\d+), re-seeded on the device ="
+                      r" (\d+), on the host = (\d+)", log)
+        groups, flagged, on_dev, on_host = (int(x) for x in g.groups())
+        per_group = re.search(r"per group: (.*)", log).group(1)
+        sens = re.search(r"sensitivity = ([\d.]+)%", log).group(1)
+        paired = re.search(r"paired sequences = \d+ \(([\d.]+)%\)", log).group(1)
+        recs = sam_records(sam_dev)
+        if len(recs) != 2 * N_DEV_PAIRS:
+            raise AssertionError(f"{len(recs)} SAM records for {2 * N_DEV_PAIRS} reads")
+        if launches["kmer_funnel"] == 0 or launches["resolve_pack"] == 0:
+            raise AssertionError(f"a kernel of the path never launched: {launches}")
+        if flagged and (launches["fm_seed_scan"] == 0 or launches["unpack_reads"] == 0):
+            raise AssertionError(f"{flagged} lanes flagged but not re-seeded on the card: {launches}")
+
+        # the first pairs again with -cpu (plain versions): the same records
+        r1c, r2c = os.path.join(DATA, "dev_r1_cpu.fq"), os.path.join(DATA, "dev_r2_cpu.fq")
+        for src, dst in ((r1, r1c), (r2, r2c)):
+            with open(src, "rb") as f:
+                lines = f.read().split(b"\n")[: 4 * N_DEV_CPU_PAIRS]
+            with open(dst, "wb") as f:
+                f.write(b"\n".join(lines) + b"\n")
+        sam_cpu = os.path.join(DATA, "dev_cpu.sam")
+        run_cli(["-i", prefix, "-f", r1c, "-f2", r2c, "-o", sam_cpu, "-silent", "-cpu"])
+        if sam_records(sam_cpu) != recs[: 2 * N_DEV_CPU_PAIRS]:
+            raise AssertionError("the -cpu SAM of the first pairs differs from the device run's")
+    finally:
+        del os.environ["KART_SEED_MODE"]
+    # the port's default native mode on the same reads: the host C++ engine
+    t0 = time.perf_counter()
+    log_nat = run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", sam_nat, "-silent"])
+    nat_wall = time.perf_counter() - t0
+    nat_map = float(re.search(r"mapping ([\d.]+) s", log_nat).group(1))
+    if sam_records(sam_nat) != recs:
+        raise AssertionError("the device-pipelined SAM differs from the native mode's")
+    print(f"phase 6 device slice: {2 * N_DEV_PAIRS} reads, KART_SEED_MODE=device on the card")
+    print(f"phase 6 reads/s: {2 * N_DEV_PAIRS / map_s:.1f} (mapping {map_s:.3f} s; CLI wall {wall:.3f} s)")
+    print(f"phase 6 set-up: {setup_s:.3f} s (index load, funnel tables, device arrays)")
+    print(
+        f"phase 6 groups {groups}; launches {launches}; flagged lanes {flagged}, re-seeded on the"
+        f" card {on_dev}, on the host {on_host}; {per_group}; mapped {sens}%, paired {paired}%;"
+        f" SAM records equal to the native mode's (native: mapping {nat_map:.3f} s, CLI wall"
+        f" {nat_wall:.3f} s); first {N_DEV_CPU_PAIRS} pairs: -cpu SAM records equal"
+    )
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -307,16 +522,38 @@ def main() -> int:
     print(f"setup: genome {gidx.genome_size} bp indexed and loaded in {time.perf_counter() - t0:.1f} s")
     fm = phase_fm(gidx)
     launches = phase_slice(prefix)
+    from kart_tpu_torch.ops.kmer_seed import build_tables
+
+    t0 = time.perf_counter()
+    tb = build_tables(gidx)
+    print(f"setup: funnel tables built or loaded in {time.perf_counter() - t0:.1f} s"
+          f" (max 13-mer multiplicity {tb.max_mult})")
+    funnel = phase_funnel(gidx, tb)
+    del tb
+    gather = phase_gather()
+    dev_launches = phase_device_slice(prefix)
     if any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None):
         raise AssertionError("JAX was imported")
 
     record = {"kernels": [
         dict(name="fm_seed_scan", route="cuda", source="kart_tpu_torch/csrc/fm_seed_scan.cu",
-             replaces="kart_tpu/ops/fm_search.py:165", launches=launches["fm_seed_scan"],
-             max_abs_err=fm["err"], ms=fm["ms"], plain_ms=fm["plain_ms"]),
+             replaces="kart_tpu/ops/fm_search.py:165",
+             launches=launches["fm_seed_scan"] + dev_launches["fm_seed_scan"],
+             max_abs_err=max(fm["err"], funnel["fm_err"]), ms=fm["ms"], plain_ms=fm["plain_ms"]),
         dict(name="nw_planes", route="cuda", source="kart_tpu_torch/csrc/nw.cu",
              replaces="kart_tpu/ops/nw.py:55 and kart_tpu/ops/nw.py:160",
              launches=launches["nw_planes"], max_abs_err=nw["err"], ms=nw["ms"], plain_ms=nw["plain_ms"]),
+        dict(name="kmer_funnel", route="cuda", source="kart_tpu_torch/csrc/kmer_funnel.cu",
+             replaces="kart_tpu/ops/kmer_seed.py:272 and kart_tpu/ops/pack.py:98",
+             launches=dev_launches["kmer_funnel"], max_abs_err=funnel["funnel"]["err"],
+             ms=funnel["funnel"]["ms"], plain_ms=funnel["funnel"]["plain_ms"]),
+        dict(name="resolve_pack", route="cuda", source="kart_tpu_torch/csrc/resolve_pack.cu",
+             replaces="kart_tpu/ops/resolve.py:47 and kart_tpu/ops/pack.py:161",
+             launches=dev_launches["resolve_pack"], max_abs_err=funnel["resolve"]["err"],
+             ms=funnel["resolve"]["ms"], plain_ms=funnel["resolve"]["plain_ms"]),
+        dict(name="row_gather", route="cuda", source="kart_tpu_torch/csrc/row_gather.cu",
+             replaces="tools/bench_gather.py:208", launches=gather["launches"],
+             max_abs_err=gather["err"], ms=gather["ms"], plain_ms=gather["plain_ms"]),
     ]}
     print(smi)
     print(json.dumps(record))

@@ -2,14 +2,17 @@
 
   python -m kart_tpu_torch.cli index ref.fa prefix
   python -m kart_tpu_torch.cli -i prefix -f r1 [...] [-f2 r2 [...]]
-         [-o out.sam | -bo out.bam] -backend python [-cpu]
+         [-o out.sam | -bo out.bam] [-backend native|python] [-cpu]
          [-t N] [-g N] [-m] [-p] [-silent] [-d]
 
-The mapping runs on the CUDA device, through the port's kernels.  `-cpu`
-selects the CPU and the kernels' plain versions instead; without `-cpu` and
-without a CUDA device the command fails.  Only `-backend python` (device
-seeding, host divide and report, device NW) is ported; the default native
-backend, `-pacbio` and `-idx-shards` raise NotImplementedError.
+The default native backend maps with kart_tpu's host C++ engine; with
+KART_SEED_MODE=device it seeds, resolves and packs on the device through
+the port's kernels and maps the downloaded stream with the C++ engine (the
+device-pipelined mode).  `-backend python` runs the python pipeline around
+device seeding and device NW.  Device work runs on the CUDA device; `-cpu`
+selects the CPU and the kernels' plain versions instead, and without `-cpu`
+and without a CUDA device a mode that needs the device fails.  `-pacbio` and
+`-idx-shards` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,9 +28,9 @@ def usage(prog: str) -> None:
     print(f"kart-tpu-torch v{VERSION} (PyTorch/CUDA port of kart-tpu)\n")
     print(
         f"Usage: {prog} -i Index_Prefix -f <ReadFile_A1 ReadFile_B1 ...>"
-        " [-f2 <ReadFile_A2 ReadFile_B2 ...>] -o Output -backend python\n"
+        " [-f2 <ReadFile_A2 ReadFile_B2 ...>] -o Output\n"
     )
-    print("Options: -t INT        number of threads [4] (accepted, unused)")
+    print("Options: -t INT        number of threads of the native engine [4]")
     print("         -f            files with #1 mates reads (format:fa, fq, fq.gz)")
     print("         -f2           files with #2 mates reads (format:fa, fq, fq.gz)")
     print("         -o            alignment filename in SAM format [output.sam]")
@@ -37,7 +40,7 @@ def usage(prog: str) -> None:
     print("         -p            paired-end reads are interlaced in the same file")
     print("         -pacbio       pacbio data (not ported yet)")
     print("         -cpu          run on the CPU with the kernels' plain versions")
-    print("         -backend B    python (the ported pipeline); native is not ported yet")
+    print("         -backend B    native (C++ engine, default) or python")
     print("         -idx-shards N shard the FM-index over N devices (not ported yet)")
     print("         -v            version\n")
 
@@ -64,6 +67,8 @@ def main(argv: list[str] | None = None) -> int:
     pacbio = False
     multi_hit = False
     silent = False
+    debug = False
+    threads = 4
     device = "cuda"
     backend = "native"
     idx_shards = int(os.environ.get("KART_IDX_SHARDS", "0"))
@@ -89,8 +94,10 @@ def main(argv: list[str] | None = None) -> int:
                 files2.append(args[i])
         elif p == "-t" and i + 1 < len(args):
             i += 1
-            if int(args[i]) <= 0:
+            threads = int(args[i])
+            if threads <= 0:
                 print("Warning! Thread number should be a positive number!")
+                threads = 4
         elif p == "-g":
             i += 1
             max_gaps = max(0, int(args[i]))
@@ -111,7 +118,7 @@ def main(argv: list[str] | None = None) -> int:
         elif p in ("-p", "-pair"):
             pair_end = True
         elif p in ("-d", "-debug"):
-            pass  # the python pipeline is single-threaded already
+            debug = True
         elif p == "-cpu":
             device = "cpu"
         elif p == "-idx-shards" and i + 1 < len(args):
@@ -129,13 +136,8 @@ def main(argv: list[str] | None = None) -> int:
             return 1
         i += 1
 
-    if backend == "native":
-        raise NotImplementedError(
-            "the native backend is not ported yet (ROADMAP Queue 1 item 6); "
-            "use -backend python"
-        )
-    if backend != "python":
-        print(f"Error! Unknown backend: {backend} (the port has: python)")
+    if backend not in ("native", "python"):
+        print(f"Error! Unknown backend: {backend} (the port has: native, python)")
         return 1
     if idx_shards > 1:
         raise NotImplementedError("-idx-shards is not ported yet (ROADMAP Queue 1 item 10)")
@@ -157,7 +159,9 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    if device == "cuda" and not torch.cuda.is_available():
+    seed_mode = os.environ.get("KART_SEED_MODE", "native")
+    uses_device = backend == "python" or seed_mode == "device"
+    if uses_device and device == "cuda" and not torch.cuda.is_available():
         print(
             "Error! No CUDA device is available; pass -cpu to map on the CPU "
             "with the kernels' plain versions.",
@@ -171,6 +175,7 @@ def main(argv: list[str] | None = None) -> int:
         print("Error! Please specify a valid reference index!")
         return 1
 
+    t_setup = time.time()
     print("Load the genome index files...")
     gidx = load_index(index_name)
     print("Load the reference sequences...")
@@ -181,8 +186,11 @@ def main(argv: list[str] | None = None) -> int:
     from .ops.nw import nw_stats
     from .pipeline.mapper import TorchKartMapper
 
+    if debug:
+        threads = 1  # reference: debug mode forces one thread (Mapping.cpp:648)
     mapper = TorchKartMapper(
-        gidx, device=device, pacbio=pacbio, max_gaps=max_gaps, multi_hit=multi_hit
+        gidx, device=device, pacbio=pacbio, max_gaps=max_gaps, multi_hit=multi_hit,
+        backend=backend, n_threads=threads, debug=debug,
     )
 
     if out_format == 0:
@@ -202,6 +210,8 @@ def main(argv: list[str] | None = None) -> int:
 
         closer = bw.close
 
+    mapper.prepare()
+    t_setup = time.time() - t_setup
     nw_before = dict(nw_stats)
     t0 = time.time()
     try:
@@ -234,6 +244,7 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         closer()
 
+    t_map = time.time() - t0
     st = mapper.stats
     total = st["total"]
     print(
@@ -252,11 +263,24 @@ def main(argv: list[str] | None = None) -> int:
             )
         else:
             print(f"\t# of total mapped sequences = {mapped} (sensitivity = {sens:.2f}%)")
-        print(
-            f"\t# of NW fragments on {device} = {nw_stats['device'] - nw_before['device']},"
-            f" on the host = {nw_stats['host'] - nw_before['host']},"
-            f" memo misses = {mapper.conquer.nw_memo_misses}"
-        )
+        if backend == "python":
+            print(
+                f"\t# of NW fragments on {device} = {nw_stats['device'] - nw_before['device']},"
+                f" on the host = {nw_stats['host'] - nw_before['host']},"
+                f" memo misses = {mapper.conquer.nw_memo_misses}"
+            )
+        elif seed_mode == "device":
+            log = mapper.group_log
+            print(
+                f"\t# of device seeding groups on {device} = {len(log)},"
+                f" flagged lanes = {sum(g['flagged'] for g in log)},"
+                f" re-seeded on the device = {sum(g['reseeded_device'] for g in log)},"
+                f" on the host = {sum(g['reseeded_host'] for g in log)}\n"
+                f"\t  per group: reads {[g['reads'] for g in log]},"
+                f" flagged {[g['flagged'] for g in log]},"
+                f" re-seeded on the host {[g['reseeded_host'] for g in log]}"
+            )
+        print(f"\tset-up {t_setup:.3f} s (index, tables, device arrays), mapping {t_map:.3f} s")
         print(f"Alignment output: {out_name}")
     return 0
 

@@ -1,21 +1,30 @@
-"""Chunk mapper of the port: device seeding and device NW around kart_tpu's
-host divide, report, MAPQ and SAM stages.
+"""Chunk mapper of the port.
 
-Counterpart of the python-backend part of kart_tpu's KartMapper
-(`kart_tpu/pipeline/mapper.py`): FastMode seeding runs on the device
-(`ops/fm_search.seed_scan`), occurrences resolve by a host gather from the
-full suffix array, candidates, pairing and rescue run on the host, every NW
-fragment of a chunk runs as one device batch (`ops/nw.nw_align_batch`), and
-the report pass reads its alignments from the primed conquer memo.
+Counterpart of kart_tpu's KartMapper (`kart_tpu/pipeline/mapper.py`) for
+Illumina reads, in three modes:
 
-Seeding always uses the FM stepper, as kart_tpu does with its 13-mer funnel
-gated off (KART_KMER_GATE=0); the funnel's lanes are re-seeded exactly by
-the FM stepper anyway, so the SAM is the same.
+* native (the default backend): kart_tpu's host C++ engine seeds and maps
+  every chunk (`NativeReader` + `process_chunk_ptrs`); no device is used.
+* device-pipelined (`KART_SEED_MODE=device`, native backend): groups of G
+  reader chunks are encoded and 2-bit packed on the host, seeded on the
+  device by the 13-mer funnel (or by the FM stepper when the tables fail
+  kart_tpu's gate), expanded and resolved through the full SA and packed
+  into one int32 stream there, downloaded, and mapped by the C++ engine
+  (`process_chunk_flat`).  Lanes that the funnel or the occurrence budget
+  flag are re-seeded exactly by the FM stepper.  On a CUDA device each
+  group is one stream of pinned uploads, kernels and a pinned download,
+  ended by an event, so group k seeds while group k-1 is mapped on the
+  host; with `-cpu` the plain versions run in line.  A device or kernel
+  error raises: there is no fall-back to the host engine.
+* python backend (`-backend python`): device FastMode seeding
+  (`ops/fm_search.seed_scan`), host divide and report, every NW fragment
+  of a chunk as one device batch (`ops/nw.nw_align_batch`).
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 import os
 
 import numpy as np
@@ -45,17 +54,28 @@ from kart_tpu.pipeline.sam import (
 )
 
 from ..ops.fm_search import FMIndexTensors, seed_scan, unpack_seed_scan
+from ..ops.kmer_seed import BITMAP_KS, KmerTablesTensors, build_tables, hit_cap_for
 from ..ops.nw import nw_align_batch
+from ..ops.pack import (
+    kmer_seed_scan_resolved_packed,
+    pack_reads_2bit,
+    seed_scan_resolved_packed,
+    unpack_stream,
+)
+from ..ops.resolve import decode_resolved_counts
 from .conquer import Conquer
 
-# kart_tpu's read-length buckets: l_max sets max_seeds, hence which seeds
-# are dropped, so the port pads to the same l_max.  The batch is not padded:
-# rows are independent, and a CUDA thread per read takes any B.
+# kart_tpu's buckets.  l_max sets max_seeds, hence which seeds are dropped,
+# so the port pads to the same l_max everywhere.  In the device-pipelined
+# mode the batch is padded to the B buckets too: the funnel's slabs and the
+# occurrence budget depend on B, and with them which lanes are flagged.
+# The python backend does not pad the batch (its rows are independent).
+_B_BUCKETS = [2048, 16000]
 _L_BUCKETS = [64, 128, 160, 256, 384, 512]
+_CHUNK = 4000  # reads per reader chunk (kart_tpu's native reader)
 
 # environment switches of kart_tpu that select paths not ported yet
 _UNPORTED_ENV = (
-    ("KART_SEED_MODE", "device", "device-pipelined mode, ROADMAP Queue 1 item 6"),
     ("KART_SA_MODE", "sampled", "sampled-SA resolution, ROADMAP Queue 1 item 8"),
     ("KART_DEVICE_CLUSTER", "1", "device clustering, ROADMAP Queue 1 item 9"),
     ("KART_DEVICE_PAIR", "1", "device pairing, ROADMAP Queue 1 item 9"),
@@ -80,7 +100,10 @@ def _bucket(x: int, buckets: list[int]) -> int:
 class TorchKartMapper:
     """Illumina single- and paired-end mapping on one torch device.
 
-    `device` "cuda" runs the CUDA kernels; "cpu" runs their plain versions."""
+    `device` "cuda" runs the CUDA kernels; "cpu" runs their plain versions.
+    `backend` "native" maps with kart_tpu's C++ engine (seeding on the host,
+    or on the device with KART_SEED_MODE=device); "python" runs the python
+    pipeline around device seeding and device NW."""
 
     def __init__(
         self,
@@ -91,23 +114,87 @@ class TorchKartMapper:
         max_gaps: int = 5,
         max_insert_size: int = 1500,
         multi_hit: bool = False,
+        backend: str = "native",
+        n_threads: int = 0,
+        debug: bool = False,
     ):
         if pacbio:
             raise NotImplementedError("-pacbio is not ported yet (ROADMAP Queue 1 item 7)")
         for var, value, what in _UNPORTED_ENV:
             if os.environ.get(var) == value:
                 raise NotImplementedError(f"{var}={value}: {what}, is not ported yet")
+        if gidx.seq_len >= 2**31:
+            raise NotImplementedError(
+                "int64 FM-index (seq_len >= 2**31) is not ported yet "
+                "(ROADMAP Queue 1 item 8, frugal and human-scale slice)"
+            )
+        if backend not in ("native", "python"):
+            raise ValueError(f"unknown backend {backend!r}")
         self.device = torch.device(device)
         self.gidx = gidx
+        self.backend = backend
         self.max_gaps = max_gaps
         self.max_insert_size = max_insert_size
         self.multi_hit = multi_hit
         self.min_seed_len = compute_min_seed_length(gidx.two_genome_size)
         self.conquer = Conquer(gidx.ref_seq, False, max_gaps)
-        self.fm = FMIndexTensors.from_genome_index(gidx, self.device)
         self.sa_full_np = gidx.sa_full
+        # device arrays are made at first use: the native mode never needs them
+        self._fm = None
+        self._tables = None
+        self._tables_tried = False
+        self._tables_dev = None
+        self._sa_dev = None
+        self._stream = None
+        self.native = None
+        if backend == "native":
+            from kart_tpu.native.post import NativePostProcessor
+
+            self.native = NativePostProcessor(
+                gidx, False, max_gaps, max_insert_size, self.min_seed_len, multi_hit,
+                n_threads=n_threads, debug=debug,
+            )
         # shared counters (reference: Mapping.cpp:20)
         self.stats = dict(total=0, unique=0, unmapped=0, paired=0, distance=0)
+        # device-pipelined mode, one entry per dispatch group: reads, lanes
+        # flagged by the funnel or the budget, and how they were re-seeded
+        self.group_log: list[dict] = []
+
+    @property
+    def fm(self) -> FMIndexTensors:
+        if self._fm is None:
+            self._fm = FMIndexTensors.from_genome_index(self.gidx, self.device)
+        return self._fm
+
+    def _get_kmer_tables(self):
+        """kart_tpu's gate for the 13-mer funnel: genome at most
+        KART_KMER_GATE bases, every 4-mer present (exact sub-13 restarts),
+        13-mer multiplicity at most 4096.  None when the gate refuses."""
+        if self._tables_tried:
+            return self._tables
+        self._tables_tried = True
+        gate = int(os.environ.get("KART_KMER_GATE", "1200000000"))
+        if self.gidx.seq_len > gate:
+            return None
+        tb = build_tables(self.gidx)
+        if tb.all_short_present and tb.max_mult <= 4096:
+            self._tables = tb
+        return self._tables
+
+    def _device_tables(self) -> KmerTablesTensors:
+        if self._tables_dev is None:
+            self._tables_dev = KmerTablesTensors.from_tables(self._get_kmer_tables(), self.device)
+        return self._tables_dev
+
+    def _device_sa(self) -> torch.Tensor:
+        """The full SA on the device (the funnel tables' copy when they exist)."""
+        if self._sa_dev is None:
+            if self._get_kmer_tables() is not None:
+                self._sa_dev = self._device_tables().sa_full
+            else:
+                sa = np.ascontiguousarray(self.sa_full_np, dtype=np.int32)
+                self._sa_dev = torch.from_numpy(sa).to(self.device)
+        return self._sa_dev
 
     # ------------------------------------------------------------------
     # Seeding
@@ -291,10 +378,303 @@ class TorchKartMapper:
             out.extend(self.map_chunk(c, pair_end, fastq))
         return out
 
+    # ------------------------------------------------------------------
+    # Device-pipelined stream (KART_SEED_MODE=device)
+    # ------------------------------------------------------------------
+
+    def _occ_budget(self, B: int) -> int:
+        """Occurrence slots of a group's resolved stream (FastMode):
+        KART_OCC_BUDGET (read at every call) times B; reads that overrun it
+        are re-seeded."""
+        return int(os.environ.get("KART_OCC_BUDGET", "3")) * B
+
+    def _pack16(self, l_max: int) -> bool:
+        """16-bit stream packing is exact for l_max <= 256 on an int32
+        index (rpos < 256, slen <= 256)."""
+        return l_max <= 256
+
+    def _max_seeds(self, l_max: int) -> int:
+        return l_max // (self.min_seed_len + 1) + 1
+
+    def _to_device(self, arrays):
+        """numpy arrays -> tensors on the mapper's device.  On a CUDA device
+        the copies go through pinned memory without blocking, on the
+        current stream; the pinned tensors are returned to be kept alive
+        until the stream has passed them."""
+        host = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a) for a in arrays]
+        if self.device.type != "cuda":
+            return host, ()
+        pinned = [t.pin_memory() for t in host]
+        return [t.to(self.device, non_blocking=True) for t in pinned], pinned
+
+    def _seed_resolved(self, words, amb_r, amb_p, rlens, l_max: int, B: int):
+        """One group's packed resolved stream on the device: the funnel when
+        the tables pass the gate, else the FM stepper."""
+        kw = dict(max_seeds=self._max_seeds(l_max), l_max=l_max,
+                  occ_budget=self._occ_budget(B), pack16=self._pack16(l_max))
+        tb = self._get_kmer_tables()
+        if tb is not None:
+            return kmer_seed_scan_resolved_packed(
+                self._device_tables(), words, amb_r, amb_p, rlens, self.min_seed_len,
+                hit_cap=hit_cap_for(tb.max_mult), rounds=l_max // 10 + 4, **kw,
+            )
+        return seed_scan_resolved_packed(
+            self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len, **kw
+        )
+
+    def _dispatch_seed_async(self, reads_i8, rl, l_max):
+        """Pack a (B, l_max) int8 group to 2 bits and seed it.  On a CUDA
+        device everything is queued on the mapper's stream (pinned uploads,
+        the kernels, a pinned download) and an event marks its end; on the
+        CPU the plain versions run now.  Returns the pending entry."""
+        words, amb_r, amb_p = pack_reads_2bit(reads_i8)
+        B = reads_i8.shape[0]
+        if self.device.type != "cuda":
+            (w, ar, ap, r), _ = self._to_device((words, amb_r, amb_p, rl))
+            return dict(host=self._seed_resolved(w, ar, ap, r, l_max, B), event=None, keep=())
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._device_sa()  # the tables' uploads precede the first group
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            (w, ar, ap, r), pinned = self._to_device((words, amb_r, amb_p, rl))
+            stream = self._seed_resolved(w, ar, ap, r, l_max, B)
+            host = torch.empty(stream.shape, dtype=torch.int32, pin_memory=True)
+            host.copy_(stream, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return dict(host=host, event=event, keep=(pinned, w, ar, ap, r, stream))
+
+    def _reseed_host_flat(self, enc: np.ndarray):
+        """Exact host re-seed of one read through kart_tpu's host FM model
+        (sampled SA): emission-order (rpos, len, gpos) tuples."""
+        from kart_tpu.ops.fm_ref import fm_from_genome_index, identify_seed_pairs_fast
+
+        if not hasattr(self, "_fm_ref"):
+            self._fm_ref = fm_from_genome_index(self.gidx)
+        return identify_seed_pairs_fast(self._fm_ref, enc, self.min_seed_len)
+
+    def _reseed_device_flat(self, bad, reads_i8, rl, l_max) -> dict:
+        """Exact re-seed of flagged lanes as one device batch through the FM
+        stepper, with 64 occurrence slots per lane; a read that overruns
+        even those is re-seeded on the host."""
+        nb = len(bad)
+        Bb = _bucket(nb, _B_BUCKETS)
+        reads_b = np.full((Bb, l_max), 4, dtype=np.int8)
+        reads_b[:nb] = reads_i8[bad]
+        rl_b = np.zeros(Bb, dtype=np.int32)
+        rl_b[:nb] = rl[bad]
+        budget = Bb * 64
+        pack16 = self._pack16(l_max)
+        (w, ar, ap, r), _pinned = self._to_device(pack_reads_2bit(reads_b) + (rl_b,))
+        stream = seed_scan_resolved_packed(
+            self.fm, self._device_sa(), w, ar, ap, r, self.min_seed_len,
+            max_seeds=self._max_seeds(l_max), l_max=l_max, occ_budget=budget, pack16=pack16,
+        ).cpu().numpy()
+        cnts, meta, gpos = unpack_stream(stream, Bb, budget, pack16)
+        ok, tot, offs = decode_resolved_counts(cnts)
+        out = {}
+        n_host = 0
+        for j, i in enumerate(bad):
+            if ok[j]:
+                seg = slice(int(offs[j]), int(offs[j + 1]))
+                out[int(i)] = [
+                    (int(m & 0xFFFF), int(m >> 16) & 0xFFFF, int(g))
+                    for m, g in zip(meta[seg], gpos[seg])
+                ]
+            else:
+                n_host += 1
+                out[int(i)] = self._reseed_host_flat(reads_i8[i, : rl[i]].astype(np.int32))
+        self.group_log[-1].update(reseeded_device=nb - n_host, reseeded_host=n_host)
+        return out
+
+    def _finalize_seed(self, entry, n, reads_i8, rl, l_max):
+        """Wait for a dispatched group and decode its stream -> (tot, offs,
+        rpos, slen, gpos, overrides): flat per-occurrence arrays plus the
+        exact re-seeds of flagged reads."""
+        if entry["event"] is not None:
+            entry["event"].synchronize()
+        B = reads_i8.shape[0]
+        cnts, meta, gpos = unpack_stream(
+            entry["host"].numpy(), B, self._occ_budget(B), self._pack16(l_max)
+        )
+        ok, tot, offs = decode_resolved_counts(cnts)
+        rpos = (meta & 0xFFFF).astype(np.int32)
+        slen = ((meta >> 16) & 0xFFFF).astype(np.int32)  # logical: slen 32768 sets the sign bit
+        bad = np.nonzero(~ok[:n])[0]
+        self.group_log.append(dict(reads=n, flagged=len(bad), reseeded_device=0, reseeded_host=0))
+        overrides = self._reseed_device_flat(bad, reads_i8, rl, l_max) if len(bad) else {}
+        return tot, offs, rpos, slen, gpos, overrides
+
+    @staticmethod
+    def _chunk_flat(res, r0, r1):
+        """Slice the resolved stream for reads [r0, r1) -> per-chunk (cnt,
+        rpos, slen, gpos) arrays, splicing in the re-seeds."""
+        tot, offs, rpos, slen, gpos, overrides = res
+        s0, s1 = int(offs[r0]), int(offs[r1])
+        keys = [i for i in overrides if r0 <= i < r1]
+        if not keys:
+            return tot[r0:r1], rpos[s0:s1], slen[s0:s1], gpos[s0:s1].astype(np.int64)
+        cnt = tot[r0:r1].copy()
+        rp_parts, ln_parts, gp_parts = [], [], []
+        for i in range(r0, r1):
+            if i in overrides:
+                tuples = overrides[i]
+                cnt[i - r0] = len(tuples)
+                if tuples:
+                    a = np.array(tuples, dtype=np.int64)
+                    rp_parts.append(a[:, 0].astype(np.int32))
+                    ln_parts.append(a[:, 1].astype(np.int32))
+                    gp_parts.append(a[:, 2])
+            else:
+                seg = slice(int(offs[i]), int(offs[i + 1]))
+                rp_parts.append(rpos[seg])
+                ln_parts.append(slen[seg])
+                gp_parts.append(gpos[seg].astype(np.int64))
+
+        def cat(parts, dt):
+            return np.concatenate(parts) if parts else np.zeros(0, dt)
+
+        return cnt, cat(rp_parts, np.int32), cat(ln_parts, np.int32), cat(gp_parts, np.int64)
+
+    @staticmethod
+    def _read_group(reader, G):
+        group = []
+        while len(group) < G:
+            n, ptrs = reader.next_chunk()
+            if n == 0:
+                break
+            group.append((n, ptrs))
+        return group
+
+    def _encode_group(self, group, b_buckets):
+        """Encode G reader chunks into one (B, l_max) int8 batch (codes,
+        padded 4) and (B,) rlens."""
+        total = sum(n for n, _ in group)
+        l_raw = 0
+        for n, ptrs in group:
+            off = np.ctypeslib.as_array(
+                ctypes.cast(ptrs[1], ctypes.POINTER(ctypes.c_int64)), shape=(n + 1,)
+            )
+            l_raw = max(l_raw, int(np.diff(off).max()))
+        l_max = _bucket(l_raw, _L_BUCKETS)
+        B = _bucket(total, b_buckets)
+        reads = np.full((B, l_max), 4, dtype=np.int8)
+        rlens = np.zeros(B, dtype=np.int32)
+        row = 0
+        for n, ptrs in group:
+            self.native.encode_reads_into(n, ptrs, reads, rlens, row, l_max)
+            row += n
+        return reads, rlens, l_max
+
+    def _map_stream_device(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
+        """Depth-2 pipeline: group k seeds on the device while group k-1's
+        stream comes down and group k-2 is mapped on the host."""
+        from kart_tpu.native.post import NativeReader
+
+        G = max(1, int(os.environ.get("KART_DEVICE_GROUP", "8")))
+        b_buckets = sorted(set(_B_BUCKETS + [G * _CHUNK]))
+        depth = max(1, int(os.environ.get("KART_DEVICE_DEPTH", "2")))
+        # ring: depth groups in flight + the group being mapped + prefetch
+        reader = NativeReader(path1, path2, fastq, pair_end, False, n_bufs=(depth + 2) * G + 2)
+
+        def post(entry):
+            group = entry["group"]
+            n_tot = sum(n for n, _ in group)
+            res = self._finalize_seed(entry, n_tot, entry["reads"], entry["rlens"], entry["l_max"])
+            row = 0
+            for n0, ptrs0 in group:
+                if progress is not None:
+                    progress(self.stats["total"])
+                cnt, rp, ln, gp = self._chunk_flat(res, row, row + n0)
+                writer(self.native.process_chunk_flat(
+                    n0, pair_end and n0 % 2 == 0, fastq, ptrs0, cnt, rp, ln, gp, self.stats
+                ))
+                self.stats["total"] += n0
+                row += n0
+
+        try:
+            pend: list = []
+            eof = False
+            while not eof or pend:
+                if not eof:
+                    group = self._read_group(reader, G)
+                    if group:
+                        reads_i8, rl, l_max = self._encode_group(group, b_buckets)
+                        entry = self._dispatch_seed_async(reads_i8, rl, l_max)
+                        entry.update(group=group, reads=reads_i8, rlens=rl, l_max=l_max)
+                        pend.append(entry)
+                    else:
+                        eof = True
+                if pend and (eof or len(pend) > depth):
+                    post(pend.pop(0))
+        finally:
+            reader.close()
+
+    # ------------------------------------------------------------------
+    # Native (host C++) stream
+    # ------------------------------------------------------------------
+
+    def _native_seeding_ready(self) -> None:
+        """Give the C++ engine its seeding index: the funnel's tables where
+        the gate passes, else the FM index."""
+        tb = self._get_kmer_tables()
+        if tb is not None:
+            if not getattr(self.native, "has_seed_tables", False):
+                _set_seed_tables(self.native, tb)
+        elif not getattr(self.native, "has_fm_index", False):
+            self.native.set_fm_index(self.gidx)
+
+    def _map_stream_native(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
+        from kart_tpu.native.post import NativeReader
+
+        self._native_seeding_ready()
+        reader = NativeReader(path1, path2, fastq, pair_end, False)
+        try:
+            while True:
+                n, ptrs = reader.next_chunk()
+                if n == 0:
+                    break
+                if progress is not None:
+                    progress(self.stats["total"])
+                writer(self.native.process_chunk_ptrs(n, pair_end, fastq, ptrs, self.stats))
+                self.stats["total"] += n
+        finally:
+            reader.close()
+
+    def prepare(self) -> None:
+        """Make the chosen mode's state before the first read: the native
+        engine's seeding index, or for KART_SEED_MODE=device the kernel
+        library, the funnel's tables, the FM index and the full SA on the
+        device.  map_stream makes whatever is missing itself."""
+        if self.backend != "native":
+            return
+        if os.environ.get("KART_SEED_MODE", "native") != "device":
+            self._native_seeding_ready()
+            return
+        if self.device.type == "cuda":
+            from .. import kernels
+
+            kernels.build()
+        self._device_sa()
+        _ = self.fm  # the re-seed batches' FM index
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def map_stream(self, path1: str, path2: str | None, pair_end: bool,
                    fastq: bool, writer, progress=None) -> None:
         """Map one whole library (file or file pair), streaming SAM text to
-        `writer`, four reader chunks at a time."""
+        `writer`: device-pipelined with KART_SEED_MODE=device, else the
+        native engine; the python backend ignores KART_SEED_MODE, as
+        kart_tpu's does."""
+        if self.backend == "python":
+            return self._map_stream_python(path1, path2, pair_end, fastq, writer, progress)
+        if os.environ.get("KART_SEED_MODE", "native") == "device":
+            return self._map_stream_device(path1, path2, pair_end, fastq, writer, progress)
+        return self._map_stream_native(path1, path2, pair_end, fastq, writer, progress)
+
+    def _map_stream_python(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
+        """The python backend: four reader chunks at a time."""
         s1 = ReadStream(path1, fastq)
         s2 = ReadStream(path2, fastq) if path2 else None
         try:
@@ -317,3 +697,28 @@ class TorchKartMapper:
             s1.close()
             if s2:
                 s2.close()
+
+
+def _set_seed_tables(native, tb) -> None:
+    """NativePostProcessor.set_seed_tables, whose module-level import of
+    kart_tpu.ops.kmer_seed would load jax: the same ctypes call, with the
+    port's tables."""
+    native._tb_lo = np.ascontiguousarray(tb.table_lo_np, dtype=np.int32)
+    native._tb_sa = np.ascontiguousarray(tb.sa_full_np, dtype=np.int32)
+    bm_words = [np.ascontiguousarray(b, dtype=np.uint32) for b in tb.bitmaps_np]
+    native._tb_bm = np.concatenate(bm_words)
+    off = np.zeros(len(bm_words) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in bm_words], out=off[1:])
+    native._tb_bm_off = off
+    native._tb_ks = np.array(BITMAP_KS, dtype=np.int32)
+    native.lib.kart_ctx_set_seed_tables(
+        native.ctx,
+        native._tb_lo.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        native._tb_sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int64(tb.seq_len),
+        native._tb_bm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        native._tb_bm_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        native._tb_ks.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int32(len(native._tb_ks)),
+    )
+    native.has_seed_tables = True

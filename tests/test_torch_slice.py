@@ -121,11 +121,10 @@ def test_cli_without_gpu_fails(slice_data):
 @pytest.mark.parametrize(
     "extra, env, item",
     [
-        ([], {}, "item 6"),  # the default native backend
         (["-backend", "python", "-pacbio"], {}, "item 7"),
         (["-backend", "python", "-idx-shards", "2"], {}, "item 10"),
-        (["-backend", "python"], {"KART_SEED_MODE": "device"}, "item 6"),
         (["-backend", "python"], {"KART_SA_MODE": "sampled"}, "item 8"),
+        ([], {"KART_SEED_MODE": "device", "KART_SA_MODE": "sampled"}, "item 8"),
         (["-backend", "python"], {"KART_DEVICE_CLUSTER": "1"}, "item 9"),
     ],
 )
