@@ -21,9 +21,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      Ns in 5% of reads), stream budget 96,000 with pack16; again with hit
      budget 1 and hit_cap 16 so that lanes are flagged, and the re-seed batch
      of those lanes through the FM stepper;
-  5. the gather probe, python -m kart_tpu_torch.tools.bench_gather at its
-     defaults: every formulation's ns/element, and the row-gather kernel
-     byte-equal to table[rid];
+  5. the gather probe (kart_tpu_torch.tools.bench_gather): every
+     formulation's ns/element at its defaults, timed by slope over CUDA
+     graphs of 8 and 136 calls as kart_tpu's probe times them; the row-128
+     pair (table[rid] and the row-gather kernel) also at 65,536-row lists,
+     with its per-call times by one event window beside the slope; the
+     kernel byte-equal to table[rid] on every variant at both sizes and on
+     ragged lists of 1, 15, 17 and 4,097 rows;
   6. the device-pipelined slice: bench.py's 100,000 pairs of 150 bp mapped
      by the port's CLI with KART_SEED_MODE=device; reads/s, set-up time,
      groups, launches and flagged lanes per group; its SAM records must equal
@@ -58,6 +62,8 @@ B_FM, READ_LEN, L_MAX_FM = 4000, 150, 160  # a mapper chunk of 150 bp reads
 N_PAIRS, N_CPU_PAIRS = 4000, 500
 B_GROUP, L_MAX_GROUP = 32000, 160  # one device-pipelined dispatch group
 N_DEV_PAIRS, N_DEV_CPU_PAIRS = 100_000, 2000  # bench.py's read set
+GATHER_BIG = (262144, 9_279_361, 65536)  # the gather probe's second size: h, n, runs
+RAGGED_HR = (1, 15, 17, 4097)
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -380,7 +386,8 @@ def phase_funnel(gidx, tb) -> dict:
     rl_b[:nb] = READ_LEN
     wb, arb, apb, rlb = up(*pack_reads_2bit(reads_b), rl_b)
     ur = kernels.unpack_reads(wb, arb, apb, l_max=L)
-    err = max(err, require_equal(ur, unpack_reads_plain(wb, arb, apb, L), "unpack_reads"))
+    err_u = require_equal(ur, unpack_reads_plain(wb, arb, apb, L), "unpack_reads")
+    err = max(err, err_u)
     fm = FMIndexTensors.from_genome_index(gidx, "cuda")
     fk = dict(max_seeds=ms, l_max=L)
     seeds = kernels.fm_seed_scan(fm, ur, rlb, msl, **fk)
@@ -405,22 +412,45 @@ def phase_funnel(gidx, tb) -> dict:
         f" kernel {t_rb:.4f} ms plain {t_rbp:.4f} ms"
     )
     return dict(funnel=dict(ms=t_f, plain_ms=t_fp, err=err),
-                resolve=dict(ms=t_r, plain_ms=t_rp, err=err), fm_err=err_fm)
+                resolve=dict(ms=t_r, plain_ms=t_rp, err=err),
+                unpack=dict(ms=t_u, plain_ms=t_up, err=err_u), fm_err=err_fm)
 
 
 def phase_gather() -> dict:
+    import torch
+
     from kart_tpu_torch import kernels
     from kart_tpu_torch.tools import bench_gather
 
     kernels.row_gather.launches = 0
     with contextlib.redirect_stdout(io.StringIO()):
-        res = bench_gather.main([])
+        res, pair = bench_gather.probe()
+        big, big_pair = bench_gather.probe(*GATHER_BIG, row128_only=True)
     launches = kernels.row_gather.launches
-    by = {r["formulation"]: r for r in res}
-    kern, plain = by["pallas_dma_row128x8"], by["row_128"]
-    print("phase 5 gather: row_gather equal to table[rid]; ns/element: "
+    if launches == 0:
+        raise AssertionError("the gather probe never launched row_gather")
+    # ragged lists, half of them padding ids (row 0)
+    rng = np.random.default_rng(5)
+    nr = bench_gather.N_TABLE // 128
+    t2 = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(nr, 128), dtype=np.int64)
+                          .astype(np.int32)).cuda()
+    err = 0
+    for hr in RAGGED_HR:
+        rid = rng.integers(0, nr, hr).astype(np.int32)
+        rid[rng.random(hr) < 0.5] = 0
+        r = torch.from_numpy(rid).cuda()
+        err = max(err, require_equal(kernels.row_gather(t2, r), t2[r.long()], f"row_gather HR={hr}"))
+    n_rows = [next(r["gather_latencies"] for r in recs if r["formulation"] == "row_128")
+              for recs in (res, big)]
+    print(f"phase 5 gather: row_gather byte-equal to table[rid] on all {bench_gather.NV} variants at"
+          f" {n_rows[0]} and {n_rows[1]} rows and at HR {', '.join(map(str, RAGGED_HR))};"
+          f" {launches} row_gather launches (eager and in graph replays); slope ns/element: "
           + ", ".join(f"{r['formulation']} {r['ns_per_elem']}" for r in res))
-    return dict(ms=kern["us_total"] / 1e3, plain_ms=plain["us_total"] / 1e3, err=0,
+    for h, hr, times in zip((16384, GATHER_BIG[0]), n_rows, (pair, big_pair)):
+        print(f"phase 5 row-128 pair at {hr} rows (H {h}):"
+              + ";".join(f" {f} slope {1e6 * slope} us, per call {1e6 * call} us"
+                         for f, (slope, call) in times.items()))
+    return dict(ms=pair["pallas_dma_row128x8"][0] * 1e3, plain_ms=pair["row_128"][0] * 1e3, err=err,
                 launches=launches)
 
 
@@ -551,6 +581,10 @@ def main() -> int:
              replaces="kart_tpu/ops/resolve.py:47 and kart_tpu/ops/pack.py:161",
              launches=dev_launches["resolve_pack"], max_abs_err=funnel["resolve"]["err"],
              ms=funnel["resolve"]["ms"], plain_ms=funnel["resolve"]["plain_ms"]),
+        dict(name="unpack_reads", route="cuda", source="kart_tpu_torch/csrc/kmer_funnel.cu",
+             replaces="kart_tpu/ops/pack.py:98", launches=dev_launches["unpack_reads"],
+             max_abs_err=funnel["unpack"]["err"], ms=funnel["unpack"]["ms"],
+             plain_ms=funnel["unpack"]["plain_ms"]),
         dict(name="row_gather", route="cuda", source="kart_tpu_torch/csrc/row_gather.cu",
              replaces="tools/bench_gather.py:208", launches=gather["launches"],
              max_abs_err=gather["err"], ms=gather["ms"], plain_ms=gather["plain_ms"]),

@@ -278,18 +278,23 @@ resolve_pack.launches = 0
 
 def row_gather(table, rid):
     """csrc/row_gather.cu: (HR, 128) int32 rows table[rid] of a (NR, 128)
-    int32 table on the card, for (HR,) int32 row ids in [0, NR)."""
+    int32 table on the card, for (HR,) int32 row ids in [0, NR).  A launch
+    recorded into a CUDA graph is not counted here: whoever replays the
+    graph counts its launches."""
     dev = table.device
     nr = table.shape[0]
     n = rid.shape[0]
     _check("table", table, torch.int32, (nr, 128), dev, align=16)
     _check("rid", rid, torch.int32, (n,), dev)
     out = torch.empty((n, 128), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.kart_row_gather(table.data_ptr(), rid.data_ptr(), n, out.data_ptr(), _stream(dev))
     _raise_on(rc, "row_gather")
-    row_gather.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        row_gather.launches += 1
     return out
 
 
