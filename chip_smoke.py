@@ -1,6 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (kart_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
+    python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's funnel and
+                                          # resolve_pack (another commit's, unpacked with
+                                          # git archive into a directory of this checkout)
 
 Phases (each prints one line; any failure raises and exits non-zero):
   0. the device, and nvidia-smi's name and power limit; nvcc builds the
@@ -19,8 +22,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      plain versions on the card at the device-pipelined mode's shape: one
      dispatch group of 32,000 reads of 150 bp at l_max 160 (1% substitutions,
      Ns in 5% of reads), stream budget 96,000 with pack16; again with hit
-     budget 1 and hit_cap 16 so that lanes are flagged, and the re-seed batch
-     of those lanes through the FM stepper;
+     budget 1 and hit_cap 16 so that lanes are flagged, on a batch smaller
+     than one slab (3,000 reads), and the re-seed batch of the flagged lanes
+     through the FM stepper.  The funnel and resolve_pack are timed by slope
+     over CUDA graphs of 8 and 136 calls, with the per-call event window
+     beside it, the funnel's cluster size and grid, the rounds run and hits
+     handed out (from the plain version), and the latency of a dependent
+     load, from which the log gives each kernel's bound;
   5. the gather probe (kart_tpu_torch.tools.bench_gather): every
      formulation's ns/element at its defaults, timed by slope over CUDA
      graphs of 8 and 136 calls as kart_tpu's probe times them; the row-128
@@ -28,15 +36,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      with its per-call times by one event window beside the slope; the
      kernel byte-equal to table[rid] on every variant at both sizes and on
      ragged lists of 1, 15, 17 and 4,097 rows;
-  6. the device-pipelined slice: bench.py's 100,000 pairs of 150 bp mapped
-     by the port's CLI with KART_SEED_MODE=device; reads/s, set-up time,
-     groups, launches and flagged lanes per group; its SAM records must equal
+  6. the device-pipelined slice: 100,000 pairs of 150 bp (bench.py's read
+     set, from the port's tools/simdata) mapped by the port's CLI with
+     KART_SEED_MODE=device; reads/s, set-up time, groups, launches and
+     flagged lanes per group; its SAM records must equal
      the port's native-mode run's (host C++ engine), and the first 2,000
      pairs mapped again with -cpu must give the same records.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
-non-zero and prints no result.  The script reaches kart_tpu's host layers
-only through the port, and JAX is never imported.
+non-zero and prints no result.  Every kernel's record carries its launches
+on the main path, its time, its plain version's, the one PyTorch call's that
+computes the same function where there is one, and its bound: the larger of
+the bytes it must move over 3.35 TB/s and its operations over 67 T/s, counted
+from this run's inputs.  Neither JAX nor kart_tpu nor bench.py is ever
+imported: the port runs on its own code.
 """
 
 from __future__ import annotations
@@ -50,7 +63,9 @@ import subprocess
 import sys
 import time
 
-sys.modules["jax"] = None  # the port must run without JAX: any import of it fails
+# the port must run without JAX and without the JAX package: any import of either fails
+sys.modules["jax"] = None
+sys.modules["kart_tpu"] = None
 
 import numpy as np  # noqa: E402
 
@@ -61,6 +76,7 @@ N_NW = 4096
 B_FM, READ_LEN, L_MAX_FM = 4000, 150, 160  # a mapper chunk of 150 bp reads
 N_PAIRS, N_CPU_PAIRS = 4000, 500
 B_GROUP, L_MAX_GROUP = 32000, 160  # one device-pipelined dispatch group
+B_SUB_SLAB = 3000  # a batch smaller than one slab
 N_DEV_PAIRS, N_DEV_CPU_PAIRS = 100_000, 2000  # bench.py's read set
 GATHER_BIG = (262144, 9_279_361, 65536)  # the gather probe's second size: h, n, runs
 RAGGED_HR = (1, 15, 17, 4097)
@@ -111,7 +127,9 @@ def phase_nw(rng) -> dict:
     from kart_tpu_torch.ops.nw import encode_tile, nw_backtrace, nw_batch_planes_plain
     from kart_tpu_torch.pipeline.conquer import nw_alignment
 
-    ms = plain_ms = 0.0
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    ms = plain_ms = bound = 0.0
     err = 0
     parts = []
     for lm in TILES:
@@ -129,28 +147,26 @@ def phase_nw(rng) -> dict:
                 raise AssertionError(f"NW lm={lm}: pair {k} backtrace differs from nw_alignment")
         t_k = cuda_ms(lambda: kernels.nw_planes(c1, c2, lm=lm), 20)
         t_p = cuda_ms(lambda: nw_batch_planes_plain(c1, c2, lm=lm), 3)
-        ms, plain_ms = ms + t_k, plain_ms + t_p
+        # both code rows in, the planes out; a dozen operations a DP cell
+        t_b, by = bound_ms(c1.nbytes + c2.nbytes + got.nbytes, 12 * N_NW * lm * lm)
+        ms, plain_ms, bound = ms + t_k, plain_ms + t_p, bound + t_b
         err = max(err, int((got.int() - want.int()).abs().max()))
-        parts.append(f"lm={lm} kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+        parts.append(f"lm={lm} kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms ({by})")
     print(f"phase 1 nw: {N_NW} pairs per tile, planes equal, backtraces equal; " + "; ".join(parts))
-    return dict(ms=ms, plain_ms=plain_ms, err=err)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound, bound_by=by)
 
 
 def build_genome_index() -> str:
-    """bench.py's E. coli-scale repeat genome (seed 7), indexed once."""
+    """bench.py's E. coli-scale repeat genome (seed 7) from the port's own
+    generator, indexed once by the port's build_index."""
     from kart_tpu_torch.index import build_index, index_files_exist
+    from kart_tpu_torch.tools import simdata
 
     os.makedirs(DATA, exist_ok=True)
     fa, prefix = os.path.join(DATA, "genome.fa"), os.path.join(DATA, "idx")
     if not (os.path.exists(fa) and index_files_exist(prefix) and os.path.exists(prefix + ".saf")):
-        sys.path.insert(0, ROOT)
-        import bench
-
-        seq = bench.make_repeat_genome(np.random.default_rng(7)).tobytes()
-        with open(fa, "wb") as f:
-            f.write(b">bench_ecoli_synthetic_repeats\n")
-            for j in range(0, len(seq), 70):
-                f.write(seq[j : j + 70] + b"\n")
+        rng = np.random.default_rng(simdata.GENOME_SEED)
+        simdata.write_genome_fasta(fa, simdata.make_repeat_genome(rng))
         build_index(fa, prefix, verbose=False)
     return prefix
 
@@ -167,6 +183,18 @@ def group_reads(gidx, rng, B: int, l_max: int) -> np.ndarray:
     ns = np.nonzero(rng.random(B) < 0.05)[0]
     reads[ns, rng.integers(0, READ_LEN, len(ns))] = 4
     return reads
+
+
+def fm_bound(fm, reads, rlens, out) -> tuple[float, str]:
+    """Bound of one FM-stepper call: the reads in, the seeds out, and the
+    index rows its backward steps touch (one step per read base, each step
+    the checkpoint and BWT rows of both interval ends, 2 x 64 bytes), at most
+    the whole index; some eighty operations a step and end (the popcounts)."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    steps = int(rlens.sum())
+    index = fm.occ_cp.nbytes + fm.bwt_words.nbytes
+    return bound_ms(reads.nbytes + rlens.nbytes + out.nbytes + min(128 * steps, index), 160 * steps)
 
 
 def phase_fm(gidx) -> dict:
@@ -198,41 +226,20 @@ def phase_fm(gidx) -> dict:
         raise AssertionError(f"FM stepper: {bad} of {B_FM} reads differ from the plain version")
     t_k = cuda_ms(lambda: kernels.fm_seed_scan(fm, r, rl, msl, **kw), 20)
     t_p = cuda_ms(lambda: seed_scan_plain(fm, r, rl, msl, **kw), 3)
+    t_b, by = fm_bound(fm, r, rl, got)
     print(
         f"phase 2 fm_seed_scan: B={B_FM} l_max={L_MAX_FM} max_seeds={max_seeds}"
         f" min_seed={msl}, output equal ({int(got[:, 0].sum())} seeds);"
-        f" kernel {t_k:.4f} ms plain {t_p:.4f} ms"
+        f" kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms ({by})"
     )
-    return dict(ms=t_k, plain_ms=t_p, err=int((got - want).abs().max()))
+    return dict(ms=t_k, plain_ms=t_p, err=int((got - want).abs().max()), bound_ms=t_b, bound_by=by)
 
 
 def simulate_pairs(fa: str, out1: str, out2: str, n_pairs: int) -> None:
-    """bench.simulate_reads' recipe for n_pairs pairs (the same reads as its
-    first n_pairs): insert 500±50, 1% substitutions, indels at 0.001/bp."""
-    with open(fa, "rb") as f:
-        genome = np.frombuffer(b"".join(f.read().split(b"\n")[1:]), np.uint8)
-    comp = np.zeros(256, np.uint8)
-    comp[_ACGT] = np.frombuffer(b"TGCA", np.uint8)
-    rng = np.random.default_rng(20260817)
-    qline = b"I" * READ_LEN
-    with open(out1, "wb") as f1, open(out2, "wb") as f2:
-        for i in range(n_pairs):
-            insert = max(2 * READ_LEN, int(rng.normal(500, 50)))
-            p = int(rng.integers(0, len(genome) - insert))
-            frag = genome[p : p + insert].copy()
-            nerr = rng.binomial(len(frag), 0.01)
-            if nerr:
-                idx = rng.integers(0, len(frag), size=nerr)
-                frag[idx] = _ACGT[rng.integers(0, 4, size=nerr)]
-            if rng.random() < 0.001 * insert:
-                q = int(rng.integers(10, len(frag) - 10))
-                if rng.random() < 0.5:
-                    frag = np.delete(frag, slice(q, q + int(rng.integers(1, 4))))
-                else:
-                    frag = np.insert(frag, q, _ACGT[rng.integers(0, 4, int(rng.integers(1, 4)))])
-            hdr = f"@{i}:Pos={p + 1}\t".encode()
-            f1.write(hdr + b"/1\n" + frag[:READ_LEN].tobytes() + b"\n+\n" + qline + b"\n")
-            f2.write(hdr + b"/2\n" + comp[frag[-READ_LEN:][::-1]].tobytes() + b"\n+\n" + qline + b"\n")
+    """The first n_pairs pairs of bench.py's read set (tools/simdata)."""
+    from kart_tpu_torch.tools import simdata
+
+    simdata.simulate_reads(simdata.read_genome_fasta(fa), out1, out2, n_pairs)
 
 
 def run_cli(argv: list[str]) -> str:
@@ -322,7 +329,42 @@ def require_equal(got, want, what: str) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-def phase_funnel(gidx, tb) -> dict:
+def funnel_bound(tt, inputs, out, stats, load_ns: float) -> dict:
+    """Bound of one funnel call from the plain version's counters: the packed
+    reads in and the seed rows out once, a 32-byte sector of table_lo per
+    13-mer lookup, per hit a sector of sa_full and two of text, a sector of
+    sub_tbl per lane and round on the sub-13 path (each table at most once
+    whole); some 200 operations a lane and round and 100 a hit.  `chain_ms`
+    is the other floor: the most rounds any slab ran times three dependent
+    loads (table_lo, sa_full, text) at the measured latency."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    lookups = sum(sum(c["lookups"]) for c in stats)
+    hits = sum(sum(c["hits"]) for c in stats)
+    sub13 = sum(sum(c["sub13"]) for c in stats)
+    rounds = [c["rounds"] for c in stats]
+    n_bytes = (sum(t.nbytes for t in inputs) + out.nbytes
+               + min(32 * lookups, tt.table_lo.nbytes) + min(32 * hits, tt.sa_full.nbytes)
+               + min(64 * hits, tt.text_words.nbytes) + min(32 * sub13, tt.sub_tbl.nbytes))
+    lane_rounds = sum(c["rounds"] for c in stats) * (out.shape[0] // len(stats))
+    t_b, by = bound_ms(n_bytes, 200 * lane_rounds + 100 * hits)
+    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, rounds=rounds, lookups=lookups,
+                hits=hits, chain_ms=max(rounds) * 3 * load_ns / 1e6)
+
+
+def resolve_bound(sa_full, packed, stream, n_occ: int, load_ns: float) -> dict:
+    """Bound of one resolve_pack call: the seed rows in and the stream out
+    once, a sector of sa_full per occurrence in the stream; some 120
+    operations an output word (the search over read_end and the seed walk).
+    `chain_ms`: two launches, each a chain of about three dependent loads."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    n_bytes = packed.nbytes + stream.nbytes + min(32 * n_occ, sa_full.nbytes)
+    t_b, by = bound_ms(n_bytes, 120 * stream.numel())
+    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, chain_ms=6 * load_ns / 1e6)
+
+
+def phase_funnel(gidx, tb, compare_dir: str | None) -> dict:
     import torch
 
     from kart_tpu_torch import kernels
@@ -330,9 +372,11 @@ def phase_funnel(gidx, tb) -> dict:
     from kart_tpu_torch.ops.kmer_seed import (
         HIT_BUDGET, SLAB_ROWS, KmerTablesTensors, hit_cap_for, kmer_seed_scan_plain,
     )
-    from kart_tpu_torch.ops.pack import pack_reads_2bit, unpack_reads_plain
+    from kart_tpu_torch.ops.pack import pack_reads_2bit, unpack_reads_plain, unpack_stream
     from kart_tpu_torch.ops.resolve import resolve_pack_plain
     from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+    from kart_tpu_torch.tools import bench_kernels
+    from kart_tpu_torch.tools.bench_kernels import bound_ms, time_both
 
     B, L = B_GROUP, L_MAX_GROUP
     reads = group_reads(gidx, np.random.default_rng(13), B, L)
@@ -349,22 +393,21 @@ def phase_funnel(gidx, tb) -> dict:
     kw = dict(max_seeds=ms, l_max=L, hit_cap=hit_cap_for(tb.max_mult), rounds=L // 10 + 4,
               slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET)
 
-    def funnel(**k):
-        return kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **k)
+    def funnel(k=kernels, **kk):
+        return k.kmer_funnel(tt, w, ar, ap, rl, msl, **kk)
 
     def funnel_plain(**k):
         return kmer_seed_scan_plain(tt, unpack_reads_plain(w, ar, ap, L), rl, msl, **k)
 
+    stats: list = []
     got = funnel(**kw)
-    err = require_equal(got, funnel_plain(**kw), "kmer_funnel")
-    t_f, t_fp = cuda_ms(lambda: funnel(**kw), 10), cuda_ms(lambda: funnel_plain(**kw), 1)
+    err = require_equal(got, funnel_plain(stats=stats, **kw), "kmer_funnel")
     H = 3 * B
     rk = dict(max_seeds=ms, has_ok=True, occ_budget=H, pack16=True)
-    err = max(err, require_equal(kernels.resolve_pack(tt.sa_full, got, **rk),
-                                 resolve_pack_plain(tt.sa_full, got, **rk), "resolve_pack"))
-    t_r = cuda_ms(lambda: kernels.resolve_pack(tt.sa_full, got, **rk), 10)
-    t_rp = cuda_ms(lambda: resolve_pack_plain(tt.sa_full, got, **rk), 3)
+    stream = kernels.resolve_pack(tt.sa_full, got, **rk)
+    err = max(err, require_equal(stream, resolve_pack_plain(tt.sa_full, got, **rk), "resolve_pack"))
     flag0 = int((got[:, 1] == 0).sum())
+    n_occ = int((unpack_stream(stream.cpu().numpy(), B, H, True)[2] >= 0).sum())
 
     # hit budget 1 and hit_cap 16: lanes flag, and their seeds must still match
     kw1 = dict(kw, hit_cap=16, hit_budget=1)
@@ -376,6 +419,15 @@ def phase_funnel(gidx, tb) -> dict:
     bad = torch.nonzero(got1[:, 1] == 0).flatten().cpu().numpy()
     if len(bad) == 0:
         raise AssertionError("hit budget 1 and hit_cap 16 flagged no lane")
+
+    # a batch smaller than one slab: one slab of B_SUB_SLAB rows (the list's
+    # entries of later rows are out of range there and dropped)
+    ws, rls = w[:B_SUB_SLAB].contiguous(), rl[:B_SUB_SLAB].contiguous()
+    for name, k in (("sub-slab batch", kw), ("sub-slab batch, hit budget 1", kw1)):
+        err = max(err, require_equal(
+            kernels.kmer_funnel(tt, ws, ar, ap, rls, msl, **k),
+            kmer_seed_scan_plain(tt, unpack_reads_plain(ws, ar, ap, L), rls, msl, **k),
+            f"kmer_funnel ({name})"))
 
     # the re-seed batch of the flagged lanes: unpack, FM stepper, resolve
     nb = min(len(bad), 16000)
@@ -393,27 +445,104 @@ def phase_funnel(gidx, tb) -> dict:
     seeds = kernels.fm_seed_scan(fm, ur, rlb, msl, **fk)
     err_fm = require_equal(seeds, seed_scan_plain(fm, ur, rlb, msl, **fk), "fm_seed_scan (re-seed)")
     rb = dict(max_seeds=ms, has_ok=False, occ_budget=Bb * 64, pack16=True)
-    err = max(err, require_equal(kernels.resolve_pack(tt.sa_full, seeds, **rb),
-                                 resolve_pack_plain(tt.sa_full, seeds, **rb),
+    stream_b = kernels.resolve_pack(tt.sa_full, seeds, **rb)
+    err = max(err, require_equal(stream_b, resolve_pack_plain(tt.sa_full, seeds, **rb),
                                  "resolve_pack (re-seed)"))
+
+    # times: the two redesigned kernels by slope over CUDA graphs and per call
+    load_ns = bench_kernels.dependent_load_ns()
+    t_f = time_both(lambda: funnel(**kw))
+    t_r = time_both(lambda: kernels.resolve_pack(tt.sa_full, got, **rk))
+    t_rb = time_both(lambda: kernels.resolve_pack(tt.sa_full, seeds, **rb))
+    t_fp = cuda_ms(lambda: funnel_plain(**kw), 1)
+    t_rp = cuda_ms(lambda: resolve_pack_plain(tt.sa_full, got, **rk), 3)
     t_u = cuda_ms(lambda: kernels.unpack_reads(wb, arb, apb, l_max=L), 10)
     t_up = cuda_ms(lambda: unpack_reads_plain(wb, arb, apb, L), 10)
     t_fm = cuda_ms(lambda: kernels.fm_seed_scan(fm, ur, rlb, msl, **fk), 10)
-    t_rb = cuda_ms(lambda: kernels.resolve_pack(tt.sa_full, seeds, **rb), 10)
+    t_fmp = cuda_ms(lambda: seed_scan_plain(fm, ur, rlb, msl, **fk), 1)
     t_rbp = cuda_ms(lambda: resolve_pack_plain(tt.sa_full, seeds, **rb), 3)
+    fb = funnel_bound(tt, (w, ar, ap, rl), got, stats, load_ns)
+    rbound = resolve_bound(tt.sa_full, got, stream, n_occ, load_ns)
+    n_occ_b = int((unpack_stream(stream_b.cpu().numpy(), Bb, Bb * 64, True)[2] >= 0).sum())
+    rbound_b = resolve_bound(tt.sa_full, seeds, stream_b, n_occ_b, load_ns)
+    ub, ub_by = bound_ms(wb.nbytes + arb.nbytes + apb.nbytes + ur.nbytes, 4 * ur.numel())
+    fmb, fmb_by = fm_bound(fm, ur, rlb, seeds)
+    cluster = kernels.funnel_cluster()
+    n_slabs = -(-B // SLAB_ROWS)
     print(
         f"phase 4 funnel: B={B} l_max={L} slab={SLAB_ROWS} hit budget {HIT_BUDGET}"
         f" hit_cap {kw['hit_cap']}: kmer_funnel equal ({int(got[:, 0].sum())} seeds,"
-        f" {flag0} lanes flagged), kernel {t_f:.4f} ms plain {t_fp:.4f} ms;"
-        f" resolve_pack H={H} pack16 equal, kernel {t_r:.4f} ms plain {t_rp:.4f} ms;"
-        f" hit budget 1 hit_cap 16: equal, {len(bad)} lanes flagged; re-seed batch of {nb}"
-        f" at B={Bb}: unpack_reads equal, kernel {t_u:.4f} ms plain {t_up:.4f} ms;"
-        f" fm_seed_scan equal, kernel {t_fm:.4f} ms; resolve_pack H={Bb * 64} equal,"
-        f" kernel {t_rb:.4f} ms plain {t_rbp:.4f} ms"
+        f" {flag0} lanes flagged); resolve_pack H={H} pack16 equal ({n_occ} occurrences);"
+        f" hit budget 1 hit_cap 16: both equal, {len(bad)} lanes flagged; sub-slab batch of"
+        f" {B_SUB_SLAB} (default budgets and hit budget 1): kmer_funnel equal; re-seed batch of"
+        f" {nb} at B={Bb}: unpack_reads, fm_seed_scan and resolve_pack H={Bb * 64} equal"
+        f" ({n_occ_b} occurrences)"
     )
-    return dict(funnel=dict(ms=t_f, plain_ms=t_fp, err=err),
-                resolve=dict(ms=t_r, plain_ms=t_rp, err=err),
-                unpack=dict(ms=t_u, plain_ms=t_up, err=err_u), fm_err=err_fm)
+    print(
+        f"phase 4 kmer_funnel: cluster {cluster}, grid {n_slabs * cluster} blocks of"
+        f" {-(-SLAB_ROWS // cluster)} lanes; slope {1e3 * t_f[0]:.4f} ms, per call"
+        f" {1e3 * t_f[1]:.4f} ms, plain {t_fp:.4f} ms; rounds per slab {fb['rounds']},"
+        f" {fb['lookups']} 13-mer lookups, {fb['hits']} hits handed out, {fb['bytes']} bytes:"
+        f" bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}); dependent load {load_ns:.1f} ns,"
+        f" chain {max(fb['rounds'])} rounds x 3 loads = {fb['chain_ms']:.4f} ms"
+    )
+    print(
+        f"phase 4 resolve_pack: totals on {-(-B // 256)} blocks; group (B={B} H={H}): slope"
+        f" {1e3 * t_r[0]:.4f} ms, per call {1e3 * t_r[1]:.4f} ms, plain {t_rp:.4f} ms,"
+        f" {rbound['bytes']} bytes: bound {rbound['bound_ms']:.4f} ms ({rbound['bound_by']}),"
+        f" chain {rbound['chain_ms']:.4f} ms; re-seed layout (B={Bb} H={Bb * 64}): slope"
+        f" {1e3 * t_rb[0]:.4f} ms, per call {1e3 * t_rb[1]:.4f} ms, plain {t_rbp:.4f} ms,"
+        f" bound {rbound_b['bound_ms']:.4f} ms"
+    )
+    print(
+        f"phase 4 re-seed batch: unpack_reads kernel {t_u:.4f} ms plain {t_up:.4f} ms bound"
+        f" {ub:.4f} ms ({ub_by}); fm_seed_scan B={Bb} kernel {t_fm:.4f} ms plain {t_fmp:.4f} ms"
+        f" bound {fmb:.4f} ms ({fmb_by})"
+    )
+    for name, fn in (("kmer_funnel", lambda: funnel(**kw)),
+                     ("resolve_pack group", lambda: kernels.resolve_pack(tt.sa_full, got, **rk))):
+        parts = bench_kernels.device_us_by_kernel(fn)
+        print(f"phase 4 {name} device us per call by launch (torch.profiler): "
+              + ", ".join(f"{k.replace('(anonymous namespace)::', '').split('(')[0]} {v:.2f}"
+                          for k, v in sorted(parts.items())))
+    if compare_dir is not None:
+        compare_builds(compare_dir, funnel, kw, tt, got, seeds, rk, rb)
+    return dict(
+        funnel=dict(ms=1e3 * t_f[0], plain_ms=t_fp, err=err, bound_ms=fb["bound_ms"],
+                    bound_by=fb["bound_by"]),
+        resolve=dict(ms=1e3 * t_r[0], plain_ms=t_rp, err=err, bound_ms=rbound["bound_ms"],
+                     bound_by=rbound["bound_by"]),
+        unpack=dict(ms=t_u, plain_ms=t_up, err=err_u, bound_ms=ub, bound_by=ub_by),
+        fm_err=err_fm)
+
+
+def compare_builds(compare_dir, funnel, kw, tt, got, seeds, rk, rb) -> None:
+    """Another commit's funnel and resolve_pack beside this commit's on the
+    same inputs, in turns (other, this, this, other); the other build's
+    outputs must equal this one's."""
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.tools.bench_kernels import load_kernels_module, time_both
+
+    other = load_kernels_module(os.path.join(compare_dir, "kart_tpu_torch", "kernels.py"),
+                                "kart_tpu_torch_compared_kernels")
+    other.build()
+    require_equal(funnel(other, **kw), got, "kmer_funnel of the compared build")
+    for name, sd, k in (("group", got, rk), ("re-seed layout", seeds, rb)):
+        require_equal(other.resolve_pack(tt.sa_full, sd, **k),
+                      kernels.resolve_pack(tt.sa_full, sd, **k),
+                      f"resolve_pack of the compared build ({name})")
+    runs = {
+        "kmer_funnel": (lambda: funnel(other, **kw), lambda: funnel(**kw)),
+        "resolve_pack group": (lambda: other.resolve_pack(tt.sa_full, got, **rk),
+                               lambda: kernels.resolve_pack(tt.sa_full, got, **rk)),
+        "resolve_pack re-seed layout": (lambda: other.resolve_pack(tt.sa_full, seeds, **rb),
+                                        lambda: kernels.resolve_pack(tt.sa_full, seeds, **rb)),
+    }
+    for name, (theirs, ours) in runs.items():
+        t = [time_both(theirs), time_both(ours), time_both(ours), time_both(theirs)]
+        print(f"phase 4 compare {name}: other, this, this, other: slope ms "
+              + ", ".join(f"{1e3 * a:.4f}" for a, _ in t) + "; per call ms "
+              + ", ".join(f"{1e3 * b:.4f}" for _, b in t))
 
 
 def phase_gather() -> dict:
@@ -450,8 +579,24 @@ def phase_gather() -> dict:
         print(f"phase 5 row-128 pair at {hr} rows (H {h}):"
               + ";".join(f" {f} slope {1e6 * slope} us, per call {1e6 * call} us"
                          for f, (slope, call) in times.items()))
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    # the ids in and the rows out once, and each distinct row of a list in
+    # once: the probe pads every list with row 0, so about half its ids
+    # repeat.  The slope is over calls that take the variants in turn, so
+    # the bytes are the variants' mean.
+    _, _, idx_v = bench_gather.make_variants(16384, bench_gather.N_TABLE, 4096)
+    rid_v = bench_gather.row_ids(idx_v, 128)[0]
+    distinct = float(np.mean([len(np.unique(r)) for r in rid_v]))
+    n_bytes = n_rows[0] * (4 + 512) + distinct * 512
+    t_b, by = bound_ms(n_bytes, n_rows[0])
+    print(f"phase 5 row_gather bound at {n_rows[0]} rows: {distinct:.1f} distinct rows a list,"
+          f" {n_bytes:.0f} bytes (ids, distinct rows in, rows out): {1e3 * t_b:.4f} us ({by});"
+          f" with every listed row read afresh {n_rows[0] * (4 + 2 * 512)} bytes:"
+          f" {1e3 * bound_ms(n_rows[0] * (4 + 2 * 512), 0)[0]:.4f} us")
+    # table[rid] is both the plain version and the one PyTorch call for the function
     return dict(ms=pair["pallas_dma_row128x8"][0] * 1e3, plain_ms=pair["row_128"][0] * 1e3, err=err,
-                launches=launches)
+                launches=launches, bound_ms=t_b, bound_by=by, library_ms=pair["row_128"][0] * 1e3)
 
 
 def phase_device_slice(prefix: str) -> dict:
@@ -483,10 +628,8 @@ def phase_device_slice(prefix: str) -> dict:
         recs = sam_records(sam_dev)
         if len(recs) != 2 * N_DEV_PAIRS:
             raise AssertionError(f"{len(recs)} SAM records for {2 * N_DEV_PAIRS} reads")
-        if launches["kmer_funnel"] == 0 or launches["resolve_pack"] == 0:
+        if any(v == 0 for v in launches.values()):
             raise AssertionError(f"a kernel of the path never launched: {launches}")
-        if flagged and (launches["fm_seed_scan"] == 0 or launches["unpack_reads"] == 0):
-            raise AssertionError(f"{flagged} lanes flagged but not re-seeded on the card: {launches}")
 
         # the first pairs again with -cpu (plain versions): the same records
         r1c, r2c = os.path.join(DATA, "dev_r1_cpu.fq"), os.path.join(DATA, "dev_r2_cpu.fq")
@@ -520,9 +663,16 @@ def phase_device_slice(prefix: str) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", metavar="DIR", default=None,
+                    help="a checkout of another commit whose funnel and resolve_pack phase 4"
+                         " times beside this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -558,36 +708,40 @@ def main() -> int:
     tb = build_tables(gidx)
     print(f"setup: funnel tables built or loaded in {time.perf_counter() - t0:.1f} s"
           f" (max 13-mer multiplicity {tb.max_mult})")
-    funnel = phase_funnel(gidx, tb)
+    funnel = phase_funnel(gidx, tb, args.compare)
     del tb
     gather = phase_gather()
     dev_launches = phase_device_slice(prefix)
-    if any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None):
-        raise AssertionError("JAX was imported")
+    loaded = sorted(m for m, v in sys.modules.items()
+                    if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
+    if loaded:
+        raise AssertionError(f"the port imported {loaded}")
 
+    def entry(name, source, replaces, n_launches, r, library_ms=None):
+        return dict(name=name, route="cuda", source=f"kart_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=n_launches, max_abs_err=r["err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=library_ms)
+
+    fm["err"] = max(fm["err"], funnel["fm_err"])
+    # library_ms: table[rid] for the row gather; no one PyTorch call computes
+    # an FM backward search, an NW traceback plane, the funnel's rounds, the
+    # budgeted expansion into a packed stream or the 2-bit unpack
     record = {"kernels": [
-        dict(name="fm_seed_scan", route="cuda", source="kart_tpu_torch/csrc/fm_seed_scan.cu",
-             replaces="kart_tpu/ops/fm_search.py:165",
-             launches=launches["fm_seed_scan"] + dev_launches["fm_seed_scan"],
-             max_abs_err=max(fm["err"], funnel["fm_err"]), ms=fm["ms"], plain_ms=fm["plain_ms"]),
-        dict(name="nw_planes", route="cuda", source="kart_tpu_torch/csrc/nw.cu",
-             replaces="kart_tpu/ops/nw.py:55 and kart_tpu/ops/nw.py:160",
-             launches=launches["nw_planes"], max_abs_err=nw["err"], ms=nw["ms"], plain_ms=nw["plain_ms"]),
-        dict(name="kmer_funnel", route="cuda", source="kart_tpu_torch/csrc/kmer_funnel.cu",
-             replaces="kart_tpu/ops/kmer_seed.py:272 and kart_tpu/ops/pack.py:98",
-             launches=dev_launches["kmer_funnel"], max_abs_err=funnel["funnel"]["err"],
-             ms=funnel["funnel"]["ms"], plain_ms=funnel["funnel"]["plain_ms"]),
-        dict(name="resolve_pack", route="cuda", source="kart_tpu_torch/csrc/resolve_pack.cu",
-             replaces="kart_tpu/ops/resolve.py:47 and kart_tpu/ops/pack.py:161",
-             launches=dev_launches["resolve_pack"], max_abs_err=funnel["resolve"]["err"],
-             ms=funnel["resolve"]["ms"], plain_ms=funnel["resolve"]["plain_ms"]),
-        dict(name="unpack_reads", route="cuda", source="kart_tpu_torch/csrc/kmer_funnel.cu",
-             replaces="kart_tpu/ops/pack.py:98", launches=dev_launches["unpack_reads"],
-             max_abs_err=funnel["unpack"]["err"], ms=funnel["unpack"]["ms"],
-             plain_ms=funnel["unpack"]["plain_ms"]),
-        dict(name="row_gather", route="cuda", source="kart_tpu_torch/csrc/row_gather.cu",
-             replaces="tools/bench_gather.py:208", launches=gather["launches"],
-             max_abs_err=gather["err"], ms=gather["ms"], plain_ms=gather["plain_ms"]),
+        entry("fm_seed_scan", "fm_seed_scan.cu", "kart_tpu/ops/fm_search.py:165",
+              launches["fm_seed_scan"] + dev_launches["fm_seed_scan"], fm),
+        entry("nw_planes", "nw.cu", "kart_tpu/ops/nw.py:55 and kart_tpu/ops/nw.py:160",
+              launches["nw_planes"], nw),
+        entry("kmer_funnel", "kmer_funnel.cu",
+              "kart_tpu/ops/kmer_seed.py:272 and kart_tpu/ops/pack.py:98",
+              dev_launches["kmer_funnel"], funnel["funnel"]),
+        entry("resolve_pack", "resolve_pack.cu",
+              "kart_tpu/ops/resolve.py:47 and kart_tpu/ops/pack.py:161",
+              dev_launches["resolve_pack"], funnel["resolve"]),
+        entry("unpack_reads", "kmer_funnel.cu", "kart_tpu/ops/pack.py:98",
+              dev_launches["unpack_reads"], funnel["unpack"]),
+        entry("row_gather", "row_gather.cu", "tools/bench_gather.py:208", gather["launches"],
+              gather, gather["library_ms"]),
     ]}
     print(smi)
     print(json.dumps(record))

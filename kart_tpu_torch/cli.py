@@ -5,7 +5,7 @@
          [-o out.sam | -bo out.bam] [-backend native|python] [-cpu]
          [-t N] [-g N] [-m] [-p] [-silent] [-d]
 
-The default native backend maps with kart_tpu's host C++ engine; with
+The default native backend maps with the host C++ engine (native/kart_post.cpp); with
 KART_SEED_MODE=device it seeds, resolves and packs on the device through
 the port's kernels and maps the downloaded stream with the C++ engine (the
 device-pipelined mode).  `-backend python` runs the python pipeline around
@@ -180,11 +180,10 @@ def main(argv: list[str] | None = None) -> int:
     gidx = load_index(index_name)
     print("Load the reference sequences...")
 
-    from kart_tpu.io.fastq import check_read_format
-    from kart_tpu.pipeline.sam import sam_header
-
+    from .io.fastq import check_read_format
     from .ops.nw import nw_stats
     from .pipeline.mapper import TorchKartMapper
+    from .pipeline.sam import sam_header
 
     if debug:
         threads = 1  # reference: debug mode forces one thread (Mapping.cpp:648)
@@ -201,7 +200,7 @@ def main(argv: list[str] | None = None) -> int:
 
         closer = out_f.close
     else:
-        from kart_tpu.io.bam import BamWriter
+        from .io.bam import BamWriter
 
         bw = BamWriter(out_name, gidx, version=VERSION)
 

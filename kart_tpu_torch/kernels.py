@@ -47,18 +47,19 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> str:
+def build(lib_path: str = LIB_PATH, sources=SOURCES) -> str:
     """Compile the library if it is missing or older than a source.
     Returns nvcc's output (ptxas register and spill report), empty when
-    the library was already up to date."""
-    newest = max(os.path.getmtime(s) for s in SOURCES)
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
+    the library was already up to date.  Another `lib_path` and `sources`
+    build a library beside it (the kernel benchmark's latency probe)."""
+    newest = max(os.path.getmtime(s) for s in sources)
+    if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        objs = [os.path.join(tmpdir, os.path.basename(s)[:-3] + ".o") for s in SOURCES]
-        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(SOURCES, objs)]
+        objs = [os.path.join(tmpdir, os.path.basename(s)[:-3] + ".o") for s in sources]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(sources, objs)]
         procs = [
             subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for c in cmds
@@ -74,7 +75,7 @@ def build() -> str:
             raise RuntimeError(
                 f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stdout}{proc.stderr}"
             )
-        os.replace(tmp, LIB_PATH)
+        os.replace(tmp, lib_path)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
     return "".join(logs)
@@ -91,12 +92,16 @@ def _load():
         lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
         lib.kart_nw_planes.restype = i
         lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i,
-                                         p, p, p, p]
+                                         p, p, p]
         lib.kart_kmer_funnel.restype = i
+        lib.kart_kmer_funnel_cluster.argtypes = []
+        lib.kart_kmer_funnel_cluster.restype = i
         lib.kart_unpack_reads.argtypes = [p, p, p, i, i, i, p, p]
         lib.kart_unpack_reads.restype = i
-        lib.kart_resolve_pack.argtypes = [p, i, i, i, p, i, i, p, p, p, p]
+        lib.kart_resolve_pack.argtypes = [p, i, i, i, p, i, i, p, p, p, p, p]
         lib.kart_resolve_pack.restype = i
+        lib.kart_resolve_scan_words.argtypes = [i]
+        lib.kart_resolve_scan_words.restype = i
         lib.kart_row_gather.argtypes = [p, p, i, p, p]
         lib.kart_row_gather.restype = i
         _lib = lib
@@ -179,12 +184,19 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def funnel_cluster() -> int:
+    """Blocks per slab of the funnel kernel's clusters (a constant of
+    csrc/kmer_funnel.cu)."""
+    return int(_load().kart_kmer_funnel_cluster())
+
+
 def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds: int,
                 l_max: int, hit_cap: int, rounds: int, slab_rows: int, hit_budget: int):
     """csrc/kmer_funnel.cu: packed FastMode funnel seeds (B, 2 +
     4*max_seeds) int32 for 2-bit reads on the card (words (B, ceil(l_max/16))
     int32 bits, amb_r/amb_p (n_amb,) int32, rlens (B,) int32), l_max <= 512,
-    against the tables of a KmerTablesTensors."""
+    against the tables of a KmerTablesTensors.  One thread-block cluster per
+    slab of min(B, slab_rows) rows."""
     if l_max > 512:
         raise ValueError(f"kmer_funnel: FastMode takes l_max <= 512, got {l_max}")
     dev = words.device
@@ -202,10 +214,7 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
     out = torch.empty((B, 2 + 4 * max_seeds), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    slab = min(B, slab_rows)
-    rows = -(-B // slab) * slab
-    rw = torch.empty((rows, nwl), dtype=torch.int32, device=dev)
-    ambm = torch.empty((rows, nab), dtype=torch.int32, device=dev)
+    ambm = torch.empty((B, nab), dtype=torch.int32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.kart_kmer_funnel(
@@ -213,7 +222,7 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
             tt.text_words.data_ptr(), tt.seq_len,
             words.data_ptr(), amb_r.data_ptr(), amb_p.data_ptr(), n_amb, rlens.data_ptr(),
             B, l_max, int(min_seed_len), max_seeds, hit_cap, rounds, slab_rows, hit_budget,
-            rw.data_ptr(), ambm.data_ptr(), out.data_ptr(), _stream(dev),
+            ambm.data_ptr(), out.data_ptr(), _stream(dev),
         )
     _raise_on(rc, "kmer_funnel")
     kmer_funnel.launches += 1
@@ -263,10 +272,12 @@ def resolve_pack(sa_full, packed, *, max_seeds: int, has_ok: bool, occ_budget: i
     read_end = torch.empty((B,), dtype=torch.int32, device=dev)
     cnts = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _load()
+    scan_state = torch.empty((lib.kart_resolve_scan_words(B),), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = lib.kart_resolve_pack(
             packed.data_ptr(), B, int(has_ok), max_seeds, sa_full.data_ptr(), H, int(pack16),
-            read_end.data_ptr(), cnts.data_ptr(), out.data_ptr(), _stream(dev),
+            read_end.data_ptr(), cnts.data_ptr(), scan_state.data_ptr(), out.data_ptr(),
+            _stream(dev),
         )
     _raise_on(rc, "resolve_pack")
     resolve_pack.launches += 1

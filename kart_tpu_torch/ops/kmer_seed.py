@@ -219,8 +219,11 @@ def _align_words(w: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
 
 
 def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
-                hit_cap, rounds, H):
-    """One slab of the FastMode funnel: kart_tpu's _kmer_seed_scan_slab."""
+                hit_cap, rounds, H, stats=None):
+    """One slab of the FastMode funnel: kart_tpu's _kmer_seed_scan_slab.
+    `stats`, a list, gets one dict per slab: the rounds run and, per round,
+    the 13-mer lookups (`lookups`), the hits handed out (`hits`) and the
+    lanes that took the sub-13 path (`sub13`)."""
     B = reads.shape[0]
     dev = reads.device
     i32 = torch.int32
@@ -257,6 +260,7 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
         torch.zeros((B, max_seeds + 1), dtype=i32, device=dev) for _ in range(3)
     )
     r = 0
+    counts = dict(rounds=0, lookups=[], hits=[], sub13=[])
     while r < rounds and bool((p < rlens - msl).any()):
         r += 1
         # bulk-skip ambiguous restart positions
@@ -345,6 +349,11 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
         for b in range(K + 1):
             sub_len = torch.where(((allow >> b) & 1) == 1, b, sub_len)
         length = torch.where(has13, best, sub_len)
+        if stats is not None:
+            counts["rounds"] = r
+            counts["lookups"].append(int(valid13.sum()))
+            counts["hits"].append(int(valid_hit.sum()))
+            counts["sub13"].append(int((active & ~has13).sum()))
 
         record = active & has13 & (length >= msl) & (freq <= OCC_THR) & (freq > 0)
         slot = torch.where(record, n_seeds, max_seeds).clamp(max=max_seeds).long()
@@ -359,6 +368,8 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
     p_final = (p + (postab2[bidx, p_idx] >> 16)).clamp(max=l_max)
     unfinished = p_final < rlens - msl
     ok = ~(overflow | unfinished)
+    if stats is not None:
+        stats.append(counts)
     rs = rs_b[:, :max_seeds]
     return torch.cat(
         [n_seeds[:, None], ok.to(i32)[:, None], rs >> 15, rs & 0x7FFF,
@@ -368,18 +379,20 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
 
 
 def kmer_seed_scan_plain(tt: KmerTablesTensors, reads, rlens, min_seed_len, *, max_seeds,
-                         l_max, hit_cap, rounds, slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET):
+                         l_max, hit_cap, rounds, slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET,
+                         stats=None):
     """FastMode funnel over (B, l_max) int32 codes (padded 4) and (B,)
     rlens, slab by slab: a batch of at most `slab_rows` is one slab with
     H = hit_budget * B; a larger one is padded with empty reads to whole
     slabs of `slab_rows`, each with H = hit_budget * slab_rows.  l_max is
-    at most 512, as in kart_tpu (the packed field widths)."""
+    at most 512, as in kart_tpu (the packed field widths).  `stats`, a
+    list, gets the work counters of every slab (see _slab_plain)."""
     if l_max > 512:
         raise ValueError(f"kmer_seed_scan: FastMode takes l_max <= 512, got {l_max}")
     reads = reads.to(torch.int32)
     rlens = rlens.to(torch.int32)
     msl = int(min_seed_len)
-    kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds)
+    kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds, stats=stats)
     B = reads.shape[0]
     if B <= slab_rows:
         return _slab_plain(tt, reads, rlens, msl, H=hit_budget * B, **kw)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kart_tpu.index.format import NT4_TABLE
+from ..index.format import NT4_TABLE
 
 from ..pipeline.conquer import nw_alignment
 

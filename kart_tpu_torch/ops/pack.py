@@ -2,8 +2,9 @@
 
 Counterpart of `kart_tpu/ops/pack.py`.  Host half (numpy): `pack_reads_2bit`
 packs (B, l_max) int8 codes 16 bases per uint32 word with a sparse list of
-ambiguous positions (kart_tpu's C++ packer when it builds, else numpy), and
-`unpack_stream` decodes the downloaded stream.  Device half (torch):
+ambiguous positions (the C++ packer of native/kart_post.cpp;
+`pack_reads_2bit_plain` is its numpy version), and `unpack_stream` decodes
+the downloaded stream.  Device half (torch):
 `unpack_reads` (the inverse of the packer), and the two resolved entry
 points, each from packed reads to the packed int32 stream of
 ops/resolve.py:
@@ -42,12 +43,15 @@ def _amb_bucket(n: int) -> int:
 def pack_reads_2bit(reads_i8: np.ndarray):
     """(B, l_max) int8 codes (0..3, >3 ambiguous) -> words (B, ceil(L/16))
     uint32, amb_r and amb_p (int32 coordinates of the ambiguous bases,
-    padded to a capacity bucket with row B)."""
+    padded to a capacity bucket with row B), by the C++ packer; a failed
+    build of its library raises."""
+    return _native_pack(np.ascontiguousarray(reads_i8, dtype=np.int8))
+
+
+def pack_reads_2bit_plain(reads_i8: np.ndarray):
+    """pack_reads_2bit in numpy: the plain version of the C++ packer."""
     B, L = reads_i8.shape
     nw = -(-L // 16)
-    native = _native_pack(reads_i8, B, L, nw)
-    if native is not None:
-        return native
     amb_mask = reads_i8 > 3
     codes = np.where(amb_mask, 0, reads_i8).astype(np.uint32)
     padded = np.zeros((B, nw * 16), np.uint32)
@@ -63,13 +67,13 @@ def pack_reads_2bit(reads_i8: np.ndarray):
     return words, r, p
 
 
-def _native_pack(reads_i8, B, L, nw):
-    """kart_tpu's C++ packer (framework-free), as kart_tpu calls it."""
-    from kart_tpu.native.post import load_postlib
+def _native_pack(reads_i8):
+    """The C++ packer (kart_pack_reads_2bit), called as kart_tpu calls its own."""
+    from ..native.post import load_postlib
 
     lib = load_postlib()
-    if lib is None or not reads_i8.flags.c_contiguous or reads_i8.dtype != np.int8:
-        return None
+    B, L = reads_i8.shape
+    nw = -(-L // 16)
     cap = _AMB_BUCKETS[-1]
     while True:
         words = np.empty((B, nw), np.uint32)

@@ -3,7 +3,7 @@
 Counterpart of kart_tpu's KartMapper (`kart_tpu/pipeline/mapper.py`) for
 Illumina reads, in three modes:
 
-* native (the default backend): kart_tpu's host C++ engine seeds and maps
+* native (the default backend): the host C++ engine (native/post.py) seeds and maps
   every chunk (`NativeReader` + `process_chunk_ptrs`); no device is used.
 * device-pipelined (`KART_SEED_MODE=device`, native backend): groups of G
   reader chunks are encoded and 2-bit packed on the host, seeded on the
@@ -30,31 +30,11 @@ import os
 import numpy as np
 import torch
 
-from kart_tpu.index.format import NT4_TABLE
-from kart_tpu.index.loader import GenomeIndex
-from kart_tpu.io.fastq import RawRead, ReadStream, next_chunk
-from kart_tpu.pipeline.candidates import (
-    Seed,
-    gen_candidates_illumina,
-    remove_redundant_candidates,
-)
-from kart_tpu.pipeline.pairing import (
-    check_paired_candidates,
-    check_paired_final_alignments,
-    remove_unmated_candidates,
-    rescue_unpaired,
-)
-from kart_tpu.pipeline.report import ReadState, gen_mapping_report
-from kart_tpu.pipeline.sam import (
-    evaluate_mapq,
-    output_paired,
-    output_single,
-    set_paired_flags,
-    set_single_flag,
-)
-
+from ..index.format import NT4_TABLE
+from ..index.loader import GenomeIndex
+from ..io.fastq import RawRead, ReadStream, next_chunk
 from ..ops.fm_search import FMIndexTensors, seed_scan, unpack_seed_scan
-from ..ops.kmer_seed import BITMAP_KS, KmerTablesTensors, build_tables, hit_cap_for
+from ..ops.kmer_seed import KmerTablesTensors, build_tables, hit_cap_for
 from ..ops.nw import nw_align_batch
 from ..ops.pack import (
     kmer_seed_scan_resolved_packed,
@@ -63,7 +43,26 @@ from ..ops.pack import (
     unpack_stream,
 )
 from ..ops.resolve import decode_resolved_counts
+from .candidates import (
+    Seed,
+    gen_candidates_illumina,
+    remove_redundant_candidates,
+)
 from .conquer import Conquer
+from .pairing import (
+    check_paired_candidates,
+    check_paired_final_alignments,
+    remove_unmated_candidates,
+    rescue_unpaired,
+)
+from .report import ReadState, gen_mapping_report
+from .sam import (
+    evaluate_mapq,
+    output_paired,
+    output_single,
+    set_paired_flags,
+    set_single_flag,
+)
 
 # kart_tpu's buckets.  l_max sets max_seeds, hence which seeds are dropped,
 # so the port pads to the same l_max everywhere.  In the device-pipelined
@@ -101,7 +100,7 @@ class TorchKartMapper:
     """Illumina single- and paired-end mapping on one torch device.
 
     `device` "cuda" runs the CUDA kernels; "cpu" runs their plain versions.
-    `backend` "native" maps with kart_tpu's C++ engine (seeding on the host,
+    `backend` "native" maps with the C++ engine (seeding on the host,
     or on the device with KART_SEED_MODE=device); "python" runs the python
     pipeline around device seeding and device NW."""
 
@@ -148,7 +147,7 @@ class TorchKartMapper:
         self._stream = None
         self.native = None
         if backend == "native":
-            from kart_tpu.native.post import NativePostProcessor
+            from ..native.post import NativePostProcessor
 
             self.native = NativePostProcessor(
                 gidx, False, max_gaps, max_insert_size, self.min_seed_len, multi_hit,
@@ -446,9 +445,9 @@ class TorchKartMapper:
         return dict(host=host, event=event, keep=(pinned, w, ar, ap, r, stream))
 
     def _reseed_host_flat(self, enc: np.ndarray):
-        """Exact host re-seed of one read through kart_tpu's host FM model
+        """Exact host re-seed of one read through the host FM model (ops/fm_ref.py)
         (sampled SA): emission-order (rpos, len, gpos) tuples."""
-        from kart_tpu.ops.fm_ref import fm_from_genome_index, identify_seed_pairs_fast
+        from ..ops.fm_ref import fm_from_genome_index, identify_seed_pairs_fast
 
         if not hasattr(self, "_fm_ref"):
             self._fm_ref = fm_from_genome_index(self.gidx)
@@ -570,7 +569,7 @@ class TorchKartMapper:
     def _map_stream_device(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
         """Depth-2 pipeline: group k seeds on the device while group k-1's
         stream comes down and group k-2 is mapped on the host."""
-        from kart_tpu.native.post import NativeReader
+        from ..native.post import NativeReader
 
         G = max(1, int(os.environ.get("KART_DEVICE_GROUP", "8")))
         b_buckets = sorted(set(_B_BUCKETS + [G * _CHUNK]))
@@ -621,12 +620,12 @@ class TorchKartMapper:
         tb = self._get_kmer_tables()
         if tb is not None:
             if not getattr(self.native, "has_seed_tables", False):
-                _set_seed_tables(self.native, tb)
+                self.native.set_seed_tables(tb)
         elif not getattr(self.native, "has_fm_index", False):
             self.native.set_fm_index(self.gidx)
 
     def _map_stream_native(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
-        from kart_tpu.native.post import NativeReader
+        from ..native.post import NativeReader
 
         self._native_seeding_ready()
         reader = NativeReader(path1, path2, fastq, pair_end, False)
@@ -698,27 +697,3 @@ class TorchKartMapper:
             if s2:
                 s2.close()
 
-
-def _set_seed_tables(native, tb) -> None:
-    """NativePostProcessor.set_seed_tables, whose module-level import of
-    kart_tpu.ops.kmer_seed would load jax: the same ctypes call, with the
-    port's tables."""
-    native._tb_lo = np.ascontiguousarray(tb.table_lo_np, dtype=np.int32)
-    native._tb_sa = np.ascontiguousarray(tb.sa_full_np, dtype=np.int32)
-    bm_words = [np.ascontiguousarray(b, dtype=np.uint32) for b in tb.bitmaps_np]
-    native._tb_bm = np.concatenate(bm_words)
-    off = np.zeros(len(bm_words) + 1, dtype=np.int64)
-    np.cumsum([len(b) for b in bm_words], out=off[1:])
-    native._tb_bm_off = off
-    native._tb_ks = np.array(BITMAP_KS, dtype=np.int32)
-    native.lib.kart_ctx_set_seed_tables(
-        native.ctx,
-        native._tb_lo.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        native._tb_sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        ctypes.c_int64(tb.seq_len),
-        native._tb_bm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        native._tb_bm_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        native._tb_ks.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        ctypes.c_int32(len(native._tb_ks)),
-    )
-    native.has_seed_tables = True

@@ -3,7 +3,10 @@ the tables array for array and through each other's `.kmt` sidecar, and
 the FastMode scan byte for byte at l_max 64, 160 and 256, over batches cut
 into several slabs plus padding, with ambiguous bases, short reads, deep
 repeats and poly-A runs (bogus short-suffix rows), and with a hit budget and
-hit_cap small enough that lanes are flagged.
+hit_cap small enough that lanes are flagged; also the shapes that the CUDA
+kernel's clusters of 8 blocks a slab treat apart (a batch smaller than one
+slab, a slab that 8 does not divide, with and without flagged lanes), so
+that the plain version is the right oracle for the card's byte-equality.
 
 kart_tpu reads its slab size and hit budget (`_SLAB_ROWS`, `_HIT_BUDGET`)
 from the environment when the module is imported, so its scans run in a
@@ -32,8 +35,11 @@ MIN_SEED = 13
 # name: (l_max, B, hit_cap or None for kart_tpu's); per setting of
 # (slab rows, hit budget) of both versions
 SETTINGS = {
-    (128, 2): {"l64": (64, 300, None), "l160": (160, 400, None), "l256": (256, 260, None)},
-    (96, 1): {"flagged": (160, 300, 16)},
+    (128, 2): {"l64": (64, 300, None), "l160": (160, 400, None), "l256": (256, 260, None),
+               "sub_slab": (160, 100, None)},
+    (96, 1): {"flagged": (160, 300, 16), "sub_slab_flagged": (160, 76, 16)},
+    (100, 2): {"slab_not_divisible": (160, 250, None)},
+    (100, 1): {"slab_not_divisible_flagged": (64, 350, 16)},
 }
 
 
@@ -175,7 +181,12 @@ def test_kmer_seed_scan_plain_matches(jax_scans, name):
     tb, results = jax_scans
     c = results[name]
     l_max, B = c["l_max"], c["reads"].shape[0]
-    assert B > c["slab"] and B % c["slab"], "several slabs plus padding"
+    if name.startswith("sub_slab"):
+        assert B < c["slab"], "one slab of B rows"
+    else:
+        assert B > c["slab"] and B % c["slab"], "several slabs plus padding"
+    if name.startswith("slab_not_divisible"):
+        assert c["slab"] % 8, "the last block of a cluster of 8 has fewer lanes"
     tt = tks.KmerTablesTensors.from_tables(tb, "cpu")
     got = tks.kmer_seed_scan_plain(
         tt, torch.from_numpy(c["reads"]), torch.from_numpy(c["rlens"]), MIN_SEED,
@@ -186,7 +197,7 @@ def test_kmer_seed_scan_plain_matches(jax_scans, name):
     np.testing.assert_array_equal(got.numpy(), c["want"])
     out = tks.unpack_seed_result(c["want"], l_max // 14 + 1)
     assert out["n_seeds"].sum() > B // 2 and (c["reads"] == 4).any()
-    if name == "flagged":
+    if name.endswith("flagged"):
         assert (~out["ok"]).sum() > 10, "the small budget and hit_cap must flag lanes"
 
 

@@ -28,6 +28,20 @@ def test_pack_reads_2bit_matches(B, L, n_frac):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("B, L, n_frac", [(7, 64, 0.0), (33, 150, 0.01), (64, 160, 0.2)])
+def test_pack_reads_2bit_plain_matches(B, L, n_frac):
+    """The numpy packer is the plain version of the C++ packer: the same
+    arrays, also for a batch that is not contiguous."""
+    reads = random_codes(np.random.default_rng(B), B, L, n_frac)
+    want = jpack.pack_reads_2bit(reads)
+    wide = np.full((B, L + 5), 1, np.int8)
+    wide[:, :L] = reads
+    for got in (tpack.pack_reads_2bit_plain(reads), tpack.pack_reads_2bit(wide[:, :L])):
+        for w, g in zip(want, got):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("l_max", [64, 160, 256])
 def test_unpack_reads_plain_matches(l_max):
     """Including the pad entries of the ambiguity list (row B, dropped)."""

@@ -9,6 +9,7 @@ import torch
 
 from kart_tpu.ops import pack as jpack
 from kart_tpu.ops import resolve as jres
+from kart_tpu_torch.ops import pack as tpack
 from kart_tpu_torch.ops import resolve as tres
 
 torch.set_num_threads(1)
@@ -60,18 +61,14 @@ def test_decode_resolved_counts_matches():
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("has_ok", [True, False])
-@pytest.mark.parametrize("pack16", [False, True])
-def test_resolve_pack_plain_composes(has_ok, pack16):
-    """resolve_pack_plain on a packed seed array (the funnel's layout with
-    the ok column, or the FM stepper's without) equals kart_tpu's
-    expand_resolve followed by _pack_stream."""
+def compose_both(B, S, H, has_ok, pack16, all_flagged=False):
     rng = np.random.default_rng(7)
-    B, S, H = 40, 6, 90
     sa = rng.permutation(3000).astype(np.int32)
     n_seeds, rpos, slen, k0, freq, ok_in = seed_blocks(rng, B, S, len(sa))
     if not has_ok:
         ok_in = np.ones(B, bool)
+    if all_flagged:
+        ok_in = np.zeros(B, bool)
     cols = [n_seeds[:, None]] + ([ok_in.astype(np.int32)[:, None]] if has_ok else [])
     packed = np.concatenate(cols + [rpos, slen, k0, freq], axis=1).astype(np.int32)
     want_t, _ = run_both(sa, (n_seeds, rpos, slen, k0, freq, ok_in), H)
@@ -80,3 +77,35 @@ def test_resolve_pack_plain_composes(has_ok, pack16):
                                   has_ok=has_ok, occ_budget=H, pack16=pack16)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+    return got.numpy()
+
+
+@pytest.mark.parametrize("has_ok", [True, False])
+@pytest.mark.parametrize("pack16", [False, True])
+def test_resolve_pack_plain_composes(has_ok, pack16):
+    """resolve_pack_plain on a packed seed array (the funnel's layout with
+    the ok column, or the FM stepper's without) equals kart_tpu's
+    expand_resolve followed by _pack_stream."""
+    compose_both(40, 6, 90, has_ok, pack16)
+
+
+@pytest.mark.parametrize("name, B, H, pack16, all_flagged", [
+    ("block_plus_one", 258, 700, True, False),  # one read past a scan block of 256
+    ("several_blocks_ragged", 1000, 2500, True, False),
+    ("budget_zero", 300, 0, True, False),
+    ("budget_zero_plain_layout", 257, 0, False, False),
+    ("all_flagged", 300, 1200, False, True),
+    ("all_flagged_pack16", 514, 1500, True, True),
+])
+def test_resolve_pack_plain_shapes_of_the_chained_scan(name, B, H, pack16, all_flagged):
+    """The shapes the CUDA kernel's grid-wide totals pass treats apart (256
+    reads a block): B not a multiple of the block, no budget at all, every
+    read flagged.  The plain version must equal kart_tpu there, since the
+    card's kernel is held against it."""
+    got = compose_both(B, 6, H, True, pack16, all_flagged)
+    cnts, meta, gpos = tpack.unpack_stream(got, B, H, pack16)
+    if all_flagged or H == 0:
+        ok, tot, _ = tres.decode_resolved_counts(cnts)
+        assert not ok[tot > 0].any()
+    if H == 0:
+        assert len(gpos) == 0
