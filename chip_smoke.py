@@ -1,19 +1,28 @@
 """Smoke run of the PyTorch/CUDA port (kart_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
-    python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's funnel and
-                                          # resolve_pack (another commit's, unpacked with
-                                          # git archive into a directory of this checkout)
+    python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
+                                          # funnel and resolve_pack (another commit's,
+                                          # unpacked with git archive into a directory of
+                                          # this checkout)
 
 Phases (each prints one line; any failure raises and exits non-zero):
   0. the device, and nvidia-smi's name and power limit; nvcc builds the
-     port's kernels from kart_tpu_torch/csrc into kart_tpu_torch/_build;
-  1. the NW kernel against its plain PyTorch version on the card, 4,096
+     port's kernels from kart_tpu_torch/csrc into kart_tpu_torch/_build
+     (a spill in an NW kernel fails the run);
+  1. the NW kernel against its plain PyTorch version on the card, 4,097
      random fragment pairs per tile (16, 32, 64, 128): byte-equal planes, and
-     every backtrace equal to the host DP's (nw_alignment);
+     every backtrace equal to the host DP's (nw_alignment); again on 1 and
+     33 pairs; timed at 4,096 pairs by slope over CUDA graphs of 8 and 136
+     calls, with the per-call event window beside it;
   2. the FM-stepper kernel against its plain version on the card, one
      mapper chunk of 4,000 reads of 150 bp at l_max 160 on the E. coli-scale
-     genome: equal output;
+     genome: equal output; again on batches of 1, 127, 4,001 and 8,001 reads
+     with a pad lane (rlen 0), a read shorter than the minimal seed and an
+     all-N read among them, and on the re-seed layout (2,048 lanes, 100 of them
+     reads); timed by slope and per call, with the latency of a dependent
+     load that hits L2 (a working set of the index's size), from which the
+     log gives the chain bound: the longest read's steps times that latency;
   3. the slice: 4,000 simulated 150 bp pairs mapped by the port's CLI
      (-backend python) on the card; kernel launch counts, NW coverage and
      memo misses checked; the first 500 pairs mapped again with -cpu must
@@ -24,9 +33,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      Ns in 5% of reads), stream budget 96,000 with pack16; again with hit
      budget 1 and hit_cap 16 so that lanes are flagged, on a batch smaller
      than one slab (3,000 reads), and the re-seed batch of the flagged lanes
-     through the FM stepper.  The funnel and resolve_pack are timed by slope
-     over CUDA graphs of 8 and 136 calls, with the per-call event window
-     beside it, the funnel's cluster size and grid, the rounds run and hits
+     through the FM stepper.  The funnel, resolve_pack, the unpack and the
+     FM stepper are timed by slope over CUDA graphs of 8 and 136 calls, with
+     the per-call event window beside it, the funnel's cluster size and grid, the rounds run and hits
      handed out (from the plain version), and the latency of a dependent
      load, from which the log gives each kernel's bound;
   5. the gather probe (kart_tpu_torch.tools.bench_gather): every
@@ -45,10 +54,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  Every kernel's record carries its launches
-on the main path, its time, its plain version's, the one PyTorch call's that
-computes the same function where there is one, and its bound: the larger of
-the bytes it must move over 3.35 TB/s and its operations over 67 T/s, counted
-from this run's inputs.  Neither JAX nor kart_tpu nor bench.py is ever
+on the main path, its time (by slope), its plain version's, the one PyTorch
+call's that computes the same function where there is one, and its bound: the
+larger of the bytes it must move over 3.35 TB/s and its operations over 67
+T/s, counted from this run's inputs, and for the FM stepper also its chain of
+dependent index accesses.  Neither JAX nor kart_tpu nor bench.py is ever
 imported: the port runs on its own code.
 """
 
@@ -73,6 +83,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "chip_smoke_data")
 TILES = (16, 32, 64, 128)
 N_NW = 4096
+RAGGED_NW = (1, 33)  # and N_NW + 1, the batch the planes and backtraces are checked on
+RAGGED_FM = (1, 127, 4001, 8001)  # 8,001: the kernel's 8 lanes a read; phase 4's 16,000: 4
+RESEED_FM = (2048, 100)  # the re-seed batch's layout: lanes, of which reads
 B_FM, READ_LEN, L_MAX_FM = 4000, 150, 160  # a mapper chunk of 150 bp reads
 N_PAIRS, N_CPU_PAIRS = 4000, 500
 B_GROUP, L_MAX_GROUP = 32000, 160  # one device-pipelined dispatch group
@@ -98,6 +111,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def compare_turns(name: str, theirs, ours) -> None:
+    """Times of another build's call and this build's on the same inputs, in
+    turns (other, this, this, other), by slope and per call."""
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    t = [time_both(theirs), time_both(ours), time_both(ours), time_both(theirs)]
+    print(f"compare {name}: other, this, this, other: slope ms "
+          + ", ".join(f"{1e3 * a:.4f}" for a, _ in t) + "; per call ms "
+          + ", ".join(f"{1e3 * b:.4f}" for _, b in t))
+
+
 def fragment_pairs(rng, n: int, lm: int) -> list[tuple[bytes, bytes]]:
     """n (s1, s2) pairs of length <= lm: s2 derives from s1 by ~8%
     substitutions, deletions and insertions; about a third carry Ns."""
@@ -120,39 +144,45 @@ def fragment_pairs(rng, n: int, lm: int) -> list[tuple[bytes, bytes]]:
     return pairs
 
 
-def phase_nw(rng) -> dict:
+def phase_nw(rng, other=None) -> dict:
     import torch
 
     from kart_tpu_torch import kernels
     from kart_tpu_torch.ops.nw import encode_tile, nw_backtrace, nw_batch_planes_plain
     from kart_tpu_torch.pipeline.conquer import nw_alignment
 
-    from kart_tpu_torch.tools.bench_kernels import bound_ms
+    from kart_tpu_torch.tools.bench_kernels import bound_ms, time_both
 
     ms = plain_ms = bound = 0.0
     err = 0
     parts = []
     for lm in TILES:
-        pairs = fragment_pairs(rng, N_NW, lm)
+        pairs = fragment_pairs(rng, N_NW + 1, lm)
         c1, c2 = (torch.from_numpy(c).cuda() for c in encode_tile(pairs, lm))
         got = kernels.nw_planes(c1, c2, lm=lm)
         want = nw_batch_planes_plain(c1, c2, lm=lm)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = int((got != want).flatten(1).any(1).sum())
-            raise AssertionError(f"NW lm={lm}: planes of {bad} pairs differ from the plain version")
+        err = max(err, require_equal(got, want, f"NW lm={lm}, {N_NW + 1} pairs"))
         eq = got.cpu().numpy()
         for k, (a, b) in enumerate(pairs):
             if nw_backtrace(eq[k], a, b) != nw_alignment(a, b):
                 raise AssertionError(f"NW lm={lm}: pair {k} backtrace differs from nw_alignment")
-        t_k = cuda_ms(lambda: kernels.nw_planes(c1, c2, lm=lm), 20)
+        for n in RAGGED_NW:
+            require_equal(kernels.nw_planes(c1[:n], c2[:n], lm=lm), want[:n], f"NW lm={lm}, {n} pairs")
+        c1, c2 = c1[:N_NW], c2[:N_NW]
+        t_k, t_w = time_both(lambda: kernels.nw_planes(c1, c2, lm=lm))
         t_p = cuda_ms(lambda: nw_batch_planes_plain(c1, c2, lm=lm), 3)
         # both code rows in, the planes out; a dozen operations a DP cell
-        t_b, by = bound_ms(c1.nbytes + c2.nbytes + got.nbytes, 12 * N_NW * lm * lm)
-        ms, plain_ms, bound = ms + t_k, plain_ms + t_p, bound + t_b
-        err = max(err, int((got.int() - want.int()).abs().max()))
-        parts.append(f"lm={lm} kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms ({by})")
-    print(f"phase 1 nw: {N_NW} pairs per tile, planes equal, backtraces equal; " + "; ".join(parts))
+        t_b, by = bound_ms(c1.nbytes + c2.nbytes + got[:N_NW].nbytes, 12 * N_NW * lm * lm)
+        ms, plain_ms, bound = ms + 1e3 * t_k, plain_ms + t_p, bound + t_b
+        parts.append(f"lm={lm} slope {1e3 * t_k:.4f} ms, per call {1e3 * t_w:.4f} ms, plain"
+                     f" {t_p:.4f} ms, bound {t_b:.4f} ms ({by})")
+        if other is not None:
+            require_equal(other.nw_planes(c1, c2, lm=lm), want[:N_NW], f"NW lm={lm} of the compared build")
+            compare_turns(f"nw_planes lm={lm} ({N_NW} pairs)",
+                          lambda: other.nw_planes(c1, c2, lm=lm),
+                          lambda: kernels.nw_planes(c1, c2, lm=lm))
+    print(f"phase 1 nw: {N_NW + 1} pairs per tile, planes equal, backtraces equal; planes equal on "
+          f"{', '.join(map(str, RAGGED_NW))} pairs; at {N_NW} pairs: " + "; ".join(parts))
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound, bound_by=by)
 
 
@@ -185,24 +215,48 @@ def group_reads(gidx, rng, B: int, l_max: int) -> np.ndarray:
     return reads
 
 
-def fm_bound(fm, reads, rlens, out) -> tuple[float, str]:
-    """Bound of one FM-stepper call: the reads in, the seeds out, and the
-    index rows its backward steps touch (one step per read base, each step
-    the checkpoint and BWT rows of both interval ends, 2 x 64 bytes), at most
-    the whole index; some eighty operations a step and end (the popcounts)."""
+def fm_bound(fm, reads, rlens, out, l2_load_ns: float) -> dict:
+    """Bound of one FM-stepper call, the largest of three.  Bytes: the reads
+    in, the seeds out, and the index rows its backward steps touch (one step
+    per read base, each step the checkpoint and BWT rows of both interval
+    ends, 2 x 64 bytes), at most the whole index.  Operations: some eighty a
+    step and end (the popcounts).  Chain: a step's index access depends on
+    the step before, so the longest read takes its bases times the latency of
+    a dependent load, which at this index's size hits L2."""
     from kart_tpu_torch.tools.bench_kernels import bound_ms
 
     steps = int(rlens.sum())
     index = fm.occ_cp.nbytes + fm.bwt_words.nbytes
-    return bound_ms(reads.nbytes + rlens.nbytes + out.nbytes + min(128 * steps, index), 160 * steps)
+    t_b, by = bound_ms(reads.nbytes + rlens.nbytes + out.nbytes + min(128 * steps, index), 160 * steps)
+    chain = int(rlens.max()) * l2_load_ns / 1e6
+    return dict(bound_ms=max(t_b, chain), bound_by="chain" if chain > t_b else by,
+                chain_ms=chain, bytes_ms=t_b, bytes_by=by)
 
 
-def phase_fm(gidx) -> dict:
+def fm_batch(gidx, rng, B: int, n_reads: int, edges: bool):
+    """(B, L_MAX_FM) int32 codes and rlens: n_reads reads of 150 bp, then pad
+    lanes (rlen 0).  With `edges`, row 1 is cut to less than the minimal
+    seed, row 2 is all N and row 3 a pad lane."""
+    reads = np.full((B, L_MAX_FM), 4, np.int32)
+    reads[:n_reads] = group_reads(gidx, rng, n_reads, L_MAX_FM)
+    rlens = np.zeros(B, np.int32)
+    rlens[:n_reads] = READ_LEN
+    if edges:
+        rlens[1] = 11
+        reads[1, 11:] = 4
+        reads[2] = 4
+        rlens[3] = 0
+        reads[3] = 4
+    return reads, rlens
+
+
+def phase_fm(gidx, other=None) -> dict:
     import torch
 
     from kart_tpu_torch import kernels
     from kart_tpu_torch.ops.fm_search import FMIndexTensors, seed_scan_plain
     from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+    from kart_tpu_torch.tools.bench_kernels import dependent_load_ns, time_both
 
     rng = np.random.default_rng(11)
     codes = gidx.ref_codes
@@ -216,23 +270,51 @@ def phase_fm(gidx) -> dict:
     msl = compute_min_seed_length(gidx.two_genome_size)
     max_seeds = L_MAX_FM // (msl + 1) + 1
     fm = FMIndexTensors.from_genome_index(gidx, "cuda")
-    r, rl = torch.from_numpy(reads).cuda(), torch.from_numpy(rlens).cuda()
     kw = dict(max_seeds=max_seeds, l_max=L_MAX_FM)
-    got = kernels.fm_seed_scan(fm, r, rl, msl, **kw)
-    want = seed_scan_plain(fm, r, rl, msl, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        bad = int((got != want).any(1).sum())
-        raise AssertionError(f"FM stepper: {bad} of {B_FM} reads differ from the plain version")
-    t_k = cuda_ms(lambda: kernels.fm_seed_scan(fm, r, rl, msl, **kw), 20)
+
+    def both(rd, rls, what):
+        r, rl = torch.from_numpy(rd).cuda(), torch.from_numpy(rls).cuda()
+        got = kernels.fm_seed_scan(fm, r, rl, msl, **kw)
+        want = seed_scan_plain(fm, r, rl, msl, **kw)
+        return r, rl, got, require_equal(got, want, f"FM stepper, {what}")
+
+    r, rl, got, err = both(reads, rlens, f"{B_FM} reads")
+    seeds_ragged = []
+    for B in RAGGED_FM:
+        g = both(*fm_batch(gidx, rng, B, B, B > 3), f"{B} reads")[2]
+        seeds_ragged.append(int(g[:, 0].sum()))
+        if B > 3 and int(g[1:4].abs().sum()) != 0:
+            raise AssertionError("FM stepper: a short, an all-N or a pad lane has seeds")
+    rr, rrl, got_r, _ = both(*fm_batch(gidx, rng, *RESEED_FM, False), "re-seed layout")
+    if int(got_r[RESEED_FM[1]:].abs().sum()) != 0:
+        raise AssertionError("FM stepper: a pad lane of the re-seed layout has seeds")
+
+    l2_ns = dependent_load_ns(working_set_bytes=fm.occ_cp.nbytes + fm.bwt_words.nbytes)
+    t_k, t_w = time_both(lambda: kernels.fm_seed_scan(fm, r, rl, msl, **kw))
+    t_rk, t_rw = time_both(lambda: kernels.fm_seed_scan(fm, rr, rrl, msl, **kw))
     t_p = cuda_ms(lambda: seed_scan_plain(fm, r, rl, msl, **kw), 3)
-    t_b, by = fm_bound(fm, r, rl, got)
+    fb = fm_bound(fm, r, rl, got, l2_ns)
     print(
         f"phase 2 fm_seed_scan: B={B_FM} l_max={L_MAX_FM} max_seeds={max_seeds}"
-        f" min_seed={msl}, output equal ({int(got[:, 0].sum())} seeds);"
-        f" kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms ({by})"
+        f" min_seed={msl}, output equal ({int(got[:, 0].sum())} seeds); equal on batches of "
+        + ", ".join(f"{B} ({n} seeds)" for B, n in zip(RAGGED_FM, seeds_ragged))
+        + f" with short, all-N and pad lanes, and on the re-seed layout B={RESEED_FM[0]} with"
+        f" {RESEED_FM[1]} reads ({int(got_r[:, 0].sum())} seeds); B={B_FM}: slope {1e3 * t_k:.4f} ms,"
+        f" per call {1e3 * t_w:.4f} ms, plain {t_p:.4f} ms; re-seed layout: slope {1e3 * t_rk:.4f} ms,"
+        f" per call {1e3 * t_rw:.4f} ms; dependent load that hits L2 {l2_ns:.1f} ns, chain"
+        f" {int(rl.max())} steps = {fb['chain_ms']:.4f} ms, bytes and operations"
+        f" {fb['bytes_ms']:.4f} ms ({fb['bytes_by']}): bound {fb['bound_ms']:.4f} ms ({fb['bound_by']})"
     )
-    return dict(ms=t_k, plain_ms=t_p, err=int((got - want).abs().max()), bound_ms=t_b, bound_by=by)
+    if other is not None:
+        require_equal(other.fm_seed_scan(fm, r, rl, msl, **kw), got, "FM stepper of the compared build")
+        compare_turns(f"fm_seed_scan B={B_FM}",
+                      lambda: other.fm_seed_scan(fm, r, rl, msl, **kw),
+                      lambda: kernels.fm_seed_scan(fm, r, rl, msl, **kw))
+        compare_turns(f"fm_seed_scan re-seed layout B={RESEED_FM[0]}",
+                      lambda: other.fm_seed_scan(fm, rr, rrl, msl, **kw),
+                      lambda: kernels.fm_seed_scan(fm, rr, rrl, msl, **kw))
+    return dict(ms=1e3 * t_k, plain_ms=t_p, err=err, bound_ms=fb["bound_ms"],
+                bound_by=fb["bound_by"], l2_ns=l2_ns)
 
 
 def simulate_pairs(fa: str, out1: str, out2: str, n_pairs: int) -> None:
@@ -364,7 +446,7 @@ def resolve_bound(sa_full, packed, stream, n_occ: int, load_ns: float) -> dict:
     return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, chain_ms=6 * load_ns / 1e6)
 
 
-def phase_funnel(gidx, tb, compare_dir: str | None) -> dict:
+def phase_funnel(gidx, tb, other, l2_load_ns: float) -> dict:
     import torch
 
     from kart_tpu_torch import kernels
@@ -456,9 +538,9 @@ def phase_funnel(gidx, tb, compare_dir: str | None) -> dict:
     t_rb = time_both(lambda: kernels.resolve_pack(tt.sa_full, seeds, **rb))
     t_fp = cuda_ms(lambda: funnel_plain(**kw), 1)
     t_rp = cuda_ms(lambda: resolve_pack_plain(tt.sa_full, got, **rk), 3)
-    t_u = cuda_ms(lambda: kernels.unpack_reads(wb, arb, apb, l_max=L), 10)
+    t_u = time_both(lambda: kernels.unpack_reads(wb, arb, apb, l_max=L))
     t_up = cuda_ms(lambda: unpack_reads_plain(wb, arb, apb, L), 10)
-    t_fm = cuda_ms(lambda: kernels.fm_seed_scan(fm, ur, rlb, msl, **fk), 10)
+    t_fm = time_both(lambda: kernels.fm_seed_scan(fm, ur, rlb, msl, **fk))
     t_fmp = cuda_ms(lambda: seed_scan_plain(fm, ur, rlb, msl, **fk), 1)
     t_rbp = cuda_ms(lambda: resolve_pack_plain(tt.sa_full, seeds, **rb), 3)
     fb = funnel_bound(tt, (w, ar, ap, rl), got, stats, load_ns)
@@ -466,7 +548,7 @@ def phase_funnel(gidx, tb, compare_dir: str | None) -> dict:
     n_occ_b = int((unpack_stream(stream_b.cpu().numpy(), Bb, Bb * 64, True)[2] >= 0).sum())
     rbound_b = resolve_bound(tt.sa_full, seeds, stream_b, n_occ_b, load_ns)
     ub, ub_by = bound_ms(wb.nbytes + arb.nbytes + apb.nbytes + ur.nbytes, 4 * ur.numel())
-    fmb, fmb_by = fm_bound(fm, ur, rlb, seeds)
+    fmb = fm_bound(fm, ur, rlb, seeds, l2_load_ns)
     cluster = kernels.funnel_cluster()
     n_slabs = -(-B // SLAB_ROWS)
     print(
@@ -495,9 +577,11 @@ def phase_funnel(gidx, tb, compare_dir: str | None) -> dict:
         f" bound {rbound_b['bound_ms']:.4f} ms"
     )
     print(
-        f"phase 4 re-seed batch: unpack_reads kernel {t_u:.4f} ms plain {t_up:.4f} ms bound"
-        f" {ub:.4f} ms ({ub_by}); fm_seed_scan B={Bb} kernel {t_fm:.4f} ms plain {t_fmp:.4f} ms"
-        f" bound {fmb:.4f} ms ({fmb_by})"
+        f"phase 4 re-seed batch: unpack_reads slope {1e3 * t_u[0]:.4f} ms, per call"
+        f" {1e3 * t_u[1]:.4f} ms, plain {t_up:.4f} ms, bound {ub:.4f} ms ({ub_by}); fm_seed_scan"
+        f" B={Bb} ({nb} reads): slope {1e3 * t_fm[0]:.4f} ms, per call {1e3 * t_fm[1]:.4f} ms, plain"
+        f" {t_fmp:.4f} ms, chain {fmb['chain_ms']:.4f} ms, bytes and operations"
+        f" {fmb['bytes_ms']:.4f} ms: bound {fmb['bound_ms']:.4f} ms ({fmb['bound_by']})"
     )
     for name, fn in (("kmer_funnel", lambda: funnel(**kw)),
                      ("resolve_pack group", lambda: kernels.resolve_pack(tt.sa_full, got, **rk))):
@@ -505,44 +589,38 @@ def phase_funnel(gidx, tb, compare_dir: str | None) -> dict:
         print(f"phase 4 {name} device us per call by launch (torch.profiler): "
               + ", ".join(f"{k.replace('(anonymous namespace)::', '').split('(')[0]} {v:.2f}"
                           for k, v in sorted(parts.items())))
-    if compare_dir is not None:
-        compare_builds(compare_dir, funnel, kw, tt, got, seeds, rk, rb)
+    if other is not None:
+        compare_builds(other, funnel, kw, tt, got, seeds, rk, rb)
+        require_equal(other.fm_seed_scan(fm, ur, rlb, msl, **fk), seeds,
+                      "fm_seed_scan of the compared build (re-seed)")
+        compare_turns(f"fm_seed_scan B={Bb} ({nb} reads)",
+                      lambda: other.fm_seed_scan(fm, ur, rlb, msl, **fk),
+                      lambda: kernels.fm_seed_scan(fm, ur, rlb, msl, **fk))
     return dict(
         funnel=dict(ms=1e3 * t_f[0], plain_ms=t_fp, err=err, bound_ms=fb["bound_ms"],
                     bound_by=fb["bound_by"]),
         resolve=dict(ms=1e3 * t_r[0], plain_ms=t_rp, err=err, bound_ms=rbound["bound_ms"],
                      bound_by=rbound["bound_by"]),
-        unpack=dict(ms=t_u, plain_ms=t_up, err=err_u, bound_ms=ub, bound_by=ub_by),
+        unpack=dict(ms=1e3 * t_u[0], plain_ms=t_up, err=err_u, bound_ms=ub, bound_by=ub_by),
         fm_err=err_fm)
 
 
-def compare_builds(compare_dir, funnel, kw, tt, got, seeds, rk, rb) -> None:
+def compare_builds(other, funnel, kw, tt, got, seeds, rk, rb) -> None:
     """Another commit's funnel and resolve_pack beside this commit's on the
-    same inputs, in turns (other, this, this, other); the other build's
-    outputs must equal this one's."""
+    same inputs, in turns; the other build's outputs must equal this one's."""
     from kart_tpu_torch import kernels
-    from kart_tpu_torch.tools.bench_kernels import load_kernels_module, time_both
 
-    other = load_kernels_module(os.path.join(compare_dir, "kart_tpu_torch", "kernels.py"),
-                                "kart_tpu_torch_compared_kernels")
-    other.build()
     require_equal(funnel(other, **kw), got, "kmer_funnel of the compared build")
     for name, sd, k in (("group", got, rk), ("re-seed layout", seeds, rb)):
         require_equal(other.resolve_pack(tt.sa_full, sd, **k),
                       kernels.resolve_pack(tt.sa_full, sd, **k),
                       f"resolve_pack of the compared build ({name})")
-    runs = {
-        "kmer_funnel": (lambda: funnel(other, **kw), lambda: funnel(**kw)),
-        "resolve_pack group": (lambda: other.resolve_pack(tt.sa_full, got, **rk),
-                               lambda: kernels.resolve_pack(tt.sa_full, got, **rk)),
-        "resolve_pack re-seed layout": (lambda: other.resolve_pack(tt.sa_full, seeds, **rb),
-                                        lambda: kernels.resolve_pack(tt.sa_full, seeds, **rb)),
-    }
-    for name, (theirs, ours) in runs.items():
-        t = [time_both(theirs), time_both(ours), time_both(ours), time_both(theirs)]
-        print(f"phase 4 compare {name}: other, this, this, other: slope ms "
-              + ", ".join(f"{1e3 * a:.4f}" for a, _ in t) + "; per call ms "
-              + ", ".join(f"{1e3 * b:.4f}" for _, b in t))
+    compare_turns("kmer_funnel", lambda: funnel(other, **kw), lambda: funnel(**kw))
+    compare_turns("resolve_pack group", lambda: other.resolve_pack(tt.sa_full, got, **rk),
+                  lambda: kernels.resolve_pack(tt.sa_full, got, **rk))
+    compare_turns("resolve_pack re-seed layout",
+                  lambda: other.resolve_pack(tt.sa_full, seeds, **rb),
+                  lambda: kernels.resolve_pack(tt.sa_full, seeds, **rb))
 
 
 def phase_gather() -> dict:
@@ -670,8 +748,8 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", metavar="DIR", default=None,
-                    help="a checkout of another commit whose funnel and resolve_pack phase 4"
-                         " times beside this one's")
+                    help="a checkout of another commit whose NW, FM stepper, funnel and"
+                         " resolve_pack phases 1, 2 and 4 time beside this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -690,17 +768,30 @@ def main(argv: list[str] | None = None) -> int:
     ptxas = "; ".join(
         ln.split("ptxas info    : ")[-1] for ln in log.splitlines() if "registers" in ln or "spill" in ln
     )
+    entry_fn = ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry_fn = ln
+        elif "spill" in ln and "nw_planes" in entry_fn and "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            raise AssertionError(f"an NW kernel spills: {entry_fn} {ln}")
     print(
         f"phase 0 device: {name} ({smi}); torch {torch.__version__} cuda {torch.version.cuda};"
         f" kernels built in {time.perf_counter() - t0:.1f} s; ptxas: {ptxas or 'up to date'}"
     )
 
-    nw = phase_nw(np.random.default_rng(2024))
+    other = None
+    if args.compare is not None:
+        from kart_tpu_torch.tools.bench_kernels import load_kernels_module
+
+        other = load_kernels_module(os.path.join(args.compare, "kart_tpu_torch", "kernels.py"),
+                                    "kart_tpu_torch_compared_kernels")
+        other.build()
+    nw = phase_nw(np.random.default_rng(2024), other)
     t0 = time.perf_counter()
     prefix = build_genome_index()
     gidx = load_index(prefix)
     print(f"setup: genome {gidx.genome_size} bp indexed and loaded in {time.perf_counter() - t0:.1f} s")
-    fm = phase_fm(gidx)
+    fm = phase_fm(gidx, other)
     launches = phase_slice(prefix)
     from kart_tpu_torch.ops.kmer_seed import build_tables
 
@@ -708,7 +799,7 @@ def main(argv: list[str] | None = None) -> int:
     tb = build_tables(gidx)
     print(f"setup: funnel tables built or loaded in {time.perf_counter() - t0:.1f} s"
           f" (max 13-mer multiplicity {tb.max_mult})")
-    funnel = phase_funnel(gidx, tb, args.compare)
+    funnel = phase_funnel(gidx, tb, other, fm["l2_ns"])
     del tb
     gather = phase_gather()
     dev_launches = phase_device_slice(prefix)

@@ -1,6 +1,7 @@
-// Latency of one dependent load from device memory on this card: a single
-// thread walks a random cycle through a table far larger than L2, each
-// load's address coming from the load before it.  Not a kernel of the
+// Latency of one dependent load on this card: a single thread walks a random
+// cycle through a table, each load's address coming from the load before
+// it.  The caller sets the table's size: far larger than L2 for a load from
+// device memory, an index's few MB for a load that hits L2.  Not a kernel of the
 // mapping path and not part of its library: tools/bench_kernels.py builds
 // it on its own and uses the time of one step to turn a kernel's chain of
 // dependent loads into a time.

@@ -128,7 +128,10 @@ def _raise_on(rc: int, what: str) -> None:
 
 def fm_seed_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: int):
     """csrc/fm_seed_scan.cu: packed FastMode seeds (B, 1 + 4*max_seeds)
-    int32 for reads (B, l_max) int32 and rlens (B,) int32 on the card."""
+    int32 for reads (B, l_max) int32 and rlens (B,) int32 on the card.  A
+    group of 16, 8 or 4 lanes steps each read, by batch size; the launch is
+    refused where a block's reads of l_max bases exceed its shared memory
+    (l_max in the tens of thousands)."""
     dev = reads.device
     B = reads.shape[0]
     _check("reads", reads, torch.int32, (B, l_max), dev)
@@ -158,7 +161,8 @@ fm_seed_scan.launches = 0
 
 def nw_planes(c1, c2, *, lm: int):
     """csrc/nw.cu: (N, lm+1, lm+1) uint8 NW decision planes for (N, lm)
-    int8 code pairs on the card, lm in (16, 32, 64, 128)."""
+    int8 code pairs on the card, lm in (16, 32, 64, 128): a wavefront across
+    the lanes of a warp or half-warp per pair."""
     if lm not in (16, 32, 64, 128):
         raise ValueError(f"nw_planes: unsupported tile {lm}")
     dev = c1.device

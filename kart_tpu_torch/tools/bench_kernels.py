@@ -9,10 +9,11 @@ than it runs).  `load_kernels_module` loads the `kernels.py` of another
 checkout of the port (its parent commit, unpacked with `git archive`), which
 builds that checkout's sources into its own `_build/`;
 `dependent_load_ns` measures the latency of one dependent load from device
-memory (csrc/probe_latency.cu), which turns a kernel's longest chain of
-dependent loads into a time; `device_us_by_kernel` splits a wrapper's call
-into its launches' device times with `torch.profiler`.  chip_smoke.py's
-phase 4 uses all of them; no function here runs without a CUDA device.
+memory, or from L2 at a working set that fits it (csrc/probe_latency.cu),
+which turns a kernel's longest chain of dependent loads into a time;
+`device_us_by_kernel` splits a wrapper's call into its launches' device
+times with `torch.profiler`.  chip_smoke.py's phases 1, 2 and 4 use them; no
+function here runs without a CUDA device.
 """
 
 from __future__ import annotations
@@ -84,9 +85,16 @@ def load_kernels_module(path: str, name: str):
     return mod
 
 
-def dependent_load_ns(n: int = 1 << 26, steps: int = 20000, seed: int = 0) -> float:
+def dependent_load_ns(n: int = 1 << 26, steps: int = 20000, seed: int = 0, *,
+                      working_set_bytes: int | None = None) -> float:
     """ns per dependent load over a random single cycle through n int32
-    (256 MB at the default, beyond the 50 MB L2)."""
+    (256 MB at the default, beyond the 50 MB L2).  With `working_set_bytes`
+    the cycle runs through that many bytes instead: at an index's size, a
+    few MB, it gives the latency of a dependent load that hits L2.  The
+    table is read once whole before the timed walks, so that a set that fits
+    L2 is in it."""
+    if working_set_bytes is not None:
+        n = max(working_set_bytes // 4, 2 * steps)
     path = os.path.join(kernels.BUILD_DIR, "libkartprobe.so")
     kernels.build(path, [os.path.join(os.path.dirname(kernels.SOURCES[0]), "probe_latency.cu")])
     lib = ctypes.CDLL(path)
@@ -98,6 +106,7 @@ def dependent_load_ns(n: int = 1 << 26, steps: int = 20000, seed: int = 0) -> fl
     nxt[perm] = np.roll(perm, -1)
     table = torch.from_numpy(nxt).cuda()
     out = torch.empty(1, dtype=torch.int32, device="cuda")
+    table.sum()
 
     def run(k: int) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -47,6 +47,14 @@ struct dim3 {
 struct uint3 {
   unsigned x, y, z;
 };
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -241,6 +249,18 @@ inline int __shfl_xor_sync(unsigned, int v, int mask) {
   return (int)all[(threadIdx.x & 31) ^ mask];
 }
 
+// Every lane of the warp has to arrive, whatever the mask names: a kernel
+// whose sub-warp groups shuffle on their own cannot run here.
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { shim::tc.blk->warps[shim::tc.tid.x >> 5]->bar.wait(); }
+
+inline int __any_sync(unsigned, int pred) {
+  long long all[32];
+  shim::warp_exchange(pred, all);
+  for (int i = 0; i < 32; ++i)
+    if (all[i]) return 1;
+  return 0;
+}
+
 inline unsigned __ballot_sync(unsigned, bool pred) {
   long long all[32];
   shim::warp_exchange(pred, all);
@@ -253,6 +273,7 @@ template <typename T>
 inline T __ldg(const T* p) {
   return *p;
 }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline unsigned __brev(unsigned x) {

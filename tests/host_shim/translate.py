@@ -11,8 +11,9 @@ each have their own.  The CUDA includes are dropped.  `build` compiles the
 result with g++ -std=c++20 into a shared library with the source's own C
 entry points, which take host pointers.
 
-It handles the constructs of csrc/kmer_funnel.cu and csrc/resolve_pack.cu
-(tests/test_torch_host_shim.py runs both against their plain versions);
+It handles the constructs of csrc/kmer_funnel.cu, csrc/resolve_pack.cu,
+csrc/fm_seed_scan.cu and csrc/nw.cu (tests/test_torch_host_shim.py runs all
+four against their plain versions);
 cuda_shim.h says what such a run can and cannot show.
 """
 
@@ -55,7 +56,8 @@ def translate(src: str) -> str:
         grid, block, smem, _stream = cfg
         return f"shim::launch({m.group(1)}, dim3({grid}), dim3({block}), {smem}, {m.group(3)});"
 
-    src = re.sub(r"(\w+)<<<(.*?)>>>\(\s*(.*?)\);", launch, src, flags=re.S)
+    # the kernel may be a template's instance: name<A, B><<<...>>>
+    src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(\s*(.*?)\);", launch, src, flags=re.S)
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(shim::dyn_smem());", src)
     n = [0]

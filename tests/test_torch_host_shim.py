@@ -1,6 +1,7 @@
-"""The two redesigned CUDA kernels run on the CPU: `csrc/kmer_funnel.cu` and
-`csrc/resolve_pack.cu` compiled as host C++ against
-`tests/host_shim/cuda_shim.h` (threads as std::threads, the
+"""The redesigned CUDA kernels run on the CPU: `csrc/kmer_funnel.cu`,
+`csrc/resolve_pack.cu`, `csrc/fm_seed_scan.cu` and `csrc/nw.cu` compiled as
+host C++ against `tests/host_shim/cuda_shim.h` (threads as std::threads, a
+warp's shuffles an exchange between its 32 threads, the
 blocks of a cluster at the same time, cluster.sync() a barrier over all of
 them, map_shared_rank a pointer into the peer's arena, the chained scan's
 blocks four at a time) and held byte for byte against their plain versions,
@@ -18,10 +19,13 @@ import torch
 
 import kart_tpu_torch
 from kart_tpu_torch.index import build_index, load_index
+from kart_tpu_torch.ops import fm_search as tfm
 from kart_tpu_torch.ops import kmer_seed as tks
+from kart_tpu_torch.ops import nw as tnw
 from kart_tpu_torch.ops import pack as tpack
 from kart_tpu_torch.ops import resolve as tres
 from host_shim import translate
+from test_nw_kernel import random_pairs
 from test_torch_kmer_seed import make_reads
 from test_torch_resolve import seed_blocks
 
@@ -35,8 +39,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(kart_tpu_torch.__file__)), "
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     so = tmp_path_factory.mktemp("host_shim") / "libkarthost.so"
-    translate.build(str(so), [os.path.join(CSRC, "kmer_funnel.cu"),
-                              os.path.join(CSRC, "resolve_pack.cu")])
+    translate.build(str(so), [os.path.join(CSRC, f) for f in (
+        "kmer_funnel.cu", "resolve_pack.cu", "fm_seed_scan.cu", "nw.cu")])
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, p, p, p]
@@ -46,6 +50,10 @@ def host_lib(tmp_path_factory):
     lib.kart_resolve_pack.restype = i
     lib.kart_resolve_scan_words.argtypes = [i]
     lib.kart_resolve_scan_words.restype = i
+    lib.kart_fm_seed_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, p, p]
+    lib.kart_fm_seed_scan.restype = i
+    lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
+    lib.kart_nw_planes.restype = i
     assert lib.kart_kmer_funnel_cluster() == CLUSTER
     return lib
 
@@ -188,3 +196,114 @@ def test_resolve_pack_kernel_on_host_matches_plain(host_lib, name):
     np.testing.assert_array_equal(out, want)
     if name == "all_flagged":
         assert (cnts < 0).all()
+
+
+def fm_edge_reads(gidx, l_max):
+    """Reads at the stepper's edges: pad lanes (rlen 0), reads shorter than
+    the minimal seed, of exactly that length and one more, an all-N read,
+    an N first, last and in a run, a read that ends at l_max, and windows
+    around the texts of the suffix-array rows next to `primary`, both
+    strands: halfway through such a read the interval of its reverse
+    complement ends just before, or starts just after, the row the BWT
+    skips."""
+    rng = np.random.default_rng(3)
+    lens = [0, 5, MIN_SEED - 1, MIN_SEED, MIN_SEED + 1, 60, l_max, 0, 70, 70, 70, l_max, 40, 0]
+    reads = np.full((len(lens), l_max), 4, np.int32)
+    for k, rl in enumerate(lens):
+        p = int(rng.integers(0, gidx.two_genome_size - l_max))
+        reads[k, :rl] = gidx.ref_codes[p : p + rl]
+    reads[5, :60] = 4  # all N, rlen 60
+    reads[8, 0] = 4
+    reads[9, 69] = 4
+    reads[10, 30:34] = 4
+    reads[12, 40:] = 7  # codes past rlen need not be 4
+    lens = np.array(lens, np.int32)
+    around = []
+    for row in (gidx.primary - 1, gidx.primary + 1):
+        pos = int(gidx.sa_full[row])
+        if 30 <= pos <= gidx.two_genome_size - 30:
+            text = gidx.ref_codes[pos - 30 : pos + 30].astype(np.int32)
+            around += [text, 3 - text[::-1]]
+    extra = np.full((len(around), l_max), 4, np.int32)
+    extra[:, :60] = around
+    return np.concatenate([reads, extra]), np.concatenate([lens, np.full(len(around), 60, np.int32)])
+
+
+# name: (B, l_max, max_seeds or None for the mapper's)
+FM_CASES = {
+    "one_read": (1, 100, None),
+    "ragged_127": (127, 100, None),  # 15 blocks and 7 reads of a 16th
+    "edges": (None, 80, None),
+    "seeds_dropped": (24, 100, 2),  # more seeds than slots
+    "reseed_layout": (2048, 160, None),  # the re-seed batch: 100 real lanes, then pads
+    # 8 lanes a read from 6,000 reads on, 4 from 12,000: 100 real lanes, then pads
+    "batch_8_lanes": (6100, 100, None),
+    "batch_4_lanes": (12100, 100, None),
+}
+
+
+@pytest.mark.parametrize("name", list(FM_CASES))
+def test_fm_seed_scan_kernel_on_host_matches_plain(host_lib, shim_genome, name):
+    gidx, _ = shim_genome
+    B, l_max, ms = FM_CASES[name]
+    ms = ms or l_max // (MIN_SEED + 1) + 1
+    if name == "edges":
+        reads, rlens = fm_edge_reads(gidx, l_max)
+    elif name in ("reseed_layout", "batch_8_lanes", "batch_4_lanes"):
+        reads = np.full((B, l_max), 4, np.int32)
+        rlens = np.zeros(B, np.int32)
+        reads[:100], rlens[:100] = make_reads(gidx, 100, l_max, seed=5)
+    else:
+        reads, rlens = make_reads(gidx, B, l_max, seed=B)
+        if name == "seeds_dropped":  # every tenth base wrong: many short seeds
+            reads[:, 14::15] = (reads[:, 14::15] + 1) % 4
+    B = len(reads)
+    fm = tfm.FMIndexTensors.from_genome_index(gidx, "cpu")
+    want = tfm.seed_scan_plain(fm, torch.from_numpy(reads), torch.from_numpy(rlens), MIN_SEED,
+                               max_seeds=ms, l_max=l_max).numpy()
+    out = np.full((B, 1 + 4 * ms), -7, np.int32)
+    rc = host_lib.kart_fm_seed_scan(ptr(fm.occ_cp.numpy()), ptr(fm.bwt_words.numpy()),
+                                    ptr(fm.L2.numpy()), fm.primary, ptr(reads), ptr(rlens), B,
+                                    l_max, MIN_SEED, ms, ptr(out), None)
+    assert rc == 0
+    np.testing.assert_array_equal(out, want)
+    if name == "seeds_dropped":
+        assert (want[:, 0] > ms).any()
+    elif name == "edges":
+        assert (want[[0, 1, 2, 3, 5, 7, 13]] == 0).all() and want[:, 0].sum() >= 6
+    else:
+        assert want[:, 0].sum() >= min(B, 100) // 2
+
+
+def test_fm_seed_scan_kernel_on_host_refuses_reads_too_long(host_lib):
+    """Eight reads of 60,000 bases exceed a block's shared memory."""
+    rc = host_lib.kart_fm_seed_scan(None, None, None, 0, None, None, 8, 60000, MIN_SEED, 4000,
+                                    None, None)
+    assert rc != 0
+
+
+# n: pairs a launch; one pair, a ragged warp's worth past a block, and more
+# pairs than a block of any tile holds
+@pytest.mark.parametrize("n", [1, 33, 70])
+@pytest.mark.parametrize("lm", [16, 32, 64, 128])
+def test_nw_kernel_on_host_matches_plain(host_lib, lm, n):
+    rng = np.random.default_rng(1000 * lm + n)
+    pairs = [p for p in random_pairs(3 * n, rng, max_len=lm, with_n=True)
+             if max(map(len, p)) <= lm][: n - 1]
+    pairs += [(b"A" * lm, b"C")] * (n - len(pairs))  # a full first string against one base
+    c1, c2 = tnw.encode_tile(pairs, lm)
+    want = tnw.nw_batch_planes_plain(torch.from_numpy(c1), torch.from_numpy(c2), lm=lm).numpy()
+    # the planes start at any byte of a 16-byte line
+    buf = np.full(n * (lm + 1) ** 2 + 16, 0xEE, np.uint8)
+    off = (n + lm) % 16
+    out = buf[off : off + n * (lm + 1) ** 2]
+    rc = host_lib.kart_nw_planes(ptr(c1), ptr(c2), n, lm, out.ctypes.data, None)
+    assert rc == 0
+    np.testing.assert_array_equal(out.reshape(want.shape), want)
+    assert (buf[:off] == 0xEE).all() and (buf[off + out.size :] == 0xEE).all()
+    for k in range(0, n, 7):
+        assert tnw.nw_backtrace(want[k], *pairs[k]) == tnw.nw_alignment(*pairs[k])
+
+
+def test_nw_kernel_on_host_refuses_an_unsupported_tile(host_lib):
+    assert host_lib.kart_nw_planes(None, None, 4, 48, None, None) != 0
