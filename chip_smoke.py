@@ -17,7 +17,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      calls, with the per-call event window beside it;
   2. the FM-stepper kernel against its plain version on the card, one
      mapper chunk of 4,000 reads of 150 bp at l_max 160 on the E. coli-scale
-     genome: equal output; again on batches of 1, 127, 4,001 and 8,001 reads
+     genome: equal output; again on batches of 1, 127 and 4,001 reads
      with a pad lane (rlen 0), a read shorter than the minimal seed and an
      all-N read among them, and on the re-seed layout (2,048 lanes, 100 of them
      reads); timed by slope and per call, with the latency of a dependent
@@ -84,7 +84,7 @@ DATA = os.path.join(ROOT, "chip_smoke_data")
 TILES = (16, 32, 64, 128)
 N_NW = 4096
 RAGGED_NW = (1, 33)  # and N_NW + 1, the batch the planes and backtraces are checked on
-RAGGED_FM = (1, 127, 4001, 8001)  # 8,001: the kernel's 8 lanes a read; phase 4's 16,000: 4
+RAGGED_FM = (1, 127, 4001)
 RESEED_FM = (2048, 100)  # the re-seed batch's layout: lanes, of which reads
 B_FM, READ_LEN, L_MAX_FM = 4000, 150, 160  # a mapper chunk of 150 bp reads
 N_PAIRS, N_CPU_PAIRS = 4000, 500
@@ -153,8 +153,8 @@ def phase_nw(rng, other=None) -> dict:
 
     from kart_tpu_torch.tools.bench_kernels import bound_ms, time_both
 
-    ms = plain_ms = bound = 0.0
-    err = 0
+    ms = plain_ms = 0.0
+    err = n_bytes = n_ops = 0
     parts = []
     for lm in TILES:
         pairs = fragment_pairs(rng, N_NW + 1, lm)
@@ -172,8 +172,10 @@ def phase_nw(rng, other=None) -> dict:
         t_k, t_w = time_both(lambda: kernels.nw_planes(c1, c2, lm=lm))
         t_p = cuda_ms(lambda: nw_batch_planes_plain(c1, c2, lm=lm), 3)
         # both code rows in, the planes out; a dozen operations a DP cell
-        t_b, by = bound_ms(c1.nbytes + c2.nbytes + got[:N_NW].nbytes, 12 * N_NW * lm * lm)
-        ms, plain_ms, bound = ms + 1e3 * t_k, plain_ms + t_p, bound + t_b
+        tile_bytes, tile_ops = c1.nbytes + c2.nbytes + got[:N_NW].nbytes, 12 * N_NW * lm * lm
+        t_b, by = bound_ms(tile_bytes, tile_ops)
+        ms, plain_ms = ms + 1e3 * t_k, plain_ms + t_p
+        n_bytes, n_ops = n_bytes + tile_bytes, n_ops + tile_ops
         parts.append(f"lm={lm} slope {1e3 * t_k:.4f} ms, per call {1e3 * t_w:.4f} ms, plain"
                      f" {t_p:.4f} ms, bound {t_b:.4f} ms ({by})")
         if other is not None:
@@ -183,7 +185,10 @@ def phase_nw(rng, other=None) -> dict:
                           lambda: kernels.nw_planes(c1, c2, lm=lm))
     print(f"phase 1 nw: {N_NW + 1} pairs per tile, planes equal, backtraces equal; planes equal on "
           f"{', '.join(map(str, RAGGED_NW))} pairs; at {N_NW} pairs: " + "; ".join(parts))
-    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound, bound_by=by)
+    # the record's times and bound are those of one call a tile, the four tiles together
+    bound, by = bound_ms(n_bytes, n_ops)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound, bound_by=by,
+                shape=f"one call a tile, lm {', '.join(map(str, TILES))}, {N_NW} pairs each, summed")
 
 
 def build_genome_index() -> str:
@@ -294,6 +299,7 @@ def phase_fm(gidx, other=None) -> dict:
     t_rk, t_rw = time_both(lambda: kernels.fm_seed_scan(fm, rr, rrl, msl, **kw))
     t_p = cuda_ms(lambda: seed_scan_plain(fm, r, rl, msl, **kw), 3)
     fb = fm_bound(fm, r, rl, got, l2_ns)
+    fb_r = fm_bound(fm, rr, rrl, got_r, l2_ns)
     print(
         f"phase 2 fm_seed_scan: B={B_FM} l_max={L_MAX_FM} max_seeds={max_seeds}"
         f" min_seed={msl}, output equal ({int(got[:, 0].sum())} seeds); equal on batches of "
@@ -301,7 +307,8 @@ def phase_fm(gidx, other=None) -> dict:
         + f" with short, all-N and pad lanes, and on the re-seed layout B={RESEED_FM[0]} with"
         f" {RESEED_FM[1]} reads ({int(got_r[:, 0].sum())} seeds); B={B_FM}: slope {1e3 * t_k:.4f} ms,"
         f" per call {1e3 * t_w:.4f} ms, plain {t_p:.4f} ms; re-seed layout: slope {1e3 * t_rk:.4f} ms,"
-        f" per call {1e3 * t_rw:.4f} ms; dependent load that hits L2 {l2_ns:.1f} ns, chain"
+        f" per call {1e3 * t_rw:.4f} ms, bound {fb_r['bound_ms']:.4f} ms ({fb_r['bound_by']});"
+        f" dependent load that hits L2 {l2_ns:.1f} ns, chain"
         f" {int(rl.max())} steps = {fb['chain_ms']:.4f} ms, bytes and operations"
         f" {fb['bytes_ms']:.4f} ms ({fb['bytes_by']}): bound {fb['bound_ms']:.4f} ms ({fb['bound_by']})"
     )
@@ -313,8 +320,14 @@ def phase_fm(gidx, other=None) -> dict:
         compare_turns(f"fm_seed_scan re-seed layout B={RESEED_FM[0]}",
                       lambda: other.fm_seed_scan(fm, rr, rrl, msl, **kw),
                       lambda: kernels.fm_seed_scan(fm, rr, rrl, msl, **kw))
+    # ms, plain_ms and the bound are the mapper chunk's (the python backend's
+    # batch); the device-pipelined mode's re-seed layout stands beside them
     return dict(ms=1e3 * t_k, plain_ms=t_p, err=err, bound_ms=fb["bound_ms"],
-                bound_by=fb["bound_by"], l2_ns=l2_ns)
+                bound_by=fb["bound_by"], l2_ns=l2_ns,
+                shape=f"B {B_FM}, l_max {L_MAX_FM}, {READ_LEN} bp reads",
+                reseed_layout=dict(shape=f"B {RESEED_FM[0]}, of which {RESEED_FM[1]} reads",
+                                   ms=1e3 * t_rk, bound_ms=fb_r["bound_ms"],
+                                   bound_by=fb_r["bound_by"]))
 
 
 def simulate_pairs(fa: str, out1: str, out2: str, n_pairs: int) -> None:
@@ -809,10 +822,12 @@ def main(argv: list[str] | None = None) -> int:
         raise AssertionError(f"the port imported {loaded}")
 
     def entry(name, source, replaces, n_launches, r, library_ms=None):
+        # shape, reseed_layout: what a record's times refer to, where phase lines alone do not say
+        extra = {k: r[k] for k in ("shape", "reseed_layout") if k in r}
         return dict(name=name, route="cuda", source=f"kart_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=n_launches, max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=library_ms)
+                    library_ms=library_ms, **extra)
 
     fm["err"] = max(fm["err"], funnel["fm_err"])
     # library_ms: table[rid] for the row gather; no one PyTorch call computes

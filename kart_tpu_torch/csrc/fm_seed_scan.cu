@@ -13,20 +13,19 @@
 // accesses whatever the batch; the reads, the seed rows and the index rows
 // touched are a few MB.  The design therefore makes a step short and runs
 // many reads at once:
-//   - a group of G lanes owns a read and shares the eight words of a
-//     128-base BWT block.  At G 16, lanes 0-7 take the interval's lower end
-//     and lanes 8-15 its upper end, lane j loading word j of its end's
-//     block: the eight lanes of an end ask for one 32-byte sector together
-//     (both ends for the same one once the interval is narrower than a
-//     block).  Each lane masks and counts its word into four byte-wide
-//     counts of one register, three shuffles add the eight words, a fourth
-//     swaps the two ends.  At G 8 a lane takes word j of both ends, at G 4
-//     two words of both.  The two checkpoint rows are one 16-byte broadcast
-//     load each, started beside the word loads, so a step waits for one load;
-//   - a small batch is bound by one read's chain and takes 16 lanes a read
-//     (2,048 reads are 1,024 warps, eight an SM); a large one is bound by
-//     the operations a warp executes, which are the same a step for every
-//     G, and takes 8 or 4 (kBatch8, kBatch4);
+//   - a group of 16 lanes owns a read and shares the eight words of a
+//     128-base BWT block: lanes 0-7 take the interval's lower end and lanes
+//     8-15 its upper end, lane j loading word j of its end's block, so the
+//     eight lanes of an end ask for one 32-byte sector together (both ends
+//     for the same one once the interval is narrower than a block).  Each
+//     lane masks and counts its word into four byte-wide counts of one
+//     register, three shuffles add the eight words, a fourth swaps the two
+//     ends.  The two checkpoint rows are one 16-byte broadcast load each,
+//     started beside the word loads, so a step waits for one load;
+//   - 2,048 lanes are 1,024 warps, eight an SM, so one read's chain
+//     overlaps the others'.  A step costs a warp some 200 operations, which
+//     bounds a batch of many thousand real reads (fewer lanes a read would
+//     serve that one better; the mapper hands over no such batch);
 //   - the read's codes are loaded once, coalesced, into shared memory as
 //     bytes; the seed row is built in shared memory and written once,
 //     coalesced and zero-filled; L2[] is read once into registers;
@@ -44,13 +43,9 @@ namespace {
 constexpr int kOccThr = 50;
 constexpr unsigned kM55 = 0x55555555u;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kThreads = 128;                  // a block holds 128 / G reads
-// Lanes per read by batch size.  A step costs a warp the same 200-odd
-// operations whatever its lanes' share, so more lanes a read shorten one
-// read's chain and fewer lanes raise the card's rate once every SM is full;
-// on an H100, 150 bp reads: 16 lanes are fastest below 6,000 reads, 8 up to
-// 12,000, 4 beyond.
-constexpr int kBatch8 = 6000, kBatch4 = 12000;
+constexpr int kThreads = 128;
+constexpr int kGroup = 16;                     // lanes a read
+constexpr int kPerBlock = kThreads / kGroup;   // reads a block
 constexpr size_t kMaxSmem = 232448;            // a block's shared memory on sm_90
 
 // Per-code counts of one 32-bit BWT word (16 bases of 2 bits), one byte each:
@@ -75,19 +70,14 @@ __device__ __forceinline__ unsigned word_counts(const unsigned* __restrict__ bwt
 }
 
 // occ4(k) less its checkpoint row, the four counts one byte each, summed over
-// the LANES lanes that share the block's eight words; a block holds 128
-// bases, so the byte-wide sums cannot carry.  Every lane of the warp calls
-// this; `on` says whether the lane's read takes a step.
-template <int LANES>
+// the eight lanes that share the block's words; a block holds 128 bases, so
+// the byte-wide sums cannot carry.  Every lane of the warp calls this; `on`
+// says whether the lane's read takes a step.
 __device__ __forceinline__ unsigned block_counts(const unsigned* __restrict__ bwt, bool on, int kk,
                                                  int wj) {
-  unsigned v = 0;
-  if (on) {
+  unsigned v = on ? word_counts(bwt, kk, wj) : 0;
 #pragma unroll
-    for (int w = 0; w < 8 / LANES; ++w) v += word_counts(bwt, kk, wj + w * LANES);
-  }
-#pragma unroll
-  for (int m = 1; m < LANES; m <<= 1) v += __shfl_xor_sync(kFull, v, m);
+  for (int m = 1; m < 8; m <<= 1) v += __shfl_xor_sync(kFull, v, m);
   return v;
 }
 
@@ -97,7 +87,6 @@ __device__ __forceinline__ int pick4(int i, int a, int b, int c, int d) {
 
 // Shared memory of a block, per read: the seed row (row_len ints), then the
 // read's codes as bytes (code_words ints).
-template <int G>
 __global__ void __launch_bounds__(kThreads)
 seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ bwt,
                  const int* __restrict__ L2, int primary,
@@ -106,12 +95,11 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
                  int* __restrict__ out) {
   extern __shared__ int smem[];
   const int row_len = 1 + 4 * max_seeds;
-  constexpr int LANES = G < 8 ? G : 8;  // lanes that share a block's eight words
-  const int g = threadIdx.x / G;        // the read of this block
-  const int j = threadIdx.x % G;        // the lane of its group
-  const int end = j / LANES;            // G 16: 0 the lower interval end, 1 the upper
-  const int wj = j % LANES;             // the lane's first word of a BWT block
-  const int b = blockIdx.x * (kThreads / G) + g;
+  const int g = threadIdx.x / kGroup;  // the read of this block
+  const int j = threadIdx.x % kGroup;  // the lane of its group
+  const int end = j / 8;               // 0 the lower interval end, 1 the upper
+  const int wj = j % 8;                // the lane's word of a BWT block
+  const int b = blockIdx.x * kPerBlock + g;
   const bool valid = b < B;
   int* row = smem + g * (row_len + code_words);
   unsigned char* codes = reinterpret_cast<unsigned char*>(row + row_len);
@@ -120,10 +108,10 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
             l2_4 = __ldg(L2 + 4);
   // a seed can start at p only while p < last_start
   const int last_start = valid ? __ldg(rlens + b) - min_seed_len : 0;
-  for (int k = j; k < row_len; k += G) row[k] = 0;
+  for (int k = j; k < row_len; k += kGroup) row[k] = 0;
   if (last_start > 0) {
     const int* read = reads + static_cast<size_t>(b) * l_max;
-    for (int k = j; k < l_max; k += G) {
+    for (int k = j; k < l_max; k += kGroup) {
       const int c = __ldg(read + k);
       codes[k] = static_cast<unsigned char>(c > 3 ? 4 : c);
     }
@@ -143,7 +131,7 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
     const bool extend = live && active && !amb;
 
     // occ4 at both ends of the interval: the checkpoint rows, and the eight
-    // words' counts summed over the lanes
+    // words' counts, which a lane sums at its end before the ends swap
     int kka = 0, kkb = 0;
     int4 cpk = make_int4(0, 0, 0, 0), cpl = cpk;
     if (extend) {
@@ -153,16 +141,9 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
       cpk = __ldg(occ_cp + (kka >> 7));
       cpl = __ldg(occ_cp + (kkb >> 7));
     }
-    unsigned ck, cl;
-    if (G == 16) {  // a lane counts at its end, then the ends swap
-      const unsigned mine = block_counts<LANES>(bwt, extend, end ? kkb : kka, wj);
-      const unsigned other = __shfl_xor_sync(kFull, mine, 8);
-      ck = end ? other : mine;
-      cl = end ? mine : other;
-    } else {
-      ck = block_counts<LANES>(bwt, extend, kka, wj);
-      cl = block_counts<LANES>(bwt, extend, kkb, wj);
-    }
+    const unsigned mine = block_counts(bwt, extend, end ? kkb : kka, wj);
+    const unsigned other = __shfl_xor_sync(kFull, mine, 8);
+    const unsigned ck = end ? other : mine, cl = end ? mine : other;
 
     bool ext_fail = true;
     int nx0 = 0, nx1 = 0, nx2 = 0;
@@ -213,26 +194,8 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
   __syncwarp();
   if (valid) {
     int* dst = out + static_cast<size_t>(b) * row_len;
-    for (int k = j; k < row_len; k += G) dst[k] = row[k];
+    for (int k = j; k < row_len; k += kGroup) dst[k] = row[k];
   }
-}
-
-template <int G>
-int launch(const int4* occ_cp, const unsigned* bwt, const int* L2, int primary, const int* reads,
-           const int* rlens, int B, int l_max, int min_seed_len, int max_seeds, int* out,
-           cudaStream_t stream) {
-  constexpr int per_block = kThreads / G;
-  const int code_words = l_max / 4 + 1;
-  const size_t smem = sizeof(int) * per_block * (1 + 4 * static_cast<size_t>(max_seeds) + code_words);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        seed_scan_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  seed_scan_kernel<G><<<(B + per_block - 1) / per_block, kThreads, smem, stream>>>(
-      occ_cp, bwt, L2, primary, reads, rlens, B, l_max, min_seed_len, max_seeds, code_words, out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -247,9 +210,19 @@ extern "C" int kart_fm_seed_scan(const void* occ_cp, const void* bwt_words,
                                  int min_seed_len, int max_seeds, void* out,
                                  void* stream) {
   if (B <= 0) return 0;
-  const auto go = B < kBatch8 ? launch<16> : B < kBatch4 ? launch<8> : launch<4>;
-  return go(static_cast<const int4*>(occ_cp), static_cast<const unsigned*>(bwt_words),
-            static_cast<const int*>(L2), primary, static_cast<const int*>(reads),
-            static_cast<const int*>(rlens), B, l_max, min_seed_len, max_seeds,
-            static_cast<int*>(out), static_cast<cudaStream_t>(stream));
+  const int code_words = l_max / 4 + 1;
+  const size_t smem = sizeof(int) * kPerBlock * (1 + 4 * static_cast<size_t>(max_seeds) + code_words);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        seed_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  seed_scan_kernel<<<(B + kPerBlock - 1) / kPerBlock, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(occ_cp), static_cast<const unsigned*>(bwt_words),
+      static_cast<const int*>(L2), primary, static_cast<const int*>(reads),
+      static_cast<const int*>(rlens), B, l_max, min_seed_len, max_seeds, code_words,
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

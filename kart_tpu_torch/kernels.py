@@ -129,7 +129,7 @@ def _raise_on(rc: int, what: str) -> None:
 def fm_seed_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: int):
     """csrc/fm_seed_scan.cu: packed FastMode seeds (B, 1 + 4*max_seeds)
     int32 for reads (B, l_max) int32 and rlens (B,) int32 on the card.  A
-    group of 16, 8 or 4 lanes steps each read, by batch size; the launch is
+    group of 16 lanes steps each read; the launch is
     refused where a block's reads of l_max bases exceed its shared memory
     (l_max in the tens of thousands)."""
     dev = reads.device

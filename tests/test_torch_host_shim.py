@@ -236,9 +236,8 @@ FM_CASES = {
     "edges": (None, 80, None),
     "seeds_dropped": (24, 100, 2),  # more seeds than slots
     "reseed_layout": (2048, 160, None),  # the re-seed batch: 100 real lanes, then pads
-    # 8 lanes a read from 6,000 reads on, 4 from 12,000: 100 real lanes, then pads
-    "batch_8_lanes": (6100, 100, None),
-    "batch_4_lanes": (12100, 100, None),
+    "odd_l_max": (9, 151, None),  # rows of an odd length; one block and a read of a second
+    "short_l_max": (40, 37, None),  # fewer columns than the lanes of three sweeps
 }
 
 
@@ -249,7 +248,7 @@ def test_fm_seed_scan_kernel_on_host_matches_plain(host_lib, shim_genome, name):
     ms = ms or l_max // (MIN_SEED + 1) + 1
     if name == "edges":
         reads, rlens = fm_edge_reads(gidx, l_max)
-    elif name in ("reseed_layout", "batch_8_lanes", "batch_4_lanes"):
+    elif name == "reseed_layout":
         reads = np.full((B, l_max), 4, np.int32)
         rlens = np.zeros(B, np.int32)
         reads[:100], rlens[:100] = make_reads(gidx, 100, l_max, seed=5)
