@@ -51,6 +51,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      flagged lanes per group; its SAM records must equal
      the port's native-mode run's (host C++ engine), and the first 2,000
      pairs mapped again with -cpu must give the same records.
+  7. the SensitiveMode (PacBio) kernels against their plain versions on the
+     card, byte-equal: the funnel (kmer_funnel with sensitive) and the FM
+     stepper (fm_sensitive_scan) on one dispatch group of 640 of simdata's
+     PacBio reads (5-7 kb, 15% error) at l_max 8192, on the re-seed layout
+     (16 lanes, 10 reads), on a 16-lane batch at l_max 32768 (reads of 20-30
+     kb with the same error model, one of exactly 32,768 bases, an all-N
+     read, a read shorter than the minimal seed, pad lanes), and on 16 reads
+     cut from one copy of a repeat family, whose hits overrun the funnel's
+     budget so that lanes are flagged; where the funnel says ok its seeds
+     equal the stepper's; resolve_pack on both outputs in the 32-bit layout.
+     Slope and per-call times, bounds and chains as in phase 4;
+  8. the PacBio slice: simdata's 1,500 PacBio reads mapped by the port's CLI
+     with -pacbio: (a) KART_SEED_MODE=device on the card, whose SAM records
+     must equal (b) the native mode's and (c) a -cpu device run's of the
+     first 100 reads; (d) the first 320 reads with KART_KMER_GATE=0, so that
+     the SensitiveMode FM stepper seeds every group; (e) -backend python on
+     the first 40 reads.  Reads/s, set-up, groups, launches, flagged lanes,
+     the share of reads mapped within 50 bp of their simulated position
+     (as POS stands, and with the leading soft clip taken off), and
+     the card's busy share of run (a) under torch.profiler.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  Every kernel's record carries its launches
@@ -93,6 +113,9 @@ B_SUB_SLAB = 3000  # a batch smaller than one slab
 N_DEV_PAIRS, N_DEV_CPU_PAIRS = 100_000, 2000  # bench.py's read set
 GATHER_BIG = (262144, 9_279_361, 65536)  # the gather probe's second size: h, n, runs
 RAGGED_HR = (1, 15, 17, 4097)
+PB_B, PB_L = 640, 8192  # one PacBio dispatch group: 64 chunks of 10 reads
+PB_LONG_L = 32768
+PB_CPU_READS, PB_GATE0_READS, PB_PY_READS = 100, 320, 40
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -353,6 +376,15 @@ def sam_records(path: str) -> list[bytes]:
         return [ln for ln in f.read().splitlines() if not ln.startswith(b"@")]
 
 
+def head_fastq(src: str, dst: str, n: int) -> str:
+    """The first n records of a FASTQ file as a file of their own; returns dst."""
+    with open(src, "rb") as f:
+        lines = f.read().split(b"\n")[: 4 * n]
+    with open(dst, "wb") as f:
+        f.write(b"\n".join(lines) + b"\n")
+    return dst
+
+
 def phase_slice(prefix: str) -> dict:
     import torch
 
@@ -394,12 +426,8 @@ def phase_slice(prefix: str) -> dict:
         raise AssertionError(f"only {near} of {N_PAIRS} read-1 records at their simulated position")
 
     # the first 500 pairs again on the CPU (plain versions): same records
-    r1c, r2c = os.path.join(DATA, "r1_cpu.fq"), os.path.join(DATA, "r2_cpu.fq")
-    for src, dst in ((r1, r1c), (r2, r2c)):
-        with open(src, "rb") as f:
-            lines = f.read().split(b"\n")[: 4 * N_CPU_PAIRS]
-        with open(dst, "wb") as f:
-            f.write(b"\n".join(lines) + b"\n")
+    r1c = head_fastq(r1, os.path.join(DATA, "r1_cpu.fq"), N_CPU_PAIRS)
+    r2c = head_fastq(r2, os.path.join(DATA, "r2_cpu.fq"), N_CPU_PAIRS)
     sam_cpu = os.path.join(DATA, "cpu.sam")
     run_cli(["-i", prefix, "-f", r1c, "-f2", r2c, "-o", sam_cpu, "-backend", "python", "-silent", "-cpu"])
     if sam_records(sam_cpu) != recs[: 2 * N_CPU_PAIRS]:
@@ -723,12 +751,8 @@ def phase_device_slice(prefix: str) -> dict:
             raise AssertionError(f"a kernel of the path never launched: {launches}")
 
         # the first pairs again with -cpu (plain versions): the same records
-        r1c, r2c = os.path.join(DATA, "dev_r1_cpu.fq"), os.path.join(DATA, "dev_r2_cpu.fq")
-        for src, dst in ((r1, r1c), (r2, r2c)):
-            with open(src, "rb") as f:
-                lines = f.read().split(b"\n")[: 4 * N_DEV_CPU_PAIRS]
-            with open(dst, "wb") as f:
-                f.write(b"\n".join(lines) + b"\n")
+        r1c = head_fastq(r1, os.path.join(DATA, "dev_r1_cpu.fq"), N_DEV_CPU_PAIRS)
+        r2c = head_fastq(r2, os.path.join(DATA, "dev_r2_cpu.fq"), N_DEV_CPU_PAIRS)
         sam_cpu = os.path.join(DATA, "dev_cpu.sam")
         run_cli(["-i", prefix, "-f", r1c, "-f2", r2c, "-o", sam_cpu, "-silent", "-cpu"])
         if sam_records(sam_cpu) != recs[: 2 * N_DEV_CPU_PAIRS]:
@@ -754,6 +778,381 @@ def phase_device_slice(prefix: str) -> dict:
     return launches
 
 
+def fastq_codes(path: str, n: int) -> list[np.ndarray]:
+    """The first n reads of a FASTQ file as int8 codes (ambiguous 4)."""
+    from kart_tpu_torch.index.format import NT4_TABLE
+
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    return [NT4_TABLE[np.frombuffer(lines[4 * i + 1], np.uint8)].astype(np.int8) for i in range(n)]
+
+
+def pad_batch(seqs: list[np.ndarray], B: int, l_max: int):
+    """(B, l_max) int8 codes padded 4 and (B,) rlens; lanes past the reads are pads."""
+    reads = np.full((B, l_max), 4, np.int8)
+    rlens = np.zeros(B, np.int32)
+    for i, s in enumerate(seqs):
+        reads[i, : len(s)] = s
+        rlens[i] = len(s)
+    return reads, rlens
+
+
+def repeat_window(gidx, tb, span: int) -> int:
+    """Start of the forward-strand window of `span` bases whose 13-mers occur
+    most often (each counted at most 8 times, so that a 40-base motif with
+    hundreds of copies does not outweigh a long repeat): a copy of the
+    genome's 5 kb repeat family."""
+    codes = gidx.ref_codes[: gidx.genome_size].astype(np.int64)
+    km = np.zeros(len(codes) - 12, np.int64)
+    for i in range(13):
+        km = (km << 2) | codes[i : i + len(km)]
+    c = np.concatenate([[0], np.cumsum(np.minimum(np.diff(tb.table_lo_np)[km], 8))])
+    return int(np.argmax(c[span:] - c[:-span]))
+
+
+def sens_fm_bound(fm, codes, rl, out, stats, l2_load_ns: float) -> dict:
+    """Bound of one SensitiveMode FM-stepper call, as fm_bound: the reads in
+    and the seed rows out once, the index rows of this run's extension steps
+    (at most the whole index), 160 operations a step; and the chain, the
+    trips of the lane that ran most of them times the latency of a dependent
+    load that hits L2."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    steps, trips = int(stats["steps"].sum()), int(stats["trips"].max())
+    index = fm.occ_cp.nbytes + fm.bwt_words.nbytes
+    t_b, by = bound_ms(codes.nbytes + rl.nbytes + out.nbytes + min(128 * steps, index), 160 * steps)
+    chain = trips * l2_load_ns / 1e6
+    return dict(bound_ms=max(t_b, chain), bound_by="chain" if chain > t_b else by, chain_ms=chain,
+                bytes_ms=t_b, bytes_by=by, steps=steps, trips=trips)
+
+
+def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops.fm_search import FMIndexTensors, sensitive_scan_plain
+    from kart_tpu_torch.ops.kmer_seed import (
+        HIT_BUDGET, SLAB_ROWS, KmerTablesTensors, hit_cap_for, kmer_seed_scan_plain,
+    )
+    from kart_tpu_torch.ops.pack import pack_reads_2bit, unpack_reads_plain
+    from kart_tpu_torch.ops.resolve import resolve_pack_plain
+    from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+    from kart_tpu_torch.tools import bench_kernels, simdata
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    from kart_tpu_torch.native.post import load_postlib
+
+    load_postlib()  # built before the packer is timed
+    msl = compute_min_seed_length(gidx.two_genome_size)
+    tt = KmerTablesTensors.from_tables(tb, "cuda")
+    fm = FMIndexTensors.from_genome_index(gidx, "cuda")
+    load_ns = bench_kernels.dependent_load_ns()
+    genome = simdata.read_genome_fasta(os.path.join(DATA, "genome.fa"))
+    to_code = np.full(256, 4, np.int8)
+    to_code[_ACGT] = np.arange(4)
+
+    def case(name, reads_i8, rlens, l_max, timed=False):
+        """Both kernels and resolve_pack on one batch against their plain
+        versions; the funnel's ok lanes must carry the stepper's seeds."""
+        B = reads_i8.shape[0]
+        ms, H = l_max // msl + 2, B * max(64, l_max // 24)
+        t0 = time.perf_counter()
+        words, amb_r, amb_p = pack_reads_2bit(reads_i8)
+        pack_s = time.perf_counter() - t0
+        w, ar, ap, rl = (torch.from_numpy(words.view(np.int32)).cuda(), torch.from_numpy(amb_r).cuda(),
+                         torch.from_numpy(amb_p).cuda(), torch.from_numpy(rlens).cuda())
+        ka = dict(max_seeds=ms, l_max=l_max, hit_cap=hit_cap_for(tb.max_mult),
+                  rounds=l_max // msl + 8, slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET, sensitive=True)
+        kb = dict(max_seeds=ms, l_max=l_max)
+        codes = kernels.unpack_reads(w, ar, ap, l_max=l_max)
+        err = require_equal(codes, unpack_reads_plain(w, ar, ap, l_max), f"unpack_reads ({name})")
+        st_a: list = []
+        st_b: dict = {}
+        got_a = kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka)
+        err = max(err, require_equal(got_a, kmer_seed_scan_plain(tt, codes, rl, msl, stats=st_a, **ka),
+                                     f"SensitiveMode kmer_funnel ({name})"))
+        got_b = kernels.fm_sensitive_scan(fm, codes, rl, msl, **kb)
+        err_b = require_equal(got_b, sensitive_scan_plain(fm, codes, rl, msl, stats=st_b, **kb),
+                              f"fm_sensitive_scan ({name})")
+        ok = got_a[:, 1] != 0
+        if not torch.equal(torch.cat([got_a[:, :1], got_a[:, 2:]], dim=1)[ok], got_b[ok]):
+            raise AssertionError(f"{name}: a lane the funnel calls ok differs from the FM stepper's")
+        n_occ = []
+        for packed, has_ok in ((got_a, True), (got_b, False)):
+            rk = dict(max_seeds=ms, has_ok=has_ok, occ_budget=H, pack16=False)
+            stream = kernels.resolve_pack(tt.sa_full, packed, **rk)
+            err = max(err, require_equal(stream, resolve_pack_plain(tt.sa_full, packed, **rk),
+                                         f"resolve_pack ({name}, has_ok {has_ok})"))
+            n_occ.append(int((stream[B + H:] >= 0).sum()))
+        res = dict(err=err, err_b=err_b, flagged=int((~ok).sum()), seeds=int(got_b[:, 0].sum()),
+                   n_amb=len(amb_r), n_occ=n_occ, B=B, l_max=l_max, H=H, pack_s=pack_s)
+        print(f"phase 7 {name}: B={B} l_max={l_max} max_seeds={ms}: kmer_funnel, fm_sensitive_scan"
+              f" and resolve_pack (H={H}, 32-bit) equal their plain versions;"
+              f" {int(got_a[:, 0].sum())} funnel seeds, {res['seeds']} stepper seeds, {res['flagged']}"
+              f" lanes flagged, {n_occ[0]} and {n_occ[1]} occurrences, {res['n_amb']} ambiguity entries"
+              f" (the host packer took {1e3 * pack_s:.3f} ms)")
+        if timed:
+            reps = dict(reps=8, n_small=4, n_big=36)
+            rk = dict(max_seeds=ms, has_ok=True, occ_budget=H, pack16=False)
+            t_a = time_both(lambda: kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka), **reps)
+            t_b = time_both(lambda: kernels.fm_sensitive_scan(fm, codes, rl, msl, **kb), **reps)
+            t_r = time_both(lambda: kernels.resolve_pack(tt.sa_full, got_a, **rk))
+            t_u = time_both(lambda: kernels.unpack_reads(w, ar, ap, l_max=l_max))
+            res.update(
+                t_a=t_a, t_b=t_b, t_r=t_r, t_u=t_u,
+                p_a=once_ms(lambda: kmer_seed_scan_plain(tt, codes, rl, msl, **ka)),
+                # the plain stepper runs for half a minute whatever the batch: timed once
+                p_b=(once_ms(lambda: sensitive_scan_plain(fm, codes, rl, msl, **kb))
+                     if timed == "with plain" else None),
+                p_r=cuda_ms(lambda: resolve_pack_plain(tt.sa_full, got_a, **rk), 2),
+                b_a=funnel_bound(tt, (w, ar, ap, rl), got_a, st_a, load_ns),
+                b_b=sens_fm_bound(fm, codes, rl, got_b, st_b, l2_load_ns),
+                b_r=resolve_bound(tt.sa_full, got_a, kernels.resolve_pack(tt.sa_full, got_a, **rk),
+                                  n_occ[0], load_ns))
+            parts = bench_kernels.device_us_by_kernel(
+                lambda: kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka), reps=3)
+            res["parts_a"] = ", ".join(f"{short(k)} {v:.2f}" for k, v in sorted(parts.items()))
+        return res
+
+    seqs = fastq_codes(pb, PB_B)
+    group = case("group", *pad_batch(seqs, PB_B, PB_L), PB_L, timed="with plain")
+    reseed = case("re-seed layout", *pad_batch(seqs[:10], 16, PB_L), PB_L, timed="kernels")
+
+    # l_max 32768: long reads with the same error model, one of exactly
+    # 32,768 bases, an all-N read, a read below the minimal seed, pad lanes
+    rng = np.random.default_rng(77)
+    long_reads = []
+    for i in range(8):
+        rl = PB_LONG_L if i == 0 else int(rng.integers(20000, 30001))
+        p0 = int(rng.integers(0, len(genome) - 2 * rl))
+        long_reads.append(to_code[np.frombuffer(
+            simdata.noisy_copy(rng, genome[p0 : p0 + int(rl * 1.3)], rl), np.uint8)])
+    long_reads += [np.full(900, 4, np.int8), long_reads[1][: msl - 1]]
+    if len(long_reads[0]) != PB_LONG_L:
+        raise AssertionError("the first long read is not of exactly l_max bases")
+    longc = case("l_max 32768", *pad_batch(long_reads, 16, PB_LONG_L), PB_LONG_L)
+
+    # 16 reads of 3 kb from one copy of a repeat family: each round's hits
+    # overrun the budget of 4 a lane, so lanes are flagged
+    p0 = repeat_window(gidx, tb, 4000)
+    rep_reads = [to_code[np.frombuffer(simdata.noisy_copy(
+        rng, genome[p0 + 40 * i : p0 + 40 * i + 3900], 3000, err=0.05), np.uint8)] for i in range(16)]
+    flagged = case("repeat family", *pad_batch(rep_reads, 16, 4096), 4096)
+    if flagged["flagged"] == 0:
+        raise AssertionError("the repeat-family batch flagged no lane")
+    if longc["seeds"] == 0 or group["seeds"] == 0:
+        raise AssertionError("a SensitiveMode batch has no seeds")
+
+    for r in (group, reseed):
+        a, b = r["b_a"], r["b_b"]
+        print(
+            f"phase 7 times B={r['B']} l_max={r['l_max']}: kmer_funnel (sensitive) slope"
+            f" {1e3 * r['t_a'][0]:.4f} ms, per call {1e3 * r['t_a'][1]:.4f} ms, plain {r['p_a']:.4f} ms;"
+            f" rounds {a['rounds']}, {a['lookups']} 13-mer lookups, {a['hits']} hits, {a['bytes']} bytes:"
+            f" bound {a['bound_ms']:.4f} ms ({a['bound_by']}); dependent load {load_ns:.1f} ns, chain"
+            f" {max(a['rounds'])} rounds x 3 loads = {a['chain_ms']:.4f} ms; by launch (torch.profiler,"
+            f" us): {r['parts_a']}"
+        )
+        print(
+            f"phase 7 times B={r['B']} l_max={r['l_max']}: fm_sensitive_scan slope"
+            f" {1e3 * r['t_b'][0]:.4f} ms, per call {1e3 * r['t_b'][1]:.4f} ms, plain"
+            f" {'not timed' if r['p_b'] is None else format(r['p_b'], '.4f') + ' ms'};"
+            f" {b['steps']} extension steps, longest lane {b['trips']} trips; dependent load that hits L2"
+            f" {l2_load_ns:.1f} ns: chain {b['chain_ms']:.4f} ms, bytes and operations"
+            f" {b['bytes_ms']:.4f} ms ({b['bytes_by']}): bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+        )
+        print(
+            f"phase 7 times B={r['B']} l_max={r['l_max']}: resolve_pack H={r['H']} 32-bit slope"
+            f" {1e3 * r['t_r'][0]:.4f} ms, per call {1e3 * r['t_r'][1]:.4f} ms, plain {r['p_r']:.4f} ms,"
+            f" bound {r['b_r']['bound_ms']:.4f} ms ({r['b_r']['bound_by']}); unpack_reads"
+            f" ({r['n_amb']} ambiguity entries) slope {1e3 * r['t_u'][0]:.4f} ms, per call"
+            f" {1e3 * r['t_u'][1]:.4f} ms"
+        )
+    err = max(c["err"] for c in (group, reseed, longc, flagged))
+    err_b = max(c["err_b"] for c in (group, reseed, longc, flagged))
+
+    def rec(r, t, p, b, e):
+        return dict(ms=1e3 * r[t][0], plain_ms=r[p], err=e, bound_ms=r[b]["bound_ms"],
+                    bound_by=r[b]["bound_by"])
+
+    shape = f"B {PB_B}, l_max {PB_L}, simulated PacBio reads of 5-7 kb"
+    lay = f"B 16, of which 10 reads, l_max {PB_L}"
+    return dict(
+        funnel=dict(rec(group, "t_a", "p_a", "b_a", err), shape=shape,
+                    chain_ms=group["b_a"]["chain_ms"],
+                    reseed_layout=dict(rec(reseed, "t_a", "p_a", "b_a", err), shape=lay)),
+        fm=dict(rec(group, "t_b", "p_b", "b_b", err_b), shape=shape,
+                reseed_layout=dict(rec(reseed, "t_b", "p_b", "b_b", err_b), shape=lay)))
+
+
+def short(kernel_name: str) -> str:
+    """A profiler's kernel name without its namespace and argument list; a
+    copy keeps its direction."""
+    if kernel_name.startswith("Mem"):
+        return kernel_name
+    return kernel_name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
+def once_ms(fn) -> float:
+    """Device time of one fn() in ms, no warm-up: for plain versions that run
+    for seconds."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+PB_KERNELS = ("kmer_funnel", "resolve_pack", "fm_sensitive_scan", "unpack_reads", "fm_seed_scan",
+              "nw_planes")
+
+
+def phase_pacbio_slice(prefix: str, pb: str) -> dict:
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.tools import simdata
+    from kart_tpu_torch.tools.bench_kernels import busy_seconds, device_spans
+
+    n_all = simdata.PB_N_READS
+    sam = {k: os.path.join(DATA, f"pb_{k}.sam") for k in ("dev", "nat", "cpu", "gate0", "py", "prof")}
+    base = ["-i", prefix, "-pacbio", "-silent"]
+
+    def device_run(reads, out, extra=()):
+        """One CLI run with the launch counts set to 0 just before it and
+        read just after: (log, launches)."""
+        for k in PB_KERNELS:
+            getattr(kernels, k).launches = 0
+        log = run_cli([*base, "-f", reads, "-o", out, *extra])
+        torch.cuda.synchronize()
+        return log, {k: getattr(kernels, k).launches for k in PB_KERNELS}
+
+    def counts(log, dev):
+        g = re.search(rf"groups on {dev} = (\d+), flagged lanes = (\d+), re-seeded on the device ="
+                      r" (\d+), on the host = (\d+)", log)
+        return tuple(int(x) for x in g.groups())
+
+    def times(log):
+        m = re.search(r"set-up ([\d.]+) s .*mapping ([\d.]+) s", log)
+        return float(m.group(1)), float(m.group(2))
+
+    os.environ["KART_SEED_MODE"] = "device"
+    try:
+        log, launches = device_run(pb, sam["dev"])  # (a)
+        setup_s, map_s = times(log)
+        groups, flagged, on_dev, on_host = counts(log, "cuda")
+        per_group = re.search(r"per group: (.*)", log).group(1)
+        sens = re.search(r"sensitivity = ([\d.]+)%", log).group(1)
+        recs = sam_records(sam["dev"])
+        if len(recs) != n_all:
+            raise AssertionError(f"{len(recs)} SAM records for {n_all} PacBio reads")
+        # (c) the first reads again with -cpu (plain versions)
+        run_cli([*base, "-f", head_fastq(pb, os.path.join(DATA, "pb_cpu.fq"), PB_CPU_READS),
+                 "-o", sam["cpu"], "-cpu"])
+        if sam_records(sam["cpu"]) != recs[:PB_CPU_READS]:
+            raise AssertionError("PacBio: the -cpu SAM of the first reads differs from the device run's")
+        # (d) the FM stepper as the seeder: the funnel's gate refuses every genome
+        os.environ["KART_KMER_GATE"] = "0"
+        try:
+            log0, launches0 = device_run(
+                head_fastq(pb, os.path.join(DATA, "pb_gate0.fq"), PB_GATE0_READS), sam["gate0"])
+        finally:
+            del os.environ["KART_KMER_GATE"]
+        g0 = counts(log0, "cuda")
+        map0 = times(log0)[1]
+        if sam_records(sam["gate0"]) != recs[:PB_GATE0_READS]:
+            raise AssertionError("PacBio: the SAM with KART_KMER_GATE=0 differs from the funnel run's")
+        if launches0["kmer_funnel"] != 0 or launches0["fm_sensitive_scan"] == 0:
+            raise AssertionError(f"KART_KMER_GATE=0 did not seed with the FM stepper: {launches0}")
+        # run (a) again under the profiler: the card's busy share
+        cpu_fq = os.path.join(DATA, "pb_cpu.fq")
+        prof_log: list = []
+        spans = device_spans(lambda: prof_log.append(run_cli([*base, "-f", pb, "-o", sam["prof"]])),
+                             warm=lambda: run_cli([*base, "-f", cpu_fq, "-o", sam["cpu"] + ".warm"]))
+        prof_map = times(prof_log[0])[1]
+    finally:
+        del os.environ["KART_SEED_MODE"]
+    if launches["kmer_funnel"] == 0 or launches["resolve_pack"] == 0:
+        raise AssertionError(f"a kernel of the PacBio path never launched: {launches}")
+    if sam_records(sam["prof"]) != recs:
+        raise AssertionError("PacBio: the profiled run's SAM differs")
+    # (b) the native mode on the same reads
+    t0 = time.perf_counter()
+    log_nat = run_cli([*base, "-f", pb, "-o", sam["nat"]])
+    nat_wall = time.perf_counter() - t0
+    nat_setup, nat_map = times(log_nat)
+    if sam_records(sam["nat"]) != recs:
+        raise AssertionError("PacBio: the device-pipelined SAM differs from the native mode's")
+    # (e) the python backend on the first reads
+    for k in PB_KERNELS:
+        getattr(kernels, k).launches = 0
+    t0 = time.perf_counter()
+    log_py = run_cli([*base, "-f", head_fastq(pb, os.path.join(DATA, "pb_py.fq"), PB_PY_READS),
+                      "-o", sam["py"], "-backend", "python"])
+    py_wall = time.perf_counter() - t0
+    launches_py = {k: getattr(kernels, k).launches for k in PB_KERNELS}
+    if sam_records(sam["py"]) != recs[:PB_PY_READS]:
+        raise AssertionError("PacBio: the python backend's SAM differs from the native mode's")
+    if launches_py["fm_sensitive_scan"] == 0:
+        raise AssertionError(f"the python backend did not seed on the card: {launches_py}")
+    # POS is the first aligned base: the read's simulated start is POS less
+    # the leading soft clip (the engine clips a noisy head)
+    near = near_raw = mapped = 0
+    for rec in recs:
+        f = rec.split(b"\t")
+        if not int(f[1]) & 0x4:
+            mapped += 1
+            clip = re.match(rb"(\d+)S", f[5])
+            d = int(f[3]) - int(f[0].split(b"Pos=")[1])
+            near_raw += abs(d) <= 50
+            near += abs(d - (int(clip.group(1)) if clip else 0)) <= 50
+    if near < 0.9 * n_all:
+        raise AssertionError(f"only {near} of {n_all} PacBio reads within 50 bp of their position")
+    total = {k: launches[k] + launches0[k] for k in PB_KERNELS}
+    if total["kmer_funnel"] == 0 or total["fm_sensitive_scan"] == 0:
+        raise AssertionError(f"a SensitiveMode kernel never launched on the PacBio path: {total}")
+    # the mapping begins with the first group's pinned upload; what the device
+    # ran before it is the set-up's (the tables' pageable uploads)
+    first = next((k for k, sp in enumerate(spans) if "Pinned -> Device" in sp[2]), None)
+    if first is None:
+        raise AssertionError("the profile holds no pinned upload of a group")
+    setup_busy = busy_seconds(spans[:first])[0] if first else 0.0
+    busy_s, span_s = busy_seconds(spans[first:])
+    by_name: dict = {}
+    for t0, t1, name in spans[first:]:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + t1 - t0, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    seen = sum(n for k, (_, n) in by_name.items() if "funnel_kernel" in k)
+    whole = "" if seen == launches["kmer_funnel"] else (
+        f" PROFILE INCOMPLETE: {seen} of {launches['kmer_funnel']} funnel launches seen;")
+    print(f"phase 8 pacbio slice: {n_all} reads of 5-7 kb, -pacbio KART_SEED_MODE=device on the card")
+    print(f"phase 8 reads/s: {n_all / map_s:.1f} (mapping {map_s:.3f} s); set-up {setup_s:.3f} s;"
+          f" native mode: {n_all / nat_map:.1f} reads/s (mapping {nat_map:.3f} s, set-up"
+          f" {nat_setup:.3f} s, CLI wall {nat_wall:.3f} s)")
+    print(f"phase 8 groups {groups}; launches {launches}; flagged lanes {flagged}, re-seeded on the"
+          f" card {on_dev}, on the host {on_host}; {per_group}; mapped {sens}%, POS within 50 bp of the"
+          f" simulated position {near_raw}/{mapped}, with the leading soft clip taken off"
+          f" {near}/{mapped}; SAM records equal to the native mode's; first"
+          f" {PB_CPU_READS} reads: -cpu SAM records equal")
+    print(f"phase 8 KART_KMER_GATE=0, first {PB_GATE0_READS} reads: groups {g0[0]}, launches"
+          f" {launches0}, flagged {g0[1]}, mapping {map0:.3f} s, SAM records equal")
+    print(f"phase 8 -backend python, first {PB_PY_READS} reads: {py_wall:.3f} s, launches"
+          f" {launches_py}, SAM records equal; {re.search(r'# of NW fragments.*', log_py).group(0)}")
+    print(f"phase 8 device busy (torch.profiler over run (a) again, mapping {prof_map:.3f} s):"
+          f" {1e3 * busy_s:.3f} ms busy = {100 * busy_s / prof_map:.4f}% of the mapping time, within"
+          f" {span_s:.3f} s from the first group's upload to the last device activity"
+          f" (the set-up's uploads before it: {1e3 * setup_busy:.3f} ms);"
+          f"{whole}"
+          " device ms by name (launches): "
+          + ", ".join(f"{short(k)} {us / 1e3:.3f} ({n})" for k, (us, n) in top))
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -763,7 +1162,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--compare", metavar="DIR", default=None,
                     help="a checkout of another commit whose NW, FM stepper, funnel and"
                          " resolve_pack phases 1, 2 and 4 time beside this one's")
+    ap.add_argument("--phases", metavar="LIST", default=None,
+                    help="run only these phases beside phase 0 and the set-up, e.g. 7,8 (a partial"
+                         " run prints no kernels record and no result line, and exits 4)")
     args = ap.parse_args(argv)
+    only = None if args.phases is None else {int(x) for x in args.phases.split(",")}
+
+    def want(n: int) -> bool:
+        return only is None or n in only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -799,31 +1205,53 @@ def main(argv: list[str] | None = None) -> int:
         other = load_kernels_module(os.path.join(args.compare, "kart_tpu_torch", "kernels.py"),
                                     "kart_tpu_torch_compared_kernels")
         other.build()
-    nw = phase_nw(np.random.default_rng(2024), other)
+    if want(1):
+        nw = phase_nw(np.random.default_rng(2024), other)
     t0 = time.perf_counter()
     prefix = build_genome_index()
     gidx = load_index(prefix)
     print(f"setup: genome {gidx.genome_size} bp indexed and loaded in {time.perf_counter() - t0:.1f} s")
-    fm = phase_fm(gidx, other)
-    launches = phase_slice(prefix)
+    if want(2):
+        fm = phase_fm(gidx, other)
+    else:
+        from kart_tpu_torch.tools.bench_kernels import dependent_load_ns
+
+        fm = dict(l2_ns=dependent_load_ns(working_set_bytes=3 * gidx.seq_len // 8))
+    if want(3):
+        launches = phase_slice(prefix)
     from kart_tpu_torch.ops.kmer_seed import build_tables
+    from kart_tpu_torch.tools import simdata
 
     t0 = time.perf_counter()
     tb = build_tables(gidx)
     print(f"setup: funnel tables built or loaded in {time.perf_counter() - t0:.1f} s"
           f" (max 13-mer multiplicity {tb.max_mult})")
-    funnel = phase_funnel(gidx, tb, other, fm["l2_ns"])
+    if want(4):
+        funnel = phase_funnel(gidx, tb, other, fm["l2_ns"])
     del tb
-    gather = phase_gather()
-    dev_launches = phase_device_slice(prefix)
+    if want(5):
+        gather = phase_gather()
+    if want(6):
+        dev_launches = phase_device_slice(prefix)
+    t0 = time.perf_counter()
+    pb = os.path.join(DATA, "pb.fq")
+    simdata.simulate_pacbio_reads(simdata.read_genome_fasta(os.path.join(DATA, "genome.fa")), pb)
+    print(f"setup: {simdata.PB_N_READS} PacBio reads simulated in {time.perf_counter() - t0:.1f} s")
+    if want(7):
+        sens = phase_sensitive(gidx, build_tables(gidx), pb, fm["l2_ns"])
+    if want(8):
+        pb_launches = phase_pacbio_slice(prefix, pb)
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
     if loaded:
         raise AssertionError(f"the port imported {loaded}")
+    if only is not None:
+        print(f"partial run (phases {sorted(only)}): no kernels record, no result")
+        return 4
 
     def entry(name, source, replaces, n_launches, r, library_ms=None):
         # shape, reseed_layout: what a record's times refer to, where phase lines alone do not say
-        extra = {k: r[k] for k in ("shape", "reseed_layout") if k in r}
+        extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms") if k in r}
         return dict(name=name, route="cuda", source=f"kart_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=n_launches, max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -831,8 +1259,9 @@ def main(argv: list[str] | None = None) -> int:
 
     fm["err"] = max(fm["err"], funnel["fm_err"])
     # library_ms: table[rid] for the row gather; no one PyTorch call computes
-    # an FM backward search, an NW traceback plane, the funnel's rounds, the
-    # budgeted expansion into a packed stream or the 2-bit unpack
+    # an FM backward search (windowed or not), an NW traceback plane, the
+    # funnel's rounds in either mode, the budgeted expansion into a packed
+    # stream or the 2-bit unpack
     record = {"kernels": [
         entry("fm_seed_scan", "fm_seed_scan.cu", "kart_tpu/ops/fm_search.py:165",
               launches["fm_seed_scan"] + dev_launches["fm_seed_scan"], fm),
@@ -841,11 +1270,16 @@ def main(argv: list[str] | None = None) -> int:
         entry("kmer_funnel", "kmer_funnel.cu",
               "kart_tpu/ops/kmer_seed.py:272 and kart_tpu/ops/pack.py:98",
               dev_launches["kmer_funnel"], funnel["funnel"]),
+        entry("kmer_funnel_sensitive", "kmer_funnel.cu",
+              "kart_tpu/ops/kmer_seed.py:327 (sensitive=True) and kart_tpu/ops/pack.py:98",
+              pb_launches["kmer_funnel"], sens["funnel"]),
+        entry("fm_sensitive_scan", "fm_seed_scan.cu", "kart_tpu/ops/fm_search.py:287",
+              pb_launches["fm_sensitive_scan"], sens["fm"]),
         entry("resolve_pack", "resolve_pack.cu",
               "kart_tpu/ops/resolve.py:47 and kart_tpu/ops/pack.py:161",
-              dev_launches["resolve_pack"], funnel["resolve"]),
+              dev_launches["resolve_pack"] + pb_launches["resolve_pack"], funnel["resolve"]),
         entry("unpack_reads", "kmer_funnel.cu", "kart_tpu/ops/pack.py:98",
-              dev_launches["unpack_reads"], funnel["unpack"]),
+              dev_launches["unpack_reads"] + pb_launches["unpack_reads"], funnel["unpack"]),
         entry("row_gather", "row_gather.cu", "tools/bench_gather.py:208", gather["launches"],
               gather, gather["library_ms"]),
     ]}

@@ -3,7 +3,7 @@
   python -m kart_tpu_torch.cli index ref.fa prefix
   python -m kart_tpu_torch.cli -i prefix -f r1 [...] [-f2 r2 [...]]
          [-o out.sam | -bo out.bam] [-backend native|python] [-cpu]
-         [-t N] [-g N] [-m] [-p] [-silent] [-d]
+         [-pacbio] [-t N] [-g N] [-m] [-p] [-silent] [-d]
 
 The default native backend maps with the host C++ engine (native/kart_post.cpp); with
 KART_SEED_MODE=device it seeds, resolves and packs on the device through
@@ -11,8 +11,9 @@ the port's kernels and maps the downloaded stream with the C++ engine (the
 device-pipelined mode).  `-backend python` runs the python pipeline around
 device seeding and device NW.  Device work runs on the CUDA device; `-cpu`
 selects the CPU and the kernels' plain versions instead, and without `-cpu`
-and without a CUDA device a mode that needs the device fails.  `-pacbio` and
-`-idx-shards` raise NotImplementedError.
+and without a CUDA device a mode that needs the device fails.  `-pacbio`
+maps PacBio reads in all three modes (SensitiveMode seeding); `-idx-shards`
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def usage(prog: str) -> None:
     print("         -m            output multiple alignments")
     print("         -g INT        max gaps (indels) [5]")
     print("         -p            paired-end reads are interlaced in the same file")
-    print("         -pacbio       pacbio data (not ported yet)")
+    print("         -pacbio       pacbio data")
     print("         -cpu          run on the CPU with the kernels' plain versions")
     print("         -backend B    native (C++ engine, default) or python")
     print("         -idx-shards N shard the FM-index over N devices (not ported yet)")

@@ -1,10 +1,11 @@
-// FastMode 13-mer funnel for Hopper (sm_90a): 2-bit read unpack plus the
-// round loop of the direct-lookup seeding scan, one thread-block cluster per
-// slab.
+// The 13-mer funnel for Hopper (sm_90a), FastMode and SensitiveMode: 2-bit
+// read unpack plus the round loop of the direct-lookup seeding scan, one
+// thread-block cluster per slab.  The mode is a template parameter of one
+// kernel (see "SensitiveMode" below for what it changes).
 //
 // Replaces kart_tpu/ops/pack.py::unpack_reads_device followed by
-// kart_tpu/ops/kmer_seed.py::kmer_seed_scan(sensitive=False), whose slab
-// body (_kmer_seed_scan_slab with _distance_tables and round_body) XLA ran
+// kart_tpu/ops/kmer_seed.py::kmer_seed_scan (either value of `sensitive`),
+// whose slab body (_kmer_seed_scan_slab with _distance_tables and round_body) XLA ran
 // as some twenty batched gathers, cumsums and segment maxima per round.
 // The plain PyTorch version is kart_tpu_torch/ops/kmer_seed.py::
 // kmer_seed_scan_plain after ops/pack.py::unpack_reads_plain; the output is
@@ -56,6 +57,25 @@
 // the same number of rounds and reaches every cluster.sync(), blocks whose
 // lanes are all past B included.
 //
+// SensitiveMode (PacBio; kart_tpu's sensitive=True): every lane restarts
+// once a round, an extension is capped at a 30-base window, a recorded seed
+// restarts at its end and a failed one MinSeed past its start, and there is
+// no sub-13 length.  The scan, the budget exchange and the ok flag are the
+// same code.  What differs:
+//   residency  reads go up to 32,768 bases (2,048 words a lane), a few
+//             hundred lanes run hundreds to thousands of rounds, and a
+//             round touches four words of a read.  So nothing of a read
+//             lives in shared memory: phase A reads the lane's two mask
+//             words and four read words at its restart from global memory
+//             (a 640 x 8192 group is 1.3 MB and stays in L2), cleans them
+//             and stages the four words in shared memory for phase B.  One
+//             plan for every l_max;
+//   phase A   the first-ambiguous search stops after 32 bases (only
+//             min(., 30) and ">= 13" of it are used); a lane that can start
+//             no further seed is skipped;
+//   phase B   W = 4 text words a hit instead of l_max / 16 + 2;
+//   phase C   the advance rules above.
+//
 // What bounds it on this card: the dependent chain of rounds within a slab
 // (each round: table_lo, then sa_full, then the text words, three dependent
 // random loads from tables beyond L2, plus one cluster barrier), not bytes:
@@ -82,8 +102,12 @@ constexpr int kK = 13;
 constexpr int kOccThr = 50;
 constexpr int kIdxBits = 20;
 constexpr int kIdxMask = (1 << kIdxBits) - 1;
-constexpr int kDambBits = 10;
-constexpr int kStartMax = (1 << (29 - kDambBits)) - 1;
+constexpr int kWin = 30;        // SensitiveMode's extension window, bases
+constexpr int kSensWords = 4;   // read and text words that cover it at any shift
+constexpr int kSkipMax = 0x7FFF;  // the 15-bit field of the JAX restart skip
+// Width of the (damb - 1) field, which also bounds the packed hit start.
+template <bool kSens> constexpr int kDambBits = kSens ? 5 : 10;
+template <bool kSens> constexpr int kStartMax = (1 << (29 - kDambBits<kSens>)) - 1;
 constexpr int kOvfBit = 1 << 30;  // overflow flag beside the seed count
 constexpr int kMaxThreads = 1024;
 constexpr int kLaneArrays = 9;  // shared int arrays of LB lanes
@@ -113,6 +137,7 @@ struct Funnel {
   int H;     // hits per slab and round
   int LB;    // lanes per block: ceil(slab / cluster)
   int LS;    // lane stride of the shared word arrays (odd: LB | 1)
+  int nrw;   // read words a lane keeps in shared memory: nwl, SensitiveMode 4
   int* out;  // (B, 2 + 4 * max_seeds)
 };
 
@@ -128,18 +153,31 @@ __device__ __forceinline__ unsigned text_word(const Funnel& f, int w) {
   return __ldg(f.text_words + w);
 }
 
+// Ambiguity word wi of lane l of the block, row `row` of the batch: from the
+// block's shared copy, or in SensitiveMode from the global mask.
+template <bool kSens>
+__device__ __forceinline__ unsigned amb_word(const Funnel& f, const unsigned* am, int l, int row,
+                                             int wi) {
+  return kSens ? __ldg(f.ambm + (size_t)row * f.nab + wi) : am[wi * f.LS + l];
+}
+
 // Distance from j (< l_max) to the first position at or after j whose
-// ambiguity is `amb`, or l_max if there is none (the JAX distance tables).
-__device__ int dist_to(const Funnel& f, const unsigned* am, int l, int j, bool amb) {
-  for (int wi = j >> 5; wi < f.nab; ++wi) {
-    unsigned bits = am[wi * f.LS + l];
+// ambiguity is `amb`, looking at most `cap` bases ahead: min(distance, cap),
+// and cap if there is none.  With cap = l_max these are the JAX distance
+// tables.
+template <bool kSens>
+__device__ int dist_to(const Funnel& f, const unsigned* am, int l, int row, int j, bool amb,
+                       int cap) {
+  const int wend = min(f.nab, ((j + cap - 1) >> 5) + 1);
+  for (int wi = j >> 5; wi < wend; ++wi) {
+    unsigned bits = amb_word<kSens>(f, am, l, row, wi);
     if (!amb) bits = ~bits;
     if (wi == (j >> 5)) bits &= ~0u << (j & 31);
     const int valid = f.l_max - wi * 32;
     if (valid < 32) bits &= (1u << valid) - 1u;
-    if (bits) return wi * 32 + __ffs(bits) - 1 - j;
+    if (bits) return min(wi * 32 + __ffs(bits) - 1 - j, cap);
   }
-  return f.l_max;
+  return cap;
 }
 
 // The 16 2-bit groups of x in reverse order.
@@ -149,11 +187,9 @@ __device__ __forceinline__ unsigned reverse_pairs(unsigned x) {
 }
 
 // 13-mer id at j (first base in the high bits; ambiguous and past-the-end
-// bases are 0 in the read words): the 26 bits at base j of two adjacent
-// words, their 2-bit groups reversed.
-__device__ __forceinline__ int kmer_at(const Funnel& f, const unsigned* rw, int l, int j) {
-  const int w = j >> 4;
-  const unsigned lo = lane_word(rw, f.LS, f.nwl, l, w), hi = lane_word(rw, f.LS, f.nwl, l, w + 1);
+// bases are 0 in the read words): the 26 bits at base j of the word that
+// holds j and the next one, their 2-bit groups reversed.
+__device__ __forceinline__ int kmer_of(unsigned lo, unsigned hi, int j) {
   const unsigned x = __funnelshift_r(lo, hi, 2 * (j & 15)) & ((1u << (2 * kK)) - 1u);
   return (int)(reverse_pairs(x) >> (32 - 2 * kK));
 }
@@ -165,6 +201,15 @@ __device__ __forceinline__ unsigned double_bits(unsigned x) {
   x = (x | (x << 2)) & 0x33333333u;
   x = (x | (x << 1)) & 0x55555555u;
   return x | (x << 1);
+}
+
+// Read word w (16 bases) with its ambiguous bases, given as the 32 mask bits
+// of words w & ~1 and w | 1, and the bases past l_max set to 0.
+__device__ __forceinline__ unsigned clean_word(const Funnel& f, unsigned v, unsigned amw, int w) {
+  v &= ~double_bits((amw >> (16 * (w & 1))) & 0xFFFFu);
+  const int valid = f.l_max - 16 * w;  // > 0
+  if (valid < 16) v &= (1u << (2 * valid)) - 1u;
+  return v;
 }
 
 // Two words per block to every block of the cluster: each block writes
@@ -195,6 +240,7 @@ __global__ void amb_scatter_kernel(const int* __restrict__ amb_r, const int* __r
   atomicOr(ambm + (size_t)r * nab + (q >> 5), 1u << (q & 31));
 }
 
+template <bool kSens>
 __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   extern __shared__ int smem[];
   __shared__ int s_warp[kMaxThreads / 32];
@@ -216,8 +262,10 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   int* s_a1 = s_aux + LB;   // max of (lcp+1) << 20 | (IDXM - idx)
   int* s_a2 = s_a1 + LB;    // max of (lcp+1) << 20 | idx, bogus 1 << 30
   int* s_rl = s_a2 + LB;    // read length
-  unsigned* s_rw = reinterpret_cast<unsigned*>(s_rl + LB);  // nwl words per lane
-  unsigned* s_am = s_rw + (size_t)f.nwl * LS;               // nab mask words per lane
+  // nrw read words per lane: the whole read, or in SensitiveMode the four at
+  // this round's restart
+  unsigned* s_rw = reinterpret_cast<unsigned*>(s_rl + LB);
+  unsigned* s_am = s_rw + (size_t)f.nrw * LS;  // nab mask words per lane (FastMode only)
   const int t = threadIdx.x, nt = blockDim.x;
   const int lane0 = rank * LB;  // first slab lane of this block
   const int row0 = (int)(blockIdx.x / C) * f.slab + lane0;
@@ -229,16 +277,15 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   // no block may write into a peer's shared memory before the peer runs
   cluster.sync();
 
-  for (int i = t; i < nl * f.nab; i += nt)
-    s_am[(i % f.nab) * LS + i / f.nab] = f.ambm[(size_t)row0 * f.nab + i];
-  __syncthreads();
-  for (int i = t; i < nl * f.nwl; i += nt) {
-    const int l = i / f.nwl, w = i % f.nwl;
-    unsigned v = f.words[(size_t)row0 * f.nwl + i];
-    v &= ~double_bits((s_am[(w >> 1) * LS + l] >> (16 * (w & 1))) & 0xFFFFu);
-    const int valid = f.l_max - 16 * w;  // > 0
-    if (valid < 16) v &= (1u << (2 * valid)) - 1u;
-    s_rw[w * LS + l] = v;
+  if (!kSens) {
+    for (int i = t; i < nl * f.nab; i += nt)
+      s_am[(i % f.nab) * LS + i / f.nab] = f.ambm[(size_t)row0 * f.nab + i];
+    __syncthreads();
+    for (int i = t; i < nl * f.nwl; i += nt) {
+      const int l = i / f.nwl, w = i % f.nwl;
+      s_rw[w * LS + l] =
+          clean_word(f, f.words[(size_t)row0 * f.nwl + i], s_am[(w >> 1) * LS + l], w);
+    }
   }
   if (t == 0) s_left = 0;
   __syncthreads();
@@ -251,20 +298,48 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   }
 
   const int last_valid = f.seq_len - kK;
-  const int W = (f.l_max + 15) / 16 + 2;
+  const int W = kSens ? kSensWords : (f.l_max + 15) / 16 + 2;
+  const int skip_cap = min(f.l_max, kSkipMax);
+  const int amb_cap = kSens ? 32 : f.l_max;
   const int per = (LB + nt - 1) / nt;  // lanes per thread in the scan
   for (int round = 0; round < f.rounds; ++round) {
     int* s_tot = s_tot2 + (round & 1) * kCluster;
     int* s_more = s_more2 + (round & 1) * kCluster;
     // phase A: restart, 13-mer interval, hit count
     for (int l = t; l < nl; l += nt) {
-      const int rlen = s_rl[l];
+      const int rlen = s_rl[l], row = row0 + l;
       int p = s_p[l], cnt = 0, lo = 0;
-      p = min(p + dist_to(f, s_am, l, min(p, f.l_max - 1), false), f.l_max);
+      s_a1[l] = INT_MIN;
+      s_a2[l] = INT_MIN;
+      if (kSens && p >= rlen - f.msl) {  // no further seed: the skip only moves p on
+        s_cum[l] = 0;
+        s_aux[l] = 0;
+        continue;
+      }
+      p = min(p + dist_to<kSens>(f, s_am, l, row, min(p, f.l_max - 1), false, skip_cap), f.l_max);
       const int pidx = min(p, f.l_max - 1);
       const bool active = p < rlen - f.msl;
-      const int km = kmer_at(f, s_rw, l, pidx);
-      const int aoff = dist_to(f, s_am, l, pidx, true);
+      const int ra = pidx >> 4;
+      unsigned w0, w1;
+      if (kSens) {
+        // the four words at the restart, cleaned, for this phase and phase B
+        const unsigned* src = f.words + (size_t)row * f.nwl;
+        const unsigned* msk = f.ambm + (size_t)row * f.nab;
+        unsigned w[kSensWords];
+#pragma unroll
+        for (int k = 0; k < kSensWords; ++k) {
+          const int wi = ra + k;
+          w[k] = wi < f.nwl ? clean_word(f, __ldg(src + wi), __ldg(msk + (wi >> 1)), wi) : 0u;
+          s_rw[k * LS + l] = w[k];
+        }
+        w0 = w[0];
+        w1 = w[1];
+      } else {
+        w0 = lane_word(s_rw, LS, f.nwl, l, ra);
+        w1 = lane_word(s_rw, LS, f.nwl, l, ra + 1);
+      }
+      const int km = kmer_of(w0, w1, pidx);
+      const int aoff = dist_to<kSens>(f, s_am, l, row, pidx, true, amb_cap);
       // no ambiguous base in the window, and the window inside l_max
       const bool valid13 = active && aoff >= kK && pidx + kK <= f.l_max;
       if (valid13) {
@@ -275,14 +350,13 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         s_ns[l] |= kOvfBit;
         cnt = 0;
       }
-      const int damb1 = min(max(min(min(aoff, rlen - p), f.l_max) - 1, 0), (1 << kDambBits) - 1);
+      const int damb1 = min(max(min(min(aoff, rlen - p), kSens ? kWin : f.l_max) - 1, 0),
+                            (1 << kDambBits<kSens>) - 1);
       s_p[l] = p;
       s_cum[l] = cnt;
       s_lo[l] = lo;
       s_km[l] = km;
       s_aux[l] = aoff | (damb1 << 16) | (int(valid13) << 26) | (int(active) << 27);
-      s_a1[l] = INT_MIN;
-      s_a2[l] = INT_MIN;
     }
     __syncthreads();
 
@@ -333,7 +407,7 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
       const int l = a;
       if (s_cum[l] + base > f.H) continue;  // the lane's hits do not all fit
       const int start_b = l ? s_cum[l - 1] : 0;
-      const int hit_idx = jj + base - min(start_b + base, kStartMax);
+      const int hit_idx = jj + base - min(start_b + base, kStartMax<kSens>);
       const int loc = __ldg(f.sa_full + (s_lo[l] + jj - start_b));
       if (loc > last_valid) {  // bogus short-suffix row
         atomicMax(s_a1 + l, -1);
@@ -341,10 +415,12 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         continue;
       }
       const int pidx = min(s_p[l], f.l_max - 1);
-      const int damb = ((s_aux[l] >> 16) & ((1 << kDambBits) - 1)) + 1;
+      const int damb = ((s_aux[l] >> 16) & ((1 << kDambBits<kSens>) - 1)) + 1;
       const int ta = loc >> 4, tsh = 2 * (loc & 15);
-      const int ra = pidx >> 4, rsh = 2 * (pidx & 15);
-      unsigned t0 = text_word(f, ta), r0 = lane_word(s_rw, LS, f.nwl, l, ra);
+      // the lane's shared words start at the read's first word, or in
+      // SensitiveMode at the restart's
+      const int ra = kSens ? 0 : pidx >> 4, rsh = 2 * (pidx & 15);
+      unsigned t0 = text_word(f, ta), r0 = lane_word(s_rw, LS, f.nrw, l, ra);
       int lcp = (W - 1) * 16;
       bool same = true;  // read and text agree so far
       for (int w0 = 0; w0 < W - 1 && same; w0 += kTextChunk) {
@@ -356,7 +432,7 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         for (int k = 0; k < kTextChunk; ++k) {
           const int w = w0 + k;
           if (w >= W - 1 || !same) break;
-          const unsigned r1 = lane_word(s_rw, LS, f.nwl, l, ra + w + 1);
+          const unsigned r1 = lane_word(s_rw, LS, f.nrw, l, ra + w + 1);
           const unsigned x = __funnelshift_r(t0, tw[k], tsh) ^ __funnelshift_r(r0, r1, rsh);
           if (x) {
             lcp = w * 16 + ((__ffs(x) - 1) >> 1);
@@ -391,12 +467,16 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
       const bool has13 = valid13 && best >= kK;
       int length = best;
       if (!has13) {
-        const int msk = __ldg(f.sub_tbl + s_km[l]);
-        const int allow = msk & ((1 << (min(aoff, kK) + 1)) - 1);
-        length = allow ? 31 - __clz(allow) : 0;
+        length = 0;  // SensitiveMode: a failure advances MinSeed whatever matched
+        if (!kSens) {
+          const int msk = __ldg(f.sub_tbl + s_km[l]);
+          const int allow = msk & ((1 << (min(aoff, kK) + 1)) - 1);
+          length = allow ? 31 - __clz(allow) : 0;
+        }
       }
       const int p = s_p[l];
-      if (active && has13 && length >= f.msl && freq <= kOccThr && freq > 0) {
+      const bool record = active && has13 && length >= f.msl && freq <= kOccThr && freq > 0;
+      if (record) {
         const int n = ns & ~kOvfBit;
         if (n < MS) {
           int* o = f.out + (size_t)(row0 + l) * ocols + 2 + n;
@@ -407,7 +487,8 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         }
         ++ns;
       }
-      const int np = active ? p + length + 1 : p;
+      int np = p;
+      if (active) np = kSens ? (record ? p + length : p + f.msl) : p + length + 1;
       s_p[l] = np;
       s_ns[l] = ns;
       if (np < rlen - f.msl) s_left = 1;
@@ -419,9 +500,11 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
 
   // a lane is clean iff it ran to completion without overflow
   for (int l = t; l < nl; l += nt) {
-    const int p = s_p[l];
-    const int pf = min(p + dist_to(f, s_am, l, min(p, f.l_max - 1), false), f.l_max);
-    const bool unfinished = pf < s_rl[l] - f.msl;
+    const int p = s_p[l], last = s_rl[l] - f.msl;
+    bool unfinished = p < last;  // the skip only moves p on
+    if (unfinished)
+      unfinished = min(p + dist_to<kSens>(f, s_am, l, row0 + l, min(p, f.l_max - 1), false,
+                                          skip_cap), f.l_max) < last;
     int* o = f.out + (size_t)(row0 + l) * ocols;
     o[0] = s_ns[l] & ~kOvfBit;
     o[1] = !((s_ns[l] & kOvfBit) || unfinished);
@@ -446,14 +529,37 @@ __global__ void unpack_amb_kernel(const int* __restrict__ amb_r, const int* __re
   if (r >= 0 && r < B && q >= 0 && q < l_max) reads[(size_t)r * l_max + q] = 4;
 }
 
+template <bool kSens>
+cudaError_t launch_funnel(const Funnel& f, int n_slabs, size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(funnel_kernel<kSens>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_slabs * kCluster));  // a multiple of the cluster size
+  // one thread a lane
+  cfg.blockDim = dim3((unsigned)min(kMaxThreads, (f.LB + 31) / 32 * 32));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, funnel_kernel<kSens>, f);
+}
+
 }  // namespace
 
 // Blocks per slab that kart_kmer_funnel launches as one cluster.
 extern "C" int kart_kmer_funnel_cluster() { return kCluster; }
 
-// words: (B, ceil(l_max/16)) uint32, l_max <= 512; amb_r/amb_p: (n_amb,)
-// int32; rlens: (B,) int32; tables as KmerTablesTensors; ambm: (B,
-// ceil(l_max/32)) uint32 scratch; out: (B, 2 + 4*max_seeds) int32.  A batch
+// words: (B, ceil(l_max/16)) uint32, l_max <= 512, or <= 32768 with
+// `sensitive`; amb_r/amb_p: (n_amb,) int32; rlens: (B,) int32; tables as
+// KmerTablesTensors; ambm: (B, ceil(l_max/32)) uint32 scratch; out: (B,
+// 2 + 4*max_seeds) int32; hit_budget: hits a row and round (the caller
+// raises it to 4 in SensitiveMode, as kart_tpu does).  A batch
 // of at most slab_rows reads is one slab of B rows; a larger one is cut into
 // slabs of slab_rows.  Two memsets, the ambiguity scatter and the cluster
 // kernel on one stream.  Returns the first CUDA error, cudaGetLastError()
@@ -464,8 +570,9 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
                                 const void* words, const void* amb_r, const void* amb_p,
                                 int n_amb, const void* rlens, int B, int l_max,
                                 int min_seed_len, int max_seeds, int hit_cap, int rounds,
-                                int slab_rows, int hit_budget, void* ambm, void* out,
-                                void* stream) {
+                                int slab_rows, int hit_budget, int sensitive, void* ambm,
+                                void* out, void* stream) {
+  if (l_max > (sensitive ? 32768 : 512)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Funnel f;
   f.table_lo = static_cast<const int*>(table_lo);
@@ -488,9 +595,11 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
   f.H = hit_budget * f.slab;
   f.LB = (f.slab + kCluster - 1) / kCluster;
   f.LS = f.LB | 1;
+  f.nrw = sensitive ? kSensWords : f.nwl;
   f.out = static_cast<int*>(out);
   const int n_slabs = (B + f.slab - 1) / f.slab;
-  const size_t smem = ((size_t)kLaneArrays * f.LB + (size_t)(f.nwl + f.nab) * f.LS) * sizeof(int);
+  const size_t smem =
+      ((size_t)kLaneArrays * f.LB + (size_t)(f.nrw + (sensitive ? 0 : f.nab)) * f.LS) * sizeof(int);
   if (smem + 4096 > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(ambm, 0, (size_t)B * f.nab * sizeof(unsigned), st);
   if (err != cudaSuccess) return (int)err;
@@ -503,22 +612,8 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  err = cudaFuncSetAttribute(funnel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(n_slabs * kCluster));  // a multiple of the cluster size
-  // one thread a lane
-  cfg.blockDim = dim3((unsigned)min(kMaxThreads, (f.LB + 31) / 32 * 32));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, funnel_kernel, f);
+  err = sensitive ? launch_funnel<true>(f, n_slabs, smem, st)
+                  : launch_funnel<false>(f, n_slabs, smem, st);
   if (err != cudaSuccess) return (int)err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -91,7 +91,9 @@ def _load():
         lib.kart_fm_seed_scan.restype = i
         lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
         lib.kart_nw_planes.restype = i
-        lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i,
+        lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, p]
+        lib.kart_fm_sensitive_scan.restype = i
+        lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
                                          p, p, p]
         lib.kart_kmer_funnel.restype = i
         lib.kart_kmer_funnel_cluster.argtypes = []
@@ -159,6 +161,39 @@ def fm_seed_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: 
 fm_seed_scan.launches = 0
 
 
+def fm_sensitive_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: int):
+    """csrc/fm_seed_scan.cu (sensitive_scan_kernel): packed SensitiveMode
+    seeds (B, 1 + 4*max_seeds) int32 for reads (B, width) int32 and rlens
+    (B,) int32 on the card, 16 lanes a read.  `l_max` sets the trip limit,
+    31 * (l_max // min_seed_len + 2), as in kart_tpu; the reads stay in
+    global memory, so any width is taken."""
+    dev = reads.device
+    B = reads.shape[0]
+    _check("reads", reads, torch.int32, (B, reads.shape[1]), dev)
+    _check("rlens", rlens, torch.int32, (B,), dev)
+    n_blocks = fm.occ_cp.numel() // 4
+    _check("occ_cp", fm.occ_cp, torch.int32, (4 * n_blocks,), dev, align=16)
+    _check("bwt_words", fm.bwt_words, torch.int32, (8 * n_blocks,), dev, align=16)
+    _check("L2", fm.L2, torch.int32, (5,), dev)
+    out = torch.empty((B, 1 + 4 * max_seeds), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    max_trips = 31 * (l_max // max(int(min_seed_len), 1) + 2)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.kart_fm_sensitive_scan(
+            fm.occ_cp.data_ptr(), fm.bwt_words.data_ptr(), fm.L2.data_ptr(),
+            int(fm.primary), reads.data_ptr(), rlens.data_ptr(), B, reads.shape[1],
+            int(min_seed_len), int(max_seeds), max_trips, out.data_ptr(), _stream(dev),
+        )
+    _raise_on(rc, "fm_sensitive_scan")
+    fm_sensitive_scan.launches += 1
+    return out
+
+
+fm_sensitive_scan.launches = 0
+
+
 def nw_planes(c1, c2, *, lm: int):
     """csrc/nw.cu: (N, lm+1, lm+1) uint8 NW decision planes for (N, lm)
     int8 code pairs on the card, lm in (16, 32, 64, 128): a wavefront across
@@ -195,14 +230,19 @@ def funnel_cluster() -> int:
 
 
 def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds: int,
-                l_max: int, hit_cap: int, rounds: int, slab_rows: int, hit_budget: int):
-    """csrc/kmer_funnel.cu: packed FastMode funnel seeds (B, 2 +
-    4*max_seeds) int32 for 2-bit reads on the card (words (B, ceil(l_max/16))
-    int32 bits, amb_r/amb_p (n_amb,) int32, rlens (B,) int32), l_max <= 512,
-    against the tables of a KmerTablesTensors.  One thread-block cluster per
-    slab of min(B, slab_rows) rows."""
-    if l_max > 512:
-        raise ValueError(f"kmer_funnel: FastMode takes l_max <= 512, got {l_max}")
+                l_max: int, hit_cap: int, rounds: int, slab_rows: int, hit_budget: int,
+                sensitive: bool = False):
+    """csrc/kmer_funnel.cu: packed funnel seeds (B, 2 + 4*max_seeds) int32
+    for 2-bit reads on the card (words (B, ceil(l_max/16)) int32 bits,
+    amb_r/amb_p (n_amb,) int32, rlens (B,) int32), against the tables of a
+    KmerTablesTensors: FastMode with l_max <= 512, or SensitiveMode
+    (`sensitive`, at least 4 hits a row and round) with l_max <= 32768.  One
+    thread-block cluster per slab of min(B, slab_rows) rows."""
+    from .ops.kmer_seed import check_l_max
+
+    check_l_max(l_max, sensitive)
+    if sensitive:
+        hit_budget = max(hit_budget, 4)
     dev = words.device
     B = words.shape[0]
     nwl, nab = -(-l_max // 16), -(-l_max // 32)
@@ -226,7 +266,7 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
             tt.text_words.data_ptr(), tt.seq_len,
             words.data_ptr(), amb_r.data_ptr(), amb_p.data_ptr(), n_amb, rlens.data_ptr(),
             B, l_max, int(min_seed_len), max_seeds, hit_cap, rounds, slab_rows, hit_budget,
-            ambm.data_ptr(), out.data_ptr(), _stream(dev),
+            int(sensitive), ambm.data_ptr(), out.data_ptr(), _stream(dev),
         )
     _raise_on(rc, "kmer_funnel")
     kmer_funnel.launches += 1

@@ -1,10 +1,12 @@
-"""FastMode FM-index seeding on PyTorch tensors.
+"""FM-index seeding on PyTorch tensors: FastMode and SensitiveMode.
 
 Counterpart of `kart_tpu/ops/fm_search.py` (FMIndexArrays, occ4,
-_count4_word, seed_scan).  `seed_scan` returns the same packed
-(B, 1 + 4*max_seeds) int32 array as the JAX function.  On CPU tensors it
-runs the plain PyTorch version below; on CUDA tensors it launches the
-hand-written kernel `csrc/fm_seed_scan.cu` (kernels.fm_seed_scan).
+_count4_word, seed_scan, sensitive_scan).  `seed_scan` (FastMode, Illumina)
+and `sensitive_scan` (SensitiveMode, PacBio) return the same packed
+(B, 1 + 4*max_seeds) int32 array as the JAX functions.  On CPU tensors they
+run the plain PyTorch versions below; on CUDA tensors they launch the
+hand-written kernels of `csrc/fm_seed_scan.cu` (kernels.fm_seed_scan,
+kernels.fm_sensitive_scan).
 
 Only the int32 index (seq_len < 2**31) is supported.  BWT words are uint32
 bit patterns held in int32 tensors; the plain version widens them to int64
@@ -216,6 +218,103 @@ def seed_scan(fm: FMIndexTensors, reads, rlens, min_seed_len, *, max_seeds, l_ma
     return seed_scan_plain(
         fm, reads, rlens, int(min_seed_len), max_seeds=max_seeds, l_max=l_max
     )
+
+
+def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, stats=None):
+    """The SensitiveMode scan of kart_tpu's sensitive_scan_impl, vectorised
+    over the batch: a position per lane, one paired occ4 lookup per trip.
+    Extensions stop at a 30-base window (stop = min(start + 30, rlen)); a
+    recorded seed restarts the next extension at its end, a failed one
+    MinSeed past its start, which can lie behind the scan position.  The
+    loop is cut at 31 * (l_max // MinSeed + 2) trips, and seeds past
+    max_seeds are dropped without being counted.
+    reads (B, width) int32 codes (>3 ambiguous), rlens (B,) int32; l_max
+    sets only the trip limit, as in the JAX function.  `stats`, a dict,
+    gets the work counters: `trips` (B,) trips each lane ran, `steps` (B,)
+    those of them that looked the index up."""
+    B = reads.shape[0]
+    dev = reads.device
+    i32 = torch.int32
+    msl = int(min_seed_len)
+    reads = torch.nn.functional.pad(reads.to(i32), (0, 1), value=4)
+    L = reads.shape[1] - 1
+    rlens = rlens.to(i32)
+    end_pos = rlens - msl
+    L2 = fm.L2
+    bidx = torch.arange(B, device=dev)
+    zero = torch.zeros(B, dtype=i32, device=dev)
+    active = torch.zeros(B, dtype=torch.bool, device=dev)
+    p, s, x0, x2, n_seeds = (zero.clone() for _ in range(5))
+    x1 = torch.ones(B, dtype=i32, device=dev)
+    # one dump column past max_seeds takes the dropped records
+    fields = torch.zeros((4, B, max_seeds + 1), dtype=i32, device=dev)
+    max_trips = 31 * (l_max // max(msl, 1) + 2)
+    trips, steps = zero.clone(), zero.clone()
+    for _ in range(max_trips):
+        done = ~active & (p >= end_pos)
+        if bool(done.all()):
+            break
+        c = reads[bidx, p.clamp(max=L).long()]
+        amb = c > 3
+        cs = c.clamp(max=3).long()
+        stop = torch.minimum(s + 30, rlens)
+
+        # extension attempt; the rows of inactive lanes are clamped
+        x1s = x1.clamp(min=1)
+        tk, tl = occ4(fm, x1s - 1), occ4(fm, x1s - 1 + x2.clamp(min=0))
+        ok_x1 = L2[None, :4] + 1 + tk
+        ok_x2 = tl - tk
+        s3 = x0 + ((x1 <= fm.primary) & (x1 + x2 - 1 >= fm.primary)).to(i32)
+        s2 = s3 + ok_x2[:, 3]
+        s1 = s2 + ok_x2[:, 2]
+        s0 = s1 + ok_x2[:, 1]
+        ok_x0 = torch.stack([s0, s1, s2, s3], dim=1)
+        i = 3 - cs
+        nx0, nx1, nx2 = ok_x0[bidx, i], ok_x1[bidx, i], ok_x2[bidx, i]
+        ext_fail = active & (amb | (p >= stop) | (nx2 == 0))
+        if stats is not None:
+            trips += (~done).to(i32)
+            steps += (active & ~amb & (p < stop)).to(i32)
+
+        # seed emission: an extension ended at p
+        length = p - s
+        freq_ok = (length >= msl) & (x2 <= OCC_THR)
+        record = ext_fail & freq_ok & (n_seeds < max_seeds)
+        slot = torch.where(record, n_seeds, max_seeds).long()
+        fields[:, bidx, slot] = torch.stack([s, length, x0, x2])
+        n_seeds = n_seeds + record.to(i32)
+
+        # next state: a lane idle at p (never started, or just ended with
+        # a good seed) may start an extension at p in this same trip
+        cont = active & ~ext_fail
+        fail_restart = ext_fail & ~freq_ok
+        startable = ~done & ~cont & ~fail_restart & ~amb & (p < end_pos)
+        x0 = torch.where(cont, nx0, torch.where(startable, L2[cs] + 1, x0))
+        x1 = torch.where(cont, nx1, torch.where(startable, L2[3 - cs] + 1, x1))
+        x2 = torch.where(cont, nx2, torch.where(startable, L2[cs + 1] - L2[cs], x2))
+        new_p = torch.where(fail_restart, s + msl, torch.where(done, p, p + 1))
+        s = torch.where(startable, p, s)
+        p = new_p
+        active = cont | startable
+    if stats is not None:
+        stats.update(trips=trips, steps=steps)
+    f = fields[:, :, :max_seeds]
+    return torch.cat([n_seeds[:, None], f[0], f[1], f[2], f[3]], dim=1)
+
+
+def sensitive_scan(fm: FMIndexTensors, reads, rlens, min_seed_len, *, max_seeds, l_max):
+    """Packed SensitiveMode seeds [n_seeds | rpos | slen | k0 | freq] per
+    read, (B, 1 + 4*max_seeds) int32.  CPU tensors run the plain version,
+    CUDA tensors the kernel."""
+    reads = reads.to(torch.int32)
+    kw = dict(max_seeds=max_seeds, l_max=l_max)
+    if reads.device.type == "cuda":
+        from ..kernels import fm_sensitive_scan
+
+        return fm_sensitive_scan(fm, reads, rlens.to(torch.int32), int(min_seed_len), **kw)
+    if reads.device.type != "cpu":
+        raise ValueError(f"sensitive_scan: unsupported device {reads.device}")
+    return sensitive_scan_plain(fm, reads, rlens, int(min_seed_len), **kw)
 
 
 def unpack_seed_scan(packed, max_seeds: int) -> dict:

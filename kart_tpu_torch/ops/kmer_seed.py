@@ -1,21 +1,27 @@
 """Direct 13-mer lookup seeding (the funnel) on PyTorch tensors.
 
-Counterpart of `kart_tpu/ops/kmer_seed.py` in FastMode: `build_tables`
-(numpy, the same arrays and the same `.kmt` index sidecar, so the two
-packages share one file), `KmerTablesTensors` (the tables on a torch
-device) and `kmer_seed_scan`, which returns the same packed
-(B, 2 + 4*max_seeds) int32 array as the JAX function:
-[n_seeds | ok | rpos | slen | k0 | freq].  On CPU tensors it runs the plain
-PyTorch version below; on CUDA tensors it launches the hand-written kernel
-`csrc/kmer_funnel.cu` (kernels.kmer_funnel), which also unpacks the 2-bit
-reads itself.
+Counterpart of `kart_tpu/ops/kmer_seed.py`, FastMode (Illumina) and
+SensitiveMode (PacBio): `build_tables` (numpy, the same arrays and the same
+`.kmt` index sidecar, so the two packages share one file),
+`KmerTablesTensors` (the tables on a torch device) and `kmer_seed_scan`,
+which returns the same packed (B, 2 + 4*max_seeds) int32 array as the JAX
+function: [n_seeds | ok | rpos | slen | k0 | freq].  On CPU tensors it runs
+the plain PyTorch version below; on CUDA tensors it launches the
+hand-written kernel `csrc/kmer_funnel.cu` (kernels.kmer_funnel), which also
+unpacks the 2-bit reads itself.
+
+SensitiveMode restarts every lane once a round: extensions are capped at a
+30-base window, a recorded seed restarts at its end and a failed one
+MinSeed past its start, with no sub-13 lengths; l_max goes up to 32768.
 
 The output depends on how the batch is cut into slabs: every slab of
-`slab_rows` reads shares one per-round hit budget H = hit_budget * rows,
-and lanes whose hits overrun it are flagged (ok = 0) for the exact FM
-re-seed.  Both versions take the slab size and the budget as parameters;
-the defaults are kart_tpu's (4096 rows, 2 hits per lane), so that the flags
-and hence the resolved stream equal kart_tpu's.
+`slab_rows` reads shares one per-round hit budget H = hit_budget * rows
+(at least 4 a row in SensitiveMode), and lanes whose hits overrun it are
+flagged (ok = 0) for the exact FM re-seed.  Both versions take the slab
+size and the budget as parameters; the defaults are kart_tpu's (4096 rows,
+2 hits per lane, or KART_SLAB_ROWS and KART_HIT_BUDGET read when the module
+is imported, as kart_tpu reads them), so that the flags and hence the
+resolved stream equal kart_tpu's.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ import torch
 K = 13
 OCC_THR = 50
 BITMAP_KS = (12, 11, 10, 9, 8, 7, 6, 5, 4)
-SLAB_ROWS = 4096
-HIT_BUDGET = 2
+SLAB_ROWS = int(os.environ.get("KART_SLAB_ROWS", "4096"))
+HIT_BUDGET = int(os.environ.get("KART_HIT_BUDGET", "2"))
 IDXB = 20  # idx field width of the packed segment-max words
 IDXM = (1 << IDXB) - 1
 _M32 = 0xFFFFFFFF
@@ -219,11 +225,11 @@ def _align_words(w: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
 
 
 def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
-                hit_cap, rounds, H, stats=None):
-    """One slab of the FastMode funnel: kart_tpu's _kmer_seed_scan_slab.
+                hit_cap, rounds, H, sensitive=False, stats=None):
+    """One slab of the funnel: kart_tpu's _kmer_seed_scan_slab.
     `stats`, a list, gets one dict per slab: the rounds run and, per round,
     the 13-mer lookups (`lookups`), the hits handed out (`hits`) and the
-    lanes that took the sub-13 path (`sub13`)."""
+    lanes that took the sub-13 path (`sub13`; SensitiveMode has none)."""
     B = reads.shape[0]
     dev = reads.device
     i32 = torch.int32
@@ -242,7 +248,12 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
     postab1 = kmer | (amb_in_win.to(i32) << 26)
     postab2 = (nonamb_off.clamp(max=0x7FFF) << 16) | amb_off.clamp(max=0xFFFF)
 
-    W = (l_max + 15) // 16 + 2
+    # SensitiveMode caps an extension at 30 bases, so three aligned words
+    # cover it; the damb field and the rpos|slen emission pack follow the mode
+    WIN = 30 if sensitive else l_max
+    DB = 5 if sensitive else 10
+    RS = 5 if sensitive else 15
+    W = 4 if sensitive else (l_max + 15) // 16 + 2
     nwr = (l_max + 15) // 16 + W + 1
     rc = torch.where(amb, 0, reads).long()
     rc = torch.nn.functional.pad(rc, (0, nwr * 16 - l_max))
@@ -250,7 +261,6 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
     rwords = (rc.reshape(B, nwr, 16) << shifts16).sum(dim=2)  # (B, nwr) int64
     jhit = torch.arange(H, dtype=i32, device=dev)
     wr = torch.arange(W, device=dev)
-    DB = 10
 
     p = torch.zeros(B, dtype=i32, device=dev)
     n_seeds = torch.zeros(B, dtype=i32, device=dev)
@@ -291,7 +301,7 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
         hit_lane = torch.searchsorted(cum, jhit, right=True).to(i32)
         lane_c = hit_lane.clamp(max=B - 1).long()
 
-        damb1 = (torch.minimum(aoff, rlens - p).clamp(max=l_max) - 1).clamp(0, (1 << DB) - 1)
+        damb1 = (torch.minimum(aoff, rlens - p).clamp(max=WIN) - 1).clamp(0, (1 << DB) - 1)
         start_h = start.clamp(max=(1 << (29 - DB)) - 1)[lane_c]
         damb_h = damb1[lane_c] + 1
         fits_h = fits[lane_c]
@@ -341,27 +351,35 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
         has13 = valid13 & (best >= K)
         row0 = lo + torch.where(freq > 0, first_off, 0)
 
-        # sub-13 restart length: the highest k-prefix bit that the first
-        # ambiguous base allows
-        msk = tt.sub_tbl[km].to(i32) & 0xFFFF
-        allow = msk & ((torch.ones_like(aoff) << (aoff.clamp(max=K) + 1)) - 1)
-        sub_len = torch.zeros_like(allow)
-        for b in range(K + 1):
-            sub_len = torch.where(((allow >> b) & 1) == 1, b, sub_len)
-        length = torch.where(has13, best, sub_len)
+        if sensitive:
+            # a failure advances MinSeed from the seed's start whatever the
+            # partial extension was: no sub-13 length is needed
+            length = torch.where(has13, best, 0)
+        else:
+            # sub-13 restart length: the highest k-prefix bit that the first
+            # ambiguous base allows
+            msk = tt.sub_tbl[km].to(i32) & 0xFFFF
+            allow = msk & ((torch.ones_like(aoff) << (aoff.clamp(max=K) + 1)) - 1)
+            sub_len = torch.zeros_like(allow)
+            for b in range(K + 1):
+                sub_len = torch.where(((allow >> b) & 1) == 1, b, sub_len)
+            length = torch.where(has13, best, sub_len)
         if stats is not None:
             counts["rounds"] = r
             counts["lookups"].append(int(valid13.sum()))
             counts["hits"].append(int(valid_hit.sum()))
-            counts["sub13"].append(int((active & ~has13).sum()))
+            counts["sub13"].append(0 if sensitive else int((active & ~has13).sum()))
 
         record = active & has13 & (length >= msl) & (freq <= OCC_THR) & (freq > 0)
         slot = torch.where(record, n_seeds, max_seeds).clamp(max=max_seeds).long()
-        rs_b[bidx, slot] = (p << 15) | length
+        rs_b[bidx, slot] = (p << RS) | length
         k0_b[bidx, slot] = row0
         freq_b[bidx, slot] = freq
         n_seeds = n_seeds + record.to(i32)
-        p = torch.where(active, p + length + 1, p)
+        if sensitive:
+            p = torch.where(active, torch.where(record, p + length, p + msl), p)
+        else:
+            p = torch.where(active, p + length + 1, p)
 
     # a lane is clean iff it ran to completion without overflow
     p_idx = p.clamp(max=l_max - 1).long()
@@ -372,27 +390,39 @@ def _slab_plain(tt: KmerTablesTensors, reads, rlens, msl, *, max_seeds, l_max,
         stats.append(counts)
     rs = rs_b[:, :max_seeds]
     return torch.cat(
-        [n_seeds[:, None], ok.to(i32)[:, None], rs >> 15, rs & 0x7FFF,
+        [n_seeds[:, None], ok.to(i32)[:, None], rs >> RS, rs & ((1 << RS) - 1),
          k0_b[:, :max_seeds], freq_b[:, :max_seeds]],
         dim=1,
     )
 
 
+def check_l_max(l_max: int, sensitive: bool) -> None:
+    """kart_tpu's bound on l_max, from the packed field widths of each mode."""
+    top = 32768 if sensitive else 512
+    if l_max > top:
+        mode = "SensitiveMode" if sensitive else "FastMode"
+        raise ValueError(f"kmer_seed_scan: {mode} takes l_max <= {top}, got {l_max}")
+
+
 def kmer_seed_scan_plain(tt: KmerTablesTensors, reads, rlens, min_seed_len, *, max_seeds,
-                         l_max, hit_cap, rounds, slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET,
-                         stats=None):
-    """FastMode funnel over (B, l_max) int32 codes (padded 4) and (B,)
-    rlens, slab by slab: a batch of at most `slab_rows` is one slab with
+                         l_max, hit_cap, rounds, sensitive=False, slab_rows=SLAB_ROWS,
+                         hit_budget=HIT_BUDGET, stats=None):
+    """The funnel over (B, l_max) int32 codes (padded 4) and (B,) rlens,
+    slab by slab: a batch of at most `slab_rows` is one slab with
     H = hit_budget * B; a larger one is padded with empty reads to whole
-    slabs of `slab_rows`, each with H = hit_budget * slab_rows.  l_max is
-    at most 512, as in kart_tpu (the packed field widths).  `stats`, a
-    list, gets the work counters of every slab (see _slab_plain)."""
-    if l_max > 512:
-        raise ValueError(f"kmer_seed_scan: FastMode takes l_max <= 512, got {l_max}")
+    slabs of `slab_rows`, each with H = hit_budget * slab_rows.  In
+    SensitiveMode the budget is at least 4 hits a row.  l_max is at most
+    512 (32768 in SensitiveMode), as in kart_tpu (the packed field widths).
+    `stats`, a list, gets the work counters of every slab (see
+    _slab_plain)."""
+    check_l_max(l_max, sensitive)
     reads = reads.to(torch.int32)
     rlens = rlens.to(torch.int32)
     msl = int(min_seed_len)
-    kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds, stats=stats)
+    if sensitive:
+        hit_budget = max(hit_budget, 4)
+    kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds,
+              sensitive=sensitive, stats=stats)
     B = reads.shape[0]
     if B <= slab_rows:
         return _slab_plain(tt, reads, rlens, msl, H=hit_budget * B, **kw)
@@ -410,15 +440,12 @@ def kmer_seed_scan_plain(tt: KmerTablesTensors, reads, rlens, min_seed_len, *, m
 def kmer_seed_scan(tt: KmerTablesTensors, reads, rlens, min_seed_len, *, max_seeds, l_max,
                    hit_cap, rounds, sensitive=False, slab_rows=SLAB_ROWS,
                    hit_budget=HIT_BUDGET):
-    """Packed FastMode funnel seeds, (B, 2 + 4*max_seeds) int32, for
-    (B, l_max) codes.  CPU tensors run the plain version; CUDA tensors the
-    kernel (which takes the reads 2-bit packed: ops.pack.pack_codes_2bit)."""
-    if sensitive:
-        raise NotImplementedError(
-            "SensitiveMode funnel (PacBio) is not ported yet (ROADMAP Queue 1 item 7)"
-        )
+    """Packed funnel seeds, (B, 2 + 4*max_seeds) int32, for (B, l_max)
+    codes, FastMode or SensitiveMode.  CPU tensors run the plain version;
+    CUDA tensors the kernel (which takes the reads 2-bit packed:
+    ops.pack.pack_codes_2bit)."""
     kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds,
-              slab_rows=slab_rows, hit_budget=hit_budget)
+              sensitive=sensitive, slab_rows=slab_rows, hit_budget=hit_budget)
     if reads.device.type == "cuda":
         from .pack import pack_codes_2bit
 

@@ -5,16 +5,18 @@ packs (B, l_max) int8 codes 16 bases per uint32 word with a sparse list of
 ambiguous positions (the C++ packer of native/kart_post.cpp;
 `pack_reads_2bit_plain` is its numpy version), and `unpack_stream` decodes
 the downloaded stream.  Device half (torch):
-`unpack_reads` (the inverse of the packer), and the two resolved entry
-points, each from packed reads to the packed int32 stream of
-ops/resolve.py:
+`unpack_reads` (the inverse of the packer), `sensitive_scan_packed`, and the
+three resolved entry points, each from packed reads to the packed int32
+stream of ops/resolve.py:
 
   seed_scan_resolved_packed       FM stepper, then expand/resolve/pack
-  kmer_seed_scan_resolved_packed  13-mer funnel, then expand/resolve/pack
+  sensitive_scan_resolved_packed  SensitiveMode FM stepper, then the same
+  kmer_seed_scan_resolved_packed  13-mer funnel (FastMode, or SensitiveMode
+                                  with sensitive=True), then the same
 
 On CUDA tensors they launch the port's kernels (the funnel kernel unpacks
-the reads itself); on CPU tensors they run the plain versions.  Only the
-FastMode (Illumina) forms are ported.
+the reads itself); on CPU tensors they run the plain versions.  Occurrences
+resolve through the full SA only.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .fm_search import seed_scan
+from .fm_search import seed_scan, sensitive_scan
 from .kmer_seed import HIT_BUDGET, SLAB_ROWS, kmer_seed_scan_plain
 from .resolve import pack_stream_plain, resolve_pack  # noqa: F401  (kart_tpu keeps it here)
 
@@ -165,14 +167,32 @@ def seed_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_seed_
                         occ_budget=occ_budget, pack16=pack16)
 
 
+def sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds, l_max):
+    """SensitiveMode FM-stepper seeds of packed reads, in seed_scan's packed
+    (B, 1 + 4*max_seeds) layout."""
+    reads = unpack_reads(words, amb_r, amb_p, l_max)
+    return sensitive_scan(fm, reads, rlens, min_seed_len, max_seeds=max_seeds, l_max=l_max)
+
+
+def sensitive_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_seed_len, *,
+                                   max_seeds, l_max, occ_budget, pack16=False):
+    """SensitiveMode FM-stepper seeding of packed reads, resolved through
+    the full SA (sa_full on the reads' device) and packed into one int32
+    stream."""
+    packed = sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len,
+                                   max_seeds=max_seeds, l_max=l_max)
+    return resolve_pack(sa_full, packed, max_seeds=max_seeds, has_ok=False,
+                        occ_budget=occ_budget, pack16=pack16)
+
+
 def kmer_seed_scan_resolved_packed(tt, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds,
-                                   l_max, hit_cap, rounds, occ_budget, pack16=False,
-                                   slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET):
-    """13-mer funnel seeding of packed reads (FastMode), resolved through
-    the full SA and packed into one int32 stream; lanes the funnel flags
-    carry cnts < 0."""
+                                   l_max, hit_cap, rounds, occ_budget, sensitive=False,
+                                   pack16=False, slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET):
+    """13-mer funnel seeding of packed reads (FastMode, or SensitiveMode),
+    resolved through the full SA and packed into one int32 stream; lanes
+    the funnel flags carry cnts < 0."""
     kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds,
-              slab_rows=slab_rows, hit_budget=hit_budget)
+              sensitive=sensitive, slab_rows=slab_rows, hit_budget=hit_budget)
     if words.device.type == "cuda":
         from ..kernels import kmer_funnel
 

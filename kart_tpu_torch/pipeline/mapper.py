@@ -1,7 +1,7 @@
 """Chunk mapper of the port.
 
 Counterpart of kart_tpu's KartMapper (`kart_tpu/pipeline/mapper.py`) for
-Illumina reads, in three modes:
+Illumina reads and, with `pacbio`, PacBio reads, in three modes:
 
 * native (the default backend): the host C++ engine (native/post.py) seeds and maps
   every chunk (`NativeReader` + `process_chunk_ptrs`); no device is used.
@@ -11,14 +11,17 @@ Illumina reads, in three modes:
   kart_tpu's gate), expanded and resolved through the full SA and packed
   into one int32 stream there, downloaded, and mapped by the C++ engine
   (`process_chunk_flat`).  Lanes that the funnel or the occurrence budget
-  flag are re-seeded exactly by the FM stepper.  On a CUDA device each
+  flag are re-seeded exactly by the FM stepper.  PacBio reads take the
+  SensitiveMode forms of both (30-base windows), in groups of 64 chunks of
+  10 reads and the plain 32-bit stream.  On a CUDA device each
   group is one stream of pinned uploads, kernels and a pinned download,
   ended by an event, so group k seeds while group k-1 is mapped on the
   host; with `-cpu` the plain versions run in line.  A device or kernel
   error raises: there is no fall-back to the host engine.
-* python backend (`-backend python`): device FastMode seeding
-  (`ops/fm_search.seed_scan`), host divide and report, every NW fragment
-  of a chunk as one device batch (`ops/nw.nw_align_batch`).
+* python backend (`-backend python`): device seeding
+  (`ops/fm_search.seed_scan`, or `sensitive_scan` for PacBio), host divide
+  and report, every NW fragment of a chunk as one device batch
+  (`ops/nw.nw_align_batch`).
 """
 
 from __future__ import annotations
@@ -33,19 +36,21 @@ import torch
 from ..index.format import NT4_TABLE
 from ..index.loader import GenomeIndex
 from ..io.fastq import RawRead, ReadStream, next_chunk
-from ..ops.fm_search import FMIndexTensors, seed_scan, unpack_seed_scan
+from ..ops.fm_search import FMIndexTensors, seed_scan, sensitive_scan, unpack_seed_scan
 from ..ops.kmer_seed import KmerTablesTensors, build_tables, hit_cap_for
 from ..ops.nw import nw_align_batch
 from ..ops.pack import (
     kmer_seed_scan_resolved_packed,
     pack_reads_2bit,
     seed_scan_resolved_packed,
+    sensitive_scan_resolved_packed,
     unpack_stream,
 )
 from ..ops.resolve import decode_resolved_counts
 from .candidates import (
     Seed,
     gen_candidates_illumina,
+    gen_candidates_pacbio,
     remove_redundant_candidates,
 )
 from .conquer import Conquer
@@ -72,6 +77,9 @@ from .sam import (
 _B_BUCKETS = [2048, 16000]
 _L_BUCKETS = [64, 128, 160, 256, 384, 512]
 _CHUNK = 4000  # reads per reader chunk (kart_tpu's native reader)
+_PB_B_BUCKETS = [16]
+_PB_L_BUCKETS = [512, 1024, 2048, 4096, 8192, 16384, 32768]
+_PB_CHUNK = 10  # PacBio reads per reader chunk
 
 # environment switches of kart_tpu that select paths not ported yet
 _UNPORTED_ENV = (
@@ -96,8 +104,15 @@ def _bucket(x: int, buckets: list[int]) -> int:
     return x
 
 
+def _no_seeds(n: int):
+    """The flat seed arrays of n reads without a seed."""
+    return (np.zeros(n, np.int32), np.zeros(0, np.int32), np.zeros(0, np.int32),
+            np.zeros(0, np.int64))
+
+
 class TorchKartMapper:
-    """Illumina single- and paired-end mapping on one torch device.
+    """Illumina single- and paired-end mapping, and PacBio mapping, on one
+    torch device.
 
     `device` "cuda" runs the CUDA kernels; "cpu" runs their plain versions.
     `backend` "native" maps with the C++ engine (seeding on the host,
@@ -117,8 +132,6 @@ class TorchKartMapper:
         n_threads: int = 0,
         debug: bool = False,
     ):
-        if pacbio:
-            raise NotImplementedError("-pacbio is not ported yet (ROADMAP Queue 1 item 7)")
         for var, value, what in _UNPORTED_ENV:
             if os.environ.get(var) == value:
                 raise NotImplementedError(f"{var}={value}: {what}, is not ported yet")
@@ -132,11 +145,12 @@ class TorchKartMapper:
         self.device = torch.device(device)
         self.gidx = gidx
         self.backend = backend
+        self.pacbio = pacbio
         self.max_gaps = max_gaps
         self.max_insert_size = max_insert_size
         self.multi_hit = multi_hit
         self.min_seed_len = compute_min_seed_length(gidx.two_genome_size)
-        self.conquer = Conquer(gidx.ref_seq, False, max_gaps)
+        self.conquer = Conquer(gidx.ref_seq, pacbio, max_gaps)
         self.sa_full_np = gidx.sa_full
         # device arrays are made at first use: the native mode never needs them
         self._fm = None
@@ -150,7 +164,7 @@ class TorchKartMapper:
             from ..native.post import NativePostProcessor
 
             self.native = NativePostProcessor(
-                gidx, False, max_gaps, max_insert_size, self.min_seed_len, multi_hit,
+                gidx, pacbio, max_gaps, max_insert_size, self.min_seed_len, multi_hit,
                 n_threads=n_threads, debug=debug,
             )
         # shared counters (reference: Mapping.cpp:20)
@@ -208,20 +222,14 @@ class TorchKartMapper:
         order (the order IdentifySeedPairs_FastMode pushes seeds, before
         its PosDiff sort)."""
         n = len(enc_reads)
-        empty = (
-            np.zeros(n, np.int32),
-            np.zeros(0, np.int32),
-            np.zeros(0, np.int32),
-            np.zeros(0, np.int64),
-        )
         if n == 0:
-            return empty
+            return _no_seeds(0)
         rlens = np.array([len(e) for e in enc_reads], dtype=np.int32)
         l_max = _bucket(int(rlens.max()), _L_BUCKETS)
         reads = np.full((n, l_max), 4, dtype=np.int32)
         for i, e in enumerate(enc_reads):
             reads[i, : len(e)] = e[:l_max]
-        max_seeds = l_max // (self.min_seed_len + 1) + 1
+        max_seeds = self._max_seeds(l_max)
         packed = seed_scan(
             self.fm,
             torch.from_numpy(reads).to(self.device),
@@ -230,17 +238,47 @@ class TorchKartMapper:
             max_seeds=max_seeds,
             l_max=l_max,
         ).cpu().numpy()
+        return self._flatten_seeds(packed, max_seeds)
+
+    def _seed_sensitive_batch_flat(self, enc_reads: list[np.ndarray]):
+        """SensitiveMode seeding for a batch of encoded reads on the device
+        -> the flat arrays of _seed_batch_flat (the order
+        IdentifySeedPairs_SensitiveMode pushes seeds, before its gPos
+        sort).  The batch is padded to kart_tpu's 16 lanes."""
+        n = len(enc_reads)
+        if n == 0:
+            return _no_seeds(0)
+        rlens = np.array([len(e) for e in enc_reads], dtype=np.int32)
+        l_max = _bucket(int(rlens.max()), _PB_L_BUCKETS)
+        B = _bucket(n, _PB_B_BUCKETS)
+        reads = np.full((B, l_max), 4, dtype=np.int32)
+        for i, e in enumerate(enc_reads):
+            reads[i, : len(e)] = e[:l_max]
+        rl = np.zeros(B, dtype=np.int32)
+        rl[:n] = np.minimum(rlens, l_max)
+        max_seeds = self._max_seeds(l_max)
+        packed = sensitive_scan(
+            self.fm,
+            torch.from_numpy(reads).to(self.device),
+            torch.from_numpy(rl).to(self.device),
+            self.min_seed_len,
+            max_seeds=max_seeds,
+            l_max=l_max,
+        ).cpu().numpy()[:n]
+        return self._flatten_seeds(packed, max_seeds)
+
+    def _flatten_seeds(self, packed: np.ndarray, max_seeds: int):
+        """Packed FM-stepper seeds of n reads -> flat per-occurrence arrays
+        (counts (n,), rpos, length, gpos), resolved with one full-SA gather."""
         out = unpack_seed_scan(packed, max_seeds)
         n_seeds, rpos, slen = out["n_seeds"], out["rpos"], out["slen"]
         k0, freq = out["k0"], out["freq"]
-
-        # flatten all occurrences, resolve with one full-SA gather
         sidx = np.arange(max_seeds)[None, :] < n_seeds[:, None]
         f = np.where(sidx, freq, 0)
         reps = f.reshape(-1)
         total = int(reps.sum())
         if total == 0:
-            return empty
+            return _no_seeds(len(packed))
         base = np.repeat(k0.reshape(-1).astype(np.int64), reps)
         cum = np.cumsum(reps)
         offs = np.arange(total) - np.repeat(cum - reps, reps)
@@ -250,9 +288,38 @@ class TorchKartMapper:
         cnts = f.sum(axis=1).astype(np.int32)
         return cnts, rp_flat, ln_flat, locs
 
-    def _seeds_to_lists(self, n, flat) -> list[list[Seed]]:
-        """Flat seed arrays -> per-read Seed lists sorted by (PosDiff, rpos)."""
+    def _seed_sensitive_flat(self, enc: np.ndarray):
+        """SensitiveMode seeding of one read on the host
+        (IdentifySeedPairs_SensitiveMode, AlignmentCandidates.cpp:132-169):
+        emission-order (rpos, len, gpos) tuples, before the gPos sort."""
+        rlen = len(enc)
+        out: list[tuple[int, int, int]] = []
+        pos, stop_pos, end_pos = 0, 30, rlen - self.min_seed_len
+        while pos < end_pos:
+            if enc[pos] > 3:
+                pos += 1
+                stop_pos += 1
+            else:
+                length, freq, locs = self._host_fm().search(enc, pos, stop_pos, self.min_seed_len)
+                if freq > 0:
+                    for loc in locs:
+                        out.append((pos, length, int(loc)))
+                    pos += length
+                    stop_pos += length
+                else:
+                    pos += self.min_seed_len
+                    stop_pos += self.min_seed_len
+                if stop_pos > rlen:
+                    stop_pos = rlen
+        return out
+
+    def _seeds_to_lists(self, n, flat, key=None) -> list[list[Seed]]:
+        """Flat seed arrays -> per-read Seed lists sorted by (PosDiff, rpos),
+        or by `key` (PacBio: (gpos, rpos), CompByGenomePos)."""
         cnts, rp, ln, gp = flat
+        if key is None:
+            def key(s):
+                return (s.posdiff, s.rpos)
         result: list[list[Seed]] = []
         base = 0
         for i in range(n):
@@ -261,7 +328,7 @@ class TorchKartMapper:
                      int(ln[base + t]), int(gp[base + t]) - int(rp[base + t]))
                 for t in range(int(cnts[i]))
             ]
-            seeds.sort(key=lambda s: (s.posdiff, s.rpos))
+            seeds.sort(key=key)
             result.append(seeds)
             base += int(cnts[i])
         return result
@@ -293,7 +360,7 @@ class TorchKartMapper:
                 st_copy = ReadState(header=st.header, seq=st.seq, qual=st.qual, rlen=st.rlen)
                 gen_mapping_report(
                     self.gidx, self.conquer, first_read, st_copy,
-                    copy.deepcopy(cands), False, self.multi_hit,
+                    copy.deepcopy(cands), self.pacbio, self.multi_hit,
                 )
         finally:
             self.conquer.collecting = None
@@ -306,10 +373,30 @@ class TorchKartMapper:
             return []
         sam: list[str] = []
         my = dict(unique=0, unmapped=0, paired=0, distance=0)
+        states = [self._make_state(r) for r in chunk]
+        if self.pacbio:
+            flat = self._seed_sensitive_batch_flat([self._encode(r.seq) for r in chunk])
+            seeds_all = self._seeds_to_lists(n, flat, key=lambda s: (s.gpos, s.rpos))
+            cands_all = []
+            for r, seeds in zip(chunk, seeds_all):
+                cands = gen_candidates_pacbio(r.rlen, seeds)
+                remove_redundant_candidates(cands, pacbio=True)
+                cands_all.append(cands)
+            self._batch_nw([(True, states[i], cands_all[i]) for i in range(n)])
+            for st, cands in zip(states, cands_all):
+                gen_mapping_report(self.gidx, self.conquer, True, st, cands, True, self.multi_hit)
+                set_single_flag(st)
+                evaluate_mapq(st, pacbio=True)
+            self.conquer.nw_memo = None
+            for st in states:
+                sam.extend(output_single(self.gidx, st, fastq, self.multi_hit, my))
+            self.stats["total"] += n
+            for k in ("unique", "unmapped", "paired", "distance"):
+                self.stats[k] += my[k]
+            return sam
         seeds_all = self._seeds_to_lists(
             n, self._seed_batch_flat([self._encode(r.seq) for r in chunk])
         )
-        states = [self._make_state(r) for r in chunk]
         if pair_end and n % 2 == 0:
             est = self._est_distance()
             cands_all: list = [None] * n
@@ -381,10 +468,13 @@ class TorchKartMapper:
     # Device-pipelined stream (KART_SEED_MODE=device)
     # ------------------------------------------------------------------
 
-    def _occ_budget(self, B: int) -> int:
-        """Occurrence slots of a group's resolved stream (FastMode):
-        KART_OCC_BUDGET (read at every call) times B; reads that overrun it
-        are re-seeded."""
+    def _occ_budget(self, B: int, l_max: int) -> int:
+        """Occurrence slots of a group's resolved stream; reads that overrun
+        it are re-seeded.  Illumina: KART_OCC_BUDGET (read at every call)
+        times B.  PacBio: max(64, l_max // 24) a lane, kart_tpu's figure,
+        with no override."""
+        if self.pacbio:
+            return B * max(64, l_max // 24)
         return int(os.environ.get("KART_OCC_BUDGET", "3")) * B
 
     def _pack16(self, l_max: int) -> bool:
@@ -393,6 +483,8 @@ class TorchKartMapper:
         return l_max <= 256
 
     def _max_seeds(self, l_max: int) -> int:
+        if self.pacbio:
+            return l_max // self.min_seed_len + 2
         return l_max // (self.min_seed_len + 1) + 1
 
     def _to_device(self, arrays):
@@ -408,18 +500,21 @@ class TorchKartMapper:
 
     def _seed_resolved(self, words, amb_r, amb_p, rlens, l_max: int, B: int):
         """One group's packed resolved stream on the device: the funnel when
-        the tables pass the gate, else the FM stepper."""
+        the tables pass the gate, else the FM stepper; for PacBio reads the
+        SensitiveMode form of either."""
         kw = dict(max_seeds=self._max_seeds(l_max), l_max=l_max,
-                  occ_budget=self._occ_budget(B), pack16=self._pack16(l_max))
+                  occ_budget=self._occ_budget(B, l_max), pack16=self._pack16(l_max))
         tb = self._get_kmer_tables()
         if tb is not None:
+            # a SensitiveMode round restarts every lane once, so a read takes
+            # about rlen / MinSeed rounds
+            rounds = l_max // self.min_seed_len + 8 if self.pacbio else l_max // 10 + 4
             return kmer_seed_scan_resolved_packed(
                 self._device_tables(), words, amb_r, amb_p, rlens, self.min_seed_len,
-                hit_cap=hit_cap_for(tb.max_mult), rounds=l_max // 10 + 4, **kw,
+                hit_cap=hit_cap_for(tb.max_mult), rounds=rounds, sensitive=self.pacbio, **kw,
             )
-        return seed_scan_resolved_packed(
-            self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len, **kw
-        )
+        fn = sensitive_scan_resolved_packed if self.pacbio else seed_scan_resolved_packed
+        return fn(self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len, **kw)
 
     def _dispatch_seed_async(self, reads_i8, rl, l_max):
         """Pack a (B, l_max) int8 group to 2 bits and seed it.  On a CUDA
@@ -444,29 +539,41 @@ class TorchKartMapper:
             event.record(self._stream)
         return dict(host=host, event=event, keep=(pinned, w, ar, ap, r, stream))
 
-    def _reseed_host_flat(self, enc: np.ndarray):
-        """Exact host re-seed of one read through the host FM model (ops/fm_ref.py)
-        (sampled SA): emission-order (rpos, len, gpos) tuples."""
-        from ..ops.fm_ref import fm_from_genome_index, identify_seed_pairs_fast
+    def _host_fm(self):
+        """The host FM model (ops/fm_ref.py, sampled SA), made at first use."""
+        from ..ops.fm_ref import fm_from_genome_index
 
         if not hasattr(self, "_fm_ref"):
             self._fm_ref = fm_from_genome_index(self.gidx)
-        return identify_seed_pairs_fast(self._fm_ref, enc, self.min_seed_len)
+        return self._fm_ref
+
+    def _reseed_host_flat(self, enc: np.ndarray):
+        """Exact host re-seed of one read through the host FM model:
+        emission-order (rpos, len, gpos) tuples."""
+        from ..ops.fm_ref import identify_seed_pairs_fast
+
+        if self.pacbio:
+            return self._seed_sensitive_flat(enc)
+        return identify_seed_pairs_fast(self._host_fm(), enc, self.min_seed_len)
 
     def _reseed_device_flat(self, bad, reads_i8, rl, l_max) -> dict:
         """Exact re-seed of flagged lanes as one device batch through the FM
-        stepper, with 64 occurrence slots per lane; a read that overruns
+        stepper (SensitiveMode for PacBio), with 64 occurrence slots per
+        lane (PacBio: the group's budget per lane); a read that overruns
         even those is re-seeded on the host."""
         nb = len(bad)
-        Bb = _bucket(nb, _B_BUCKETS)
+        pack16 = self._pack16(l_max)
+        Bb = _bucket(nb, _PB_B_BUCKETS if self.pacbio else _B_BUCKETS)
+        if pack16:
+            Bb += Bb & 1  # past the last bucket the batch is nb itself: pack16 pairs lanes
         reads_b = np.full((Bb, l_max), 4, dtype=np.int8)
         reads_b[:nb] = reads_i8[bad]
         rl_b = np.zeros(Bb, dtype=np.int32)
         rl_b[:nb] = rl[bad]
-        budget = Bb * 64
-        pack16 = self._pack16(l_max)
+        budget = self._occ_budget(Bb, l_max) if self.pacbio else Bb * 64
         (w, ar, ap, r), _pinned = self._to_device(pack_reads_2bit(reads_b) + (rl_b,))
-        stream = seed_scan_resolved_packed(
+        fn = sensitive_scan_resolved_packed if self.pacbio else seed_scan_resolved_packed
+        stream = fn(
             self.fm, self._device_sa(), w, ar, ap, r, self.min_seed_len,
             max_seeds=self._max_seeds(l_max), l_max=l_max, occ_budget=budget, pack16=pack16,
         ).cpu().numpy()
@@ -495,7 +602,7 @@ class TorchKartMapper:
             entry["event"].synchronize()
         B = reads_i8.shape[0]
         cnts, meta, gpos = unpack_stream(
-            entry["host"].numpy(), B, self._occ_budget(B), self._pack16(l_max)
+            entry["host"].numpy(), B, self._occ_budget(B, l_max), self._pack16(l_max)
         )
         ok, tot, offs = decode_resolved_counts(cnts)
         rpos = (meta & 0xFFFF).astype(np.int32)
@@ -546,7 +653,7 @@ class TorchKartMapper:
             group.append((n, ptrs))
         return group
 
-    def _encode_group(self, group, b_buckets):
+    def _encode_group(self, group, l_buckets, b_buckets):
         """Encode G reader chunks into one (B, l_max) int8 batch (codes,
         padded 4) and (B,) rlens."""
         total = sum(n for n, _ in group)
@@ -556,7 +663,7 @@ class TorchKartMapper:
                 ctypes.cast(ptrs[1], ctypes.POINTER(ctypes.c_int64)), shape=(n + 1,)
             )
             l_raw = max(l_raw, int(np.diff(off).max()))
-        l_max = _bucket(l_raw, _L_BUCKETS)
+        l_max = _bucket(l_raw, l_buckets)
         B = _bucket(total, b_buckets)
         reads = np.full((B, l_max), 4, dtype=np.int8)
         rlens = np.zeros(B, dtype=np.int32)
@@ -571,11 +678,16 @@ class TorchKartMapper:
         stream comes down and group k-2 is mapped on the host."""
         from ..native.post import NativeReader
 
-        G = max(1, int(os.environ.get("KART_DEVICE_GROUP", "8")))
-        b_buckets = sorted(set(_B_BUCKETS + [G * _CHUNK]))
+        # PacBio chunks hold 10 reads: a group needs many of them to fill
+        # the card and to spread the funnel's cost per round
+        l_buckets = _PB_L_BUCKETS if self.pacbio else _L_BUCKETS
+        G = max(1, int(os.environ.get("KART_DEVICE_GROUP", "64" if self.pacbio else "8")))
+        chunk_sz = _PB_CHUNK if self.pacbio else _CHUNK
+        b_buckets = sorted(set((_PB_B_BUCKETS if self.pacbio else _B_BUCKETS) + [G * chunk_sz]))
         depth = max(1, int(os.environ.get("KART_DEVICE_DEPTH", "2")))
         # ring: depth groups in flight + the group being mapped + prefetch
-        reader = NativeReader(path1, path2, fastq, pair_end, False, n_bufs=(depth + 2) * G + 2)
+        reader = NativeReader(path1, path2, fastq, pair_end, self.pacbio,
+                              n_bufs=(depth + 2) * G + 2)
 
         def post(entry):
             group = entry["group"]
@@ -587,7 +699,8 @@ class TorchKartMapper:
                     progress(self.stats["total"])
                 cnt, rp, ln, gp = self._chunk_flat(res, row, row + n0)
                 writer(self.native.process_chunk_flat(
-                    n0, pair_end and n0 % 2 == 0, fastq, ptrs0, cnt, rp, ln, gp, self.stats
+                    n0, pair_end and n0 % 2 == 0 and not self.pacbio, fastq, ptrs0, cnt, rp, ln,
+                    gp, self.stats
                 ))
                 self.stats["total"] += n0
                 row += n0
@@ -599,7 +712,7 @@ class TorchKartMapper:
                 if not eof:
                     group = self._read_group(reader, G)
                     if group:
-                        reads_i8, rl, l_max = self._encode_group(group, b_buckets)
+                        reads_i8, rl, l_max = self._encode_group(group, l_buckets, b_buckets)
                         entry = self._dispatch_seed_async(reads_i8, rl, l_max)
                         entry.update(group=group, reads=reads_i8, rlens=rl, l_max=l_max)
                         pend.append(entry)
@@ -628,7 +741,7 @@ class TorchKartMapper:
         from ..native.post import NativeReader
 
         self._native_seeding_ready()
-        reader = NativeReader(path1, path2, fastq, pair_end, False)
+        reader = NativeReader(path1, path2, fastq, pair_end, self.pacbio)
         try:
             while True:
                 n, ptrs = reader.next_chunk()
@@ -681,7 +794,7 @@ class TorchKartMapper:
             while not done:
                 group = []
                 while len(group) < 4:
-                    chunk = next_chunk(s1, s2, pair_end, False)
+                    chunk = next_chunk(s1, s2, pair_end, self.pacbio)
                     if not chunk:
                         done = True
                         break

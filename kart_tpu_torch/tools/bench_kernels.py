@@ -12,8 +12,10 @@ builds that checkout's sources into its own `_build/`;
 memory, or from L2 at a working set that fits it (csrc/probe_latency.cu),
 which turns a kernel's longest chain of dependent loads into a time;
 `device_us_by_kernel` splits a wrapper's call into its launches' device
-times with `torch.profiler`.  chip_smoke.py's phases 1, 2 and 4 use them; no
-function here runs without a CUDA device.
+times with `torch.profiler`, and `device_spans` with `busy_seconds` gives
+the share of a whole run during which the device was busy.  chip_smoke.py's
+phases 1, 2, 4, 7 and 8 use them; only `bound_ms` and `busy_seconds` run
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 OPS_PER_S = 67e12  # float32 rate outside the tensor cores, taken for 32-bit integer work too
 
 
-def time_both(fn, reps: int = 32) -> tuple[float, float]:
-    """(seconds per call by slope over CUDA graphs, seconds per call by one
-    event window around `reps` eager calls) of fn()."""
-    slope = bench_gather.time_slope(bench_gather.graph_run("kernel", lambda k: fn()))
+def time_both(fn, reps: int = 32, n_small: int = 8, n_big: int = 136) -> tuple[float, float]:
+    """(seconds per call by slope over CUDA graphs of n_small and n_big
+    calls, seconds per call by one event window around `reps` eager calls)
+    of fn().  A call of many milliseconds takes fewer of each."""
+    slope = bench_gather.time_slope(bench_gather.graph_run("kernel", lambda k: fn()),
+                                    n_small, n_big)
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -121,3 +125,42 @@ def dependent_load_ns(n: int = 1 << 26, steps: int = 20000, seed: int = 0, *,
 
     run(steps // 10)
     return (run(steps) - run(steps // 10)) / (steps - steps // 10)
+
+
+def device_spans(fn, warm) -> list[tuple[float, float, str]]:
+    """fn() once under `torch.profiler`: the (start us, end us, name) of every
+    kernel and copy the device ran, in order of start.  warm() runs first as
+    the profiler's warm-up step, whose events are dropped: a profiler started
+    cold can lose the device's first events.  Raises if the profiler saw no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
+                   and not ev.name.startswith("ProfilerStep"))
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return spans
+
+
+def busy_seconds(spans) -> tuple[float, float]:
+    """(seconds the device was busy: the union of the spans' intervals;
+    seconds from the first span's start to the last one's end)."""
+    busy, cur0, cur1 = 0.0, spans[0][0], spans[0][1]
+    for t0, t1, _ in spans[1:]:
+        if t0 > cur1:
+            busy += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    busy += cur1 - cur0
+    return busy / 1e6, (max(t1 for _, t1, _ in spans) - spans[0][0]) / 1e6

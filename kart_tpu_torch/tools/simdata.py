@@ -1,12 +1,14 @@
-"""Synthetic genome and paired reads for smoke runs and tests.
+"""Synthetic genome, paired reads and PacBio reads for smoke runs and tests.
 
 The port's own copy of the generators of the repository's `bench.py`
-(`make_repeat_genome`, and the read recipe of `simulate_reads`), so that
-the port runs on the same data without importing it: an E. coli-scale
-random genome with implanted repeat families, and 150 bp read pairs with
-insert 500 +- 50, 1% substitutions and indels at 0.001 per base.  Both draw
-from a numpy `Generator` in the same order as bench.py, so the same seed
-gives the same bytes (tests/test_torch_slice.py holds them equal).
+(`make_repeat_genome`, the read recipe of `simulate_reads`, and the PacBio
+recipe of `ensure_pacbio_assets`), so that the port runs on the same data
+without importing it: an E. coli-scale random genome with implanted repeat
+families, 150 bp read pairs with insert 500 +- 50, 1% substitutions and
+indels at 0.001 per base, and PacBio-like reads of 5,000 to 7,000 bases with
+15% errors (substitutions, deletions and insertions 2:1:1).  All draw from a
+numpy `Generator` in the same order as bench.py, so the same seed gives the
+same bytes (tests/test_torch_slice.py holds them equal).
 """
 
 from __future__ import annotations
@@ -18,6 +20,10 @@ GENOME_SEED = 7
 READS_SEED = 20260817
 READ_LEN = 150
 GENOME_NAME = b"bench_ecoli_synthetic_repeats"
+PB_READS_SEED = 20260821
+PB_N_READS = 1500
+PB_MIN_LEN, PB_MAX_LEN = 5000, 7000
+PB_ERR = 0.15
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -105,3 +111,38 @@ def simulate_reads(genome: np.ndarray, out1: str, out2: str, n_pairs: int,
             hdr = f"@{i}:Pos={p + 1}\t".encode()
             f1.write(hdr + b"/1\n" + fwd + b"\n+\n" + qline + b"\n")
             f2.write(hdr + b"/2\n" + rev + b"\n+\n" + qline + b"\n")
+
+
+def noisy_copy(rng: np.random.Generator, src: np.ndarray, rl: int, err: float = PB_ERR) -> bytes:
+    """At most rl bases read off `src` with bench.py's PacBio error model:
+    per step a substitution (err / 2), a deletion (err / 4), an insertion
+    (err / 4) or the base itself, in bench.py's order of draws."""
+    out = []
+    j = 0
+    n = len(src)
+    while j < n and len(out) < rl:
+        r = rng.random()
+        if r < err * 0.5:  # substitution
+            out.append(_BASES[(np.searchsorted(_BASES, src[j]) + rng.integers(1, 4)) % 4])
+            j += 1
+        elif r < err * 0.75:  # deletion
+            j += 1
+        elif r < err:  # insertion
+            out.append(_BASES[rng.integers(0, 4)])
+        else:
+            out.append(src[j])
+            j += 1
+    return bytes(out[:rl])
+
+
+def simulate_pacbio_reads(genome: np.ndarray, out: str, n_reads: int = PB_N_READS) -> None:
+    """The first n_reads reads of bench.py's PacBio read set for this genome
+    (`@pb<i>:Pos=<1-based start>`), as one FASTQ file."""
+    rng = np.random.default_rng(PB_READS_SEED)
+    L = len(genome)
+    with open(out, "wb") as f:
+        for i in range(n_reads):
+            rl = int(rng.integers(PB_MIN_LEN, PB_MAX_LEN + 1))
+            p = int(rng.integers(0, L - 2 * rl))
+            seq = noisy_copy(rng, genome[p : p + int(rl * 1.3)], rl)
+            f.write(b"@pb%d:Pos=%d\n%s\n+\n%s\n" % (i, p + 1, seq, b"I" * len(seq)))

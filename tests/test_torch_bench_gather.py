@@ -147,3 +147,14 @@ def test_row_gather_takes_only_cuda_tensors():
         with pytest.raises(ValueError, match="cuda"):
             kernels.row_gather(t, torch.zeros(n, dtype=torch.int32))
     assert kernels.row_gather.launches == 0
+
+
+def test_busy_seconds_is_the_union_of_the_spans():
+    """Overlapping kernels and copies count once; the window runs from the
+    first start to the last end (microseconds in, seconds out)."""
+    from kart_tpu_torch.tools.bench_kernels import busy_seconds
+
+    spans = [(0.0, 10.0, "a"), (5.0, 20.0, "b"), (6.0, 8.0, "c"), (30.0, 40.0, "d")]
+    busy, window = busy_seconds(spans)
+    assert busy == pytest.approx(30e-6) and window == pytest.approx(40e-6)
+    assert busy_seconds([(3.0, 4.0, "a")]) == (pytest.approx(1e-6), pytest.approx(1e-6))

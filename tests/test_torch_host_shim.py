@@ -1,5 +1,6 @@
-"""The redesigned CUDA kernels run on the CPU: `csrc/kmer_funnel.cu`,
-`csrc/resolve_pack.cu`, `csrc/fm_seed_scan.cu` and `csrc/nw.cu` compiled as
+"""The CUDA kernels run on the CPU: `csrc/kmer_funnel.cu` (FastMode and
+SensitiveMode), `csrc/resolve_pack.cu`, `csrc/fm_seed_scan.cu` (both
+steppers) and `csrc/nw.cu` compiled as
 host C++ against `tests/host_shim/cuda_shim.h` (threads as std::threads, a
 warp's shuffles an exchange between its 32 threads, the
 blocks of a cluster at the same time, cluster.sync() a barrier over all of
@@ -43,7 +44,10 @@ def host_lib(tmp_path_factory):
         "kmer_funnel.cu", "resolve_pack.cu", "fm_seed_scan.cu", "nw.cu")])
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
+                                     p, p, p]
+    lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, p]
+    lib.kart_fm_sensitive_scan.restype = i
     lib.kart_kmer_funnel.restype = i
     lib.kart_kmer_funnel_cluster.restype = i
     lib.kart_resolve_pack.argtypes = [p, i, i, i, p, i, i, p, p, p, p, p]
@@ -87,9 +91,11 @@ def ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_rows, hit_budget):
+def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_rows, hit_budget,
+                sensitive=False, ms=None, rounds=None):
     B = words.shape[0]
-    ms = l_max // (MIN_SEED + 1) + 1
+    ms = ms or l_max // (MIN_SEED + 1) + 1
+    rounds = rounds or l_max // 10 + 4
     table_lo = np.ascontiguousarray(tb.table_lo_np, np.int32)
     sub_tbl = np.ascontiguousarray(tb.sub_tbl_np)
     sa = np.ascontiguousarray(tb.sa_full_np, np.int32)
@@ -98,7 +104,7 @@ def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_row
     out = np.full((B, 2 + 4 * ms), -7, np.int32)
     rc = lib.kart_kmer_funnel(ptr(table_lo), ptr(sub_tbl), ptr(sa), ptr(text), int(tb.seq_len),
                               ptr(words), ptr(amb_r), ptr(amb_p), len(amb_r), ptr(rlens), B, l_max,
-                              MIN_SEED, ms, hit_cap, l_max // 10 + 4, slab_rows, hit_budget,
+                              MIN_SEED, ms, hit_cap, rounds, slab_rows, hit_budget, int(sensitive),
                               ptr(ambm), ptr(out), None)
     assert rc == 0
     return out
@@ -149,7 +155,65 @@ def test_funnel_kernel_on_host_refuses_a_block_too_large(host_lib, shim_genome):
     ambm = np.zeros((B, 16), np.int32)
     rc = host_lib.kart_kmer_funnel(None, None, None, None, int(tb.seq_len), ptr(words), ptr(none),
                                    ptr(none), 0, ptr(np.zeros(B, np.int32)), B, l_max, MIN_SEED,
-                                   ms, 16, 10, 32000, 2, ptr(ambm), ptr(out), None)
+                                   ms, 16, 10, 32000, 2, 0, ptr(ambm), ptr(out), None)
+    assert rc != 0
+
+
+# name: (genome, B, l_max, slab_rows, hit_budget, rounds or None for the mapper's)
+SENS_FUNNEL_CASES = {
+    "b16_ragged": ("random", 16, 1024, 4096, 2, None),  # 2 lanes a block; short, pad, N lanes
+    "one_read_l32768": ("random", 1, 32768, 4096, 2, None),  # seven blocks without a lane
+    # three slabs of 24 and a ragged fourth, 3 lanes a block; every lane asks
+    # for some 40 hits of a budget of 4 * 24
+    "slabs_flagged": ("repeat", 80, 512, 24, 1, None),
+    "budget_above_four": ("repeat", 20, 512, 4096, 9, None),  # H = 9 * B
+    "rounds_cut": ("random", 16, 1024, 4096, 2, 20),  # unfinished lanes are flagged
+}
+
+
+@pytest.mark.parametrize("name", list(SENS_FUNNEL_CASES))
+def test_sensitive_funnel_kernel_on_host_matches_plain(host_lib, shim_genome, name):
+    from test_torch_kmer_seed import repeat_batch, sensitive_batch
+
+    gidx, tb = shim_genome
+    kind, B, l_max, slab, hb, rounds = SENS_FUNNEL_CASES[name]
+    if kind == "repeat":
+        reads, rlens = repeat_batch(gidx, B, l_max)
+    elif B == 1:  # a read of exactly l_max bases, 12% substitutions, an N run
+        rng = np.random.default_rng(5)
+        r = gidx.ref_codes[100 : 100 + l_max].astype(np.int32)
+        m = rng.random(l_max) < 0.12
+        r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        r[9000:9040] = 4
+        reads, rlens = r[None, :].copy(), np.array([l_max], np.int32)
+    else:
+        reads, rlens = sensitive_batch(gidx, n=B, rlen=700, l_max=l_max)
+        reads[2, 100:230] = 4  # a run of Ns longer than any window or word
+    ms = l_max // MIN_SEED + 2
+    rounds = rounds or l_max // MIN_SEED + 8
+    hit_cap = tks.hit_cap_for(tb.max_mult)
+    words, amb_r, amb_p = tpack.pack_reads_2bit(reads.astype(np.int8))
+    got = host_funnel(host_lib, tb, words, amb_r, amb_p, rlens, l_max=l_max, hit_cap=hit_cap,
+                      slab_rows=slab, hit_budget=max(hb, 4), sensitive=True, ms=ms, rounds=rounds)
+    tt = tks.KmerTablesTensors.from_tables(tb, "cpu")
+    want = tks.kmer_seed_scan_plain(
+        tt, torch.from_numpy(reads), torch.from_numpy(rlens), MIN_SEED, max_seeds=ms,
+        l_max=l_max, hit_cap=hit_cap, rounds=rounds, sensitive=True, slab_rows=slab,
+        hit_budget=hb).numpy()
+    np.testing.assert_array_equal(got, want)
+    flagged = int((want[:, 1] == 0).sum())
+    if name in ("slabs_flagged", "rounds_cut"):
+        assert flagged >= 8
+    elif name == "budget_above_four":  # 40 hits a lane fit a budget of 9 a lane four at a time
+        assert 0 < flagged < B
+    assert want[:, 0].sum() >= 2 * min(B, 8)
+    if name == "one_read_l32768":
+        assert want[0, 0] > 250 and want[0, 2 + want[0, 0] - 1] > 32000
+
+
+def test_sensitive_funnel_kernel_on_host_refuses_l_max(host_lib):
+    rc = host_lib.kart_kmer_funnel(None, None, None, None, 0, None, None, None, 0, None, 2, 32784,
+                                   MIN_SEED, 9, 16, 10, 4096, 4, 1, None, None, None)
     assert rc != 0
 
 
@@ -168,6 +232,10 @@ RESOLVE_CASES = {
     "fm_layout": (998, 9, 64 * 998, False, True, 1.0),  # the re-seed batches' layout
     # 36 blocks, and a budget that the reads of the last blocks still fit
     "look_back_past_32_blocks": (9000, 5, 64000, True, True, 0.9),
+    # the PacBio path's rows in the 32-bit layout: 632 seeds a read at l_max
+    # 8192 (a totals tile is 256 reads by S columns), 2,522 at l_max 32768
+    "pacbio_rows": (300, 632, 300 * 341, True, False, 0.9),
+    "l_max_32768_rows": (16, 2522, 16 * 1365, False, False, 1.0),
     "budget_zero": (300, 6, 0, True, True, 0.8),
     "all_flagged": (300, 6, 1200, True, False, 0.0),
     "no_reads": (0, 6, 64, True, True, 1.0),
@@ -272,6 +340,46 @@ def test_fm_seed_scan_kernel_on_host_matches_plain(host_lib, shim_genome, name):
         assert (want[[0, 1, 2, 3, 5, 7, 13]] == 0).all() and want[:, 0].sum() >= 6
     else:
         assert want[:, 0].sum() >= min(B, 100) // 2
+
+
+# name: (static l_max or None for the reads' width, max_seeds or None for the mapper's)
+FM_SENS_CASES = {
+    "long": (None, None),
+    "ragged": (None, None),  # pad lanes, reads around MinSeed, all-N, a clean read
+    "trip_cut": (13, None),  # max_trips = 31 * 3 cuts every read
+    "dropped": (None, 3),  # seeds past max_seeds are dropped and not counted
+    "rewind": (None, None),  # start + MinSeed < p after a seed with too many occurrences
+}
+
+
+@pytest.mark.parametrize("name", list(FM_SENS_CASES))
+def test_fm_sensitive_scan_kernel_on_host_matches_plain(host_lib, shim_genome, workdir, name):
+    from test_torch_fm_search import _sensitive_reads, tandem_index, tandem_reads
+
+    gidx, _ = shim_genome
+    if name == "rewind":
+        gidx = tandem_index(workdir, "torch_shim_tandem")
+        reads, rlens = tandem_reads(gidx)
+        l_max, ms = reads.shape[1], reads.shape[1] // MIN_SEED + 2
+    else:
+        reads, rlens, l_max, ms = _sensitive_reads(gidx, name)
+        reads[0, rlens[0]:] = 7  # codes past rlen need not be 4
+    B, width = reads.shape
+    fm = tfm.FMIndexTensors.from_genome_index(gidx, "cpu")
+    want = tfm.sensitive_scan_plain(fm, torch.from_numpy(reads), torch.from_numpy(rlens),
+                                    MIN_SEED, max_seeds=ms, l_max=l_max).numpy()
+    out = np.full((B, 1 + 4 * ms), -7, np.int32)
+    rc = host_lib.kart_fm_sensitive_scan(
+        ptr(fm.occ_cp.numpy()), ptr(fm.bwt_words.numpy()), ptr(fm.L2.numpy()), fm.primary,
+        ptr(reads), ptr(rlens), B, width, MIN_SEED, ms, 31 * (l_max // MIN_SEED + 2), ptr(out),
+        None)
+    assert rc == 0
+    np.testing.assert_array_equal(out, want)
+    assert want[:, 0].sum() >= 10
+    if name == "dropped":
+        assert (want[:, 0] == ms).any()
+    elif name == "trip_cut":
+        assert want[:, 0].max() <= 4
 
 
 def test_fm_seed_scan_kernel_on_host_refuses_reads_too_long(host_lib):

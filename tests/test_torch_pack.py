@@ -98,3 +98,104 @@ def test_unpack_stream_matches(pack16):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(got[0], cnts)
+
+
+# ---------------------------------------------------------------------------
+# The SensitiveMode (PacBio) entry points: 32-bit streams
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sens_index(workdir):
+    """The 20 kb random genome of tests/test_fm_kernels.py, its FM index in
+    both packages and the funnel's tables."""
+    from conftest import make_genome
+    from kart_tpu.index import build_index, load_index
+    from kart_tpu.ops import fm_search as jfm
+    from kart_tpu.ops import kmer_seed as jks
+    from kart_tpu_torch.ops import fm_search as tfm
+    from kart_tpu_torch.ops import kmer_seed as tks
+
+    d = workdir / "torch_pack_sens"
+    d.mkdir(exist_ok=True)
+    (d / "g.fa").write_text(make_genome(np.random.default_rng(5), [20000], n_runs=0))
+    build_index(str(d / "g.fa"), str(d / "idx"), verbose=False)
+    gidx = load_index(str(d / "idx"))
+    tb = tks.build_tables(gidx, cache=False)
+    return dict(gidx=gidx, jfm=jfm.FMIndexArrays.from_genome_index(gidx),
+                tfm=tfm.FMIndexTensors.from_genome_index(gidx, "cpu"),
+                jtb=jks.build_tables(gidx, cache=False), tb=tb,
+                tt=tks.KmerTablesTensors.from_tables(tb, "cpu"),
+                hit_cap=tks.hit_cap_for(tb.max_mult))
+
+
+def sens_batch(gidx, case):
+    """(reads int8 (B, l_max), rlens, l_max, occ budget) of one case."""
+    from test_torch_kmer_seed import sensitive_batch
+
+    if case == "s317":  # 4 reads of 2.6-3.4 kb at l_max 4096: max_seeds 317
+        rng = np.random.default_rng(4)
+        l_max = 4096
+        reads = np.full((4, l_max), 4, np.int32)
+        rlens = np.array([3400, 2600, 3000, 0], np.int32)
+        for i, rl in enumerate(rlens):
+            p = int(rng.integers(0, gidx.two_genome_size - 3500))
+            r = gidx.ref_codes[p : p + rl].astype(np.int32)
+            m = rng.random(rl) < 0.1
+            r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
+            reads[i, :rl] = r
+        return reads.astype(np.int8), rlens, l_max, 4 * max(64, l_max // 24)
+    reads, rlens = sensitive_batch(gidx, n=16, rlen=700, l_max=1024)
+    budget = 16 * 64 if case == "b16" else 30  # the tight budget leaves reads out
+    return reads.astype(np.int8), rlens, 1024, budget
+
+
+@pytest.mark.parametrize("case", ["b16", "tight_budget", "s317"])
+def test_sensitive_resolved_entry_points_match(sens_index, case):
+    """sensitive_scan_packed, sensitive_scan_resolved_packed and
+    kmer_seed_scan_resolved_packed(sensitive=True) against kart_tpu's, from
+    the host packer's words to the 32-bit stream."""
+    x = sens_index
+    reads, rlens, l_max, H = sens_batch(x["gidx"], case)
+    B = len(rlens)
+    ms = l_max // 13 + 2
+    words, amb_r, amb_p = jpack.pack_reads_2bit(reads)
+    assert len(amb_r) > 4096, "the pad bases overrun the packer's first capacity"
+    jargs = (jnp.asarray(words), jnp.asarray(amb_r), jnp.asarray(amb_p), jnp.asarray(rlens),
+             np.int32(13))
+    w2, r2, p2 = tpack.pack_reads_2bit(reads)
+    np.testing.assert_array_equal(w2, words)
+    np.testing.assert_array_equal(r2, amb_r)
+    targs = (torch.from_numpy(w2.view(np.int32)), torch.from_numpy(r2), torch.from_numpy(p2),
+             torch.from_numpy(rlens), 13)
+    kw = dict(max_seeds=ms, l_max=l_max)
+
+    want = np.asarray(jpack.sensitive_scan_packed(x["jfm"], *jargs, **kw))
+    got = tpack.sensitive_scan_packed(x["tfm"], *targs, **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    sa = x["tt"].sa_full
+    want = np.asarray(jpack.sensitive_scan_resolved_packed(x["jfm"], *jargs, occ_budget=H, **kw))
+    got = tpack.sensitive_scan_resolved_packed(x["tfm"], sa, *targs, occ_budget=H, **kw)
+    assert got.dtype == torch.int32 and got.shape == (B + 2 * H,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    fm_cnts = want[:B]
+
+    jtb = x["jtb"]
+    fk = dict(hit_cap=x["hit_cap"], rounds=l_max // 13 + 8, occ_budget=H, sensitive=True, **kw)
+    want = np.asarray(jpack.kmer_seed_scan_resolved_packed(
+        jtb.table_lo, jtb.text_words, jtb.sa_full, jtb.sub_tbl, *jargs, seq_len=jtb.seq_len, **fk))
+    got = tpack.kmer_seed_scan_resolved_packed(x["tt"], *targs, **fk)
+    assert got.dtype == torch.int32 and got.shape == (B + 2 * H,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    cnts, meta, gpos = tpack.unpack_stream(want, B, H)
+    if case == "tight_budget":
+        assert (cnts < 0).sum() >= 6 and (cnts >= 0).sum() >= 2
+    else:
+        # the funnel is exact: the stream is the FM stepper's
+        assert (cnts >= 0).all()
+        np.testing.assert_array_equal(cnts, fm_cnts)
+    if case == "s317":
+        assert ms == 317 and cnts.max() > 30
+        assert ((meta[: cnts[0]] & 0xFFFF) > 3000).any(), "rpos past 3,000 in the meta words"

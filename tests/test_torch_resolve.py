@@ -109,3 +109,17 @@ def test_resolve_pack_plain_shapes_of_the_chained_scan(name, B, H, pack16, all_f
         assert not ok[tot > 0].any()
     if H == 0:
         assert len(gpos) == 0
+
+
+@pytest.mark.parametrize("name, B, S, H, has_ok", [
+    ("pacbio_group_rows", 40, 632, 40 * 341, True),  # l_max 8192: 632 seeds, 341 slots a lane
+    ("pacbio_reseed_rows", 16, 632, 16 * 341, False),
+    ("l_max_32768_rows", 6, 2522, 6 * 1365, True),
+])
+def test_resolve_pack_plain_at_pacbio_widths(name, B, S, H, has_ok):
+    """Seed rows of hundreds to thousands of slots in the plain 32-bit
+    layout, the shapes the PacBio path gives resolve_pack; the budget cuts
+    a suffix of the reads."""
+    got = compose_both(B, S, H, has_ok, False)
+    cnts, meta, gpos = tpack.unpack_stream(got, B, H)
+    assert (cnts < 0).any() and (cnts >= 0).any() and (gpos >= 0).sum() > H // 2

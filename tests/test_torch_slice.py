@@ -219,6 +219,29 @@ def test_simdata_equals_bench(tmp_path, monkeypatch):
         assert got == (tmp_path / f"b{k}.fq").read_bytes()
 
 
+def test_simdata_pacbio_equals_bench(tmp_path, monkeypatch):
+    """tools/simdata's PacBio reads equal bench.py's ensure_pacbio_assets
+    for the same genome: the same draws in the same order."""
+    sys.path.insert(0, str(REPO))
+    import bench
+
+    from kart_tpu_torch.tools import simdata
+
+    assert (simdata.PB_N_READS, simdata.PB_MIN_LEN, simdata.PB_MAX_LEN, simdata.PB_ERR) == (
+        bench.PB_N_READS, bench.PB_MIN_LEN, bench.PB_MAX_LEN, bench.PB_ERR)
+    genome = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(3).integers(0, 4, 40000)]
+    fa = tmp_path / "g.fa"
+    simdata.write_genome_fasta(str(fa), genome)
+    n = 5
+    monkeypatch.setattr(bench, "DATA", str(tmp_path))
+    monkeypatch.setattr(bench, "PB_N_READS", n)
+    want = Path(bench.ensure_pacbio_assets(str(fa))).read_bytes()
+    simdata.simulate_pacbio_reads(genome, str(tmp_path / "pb.fq"), n)
+    got = (tmp_path / "pb.fq").read_bytes()
+    assert got.count(b"\n") == 4 * n and got.startswith(b"@pb0:Pos=")
+    assert got == want
+
+
 def test_cli_without_gpu_fails(slice_data):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -231,11 +254,11 @@ def test_cli_without_gpu_fails(slice_data):
 @pytest.mark.parametrize(
     "extra, env, item",
     [
-        (["-backend", "python", "-pacbio"], {}, "item 7"),
         (["-backend", "python", "-idx-shards", "2"], {}, "item 10"),
         (["-backend", "python"], {"KART_SA_MODE": "sampled"}, "item 8"),
         ([], {"KART_SEED_MODE": "device", "KART_SA_MODE": "sampled"}, "item 8"),
         (["-backend", "python"], {"KART_DEVICE_CLUSTER": "1"}, "item 9"),
+        (["-pacbio"], {"KART_SEED_MODE": "device", "KART_DEVICE_PAIR": "1"}, "item 9"),
     ],
 )
 def test_unported_paths_raise(slice_data, monkeypatch, extra, env, item):
