@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py        # from the repository root
     python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
-                                          # funnel and resolve_pack (another commit's,
-                                          # unpacked with git archive into a directory of
-                                          # this checkout)
+                                          # funnel, resolve_pack and SensitiveMode kernels
+                                          # (another commit's, unpacked with git archive
+                                          # into a directory of this checkout)
 
 Phases (each prints one line; any failure raises and exits non-zero):
   0. the device, and nvidia-smi's name and power limit; nvcc builds the
@@ -61,7 +61,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cut from one copy of a repeat family, whose hits overrun the funnel's
      budget so that lanes are flagged; where the funnel says ok its seeds
      equal the stepper's; resolve_pack on both outputs in the 32-bit layout.
-     Slope and per-call times, bounds and chains as in phase 4;
+     The funnel's slabs by path (chased, round-synchronous): the group must be
+     chased and the repeat family replayed, and the repeat family again in
+     scratch tiles of 8 rows (the cluster kernel) must give the same rows.
+     Slope and per-call times, bounds and chains as in phase 4, each new
+     design's own chain beside the function's, and both kernels' launches
+     by device time (torch.profiler);
   8. the PacBio slice: simdata's 1,500 PacBio reads mapped by the port's CLI
      with -pacbio: (a) KART_SEED_MODE=device on the card, whose SAM records
      must equal (b) the native mode's and (c) a -cpu device run's of the
@@ -452,14 +457,17 @@ def require_equal(got, want, what: str) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-def funnel_bound(tt, inputs, out, stats, load_ns: float) -> dict:
+def funnel_bound(tt, inputs, out, stats, load_ns: float, l2_load_ns: float = 0.0) -> dict:
     """Bound of one funnel call from the plain version's counters: the packed
     reads in and the seed rows out once, a 32-byte sector of table_lo per
     13-mer lookup, per hit a sector of sa_full and two of text, a sector of
     sub_tbl per lane and round on the sub-13 path (each table at most once
     whole); some 200 operations a lane and round and 100 a hit.  `chain_ms`
     is the other floor: the most rounds any slab ran times three dependent
-    loads (table_lo, sa_full, text) at the measured latency."""
+    loads (table_lo, sa_full, text) at the measured latency.
+    `design_chain_ms`, the SensitiveMode design's own chain: one position's
+    three dependent loads, then one load that hits L2 (`l2_load_ns`) per
+    round of the chase."""
     from kart_tpu_torch.tools.bench_kernels import bound_ms
 
     lookups = sum(sum(c["lookups"]) for c in stats)
@@ -472,7 +480,8 @@ def funnel_bound(tt, inputs, out, stats, load_ns: float) -> dict:
     lane_rounds = sum(c["rounds"] for c in stats) * (out.shape[0] // len(stats))
     t_b, by = bound_ms(n_bytes, 200 * lane_rounds + 100 * hits)
     return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, rounds=rounds, lookups=lookups,
-                hits=hits, chain_ms=max(rounds) * 3 * load_ns / 1e6)
+                hits=hits, chain_ms=max(rounds) * 3 * load_ns / 1e6,
+                design_chain_ms=(3 * load_ns + max(rounds) * l2_load_ns) / 1e6)
 
 
 def resolve_bound(sa_full, packed, stream, n_occ: int, load_ns: float) -> dict:
@@ -811,22 +820,28 @@ def repeat_window(gidx, tb, span: int) -> int:
 
 
 def sens_fm_bound(fm, codes, rl, out, stats, l2_load_ns: float) -> dict:
-    """Bound of one SensitiveMode FM-stepper call, as fm_bound: the reads in
-    and the seed rows out once, the index rows of this run's extension steps
-    (at most the whole index), 160 operations a step; and the chain, the
-    trips of the lane that ran most of them times the latency of a dependent
-    load that hits L2."""
+    """Bound of one SensitiveMode FM-stepper call: the reads in and the seed
+    rows out once, the index rows of this run's extension steps (at most the
+    whole index), 160 operations a step.  Beside it two chains: the serial
+    loop's (the trips of the lane that ran most of them times the latency of
+    a dependent load that hits L2), which the position-parallel design does
+    not have to follow, and that design's own."""
     from kart_tpu_torch.tools.bench_kernels import bound_ms
 
     steps, trips = int(stats["steps"].sum()), int(stats["trips"].max())
     index = fm.occ_cp.nbytes + fm.bwt_words.nbytes
     t_b, by = bound_ms(codes.nbytes + rl.nbytes + out.nbytes + min(128 * steps, index), 160 * steps)
     chain = trips * l2_load_ns / 1e6
-    return dict(bound_ms=max(t_b, chain), bound_by="chain" if chain > t_b else by, chain_ms=chain,
-                bytes_ms=t_b, bytes_by=by, steps=steps, trips=trips)
+    # the design's own chain: the longest extension's 29 dependent steps,
+    # then the chase's one dependent load per extension of the read that
+    # started most of them (its scratch hits L2)
+    starts = int(stats["starts"].max())
+    design = (29 + starts) * l2_load_ns / 1e6
+    return dict(bound_ms=t_b, bound_by=by, chain_ms=chain, bytes_ms=t_b, bytes_by=by, steps=steps,
+                trips=trips, starts=starts, design_chain_ms=design)
 
 
-def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
+def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float, other=None) -> dict:
     import torch
 
     from kart_tpu_torch import kernels
@@ -851,9 +866,12 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
     to_code = np.full(256, 4, np.int8)
     to_code[_ACGT] = np.arange(4)
 
-    def case(name, reads_i8, rlens, l_max, timed=False):
+    def case(name, reads_i8, rlens, l_max, timed=False, tiles=0):
         """Both kernels and resolve_pack on one batch against their plain
-        versions; the funnel's ok lanes must carry the stepper's seeds."""
+        versions; the funnel's ok lanes must carry the stepper's seeds.  With
+        `tiles`, the funnel runs again with a scratch of that many rows, so
+        that its slab is chained tile by tile and an overrun goes through the
+        cluster kernel, and must give the same rows."""
         B = reads_i8.shape[0]
         ms, H = l_max // msl + 2, B * max(64, l_max // 24)
         t0 = time.perf_counter()
@@ -868,7 +886,21 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
         err = require_equal(codes, unpack_reads_plain(w, ar, ap, l_max), f"unpack_reads ({name})")
         st_a: list = []
         st_b: dict = {}
+        kernels.funnel_slab_paths(w.device, reset=True)
         got_a = kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka)
+        paths = kernels.funnel_slab_paths(w.device, reset=True)
+        tiled = ""
+        if tiles:
+            scratch, kernels.SENS_SCRATCH = kernels.SENS_SCRATCH, tiles * l_max
+            try:
+                got_t = kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka)
+            finally:
+                kernels.SENS_SCRATCH = scratch
+            require_equal(got_t, got_a, f"SensitiveMode kmer_funnel in tiles of {tiles} rows ({name})")
+            paths_t = kernels.funnel_slab_paths(w.device, reset=True)
+            if paths_t != paths:
+                raise AssertionError(f"{name}: slabs {paths_t} in tiles of {tiles} rows, {paths} whole")
+            tiled = f"; in tiles of {tiles} rows (the cluster kernel for an overrun slab): equal"
         err = max(err, require_equal(got_a, kmer_seed_scan_plain(tt, codes, rl, msl, stats=st_a, **ka),
                                      f"SensitiveMode kmer_funnel ({name})"))
         got_b = kernels.fm_sensitive_scan(fm, codes, rl, msl, **kb)
@@ -885,12 +917,24 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
                                          f"resolve_pack ({name}, has_ok {has_ok})"))
             n_occ.append(int((stream[B + H:] >= 0).sum()))
         res = dict(err=err, err_b=err_b, flagged=int((~ok).sum()), seeds=int(got_b[:, 0].sum()),
-                   n_amb=len(amb_r), n_occ=n_occ, B=B, l_max=l_max, H=H, pack_s=pack_s)
+                   n_amb=len(amb_r), n_occ=n_occ, B=B, l_max=l_max, H=H, pack_s=pack_s, paths=paths)
         print(f"phase 7 {name}: B={B} l_max={l_max} max_seeds={ms}: kmer_funnel, fm_sensitive_scan"
               f" and resolve_pack (H={H}, 32-bit) equal their plain versions;"
               f" {int(got_a[:, 0].sum())} funnel seeds, {res['seeds']} stepper seeds, {res['flagged']}"
               f" lanes flagged, {n_occ[0]} and {n_occ[1]} occurrences, {res['n_amb']} ambiguity entries"
-              f" (the host packer took {1e3 * pack_s:.3f} ms)")
+              f" (the host packer took {1e3 * pack_s:.3f} ms); funnel slabs: {paths[0]} chased,"
+              f" {paths[1]} round-synchronous{tiled}")
+        if other is not None and timed:
+            require_equal(other.kmer_funnel(tt, w, ar, ap, rl, msl, **ka), got_a,
+                          f"SensitiveMode kmer_funnel of the compared build ({name})")
+            require_equal(other.fm_sensitive_scan(fm, codes, rl, msl, **kb), got_b,
+                          f"fm_sensitive_scan of the compared build ({name})")
+            compare_turns(f"kmer_funnel (sensitive) {name} B={B}",
+                          lambda: other.kmer_funnel(tt, w, ar, ap, rl, msl, **ka),
+                          lambda: kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka))
+            compare_turns(f"fm_sensitive_scan {name} B={B}",
+                          lambda: other.fm_sensitive_scan(fm, codes, rl, msl, **kb),
+                          lambda: kernels.fm_sensitive_scan(fm, codes, rl, msl, **kb))
         if timed:
             reps = dict(reps=8, n_small=4, n_big=36)
             rk = dict(max_seeds=ms, has_ok=True, occ_budget=H, pack16=False)
@@ -905,13 +949,17 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
                 p_b=(once_ms(lambda: sensitive_scan_plain(fm, codes, rl, msl, **kb))
                      if timed == "with plain" else None),
                 p_r=cuda_ms(lambda: resolve_pack_plain(tt.sa_full, got_a, **rk), 2),
-                b_a=funnel_bound(tt, (w, ar, ap, rl), got_a, st_a, load_ns),
+                b_a=funnel_bound(tt, (w, ar, ap, rl), got_a, st_a, load_ns, l2_load_ns),
                 b_b=sens_fm_bound(fm, codes, rl, got_b, st_b, l2_load_ns),
                 b_r=resolve_bound(tt.sa_full, got_a, kernels.resolve_pack(tt.sa_full, got_a, **rk),
                                   n_occ[0], load_ns))
+            # both kernels in one profiler session, their launches told apart by name
             parts = bench_kernels.device_us_by_kernel(
-                lambda: kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka), reps=3)
-            res["parts_a"] = ", ".join(f"{short(k)} {v:.2f}" for k, v in sorted(parts.items()))
+                lambda: (kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka),
+                         kernels.fm_sensitive_scan(fm, codes, rl, msl, **kb)), reps=3)
+            for key, mine in (("parts_a", lambda k: "fm_" not in k), ("parts_b", lambda k: "fm_" in k)):
+                res[key] = ", ".join(f"{short(k)} {v:.2f}" for k, v in sorted(parts.items()) if mine(k))
+            res["parts_a"] += " (the memsets of both calls)"
         return res
 
     seqs = fastq_codes(pb, PB_B)
@@ -937,9 +985,14 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
     p0 = repeat_window(gidx, tb, 4000)
     rep_reads = [to_code[np.frombuffer(simdata.noisy_copy(
         rng, genome[p0 + 40 * i : p0 + 40 * i + 3900], 3000, err=0.05), np.uint8)] for i in range(16)]
-    flagged = case("repeat family", *pad_batch(rep_reads, 16, 4096), 4096)
+    flagged = case("repeat family", *pad_batch(rep_reads, 16, 4096), 4096, tiles=8)
     if flagged["flagged"] == 0:
         raise AssertionError("the repeat-family batch flagged no lane")
+    # which path each batch's slabs took: the group's rounds fit the budget
+    # (chased exactly), the repeat family's overrun it (round-synchronous)
+    if group["paths"] != (1, 0) or flagged["paths"] != (0, 1):
+        raise AssertionError(f"funnel paths: group {group['paths']}, repeat family {flagged['paths']}"
+                             " (expected (1, 0) and (0, 1): chased, round-synchronous)")
     if longc["seeds"] == 0 or group["seeds"] == 0:
         raise AssertionError("a SensitiveMode batch has no seeds")
 
@@ -950,16 +1003,19 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
             f" {1e3 * r['t_a'][0]:.4f} ms, per call {1e3 * r['t_a'][1]:.4f} ms, plain {r['p_a']:.4f} ms;"
             f" rounds {a['rounds']}, {a['lookups']} 13-mer lookups, {a['hits']} hits, {a['bytes']} bytes:"
             f" bound {a['bound_ms']:.4f} ms ({a['bound_by']}); dependent load {load_ns:.1f} ns, chain"
-            f" {max(a['rounds'])} rounds x 3 loads = {a['chain_ms']:.4f} ms; by launch (torch.profiler,"
-            f" us): {r['parts_a']}"
+            f" {max(a['rounds'])} rounds x 3 loads = {a['chain_ms']:.4f} ms; this design's chain: 3"
+            f" loads, then {max(a['rounds'])} rounds x one load that hits L2 ({l2_load_ns:.1f} ns) ="
+            f" {a['design_chain_ms']:.4f} ms; by launch (torch.profiler, us): {r['parts_a']}"
         )
         print(
             f"phase 7 times B={r['B']} l_max={r['l_max']}: fm_sensitive_scan slope"
             f" {1e3 * r['t_b'][0]:.4f} ms, per call {1e3 * r['t_b'][1]:.4f} ms, plain"
             f" {'not timed' if r['p_b'] is None else format(r['p_b'], '.4f') + ' ms'};"
-            f" {b['steps']} extension steps, longest lane {b['trips']} trips; dependent load that hits L2"
-            f" {l2_load_ns:.1f} ns: chain {b['chain_ms']:.4f} ms, bytes and operations"
-            f" {b['bytes_ms']:.4f} ms ({b['bytes_by']}): bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+            f" {b['steps']} extension steps, longest lane {b['trips']} trips; bytes and operations:"
+            f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}); dependent load that hits L2"
+            f" {l2_load_ns:.1f} ns: the serial loop's chain {b['chain_ms']:.4f} ms;"
+            f" this design's chain: 29 steps, then {b['starts']} extensions a read ="
+            f" {b['design_chain_ms']:.4f} ms; by launch (torch.profiler, us): {r['parts_b']}"
         )
         print(
             f"phase 7 times B={r['B']} l_max={r['l_max']}: resolve_pack H={r['H']} 32-bit slope"
@@ -973,15 +1029,18 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float) -> dict:
 
     def rec(r, t, p, b, e):
         return dict(ms=1e3 * r[t][0], plain_ms=r[p], err=e, bound_ms=r[b]["bound_ms"],
-                    bound_by=r[b]["bound_by"])
+                    bound_by=r[b]["bound_by"], design_chain_ms=r[b]["design_chain_ms"])
 
     shape = f"B {PB_B}, l_max {PB_L}, simulated PacBio reads of 5-7 kb"
     lay = f"B 16, of which 10 reads, l_max {PB_L}"
     return dict(
         funnel=dict(rec(group, "t_a", "p_a", "b_a", err), shape=shape,
-                    chain_ms=group["b_a"]["chain_ms"],
+                    chain_ms=group["b_a"]["chain_ms"], slab_paths={
+                        c: list(r["paths"]) for c, r in (("group", group), ("re-seed layout", reseed),
+                                                         ("l_max 32768", longc),
+                                                         ("repeat family", flagged))},
                     reseed_layout=dict(rec(reseed, "t_a", "p_a", "b_a", err), shape=lay)),
-        fm=dict(rec(group, "t_b", "p_b", "b_b", err_b), shape=shape,
+        fm=dict(rec(group, "t_b", "p_b", "b_b", err_b), shape=shape, chain_ms=group["b_b"]["chain_ms"],
                 reseed_layout=dict(rec(reseed, "t_b", "p_b", "b_b", err_b), shape=lay)))
 
 
@@ -1127,9 +1186,10 @@ def phase_pacbio_slice(prefix: str, pb: str) -> dict:
         us, n = by_name.get(name, (0.0, 0))
         by_name[name] = (us + t1 - t0, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    seen = sum(n for k, (_, n) in by_name.items() if "funnel_kernel" in k)
-    whole = "" if seen == launches["kmer_funnel"] else (
-        f" PROFILE INCOMPLETE: {seen} of {launches['kmer_funnel']} funnel launches seen;")
+    # every funnel call launches the evaluation (a tile at a time) or the cluster kernel
+    seen = sum(n for k, (_, n) in by_name.items() if "funnel_eval_kernel" in k or "funnel_kernel<" in k)
+    whole = "" if seen >= launches["kmer_funnel"] else (
+        f" PROFILE INCOMPLETE: {seen} funnel kernels seen for {launches['kmer_funnel']} calls;")
     print(f"phase 8 pacbio slice: {n_all} reads of 5-7 kb, -pacbio KART_SEED_MODE=device on the card")
     print(f"phase 8 reads/s: {n_all / map_s:.1f} (mapping {map_s:.3f} s); set-up {setup_s:.3f} s;"
           f" native mode: {n_all / nat_map:.1f} reads/s (mapping {nat_map:.3f} s, set-up"
@@ -1161,7 +1221,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", metavar="DIR", default=None,
                     help="a checkout of another commit whose NW, FM stepper, funnel and"
-                         " resolve_pack phases 1, 2 and 4 time beside this one's")
+                         " resolve_pack phases 1, 2 and 4, and whose SensitiveMode funnel and FM"
+                         " stepper phase 7, time beside this one's")
     ap.add_argument("--phases", metavar="LIST", default=None,
                     help="run only these phases beside phase 0 and the set-up, e.g. 7,8 (a partial"
                          " run prints no kernels record and no result line, and exits 4)")
@@ -1238,7 +1299,7 @@ def main(argv: list[str] | None = None) -> int:
     simdata.simulate_pacbio_reads(simdata.read_genome_fasta(os.path.join(DATA, "genome.fa")), pb)
     print(f"setup: {simdata.PB_N_READS} PacBio reads simulated in {time.perf_counter() - t0:.1f} s")
     if want(7):
-        sens = phase_sensitive(gidx, build_tables(gidx), pb, fm["l2_ns"])
+        sens = phase_sensitive(gidx, build_tables(gidx), pb, fm["l2_ns"], other)
     if want(8):
         pb_launches = phase_pacbio_slice(prefix, pb)
     loaded = sorted(m for m, v in sys.modules.items()
@@ -1251,7 +1312,8 @@ def main(argv: list[str] | None = None) -> int:
 
     def entry(name, source, replaces, n_launches, r, library_ms=None):
         # shape, reseed_layout: what a record's times refer to, where phase lines alone do not say
-        extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms") if k in r}
+        extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms", "design_chain_ms",
+                                   "slab_paths") if k in r}
         return dict(name=name, route="cuda", source=f"kart_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=n_launches, max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],

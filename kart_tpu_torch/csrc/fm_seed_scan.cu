@@ -1,6 +1,7 @@
-// FM-index seeding scans for Hopper (sm_90a), a group of lanes per read:
-// FastMode (seed_scan_kernel) and SensitiveMode (sensitive_scan_kernel, at
-// the end of this file, which shares the occ4 step).
+// FM-index seeding scans for Hopper (sm_90a): FastMode (seed_scan_kernel, a
+// group of lanes per read) and SensitiveMode (fm_extend_kernel and
+// fm_chase_kernel, at the end of this file: every start of a read extended in
+// parallel, then one thread a read chains the extensions).
 //
 // Replaces kart_tpu/ops/fm_search.py::seed_scan_impl together with occ4,
 // occ4_from, _count4_word and _occ4_pair_replicated: the jnp FM stepper that
@@ -37,6 +38,7 @@
 // told the outcome of a step, and every shuffle is executed by all 32 lanes
 // of the warp whatever their groups are doing.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -211,104 +213,185 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
 // are dropped without being counted, and the loop stops after max_trips
 // trips whatever is left, as the JAX loop does.
 //
-// Reads go up to 32,768 bases with some 2,500 seeds each, so nothing of a
-// read is kept in shared memory: the code at p is one load from global
-// memory (the lanes of a group ask for the same word; it does not feed the
-// index loads' addresses, so it overlaps them), and the four lanes that hold
-// a seed's fields store them straight into the row, which the launch zeroed.
-// What bounds it: the chain of trips, about two a base, each one dependent
-// occ4 pair; 16 lanes a read keep a trip short, as in the FastMode kernel.
-__global__ void __launch_bounds__(kThreads)
-sensitive_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ bwt,
-                      const int* __restrict__ L2, int primary,
-                      const int* __restrict__ reads, const int* __restrict__ rlens,
-                      int B, int width, int min_seed_len, int max_seeds, int max_trips,
-                      int* __restrict__ out) {
-  const int g = threadIdx.x / kGroup;
-  const int j = threadIdx.x % kGroup;
-  const int end = j / 8;
-  const int wj = j % 8;
-  const int b = blockIdx.x * kPerBlock + g;
-  const bool valid = b < B;
+// An extension that starts at s is a function of s alone (the read's bases
+// s .. min(s + 30, rlen) and the index): only the choice of the next start is
+// serial.  So the scan runs in two parts:
+//   fm_extend_kernel  one thread per (read, start s < rlen - MinSeed): the
+//             windowed extension from s, at most 29 dependent occ4 pairs,
+//             each thread counting the eight words of a BWT block itself (two
+//             16-byte loads a block, the block loaded once when both ends of
+//             the interval lie in it).  It stores (length, min(x2, 63), x0),
+//             8 bytes, or for an ambiguous base the run of ambiguous bases
+//             from s (at most 31), which the chase steps over at once.  The
+//             many starts of a read are in flight together across the card;
+//   fm_chase_kernel   a warp per read replays the loop's rules over the
+//             stored extensions: trips counted (an extension from s costs
+//             length trips before its end's trip), records, rewinds to
+//             s + MinSeed, the seed cap and the trip limit.  It reads them in
+//             windows of 64 (two coalesced loads), which serve some four
+//             extensions each, so its chain is about rlen / 50 dependent
+//             loads rather than one an extension.
+// The extensions of a batch are evaluated in tiles of whole reads that fit
+// the caller's scratch.
+constexpr int kWin = 30;       // an extension's window, bases
+constexpr int kAmbRun = 31;    // longest run of ambiguous bases one entry steps over
+constexpr int kExtThreads = 128;
+constexpr int kChaseThreads = 128;
+constexpr int kChaseReads = kChaseThreads / 32;  // a warp a read
+
+// occ4(kk) from the block's checkpoint row and its eight BWT words, all in
+// this thread: the codes of the bases up to kk (the bases past it masked off)
+// counted with three popcounts a pair of words per code; code 3's count is
+// the rest.
+__device__ __forceinline__ int4 occ4_words(int4 cp, uint4 a, uint4 b, int kk) {
+  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int jk = (kk & 0x7F) >> 4;
+  const unsigned part = ~((1u << ((~kk & 0xF) << 1)) - 1u) & kM55;
+  int c0 = 0, c1 = 0, c2 = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    const unsigned m0 = j < jk ? kM55 : j == jk ? part : 0u;
+    const unsigned m1 = j + 1 < jk ? kM55 : j + 1 == jk ? part : 0u;
+    const unsigned lo0 = w[j], hi0 = w[j] >> 1, lo1 = w[j + 1], hi1 = w[j + 1] >> 1;
+    // one bit per base, at the low bit of its 2-bit group; the odd word's
+    // bits shifted into the high bits
+    c0 += __popc((~(lo0 | hi0) & m0) | ((~(lo1 | hi1) & m1) << 1));
+    c1 += __popc((lo0 & ~hi0 & m0) | ((lo1 & ~hi1 & m1) << 1));
+    c2 += __popc((hi0 & ~lo0 & m0) | ((hi1 & ~lo1 & m1) << 1));
+  }
+  const int n = (kk & 0x7F) + 1;  // bases of the block up to kk
+  return make_int4(cp.x + c0, cp.y + c1, cp.z + c2, cp.w + (n - c0 - c1 - c2));
+}
+
+__global__ void __launch_bounds__(kExtThreads)
+fm_extend_kernel(const int4* __restrict__ occ_cp, const uint4* __restrict__ bwt4,
+                   const int* __restrict__ L2, int primary, const int* __restrict__ reads,
+                   const int* __restrict__ rlens, int b0, int nb, int width, int min_seed_len,
+                   int2* __restrict__ ext) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)nb * width) return;
+  const int b = b0 + (int)(i / width), s = (int)(i % width);
+  const int rlen = __ldg(rlens + b);
+  const int end = min(rlen - min_seed_len, width);  // starts lie below it
+  if (s >= end) return;
+  const int* read = reads + (size_t)b * width;
+  const int c = __ldg(read + s);
+  if (c > 3) {
+    int k = 1;
+    while (k < kAmbRun && s + k < end && __ldg(read + s + k) > 3) ++k;
+    ext[i] = make_int2(-k, 0);
+    return;
+  }
   const int l2_0 = __ldg(L2), l2_1 = __ldg(L2 + 1), l2_2 = __ldg(L2 + 2), l2_3 = __ldg(L2 + 3),
             l2_4 = __ldg(L2 + 4);
-  const int rlen = valid ? __ldg(rlens + b) : 0;
-  const int end_pos = rlen - min_seed_len;  // a seed can start at p only while p < end_pos
-  const int* read = reads + static_cast<size_t>(valid ? b : 0) * width;
-  int* row = out + static_cast<size_t>(valid ? b : 0) * (1 + 4 * max_seeds);
-
-  bool active = false;
-  int p = 0, start = 0, x0 = 0, x1 = 1, x2 = 0, n_seeds = 0;
-  for (int it = 0;; ++it) {
-    const bool live = it < max_trips && (active || p < end_pos);
-    if (!__any_sync(kFull, live)) break;
-    // past its last column the read continues with one ambiguous base
-    const int c = (live && p < width) ? __ldg(read + p) : 4;
-    const bool amb = c > 3;
-    const int cs = amb ? 3 : c;
-    const bool at_stop = p >= min(start + 30, rlen);
-    const bool extend = live && active && !amb && !at_stop;
-
-    int kka = 0, kkb = 0;
-    int4 cpk = make_int4(0, 0, 0, 0), cpl = cpk;
-    if (extend) {
-      const int ka = x1 - 1, kb = ka + x2;
-      kka = ka - (ka >= primary);
-      kkb = kb - (kb >= primary);
-      cpk = __ldg(occ_cp + (kka >> 7));
-      cpl = __ldg(occ_cp + (kkb >> 7));
+  int x0 = pick4(c, l2_0, l2_1, l2_2, l2_3) + 1;
+  int x1 = pick4(3 - c, l2_0, l2_1, l2_2, l2_3) + 1;
+  int x2 = pick4(c, l2_1, l2_2, l2_3, l2_4) - pick4(c, l2_0, l2_1, l2_2, l2_3);
+  const int stop = min(s + kWin, rlen);
+  int p = s + 1;
+  for (; p < stop; ++p) {
+    const int cp = p < width ? __ldg(read + p) : 4;
+    if (cp > 3) break;
+    const int ka = x1 - 1, kb = ka + x2;
+    const int kka = ka - (ka >= primary), kkb = kb - (kb >= primary);
+    const int blka = kka >> 7, blkb = kkb >> 7;
+    const int4 cpa = __ldg(occ_cp + blka);
+    const uint4 wa0 = __ldg(bwt4 + 2 * blka), wa1 = __ldg(bwt4 + 2 * blka + 1);
+    int4 cpb = cpa;
+    uint4 wb0 = wa0, wb1 = wa1;
+    if (blkb != blka) {
+      cpb = __ldg(occ_cp + blkb);
+      wb0 = __ldg(bwt4 + 2 * blkb);
+      wb1 = __ldg(bwt4 + 2 * blkb + 1);
     }
-    const unsigned mine = block_counts(bwt, extend, end ? kkb : kka, wj);
-    const unsigned other = __shfl_xor_sync(kFull, mine, 8);
-    const unsigned ck = end ? other : mine, cl = end ? mine : other;
-
-    bool ext_fail = live && active;  // of an extension that was running
-    int nx0 = 0, nx1 = 0, nx2 = 0;
-    if (extend) {
-      const int tk0 = cpk.x + (ck & 0xFF), tk1 = cpk.y + ((ck >> 8) & 0xFF),
-                tk2 = cpk.z + ((ck >> 16) & 0xFF), tk3 = cpk.w + (ck >> 24);
-      const int tl0 = cpl.x + (cl & 0xFF), tl1 = cpl.y + ((cl >> 8) & 0xFF),
-                tl2 = cpl.z + ((cl >> 16) & 0xFF), tl3 = cpl.w + (cl >> 24);
-      const int i = 3 - cs;  // complement base
-      const int s3 = x0 + ((x1 <= primary) && (x1 + x2 - 1 >= primary));
-      const int s2 = s3 + (tl3 - tk3);
-      const int s1 = s2 + (tl2 - tk2);
-      const int s0 = s1 + (tl1 - tk1);
-      const int tki = pick4(i, tk0, tk1, tk2, tk3);
-      const int tli = pick4(i, tl0, tl1, tl2, tl3);
-      nx0 = pick4(i, s0, s1, s2, s3);
-      nx1 = pick4(i, l2_0, l2_1, l2_2, l2_3) + 1 + tki;
-      nx2 = tli - tki;
-      ext_fail = nx2 == 0;
-    }
-
-    const int length = p - start;
-    const bool freq_ok = length >= min_seed_len && x2 <= kOccThr;
-    if (ext_fail && freq_ok && n_seeds < max_seeds) {
-      if (j < 4) row[1 + j * max_seeds + n_seeds] = pick4(j, start, length, x0, x2);
-      ++n_seeds;
-    }
-
-    const bool cont = extend && !ext_fail;
-    const bool fail_restart = ext_fail && !freq_ok;
-    // a lane idle at p, never started or just ended with a good seed, may
-    // start its next extension at p in this same trip
-    const bool can_start = live && !cont && !fail_restart && !amb && p < end_pos;
-    if (cont) {
-      x0 = nx0;
-      x1 = nx1;
-      x2 = nx2;
-    } else if (can_start) {
-      start = p;
-      x0 = pick4(cs, l2_0, l2_1, l2_2, l2_3) + 1;
-      x1 = pick4(3 - cs, l2_0, l2_1, l2_2, l2_3) + 1;
-      x2 = pick4(cs, l2_1, l2_2, l2_3, l2_4) - pick4(cs, l2_0, l2_1, l2_2, l2_3);
-    }
-    // a failed seed sends p to MinSeed past its start, which can lie behind p
-    if (live) p = fail_restart ? start + min_seed_len : p + 1;
-    active = cont || can_start;
+    const int4 tk = occ4_words(cpa, wa0, wa1, kka), tl = occ4_words(cpb, wb0, wb1, kkb);
+    const int ci = 3 - cp;  // complement base
+    const int s3 = x0 + ((x1 <= primary) && (x1 + x2 - 1 >= primary));
+    const int s2 = s3 + (tl.w - tk.w);
+    const int s1 = s2 + (tl.z - tk.z);
+    const int s0 = s1 + (tl.y - tk.y);
+    const int tki = pick4(ci, tk.x, tk.y, tk.z, tk.w);
+    const int nx2 = pick4(ci, tl.x, tl.y, tl.z, tl.w) - tki;
+    if (nx2 == 0) break;
+    x0 = pick4(ci, s0, s1, s2, s3);
+    x1 = pick4(ci, l2_0, l2_1, l2_2, l2_3) + 1 + tki;
+    x2 = nx2;
   }
-  if (valid && j == 0) row[0] = n_seeds;
+  ext[i] = make_int2((p - s) | (min(x2, 63) << 5), x0);
+}
+
+// A window of 64 entries of a read's extensions, two a lane (entries base + j
+// and base + 32 + j): the chase's next start lies within some 30 bases, so a
+// window serves several extensions, and a lookup in it is two shuffles.
+struct Window {
+  int base = INT_MIN / 2;
+  int2 lo, hi;
+};
+
+// Entry p of e (p < n): every lane of the warp calls this with the same p.
+__device__ __forceinline__ int2 window_at(Window& w, const int2* __restrict__ e, int n, int p) {
+  const int j = threadIdx.x & 31;
+  if (p < w.base || p >= w.base + 64) {
+    w.base = p;
+    w.lo = p + j < n ? __ldg(e + p + j) : make_int2(0, 0);
+    w.hi = p + 32 + j < n ? __ldg(e + p + 32 + j) : make_int2(0, 0);
+  }
+  const int d = p - w.base;
+  const int2 h = d < 32 ? w.lo : w.hi;
+  return make_int2(__shfl_sync(kFull, h.x, d & 31), __shfl_sync(kFull, h.y, d & 31));
+}
+
+// A warp per read: every lane carries the same state, lanes 0-3 store a
+// seed's four fields.
+__global__ void __launch_bounds__(kChaseThreads)
+fm_chase_kernel(const int2* __restrict__ ext, const int* __restrict__ rlens, int b0, int nb,
+                int width, int min_seed_len, int max_seeds, int max_trips, int* __restrict__ out) {
+  const int bl = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int j = threadIdx.x & 31;
+  if (bl >= nb) return;  // the whole warp
+  const int b = b0 + bl;
+  const int end = min(__ldg(rlens + b) - min_seed_len, width);
+  const int2* e = ext + (size_t)bl * width;
+  int* row = out + (size_t)b * (1 + 4 * max_seeds);
+  Window w;
+  int n = 0, t = 0, p = 0;  // seeds, trips run, scan position
+  while (p < end && t < max_trips) {
+    int2 v = window_at(w, e, end, p);
+    if (v.x < 0) {  // ambiguous bases: one idle trip each
+      p -= v.x;
+      t -= v.x;
+      continue;
+    }
+    // an extension starts at p in trip t; it ends in trip t + length
+    int s = p;
+    for (;;) {
+      const int len = v.x & 31, x2 = v.x >> 5;
+      t += len;
+      if (t >= max_trips) break;  // cut before it ends: not recorded
+      if (len < min_seed_len || x2 > kOccThr) {  // a failed seed: rewind
+        p = s + min_seed_len;
+        ++t;
+        break;
+      }
+      if (n < max_seeds) {
+        if (j < 4) row[1 + j * max_seeds + n] = pick4(j, s, len, v.y, x2);
+        ++n;
+      }
+      // the next extension starts at the seed's end in the same trip, if it can
+      p = s + len;
+      if (p < end) {
+        v = window_at(w, e, end, p);
+        if (v.x >= 0) {
+          s = p;
+          continue;
+        }
+      }
+      ++p;
+      ++t;
+      break;
+    }
+  }
+  if (j == 0) row[0] = n;
 }
 
 }  // namespace
@@ -341,21 +424,39 @@ extern "C" int kart_fm_seed_scan(const void* occ_cp, const void* bwt_words,
 }
 
 // SensitiveMode scan.  reads: (B, width) int32 codes; out: (B, 1 +
-// 4*max_seeds) int32, zeroed here; max_trips: the trip limit of the loop.
-// One memset and one launch on the stream; returns the first CUDA error.
+// 4*max_seeds) int32, zeroed here; max_trips: the trip limit of the loop;
+// ext: scratch of ext_cap int2 entries, one a base of every read of a tile.
+// One memset, then per tile of ext_cap / width reads the extension and the
+// chase launches, on one stream.  Returns the first CUDA error, or
+// cudaErrorInvalidValue where one read's width exceeds the scratch.
 extern "C" int kart_fm_sensitive_scan(const void* occ_cp, const void* bwt_words,
                                       const void* L2, int primary, const void* reads,
                                       const void* rlens, int B, int width, int min_seed_len,
-                                      int max_seeds, int max_trips, void* out, void* stream) {
+                                      int max_seeds, int max_trips, void* ext, long long ext_cap,
+                                      void* out, void* stream) {
   if (B <= 0) return 0;
+  if (width <= 0 || ext_cap < width) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc = cudaMemsetAsync(
+  cudaError_t rc = cudaMemsetAsync(
       out, 0, sizeof(int) * static_cast<size_t>(B) * (1 + 4 * static_cast<size_t>(max_seeds)), st);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  sensitive_scan_kernel<<<(B + kPerBlock - 1) / kPerBlock, kThreads, 0, st>>>(
-      static_cast<const int4*>(occ_cp), static_cast<const unsigned*>(bwt_words),
-      static_cast<const int*>(L2), primary, static_cast<const int*>(reads),
-      static_cast<const int*>(rlens), B, width, min_seed_len, max_seeds, max_trips,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const long long fit = ext_cap / width;  // reads a tile
+  const int tile = fit < B ? static_cast<int>(fit) : B;
+  for (int b0 = 0; b0 < B; b0 += tile) {
+    const int nb = min(tile, B - b0);
+    const long long n = static_cast<long long>(nb) * width;
+    fm_extend_kernel<<<static_cast<unsigned>((n + kExtThreads - 1) / kExtThreads), kExtThreads, 0,
+                         st>>>(
+        static_cast<const int4*>(occ_cp), static_cast<const uint4*>(bwt_words),
+        static_cast<const int*>(L2), primary, static_cast<const int*>(reads),
+        static_cast<const int*>(rlens), b0, nb, width, min_seed_len, static_cast<int2*>(ext));
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    fm_chase_kernel<<<(nb + kChaseReads - 1) / kChaseReads, kChaseThreads, 0, st>>>(
+        static_cast<const int2*>(ext), static_cast<const int*>(rlens), b0, nb, width, min_seed_len,
+        max_seeds, max_trips, static_cast<int*>(out));
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  return 0;
 }

@@ -75,6 +75,12 @@
 //             no further seed is skipped;
 //   phase B   W = 4 text words a hit instead of l_max / 16 + 2;
 //   phase C   the advance rules above.
+// That round-synchronous kernel now runs only a slab that overruns its budget
+// in some round and is larger than a scratch tile: every slab is evaluated
+// position by position over the whole card and chained lane by lane, and an
+// overrun slab that a tile holds is replayed round by round over those
+// outcomes (funnel_eval_kernel and the kernels after it, which say why that
+// is exact).
 //
 // What bounds it on this card: the dependent chain of rounds within a slab
 // (each round: table_lo, then sa_full, then the text words, three dependent
@@ -139,6 +145,7 @@ struct Funnel {
   int LS;    // lane stride of the shared word arrays (odd: LB | 1)
   int nrw;   // read words a lane keeps in shared memory: nwl, SensitiveMode 4
   int* out;  // (B, 2 + 4 * max_seeds)
+  const int* sel;  // SensitiveMode: per slab, 1 where funnel_kernel runs it (nullptr: every slab)
 };
 
 // The shared word arrays are word-major with an odd lane stride: word w of
@@ -273,9 +280,16 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   const int nl = max(0, min(LB, min(f.slab - lane0, f.B - row0)));
   const int ocols = 2 + 4 * f.max_seeds;
   const int MS = f.max_seeds;
+  // a slab that the chase ran exactly is left as it is, by every block of
+  // its cluster alike; this kernel rewrites the rows of the others
+  const bool run_slab = !kSens || !f.sel || f.sel[blockIdx.x / C];
+  if (!run_slab) return;
 
   // no block may write into a peer's shared memory before the peer runs
   cluster.sync();
+
+  if (kSens && f.sel)
+    for (int i = t; i < nl * ocols; i += nt) f.out[(size_t)row0 * ocols + i] = 0;
 
   if (!kSens) {
     for (int i = t; i < nl * f.nab; i += nt)
@@ -513,6 +527,291 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   cluster.sync();
 }
 
+// SensitiveMode, position-parallel.  A round of a lane restarted at q (the
+// ambiguity skip already taken) is a function of q alone as long as the
+// lane's hits fit the slab's budget: the 13-mer interval, the hit_cap cut,
+// the hits' LCPs, best, freq, row0, the record and the advance.  A lane whose
+// hits do not fit gets no hits, so that round is a function of q too: the
+// overflow flag and an advance of MinSeed.  So
+//   funnel_eval_kernel   one thread per (lane, q < rlen - MinSeed, base q not
+//             ambiguous) runs the round that fits (phase A to C of
+//             funnel_kernel for one lane; its hits eight at a time, so that
+//             their loads overlap), spread over the whole card, and stores 8
+//             bytes: length (0: no record), freq, the overflow bit, the skip
+//             from the advance to the next restart (31: longer, looked up when
+//             needed), the hit count (clamped to 32,767), and row0;
+//   funnel_chase_kernel  a warp per lane walks its rounds over the stored
+//             outcomes as if every round fitted, at most `rounds` of them, in
+//             windows of 64 entries; it writes the seeds in slot order and the
+//             ok flag, and adds each round's hit count into its slab's
+//             per-round total;
+//   funnel_check_kernel  one block per slab: a slab whose every round's total
+//             is at most H gave every lane all its hits in every round, so
+//             the chase is exact there.  Any other slab is selected;
+//   funnel_replay_kernel one block per selected slab replays its rounds in
+//             lockstep over the stored outcomes: a block scan of the lanes'
+//             hit counts a round decides which fit, exactly as the budget
+//             does, and a lane that does not fit takes the no-hit round.  No
+//             index access, one dependent load and two barriers a round.
+// The replay needs the whole slab's outcomes at once: the rows go through in
+// tiles of whole slabs.  A slab of more rows than a tile holds (thousands of
+// lanes at l_max 32768) is chained tile by tile and its overrun handled by
+// funnel_kernel<true> after the last tile instead.
+constexpr int kSkipField = 31;      // the skip field's escape: look the skip up
+constexpr int kCntMax = 32767;      // the hit count field's clamp
+constexpr int kEvalThreads = 128;
+constexpr int kChaseThreads = 128;  // four lanes a block, a warp each
+constexpr int kHitChunk = 8;        // hits of a position whose loads overlap
+constexpr int kReplayPer = 4;       // lanes a replay thread holds: 4,096-row slabs
+
+// outcome word: length | freq << 5 | overflow << 11 | skip << 12 | cnt << 17
+__global__ void __launch_bounds__(kEvalThreads) funnel_eval_kernel(Funnel f, int r0, int nr,
+                                                                   int2* __restrict__ scr) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)nr * f.l_max) return;
+  const int row = r0 + (int)(i / f.l_max), q = (int)(i % f.l_max);
+  const int rlen = __ldg(f.rlens + row), last = rlen - f.msl;
+  if (q >= last) return;
+  const unsigned* msk = f.ambm + (size_t)row * f.nab;
+  if ((__ldg(msk + (q >> 5)) >> (q & 31)) & 1u) return;  // never a restart
+  const unsigned* src = f.words + (size_t)row * f.nwl;
+  const int ra = q >> 4, rsh = 2 * (q & 15);
+  unsigned w[kSensWords];
+#pragma unroll
+  for (int k = 0; k < kSensWords; ++k) {
+    const int wi = ra + k;
+    w[k] = wi < f.nwl ? clean_word(f, __ldg(src + wi), __ldg(msk + (wi >> 1)), wi) : 0u;
+  }
+  const int km = kmer_of(w[0], w[1], q);
+  const int aoff = dist_to<true>(f, nullptr, 0, row, q, true, 32);
+  const bool valid13 = aoff >= kK && q + kK <= f.l_max;
+  int lo = 0, cnt = 0;
+  if (valid13) {
+    lo = __ldg(f.table_lo + km);
+    cnt = __ldg(f.table_lo + km + 1) - lo;
+  }
+  bool ovf = cnt > f.hit_cap;
+  if (ovf) cnt = 0;
+  const int damb = min(max(min(min(aoff, rlen - q), kWin) - 1, 0), (1 << kDambBits<true>) - 1) + 1;
+  // the read's three aligned words at q
+  unsigned ral[kSensWords - 1];
+#pragma unroll
+  for (int k = 0; k < kSensWords - 1; ++k) ral[k] = __funnelshift_r(w[k], w[k + 1], rsh);
+  const int last_valid = f.seq_len - kK;
+  int A1 = INT_MIN, A2 = INT_MIN;
+  for (int j0 = 0; j0 < cnt; j0 += kHitChunk) {
+    int loc[kHitChunk];
+#pragma unroll
+    for (int u = 0; u < kHitChunk; ++u) loc[u] = j0 + u < cnt ? __ldg(f.sa_full + lo + j0 + u) : -1;
+#pragma unroll
+    for (int u = 0; u < kHitChunk; ++u) {
+      const int j = j0 + u;
+      if (j >= cnt) break;
+      if (loc[u] > last_valid) {  // bogus short-suffix row
+        A1 = max(A1, -1);
+        A2 = max(A2, 1 << 30);
+        continue;
+      }
+      const int ta = loc[u] >> 4, tsh = 2 * (loc[u] & 15);
+      unsigned tw[kSensWords];
+#pragma unroll
+      for (int k = 0; k < kSensWords; ++k) tw[k] = text_word(f, ta + k);
+      int lcp = (kSensWords - 1) * 16;
+#pragma unroll
+      for (int k = kSensWords - 2; k >= 0; --k) {
+        const unsigned x = __funnelshift_r(tw[k], tw[k + 1], tsh) ^ ral[k];
+        if (x) lcp = k * 16 + ((__ffs(x) - 1) >> 1);
+      }
+      lcp = min(min(lcp, min(damb, f.seq_len - loc[u])), f.l_max);
+      const int idx_c = min(j, kIdxMask);
+      const int lc1 = (lcp + 1) << kIdxBits;
+      A1 = max(A1, lc1 | (kIdxMask - idx_c));
+      A2 = max(A2, lc1 | idx_c);
+    }
+  }
+  if (A2 >= (1 << 30)) ovf = true;
+  const int best = max((A1 >> kIdxBits) - 1, -1);
+  const int first_off = kIdxMask - (A1 & kIdxMask);
+  const int freq = best >= 0 ? (A2 & kIdxMask) - first_off + 1 : 0;
+  const bool record = valid13 && best >= kK && best >= f.msl && freq <= kOccThr && freq > 0;
+  const int np = record ? q + best : q + f.msl;
+  int skip = 0;
+  if (np < last) skip = dist_to<true>(f, nullptr, 0, row, np, false, kSkipField);
+  const unsigned x = (record ? (unsigned)best | ((unsigned)freq << 5) : 0u) | ((unsigned)ovf << 11) |
+                     ((unsigned)skip << 12) | ((unsigned)min(cnt, kCntMax) << 17);
+  scr[i] = make_int2((int)x, record ? lo + first_off : 0);
+}
+
+// The restart after an advance to np of a lane of row `row` whose last
+// restart is below last: np plus the skip that the outcome word carries, or
+// looked up where it is longer.
+__device__ __forceinline__ int next_restart(const Funnel& f, int row, int np, int skip, int last) {
+  if (np >= last) return np;
+  if (skip < kSkipField) return np + skip;
+  return min(np + dist_to<true>(f, nullptr, 0, row, np, false, min(f.l_max, kSkipMax)), f.l_max);
+}
+
+// The first restart of a lane: 0 plus its skip, where the lane can seed at all.
+__device__ __forceinline__ int first_restart(const Funnel& f, int row, int last) {
+  return 0 < last ? min(dist_to<true>(f, nullptr, 0, row, 0, false, min(f.l_max, kSkipMax)), f.l_max)
+                  : 0;
+}
+
+__device__ __forceinline__ void store_seed(const Funnel& f, int row, int n, int p, unsigned x, int row0,
+                                           int j) {
+  const int MS = f.max_seeds;
+  if (n < MS && j < 4)
+    f.out[(size_t)row * (2 + 4 * MS) + 2 + j * MS + n] =
+        j == 0 ? p : j == 1 ? (int)(x & 31) : j == 2 ? row0 : (int)((x >> 5) & 63);
+}
+
+// A window of 64 outcomes of a lane, two a thread of its warp (entries
+// base + j and base + 32 + j): the next restart lies within some 60
+// positions, so a window serves several rounds, and a lookup is two shuffles.
+struct Window {
+  int base = INT_MIN / 2;
+  int2 lo, hi;
+};
+
+// Outcome p of e (p < n): every thread of the warp calls this with the same p.
+__device__ __forceinline__ int2 window_at(Window& w, const int2* __restrict__ e, int n, int p) {
+  const int j = threadIdx.x & 31;
+  if (p < w.base || p >= w.base + 64) {
+    w.base = p;
+    w.lo = p + j < n ? __ldg(e + p + j) : make_int2(0, 0);
+    w.hi = p + 32 + j < n ? __ldg(e + p + 32 + j) : make_int2(0, 0);
+  }
+  const int d = p - w.base;
+  const int2 h = d < 32 ? w.lo : w.hi;
+  return make_int2(__shfl_sync(0xFFFFFFFFu, h.x, d & 31), __shfl_sync(0xFFFFFFFFu, h.y, d & 31));
+}
+
+__global__ void __launch_bounds__(kChaseThreads) funnel_chase_kernel(Funnel f, int r0, int nr,
+                                                                     const int2* __restrict__ scr,
+                                                                     int* __restrict__ totals) {
+  const int l = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;  // a warp a lane
+  const int j = threadIdx.x & 31;
+  if (l >= nr) return;  // the whole warp
+  const int row = r0 + l;
+  const int last = __ldg(f.rlens + row) - f.msl;
+  const int2* e = scr + (size_t)l * f.l_max;
+  int* tot = totals + (size_t)(row / f.slab) * f.rounds;
+  Window w;
+  int p = first_restart(f, row, last), n = 0;
+  bool ovf = false;
+  for (int r = 0; r < f.rounds && p < last; ++r) {
+    const int2 v = window_at(w, e, last, p);
+    const unsigned x = (unsigned)v.x;
+    const int cnt = (int)(x >> 17), len = (int)(x & 31);
+    if (cnt && j == 0) atomicAdd(tot + r, cnt);
+    ovf |= (x >> 11) & 1u;
+    if (len) store_seed(f, row, n++, p, x, v.y, j);
+    p = next_restart(f, row, p + (len ? len : f.msl), (int)((x >> 12) & 31), last);
+  }
+  if (j == 0) {
+    int* o = f.out + (size_t)row * (2 + 4 * f.max_seeds);
+    o[0] = n;
+    o[1] = !(ovf || p < last);
+  }
+}
+
+__global__ void funnel_check_kernel(const int* __restrict__ totals, int s0, int rounds, int H,
+                                    int force, int* __restrict__ sel, int* __restrict__ paths) {
+  const int slab = s0 + blockIdx.x;
+  int over = force;
+  for (int r = threadIdx.x; r < rounds && !force; r += blockDim.x)
+    over |= totals[(size_t)slab * rounds + r] > H;
+  over = __syncthreads_or(over);
+  if (threadIdx.x == 0) {
+    sel[slab] = over;
+    atomicAdd(paths + over, 1);
+  }
+}
+
+// Block sizes of the replay: one thread a lane up to 1,024 lanes, then up to
+// kReplayPer consecutive lanes a thread.
+__global__ void __launch_bounds__(1024) funnel_replay_kernel(Funnel f, int s0, int r0,
+                                                             const int2* __restrict__ scr,
+                                                             const int* __restrict__ sel) {
+  __shared__ int s_warp[32];
+  const int slab = s0 + blockIdx.x;
+  if (!sel[slab]) return;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int row_a = slab * f.slab, nl = min(f.slab, f.B - row_a);
+  const int ocols = 2 + 4 * f.max_seeds;
+  // the chase wrote these rows as if every round fitted
+  for (int i = t; i < nl * ocols; i += nt) f.out[(size_t)row_a * ocols + i] = 0;
+  __syncthreads();
+  const int per = (nl + nt - 1) / nt, l0 = t * per;
+  int p[kReplayPer], n[kReplayPer], last[kReplayPer];
+  bool ovf[kReplayPer];
+#pragma unroll
+  for (int k = 0; k < kReplayPer; ++k) {
+    const int l = l0 + k, row = row_a + l;
+    last[k] = k < per && l < nl ? __ldg(f.rlens + row) - f.msl : 0;
+    p[k] = first_restart(f, row, last[k]);
+    n[k] = 0;
+    ovf[k] = false;
+  }
+  for (int r = 0; r < f.rounds; ++r) {
+    bool live = false;
+    int2 v[kReplayPer];
+    int cnt[kReplayPer], sum = 0;
+#pragma unroll
+    for (int k = 0; k < kReplayPer; ++k) {
+      const bool on = p[k] < last[k];
+      live |= on;
+      v[k] = on ? __ldg(scr + (size_t)(row_a + l0 + k - r0) * f.l_max + p[k]) : make_int2(0, 0);
+      cnt[k] = (int)((unsigned)v[k].x >> 17);
+      sum += cnt[k];
+    }
+    if (!__syncthreads_or(live)) break;
+    // the lanes' inclusive prefix sums of this round's hit counts
+    int incl = sum;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+      if ((t & 31) >= off) incl += u;
+    }
+    if ((t & 31) == 31) s_warp[t >> 5] = incl;
+    __syncthreads();
+    int cum = incl - sum;
+    for (int k = 0; k < (t >> 5); ++k) cum += s_warp[k];
+    __syncthreads();  // s_warp is written again next round
+#pragma unroll
+    for (int k = 0; k < kReplayPer; ++k) {
+      if (p[k] >= last[k]) continue;
+      const int row = row_a + l0 + k;
+      const unsigned x = (unsigned)v[k].x;
+      cum += cnt[k];
+      int len = (int)(x & 31), skip = (int)((x >> 12) & 31);
+      if (cnt[k] > 0 && cum > f.H) {  // its hits do not fit: no hits this round
+        ovf[k] = true;
+        len = 0;
+        skip = kSkipField;
+      }
+      ovf[k] |= (x >> 11) & 1u;
+      if (len) {
+        int* o = f.out + (size_t)row * ocols + 2 + n[k];
+        if (n[k] < f.max_seeds) {
+          o[0] = p[k];
+          o[f.max_seeds] = len;
+          o[2 * f.max_seeds] = v[k].y;
+          o[3 * f.max_seeds] = (int)((x >> 5) & 63);
+        }
+        ++n[k];
+      }
+      p[k] = next_restart(f, row, p[k] + (len ? len : f.msl), skip, last[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kReplayPer; ++k) {
+    if (k >= per || l0 + k >= nl) continue;
+    int* o = f.out + (size_t)(row_a + l0 + k) * ocols;
+    o[0] = n[k];
+    o[1] = !(ovf[k] || p[k] < last[k]);
+  }
+}
+
 __global__ void unpack_codes_kernel(const unsigned* __restrict__ words, int nwl, int B,
                                     int l_max, int* __restrict__ reads) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -562,17 +861,29 @@ extern "C" int kart_kmer_funnel_cluster() { return kCluster; }
 // raises it to 4 in SensitiveMode, as kart_tpu does).  A batch
 // of at most slab_rows reads is one slab of B rows; a larger one is cut into
 // slabs of slab_rows.  Two memsets, the ambiguity scatter and the cluster
-// kernel on one stream.  Returns the first CUDA error, cudaGetLastError()
-// after the launches (cudaErrorInvalidValue if the lanes of one block,
-// ceil(slab / cluster), exceed the shared memory of a block).
+// kernel on one stream.
+// SensitiveMode takes four more buffers: scr, scr_cap int2 entries (the
+// position-parallel pass runs in tiles of scr_cap / l_max rows), totals
+// (n_slabs * rounds int32), sel (n_slabs int32: 1 where the slab went
+// through funnel_kernel<true>) and paths (2 int32 that gain the slabs of
+// this call by path: [0] chased, [1] round-synchronous); it adds a memset,
+// the evaluation and chase launches of each tile, the check and the cluster
+// kernel.  Where H is at least the hit count field's clamp every slab takes
+// funnel_kernel<true>.  FastMode ignores them (null pointers will do).
+// Returns the first CUDA error, cudaGetLastError() after the launches
+// (cudaErrorInvalidValue if the lanes of one block, ceil(slab / cluster),
+// exceed the shared memory of a block, or if one row of l_max positions
+// exceeds scr_cap in SensitiveMode).
 extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const void* sa_full,
                                 const void* text_words, int seq_len,
                                 const void* words, const void* amb_r, const void* amb_p,
                                 int n_amb, const void* rlens, int B, int l_max,
                                 int min_seed_len, int max_seeds, int hit_cap, int rounds,
                                 int slab_rows, int hit_budget, int sensitive, void* ambm,
+                                void* scr, long long scr_cap, void* totals, void* sel, void* paths,
                                 void* out, void* stream) {
   if (l_max > (sensitive ? 32768 : 512)) return (int)cudaErrorInvalidValue;
+  if (sensitive && scr_cap < l_max) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Funnel f;
   f.table_lo = static_cast<const int*>(table_lo);
@@ -597,6 +908,7 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
   f.LS = f.LB | 1;
   f.nrw = sensitive ? kSensWords : f.nwl;
   f.out = static_cast<int*>(out);
+  f.sel = sensitive ? static_cast<const int*>(sel) : nullptr;
   const int n_slabs = (B + f.slab - 1) / f.slab;
   const size_t smem =
       ((size_t)kLaneArrays * f.LB + (size_t)(f.nrw + (sensitive ? 0 : f.nab)) * f.LS) * sizeof(int);
@@ -609,6 +921,48 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
     amb_scatter_kernel<<<(n_amb + 255) / 256, 256, 0, st>>>(
         static_cast<const int*>(amb_r), static_cast<const int*>(amb_p), n_amb, B, l_max, f.nab,
         static_cast<unsigned*>(ambm));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (sensitive) {
+    const int chase = f.H < kCntMax;
+    const long long fit = scr_cap / l_max;  // rows a tile
+    // tiles of whole slabs, replayed tile by tile; a slab larger than a tile
+    // goes through funnel_kernel<true> where it overruns
+    const bool whole = fit >= f.slab && f.slab <= 1024 * kReplayPer;
+    const int tile = whole ? (int)min(fit / f.slab * f.slab, (long long)B) : (int)fit;
+    if (chase) {
+      err = cudaMemsetAsync(totals, 0, (size_t)n_slabs * rounds * sizeof(int), st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    for (int r0 = 0; r0 < B && chase; r0 += tile) {
+      const int nr = min(tile, B - r0);
+      const long long n = (long long)nr * l_max;
+      funnel_eval_kernel<<<(unsigned)((n + kEvalThreads - 1) / kEvalThreads), kEvalThreads, 0, st>>>(
+          f, r0, nr, static_cast<int2*>(scr));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      funnel_chase_kernel<<<(nr + kChaseThreads / 32 - 1) / (kChaseThreads / 32), kChaseThreads, 0,
+                            st>>>(f, r0, nr, static_cast<const int2*>(scr), static_cast<int*>(totals));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      if (whole) {
+        const int s0 = r0 / f.slab, ns = (nr + f.slab - 1) / f.slab;
+        funnel_check_kernel<<<ns, 256, 0, st>>>(static_cast<const int*>(totals), s0, rounds, f.H, 0,
+                                                static_cast<int*>(sel), static_cast<int*>(paths));
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        const int threads = min(1024, (min(f.slab, nr) + 31) / 32 * 32);  // per <= kReplayPer
+        funnel_replay_kernel<<<ns, threads, 0, st>>>(
+            f, s0, r0, static_cast<const int2*>(scr), static_cast<const int*>(sel));
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+      }
+    }
+    if (chase && whole) return 0;
+    funnel_check_kernel<<<n_slabs, 256, 0, st>>>(static_cast<const int*>(totals), 0, rounds, f.H,
+                                                 !chase, static_cast<int*>(sel),
+                                                 static_cast<int*>(paths));
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

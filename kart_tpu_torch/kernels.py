@@ -34,6 +34,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# positions (one a base of a read) a tile of the SensitiveMode kernels'
+# position-parallel pass holds, 8 bytes each in either kernel's scratch (64 MB)
+SENS_SCRATCH = 1 << 23
+
 _lib = None
 
 
@@ -91,10 +95,11 @@ def _load():
         lib.kart_fm_seed_scan.restype = i
         lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
         lib.kart_nw_planes.restype = i
-        lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, p]
+        lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, ctypes.c_longlong,
+                                               p, p]
         lib.kart_fm_sensitive_scan.restype = i
         lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
-                                         p, p, p]
+                                         p, p, ctypes.c_longlong, p, p, p, p, p]
         lib.kart_kmer_funnel.restype = i
         lib.kart_kmer_funnel_cluster.argtypes = []
         lib.kart_kmer_funnel_cluster.restype = i
@@ -161,15 +166,26 @@ def fm_seed_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: 
 fm_seed_scan.launches = 0
 
 
+def sens_scratch_rows(B: int, width: int) -> int:
+    """Reads a tile of the SensitiveMode kernels' position-parallel pass
+    holds: as many of the B reads of `width` positions as SENS_SCRATCH
+    positions take.  Raises where one read alone exceeds them."""
+    if width > SENS_SCRATCH:
+        raise ValueError(f"SensitiveMode scratch: a read of {width} positions exceeds the"
+                         f" {SENS_SCRATCH} positions a tile holds")
+    return max(1, min(B, SENS_SCRATCH // max(width, 1)))
+
+
 def fm_sensitive_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: int):
-    """csrc/fm_seed_scan.cu (sensitive_scan_kernel): packed SensitiveMode
-    seeds (B, 1 + 4*max_seeds) int32 for reads (B, width) int32 and rlens
-    (B,) int32 on the card, 16 lanes a read.  `l_max` sets the trip limit,
-    31 * (l_max // min_seed_len + 2), as in kart_tpu; the reads stay in
-    global memory, so any width is taken."""
+    """csrc/fm_seed_scan.cu (fm_extend_kernel, fm_chase_kernel): packed
+    SensitiveMode seeds (B, 1 + 4*max_seeds) int32 for reads (B, width)
+    int32 and rlens (B,) int32 on the card.  Every start of every read is
+    extended in parallel, then a warp a read chains the extensions;
+    reads go through in tiles of sens_scratch_rows(B, width).  `l_max` sets
+    the trip limit, 31 * (l_max // min_seed_len + 2), as in kart_tpu."""
     dev = reads.device
-    B = reads.shape[0]
-    _check("reads", reads, torch.int32, (B, reads.shape[1]), dev)
+    B, width = reads.shape
+    _check("reads", reads, torch.int32, (B, width), dev)
     _check("rlens", rlens, torch.int32, (B,), dev)
     n_blocks = fm.occ_cp.numel() // 4
     _check("occ_cp", fm.occ_cp, torch.int32, (4 * n_blocks,), dev, align=16)
@@ -178,13 +194,16 @@ def fm_sensitive_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_
     out = torch.empty((B, 1 + 4 * max_seeds), dtype=torch.int32, device=dev)
     if B == 0:
         return out
+    cap = sens_scratch_rows(B, width) * width
+    ext = torch.empty((cap, 2), dtype=torch.int32, device=dev)
     max_trips = 31 * (l_max // max(int(min_seed_len), 1) + 2)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.kart_fm_sensitive_scan(
             fm.occ_cp.data_ptr(), fm.bwt_words.data_ptr(), fm.L2.data_ptr(),
-            int(fm.primary), reads.data_ptr(), rlens.data_ptr(), B, reads.shape[1],
-            int(min_seed_len), int(max_seeds), max_trips, out.data_ptr(), _stream(dev),
+            int(fm.primary), reads.data_ptr(), rlens.data_ptr(), B, width,
+            int(min_seed_len), int(max_seeds), max_trips, ext.data_ptr(), cap, out.data_ptr(),
+            _stream(dev),
         )
     _raise_on(rc, "fm_sensitive_scan")
     fm_sensitive_scan.launches += 1
@@ -236,8 +255,14 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
     for 2-bit reads on the card (words (B, ceil(l_max/16)) int32 bits,
     amb_r/amb_p (n_amb,) int32, rlens (B,) int32), against the tables of a
     KmerTablesTensors: FastMode with l_max <= 512, or SensitiveMode
-    (`sensitive`, at least 4 hits a row and round) with l_max <= 32768.  One
-    thread-block cluster per slab of min(B, slab_rows) rows."""
+    (`sensitive`, at least 4 hits a row and round) with l_max <= 32768.
+    FastMode runs one thread-block cluster per slab of min(B, slab_rows)
+    rows.  SensitiveMode evaluates a round at every restart position of
+    every lane over the whole card (in tiles of sens_scratch_rows(B, l_max)
+    rows), chains each lane's rounds, and replays round by round the slabs
+    where some round's hits overran the budget (with the cluster kernel where
+    a slab is larger than a tile); the slabs of each path are counted on the
+    card (funnel_slab_paths)."""
     from .ops.kmer_seed import check_l_max
 
     check_l_max(l_max, sensitive)
@@ -259,6 +284,19 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
     if B == 0:
         return out
     ambm = torch.empty((B, nab), dtype=torch.int32, device=dev)
+    scr = totals = sel = paths = None
+    cap = 0
+    if sensitive:
+        n_slabs = -(-B // min(B, slab_rows))
+        cap = sens_scratch_rows(B, l_max) * l_max
+        scr = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+        totals = torch.empty((n_slabs * rounds,), dtype=torch.int32, device=dev)
+        sel = torch.empty((n_slabs,), dtype=torch.int32, device=dev)
+        paths = _slab_paths(dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.kart_kmer_funnel(
@@ -266,11 +304,35 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
             tt.text_words.data_ptr(), tt.seq_len,
             words.data_ptr(), amb_r.data_ptr(), amb_p.data_ptr(), n_amb, rlens.data_ptr(),
             B, l_max, int(min_seed_len), max_seeds, hit_cap, rounds, slab_rows, hit_budget,
-            int(sensitive), ambm.data_ptr(), out.data_ptr(), _stream(dev),
+            int(sensitive), ambm.data_ptr(), ptr(scr), cap, ptr(totals), ptr(sel), ptr(paths),
+            out.data_ptr(), _stream(dev),
         )
     _raise_on(rc, "kmer_funnel")
     kmer_funnel.launches += 1
     return out
+
+
+_SLAB_PATHS: dict = {}
+
+
+def _slab_paths(dev) -> torch.Tensor:
+    """The device's two SensitiveMode slab counters, made at first use."""
+    key = str(dev)
+    if key not in _SLAB_PATHS:
+        _SLAB_PATHS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _SLAB_PATHS[key]
+
+
+def funnel_slab_paths(dev, reset: bool = False) -> tuple[int, int]:
+    """SensitiveMode slabs that kmer_funnel ran on `dev` (a CUDA tensor's
+    device) since the counters were last reset, by path: (chased exactly,
+    round-synchronous).  Reads the counters from the card; `reset` then sets
+    them to 0."""
+    t = _slab_paths(dev)
+    chased, sync = (int(x) for x in t.tolist())
+    if reset:
+        t.zero_()
+    return chased, sync
 
 
 kmer_funnel.launches = 0

@@ -231,7 +231,8 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
     reads (B, width) int32 codes (>3 ambiguous), rlens (B,) int32; l_max
     sets only the trip limit, as in the JAX function.  `stats`, a dict,
     gets the work counters: `trips` (B,) trips each lane ran, `steps` (B,)
-    those of them that looked the index up."""
+    those of them that looked the index up, `starts` (B,) the extensions
+    each lane started."""
     B = reads.shape[0]
     dev = reads.device
     i32 = torch.int32
@@ -249,7 +250,7 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
     # one dump column past max_seeds takes the dropped records
     fields = torch.zeros((4, B, max_seeds + 1), dtype=i32, device=dev)
     max_trips = 31 * (l_max // max(msl, 1) + 2)
-    trips, steps = zero.clone(), zero.clone()
+    trips, steps, starts = zero.clone(), zero.clone(), zero.clone()
     for _ in range(max_trips):
         done = ~active & (p >= end_pos)
         if bool(done.all()):
@@ -289,6 +290,8 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
         cont = active & ~ext_fail
         fail_restart = ext_fail & ~freq_ok
         startable = ~done & ~cont & ~fail_restart & ~amb & (p < end_pos)
+        if stats is not None:
+            starts += startable.to(i32)
         x0 = torch.where(cont, nx0, torch.where(startable, L2[cs] + 1, x0))
         x1 = torch.where(cont, nx1, torch.where(startable, L2[3 - cs] + 1, x1))
         x2 = torch.where(cont, nx2, torch.where(startable, L2[cs + 1] - L2[cs], x2))
@@ -297,7 +300,7 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
         p = new_p
         active = cont | startable
     if stats is not None:
-        stats.update(trips=trips, steps=steps)
+        stats.update(trips=trips, steps=steps, starts=starts)
     f = fields[:, :, :max_seeds]
     return torch.cat([n_seeds[:, None], f[0], f[1], f[2], f[3]], dim=1)
 

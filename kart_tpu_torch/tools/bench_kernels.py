@@ -53,24 +53,26 @@ def time_both(fn, reps: int = 32, n_small: int = 8, n_big: int = 136) -> tuple[f
 
 def device_us_by_kernel(fn, reps: int = 10) -> dict[str, float]:
     """Device microseconds per call of fn(), by kernel or copy name, from
-    `torch.profiler` over `reps` eager calls.  Raises if the profiler saw no
-    device activity."""
+    `torch.profiler` over `reps` eager calls.  A session that saw no device
+    activity (a process that has run many sessions and CUDA graphs gave one
+    on an H100) is taken once more; raises if that one saw none either."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            out[ev.key] = ev.self_device_time_total / reps
-    if not out:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return out
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+                out[ev.key] = ev.self_device_time_total / reps
+        if out:
+            return out
+    raise RuntimeError("torch.profiler recorded no device activity")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -82,9 +84,11 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def load_kernels_module(path: str, name: str):
     """The `kernels.py` at `path` as a module of its own; it builds the
-    sources beside it into the `_build/` beside it."""
+    sources beside it into the `_build/` beside it.  Its relative imports
+    (`from .ops...`) resolve to this checkout's package."""
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    mod.__package__ = __package__.rsplit(".", 1)[0]
     spec.loader.exec_module(mod)
     return mod
 

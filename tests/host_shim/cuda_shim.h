@@ -7,7 +7,8 @@
 // being a barrier over all their threads and map_shared_rank a pointer at
 // the same offset of the peer block's shared-memory arena; a plain launch
 // runs kConcurrentBlocks blocks at a time, so that blocks which wait for one
-// another through global memory (a chained scan) make progress.  A thread
+// another through global memory (a chained scan) make progress.  The
+// threads come from a pool of workers kept for the process.  A thread
 // that waits at a barrier for more than kStallSeconds aborts the process.
 //
 // This checks a kernel's arithmetic, indexing and barrier placement against
@@ -26,6 +27,8 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
+#include <functional>
 #include <map>
 #include <memory>
 #include <mutex>
@@ -47,12 +50,16 @@ struct dim3 {
 struct uint3 {
   unsigned x, y, z;
 };
+struct alignas(8) int2 {
+  int x, y;
+};
 struct alignas(16) int4 {
   int x, y, z, w;
 };
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
 
@@ -150,21 +157,56 @@ T* static_smem(int line, size_t count) {
   return reinterpret_cast<T*>(b->arena.data() + it->second);
 }
 
-template <typename K, typename... Args>
-void run_block(K kernel, BlockCtx* b, dim3 grid, dim3 block, Args... args) {
-  std::vector<std::thread> ths;
-  ths.reserve(b->n_threads);
-  for (int t = 0; t < b->n_threads; ++t) {
-    ths.emplace_back([=] {
-      tc.blk = b;
-      tc.tid = threadIdx = uint3{(unsigned)t, 0, 0};
-      blockIdx = b->block_idx;
-      blockDim = block;
-      gridDim = grid;
-      kernel(args...);
-    });
+// Threads that run the blocks' threads, kept for the process: a launch
+// hands every thread of its concurrent blocks to a worker of its own (the
+// pool grows until enough of them are idle), so that they all run at once
+// and meet at their barriers, without creating an OS thread per CUDA thread.
+// The pool is never destroyed: its workers wait for jobs until the process
+// ends.
+class Pool {
+ public:
+  void run(std::vector<std::function<void()>>& jobs) {
+    std::atomic<size_t> left{jobs.size()};
+    std::unique_lock<std::mutex> lk(m_);
+    for (auto& j : jobs)
+      q_.push_back([this, &left, &j] {
+        j();
+        if (--left == 0) {
+          std::lock_guard<std::mutex> g(m_);
+          done_.notify_all();
+        }
+      });
+    while (idle_ < q_.size()) {
+      std::thread([this] { work(); }).detach();
+      ++idle_;
+    }
+    work_.notify_all();
+    done_.wait(lk, [&] { return left.load() == 0; });
   }
-  for (auto& th : ths) th.join();
+
+ private:
+  void work() {
+    std::unique_lock<std::mutex> lk(m_);
+    for (;;) {
+      work_.wait(lk, [&] { return !q_.empty(); });
+      std::function<void()> j = std::move(q_.front());
+      q_.pop_front();
+      --idle_;
+      lk.unlock();
+      j();
+      lk.lock();
+      ++idle_;
+    }
+  }
+  std::mutex m_;
+  std::condition_variable work_, done_;
+  std::deque<std::function<void()>> q_;
+  size_t idle_ = 0;
+};
+
+inline Pool& pool() {
+  static Pool* p = new Pool;  // never destroyed
+  return *p;
 }
 
 // Runs blocks [first, first + n) of the grid at the same time; with
@@ -180,6 +222,7 @@ void run_blocks(K kernel, dim3 grid, dim3 block, size_t smem, unsigned first, un
   cl.n_blocks = cluster ? (int)n : 1;
   cl.bar = std::make_unique<Barrier>((int)(n * block.x));
   std::vector<std::unique_ptr<BlockCtx>> blocks;
+  std::vector<std::function<void()>> jobs;
   for (unsigned i = 0; i < n; ++i) {
     auto b = std::make_unique<BlockCtx>();
     b->n_threads = (int)block.x;
@@ -191,12 +234,20 @@ void run_blocks(K kernel, dim3 grid, dim3 block, size_t smem, unsigned first, un
     b->dyn_bytes = (smem + 15) / 16 * 16;
     b->arena.assign(b->dyn_bytes + kStaticArena, (char)0xCD);  // shared memory starts as garbage
     cl.blocks.push_back(b.get());
+    for (int t = 0; t < b->n_threads; ++t) {
+      BlockCtx* bp = b.get();
+      jobs.emplace_back([=] {
+        tc.blk = bp;
+        tc.tid = threadIdx = uint3{(unsigned)t, 0, 0};
+        blockIdx = bp->block_idx;
+        blockDim = block;
+        gridDim = grid;
+        kernel(args...);
+      });
+    }
     blocks.push_back(std::move(b));
   }
-  std::vector<std::thread> runners;
-  for (unsigned i = 0; i < n; ++i)
-    runners.emplace_back([&, i] { run_block(kernel, blocks[i].get(), grid, block, args...); });
-  for (auto& r : runners) r.join();
+  pool().run(jobs);
 }
 
 template <typename K, typename... Args>
@@ -241,6 +292,12 @@ inline int __shfl_up_sync(unsigned, int v, int delta) {
   shim::warp_exchange(v, all);
   const int lane = threadIdx.x & 31;
   return lane >= delta ? (int)all[lane - delta] : v;
+}
+
+inline int __shfl_sync(unsigned, int v, int src) {
+  long long all[32];
+  shim::warp_exchange(v, all);
+  return (int)all[src & 31];
 }
 
 inline int __shfl_xor_sync(unsigned, int v, int mask) {

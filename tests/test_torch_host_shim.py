@@ -45,8 +45,9 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
-                                     p, p, p]
-    lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, p]
+                                     p, p, ctypes.c_longlong, p, p, p, p, p]
+    lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, ctypes.c_longlong,
+                                           p, p]
     lib.kart_fm_sensitive_scan.restype = i
     lib.kart_kmer_funnel.restype = i
     lib.kart_kmer_funnel_cluster.restype = i
@@ -92,7 +93,10 @@ def ptr(a: np.ndarray) -> int:
 
 
 def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_rows, hit_budget,
-                sensitive=False, ms=None, rounds=None):
+                sensitive=False, ms=None, rounds=None, tile=None, paths=None):
+    """The funnel through the host shim.  SensitiveMode's scratch holds
+    `tile` rows (all of them by default); `paths`, a (2,) int32 array, gains
+    the slabs of each path."""
     B = words.shape[0]
     ms = ms or l_max // (MIN_SEED + 1) + 1
     rounds = rounds or l_max // 10 + 4
@@ -100,12 +104,20 @@ def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_row
     sub_tbl = np.ascontiguousarray(tb.sub_tbl_np)
     sa = np.ascontiguousarray(tb.sa_full_np, np.int32)
     text = np.ascontiguousarray(tb.text_words_np())
-    ambm = np.full((B, -(-l_max // 32)), -1, np.int32)  # scratch arrives as garbage
+    # scratch arrives as garbage
+    ambm = np.full((B, -(-l_max // 32)), -1, np.int32)
+    n_slabs = -(-B // min(B, slab_rows))
+    cap = (tile or B) * l_max
+    scr = np.full((cap, 2), -5, np.int32)
+    totals = np.full(n_slabs * rounds, -9, np.int32)
+    sel = np.full(n_slabs, -9, np.int32)
+    paths = np.zeros(2, np.int32) if paths is None else paths
     out = np.full((B, 2 + 4 * ms), -7, np.int32)
     rc = lib.kart_kmer_funnel(ptr(table_lo), ptr(sub_tbl), ptr(sa), ptr(text), int(tb.seq_len),
                               ptr(words), ptr(amb_r), ptr(amb_p), len(amb_r), ptr(rlens), B, l_max,
                               MIN_SEED, ms, hit_cap, rounds, slab_rows, hit_budget, int(sensitive),
-                              ptr(ambm), ptr(out), None)
+                              ptr(ambm), ptr(scr), cap, ptr(totals), ptr(sel), ptr(paths), ptr(out),
+                              None)
     assert rc == 0
     return out
 
@@ -155,19 +167,31 @@ def test_funnel_kernel_on_host_refuses_a_block_too_large(host_lib, shim_genome):
     ambm = np.zeros((B, 16), np.int32)
     rc = host_lib.kart_kmer_funnel(None, None, None, None, int(tb.seq_len), ptr(words), ptr(none),
                                    ptr(none), 0, ptr(np.zeros(B, np.int32)), B, l_max, MIN_SEED,
-                                   ms, 16, 10, 32000, 2, 0, ptr(ambm), ptr(out), None)
+                                   ms, 16, 10, 32000, 2, 0, ptr(ambm), None, 0, None, None, None,
+                                   ptr(out), None)
     assert rc != 0
 
 
-# name: (genome, B, l_max, slab_rows, hit_budget, rounds or None for the mapper's)
+# name: (genome, B, l_max, slab_rows, hit_budget, rounds or None for the mapper's, rows a
+# tile of the scratch or None for all, the slabs (chased, round-synchronous))
 SENS_FUNNEL_CASES = {
-    "b16_ragged": ("random", 16, 1024, 4096, 2, None),  # 2 lanes a block; short, pad, N lanes
-    "one_read_l32768": ("random", 1, 32768, 4096, 2, None),  # seven blocks without a lane
+    # short, pad and N lanes; a budget of 8 a lane, which every round fits
+    "b16_ragged": ("random", 16, 1024, 4096, 8, None, None, (1, 0)),
+    # a read of exactly l_max bases, an all-N read, a read below MinSeed, pad lanes
+    "one_read_l32768": ("long", 5, 32768, 4096, 16, None, None, (1, 0)),
     # three slabs of 24 and a ragged fourth, 3 lanes a block; every lane asks
     # for some 40 hits of a budget of 4 * 24
-    "slabs_flagged": ("repeat", 80, 512, 24, 1, None),
-    "budget_above_four": ("repeat", 20, 512, 4096, 9, None),  # H = 9 * B
-    "rounds_cut": ("random", 16, 1024, 4096, 2, 20),  # unfinished lanes are flagged
+    "slabs_flagged": ("repeat", 80, 512, 24, 1, None, None, (0, 4)),
+    "budget_above_four": ("repeat", 20, 512, 4096, 9, None, None, (0, 1)),  # H = 9 * B
+    "rounds_cut": ("random", 16, 1024, 4096, 8, 20, None, (1, 0)),  # unfinished lanes are flagged
+    # one slab of random reads whose rounds fit and one of the repeat whose
+    # rounds overrun H: both paths in one call
+    "both_paths": ("mixed", 48, 512, 24, 8, None, None, (1, 1)),
+    "tiles": ("random", 16, 1024, 4096, 8, None, 5, (1, 0)),  # rows in tiles of 5, 5, 5 and 1
+    # a slab larger than a tile that overruns: chained tile by tile, then funnel_kernel<true>
+    "tiles_overrun": ("repeat", 20, 512, 4096, 4, None, 7, (0, 1)),
+    # two slabs a tile, the second overrunning: replayed with the tile's outcomes
+    "slabs_in_tiles": ("mixed", 48, 512, 24, 8, None, 48, (1, 1)),
 }
 
 
@@ -176,16 +200,14 @@ def test_sensitive_funnel_kernel_on_host_matches_plain(host_lib, shim_genome, na
     from test_torch_kmer_seed import repeat_batch, sensitive_batch
 
     gidx, tb = shim_genome
-    kind, B, l_max, slab, hb, rounds = SENS_FUNNEL_CASES[name]
+    kind, B, l_max, slab, hb, rounds, tile, want_paths = SENS_FUNNEL_CASES[name]
     if kind == "repeat":
         reads, rlens = repeat_batch(gidx, B, l_max)
-    elif B == 1:  # a read of exactly l_max bases, 12% substitutions, an N run
-        rng = np.random.default_rng(5)
-        r = gidx.ref_codes[100 : 100 + l_max].astype(np.int32)
-        m = rng.random(l_max) < 0.12
-        r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
-        r[9000:9040] = 4
-        reads, rlens = r[None, :].copy(), np.array([l_max], np.int32)
+    elif kind == "long":
+        reads, rlens = long_edge_reads(gidx, l_max)
+    elif kind == "mixed":
+        reads, rlens = (np.concatenate(x) for x in zip(
+            sensitive_batch(gidx, n=24, rlen=400, l_max=l_max), repeat_batch(gidx, 24, l_max)))
     else:
         reads, rlens = sensitive_batch(gidx, n=B, rlen=700, l_max=l_max)
         reads[2, 100:230] = 4  # a run of Ns longer than any window or word
@@ -193,27 +215,72 @@ def test_sensitive_funnel_kernel_on_host_matches_plain(host_lib, shim_genome, na
     rounds = rounds or l_max // MIN_SEED + 8
     hit_cap = tks.hit_cap_for(tb.max_mult)
     words, amb_r, amb_p = tpack.pack_reads_2bit(reads.astype(np.int8))
+    paths = np.full(2, 100, np.int32)
     got = host_funnel(host_lib, tb, words, amb_r, amb_p, rlens, l_max=l_max, hit_cap=hit_cap,
-                      slab_rows=slab, hit_budget=max(hb, 4), sensitive=True, ms=ms, rounds=rounds)
+                      slab_rows=slab, hit_budget=max(hb, 4), sensitive=True, ms=ms, rounds=rounds,
+                      tile=tile, paths=paths)
     tt = tks.KmerTablesTensors.from_tables(tb, "cpu")
     want = tks.kmer_seed_scan_plain(
         tt, torch.from_numpy(reads), torch.from_numpy(rlens), MIN_SEED, max_seeds=ms,
         l_max=l_max, hit_cap=hit_cap, rounds=rounds, sensitive=True, slab_rows=slab,
         hit_budget=hb).numpy()
     np.testing.assert_array_equal(got, want)
+    assert tuple(paths - 100) == want_paths
     flagged = int((want[:, 1] == 0).sum())
     if name in ("slabs_flagged", "rounds_cut"):
         assert flagged >= 8
-    elif name == "budget_above_four":  # 40 hits a lane fit a budget of 9 a lane four at a time
+    elif name in ("budget_above_four", "both_paths"):
+        # 40 hits a lane fit a budget of 9 a lane four at a time; the random
+        # slab's lanes all fit
         assert 0 < flagged < B
     assert want[:, 0].sum() >= 2 * min(B, 8)
     if name == "one_read_l32768":
         assert want[0, 0] > 250 and want[0, 2 + want[0, 0] - 1] > 32000
+        assert (want[1:, 0] == 0).all() and (want[1:, 1] == 1).all()
+
+
+def test_sensitive_funnel_kernel_on_host_budget_edge(host_lib, shim_genome):
+    """One repeat lane whose busiest round asks for M hits: a budget of M
+    fits every round (the chase is exact), M - 1 overruns one (the replay)."""
+    from test_torch_kmer_seed import repeat_batch
+
+    gidx, tb = shim_genome
+    l_max, ms, rounds = 512, 512 // MIN_SEED + 2, 512 // MIN_SEED + 8
+    reads, rlens = repeat_batch(gidx, 1, l_max)
+    tt = tks.KmerTablesTensors.from_tables(tb, "cpu")
+    hit_cap = tks.hit_cap_for(tb.max_mult)
+    kw = dict(max_seeds=ms, l_max=l_max, hit_cap=hit_cap, rounds=rounds, sensitive=True)
+    stats: list = []
+    tks.kmer_seed_scan_plain(tt, torch.from_numpy(reads), torch.from_numpy(rlens), MIN_SEED,
+                             hit_budget=10**6, stats=stats, **kw)
+    M = max(stats[0]["hits"])
+    assert M > 4
+    words, amb_r, amb_p = tpack.pack_reads_2bit(reads.astype(np.int8))
+    oks = []
+    for hb, want_paths in ((M, (1, 0)), (M - 1, (0, 1))):
+        paths = np.zeros(2, np.int32)
+        got = host_funnel(host_lib, tb, words, amb_r, amb_p, rlens, l_max=l_max, hit_cap=hit_cap,
+                          slab_rows=4096, hit_budget=hb, sensitive=True, ms=ms, rounds=rounds,
+                          paths=paths)
+        want = tks.kmer_seed_scan_plain(tt, torch.from_numpy(reads), torch.from_numpy(rlens),
+                                        MIN_SEED, hit_budget=hb, **kw).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert tuple(paths) == want_paths
+        oks.append(int(want[0, 1]))
+    assert oks == [1, 0]
 
 
 def test_sensitive_funnel_kernel_on_host_refuses_l_max(host_lib):
     rc = host_lib.kart_kmer_funnel(None, None, None, None, 0, None, None, None, 0, None, 2, 32784,
-                                   MIN_SEED, 9, 16, 10, 4096, 4, 1, None, None, None)
+                                   MIN_SEED, 9, 16, 10, 4096, 4, 1, None, None, 1 << 20, None, None,
+                                   None, None, None)
+    assert rc != 0
+
+
+def test_sensitive_funnel_kernel_on_host_refuses_a_row_wider_than_its_scratch(host_lib):
+    rc = host_lib.kart_kmer_funnel(None, None, None, None, 0, None, None, None, 0, None, 2, 1024,
+                                   MIN_SEED, 9, 16, 10, 4096, 4, 1, None, None, 1023, None, None,
+                                   None, None, None)
     assert rc != 0
 
 
@@ -342,13 +409,45 @@ def test_fm_seed_scan_kernel_on_host_matches_plain(host_lib, shim_genome, name):
         assert want[:, 0].sum() >= min(B, 100) // 2
 
 
-# name: (static l_max or None for the reads' width, max_seeds or None for the mapper's)
+def host_sensitive_scan(lib, fm, reads, rlens, *, l_max, ms, tile=None):
+    """The SensitiveMode FM stepper through the host shim; `tile` reads a
+    tile of the extension scratch (all of them by default)."""
+    B, width = reads.shape
+    cap = (tile or B) * width
+    ext = np.full((cap, 2), -3, np.int32)  # scratch arrives as garbage
+    out = np.full((B, 1 + 4 * ms), -7, np.int32)
+    rc = lib.kart_fm_sensitive_scan(
+        ptr(fm.occ_cp.numpy()), ptr(fm.bwt_words.numpy()), ptr(fm.L2.numpy()), fm.primary,
+        ptr(reads), ptr(rlens), B, width, MIN_SEED, ms, 31 * (l_max // MIN_SEED + 2), ptr(ext), cap,
+        ptr(out), None)
+    assert rc == 0
+    return out
+
+
+def long_edge_reads(gidx, l_max):
+    """A read of exactly l_max bases (12% substitutions, a run of Ns), an
+    all-N read, a read shorter than the minimal seed, and pad lanes."""
+    rng = np.random.default_rng(5)
+    r = gidx.ref_codes[100 : 100 + l_max].astype(np.int32)
+    m = rng.random(l_max) < 0.12
+    r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
+    r[9000:9040] = 4
+    reads = np.full((5, l_max), 4, np.int32)
+    reads[0] = r
+    reads[3, : MIN_SEED - 1] = r[200 : 200 + MIN_SEED - 1]
+    return reads, np.array([l_max, 0, 900, MIN_SEED - 1, 0], np.int32)
+
+
+# name: (static l_max or None for the reads' width, max_seeds or None for the
+# mapper's, reads a tile of the extension scratch or None for all)
 FM_SENS_CASES = {
-    "long": (None, None),
-    "ragged": (None, None),  # pad lanes, reads around MinSeed, all-N, a clean read
-    "trip_cut": (13, None),  # max_trips = 31 * 3 cuts every read
-    "dropped": (None, 3),  # seeds past max_seeds are dropped and not counted
-    "rewind": (None, None),  # start + MinSeed < p after a seed with too many occurrences
+    "long": (None, None, None),
+    "ragged": (None, None, None),  # pad lanes, reads around MinSeed, all-N, a clean read
+    "trip_cut": (13, None, None),  # max_trips = 31 * 3 cuts every read
+    "dropped": (None, 3, None),  # seeds past max_seeds are dropped and not counted
+    "rewind": (None, None, None),  # start + MinSeed < p after a seed with too many occurrences
+    "tiles": (None, None, 5),  # 12 reads in tiles of 5, 5 and 2
+    "l_max_32768": (None, None, None),  # a read of exactly l_max bases, all-N, short and pad lanes
 }
 
 
@@ -357,29 +456,66 @@ def test_fm_sensitive_scan_kernel_on_host_matches_plain(host_lib, shim_genome, w
     from test_torch_fm_search import _sensitive_reads, tandem_index, tandem_reads
 
     gidx, _ = shim_genome
+    l_max, ms, tile = FM_SENS_CASES[name]
     if name == "rewind":
         gidx = tandem_index(workdir, "torch_shim_tandem")
         reads, rlens = tandem_reads(gidx)
         l_max, ms = reads.shape[1], reads.shape[1] // MIN_SEED + 2
+    elif name == "l_max_32768":
+        reads, rlens = long_edge_reads(gidx, 32768)
+        l_max, ms = 32768, 32768 // MIN_SEED + 2
     else:
-        reads, rlens, l_max, ms = _sensitive_reads(gidx, name)
+        reads, rlens, l_max, ms = _sensitive_reads(gidx, "long" if name == "tiles" else name)
         reads[0, rlens[0]:] = 7  # codes past rlen need not be 4
-    B, width = reads.shape
     fm = tfm.FMIndexTensors.from_genome_index(gidx, "cpu")
+    stats: dict = {}
     want = tfm.sensitive_scan_plain(fm, torch.from_numpy(reads), torch.from_numpy(rlens),
-                                    MIN_SEED, max_seeds=ms, l_max=l_max).numpy()
-    out = np.full((B, 1 + 4 * ms), -7, np.int32)
-    rc = host_lib.kart_fm_sensitive_scan(
-        ptr(fm.occ_cp.numpy()), ptr(fm.bwt_words.numpy()), ptr(fm.L2.numpy()), fm.primary,
-        ptr(reads), ptr(rlens), B, width, MIN_SEED, ms, 31 * (l_max // MIN_SEED + 2), ptr(out),
-        None)
-    assert rc == 0
-    np.testing.assert_array_equal(out, want)
+                                    MIN_SEED, max_seeds=ms, l_max=l_max, stats=stats).numpy()
+    got = host_sensitive_scan(host_lib, fm, reads, rlens, l_max=l_max, ms=ms, tile=tile)
+    np.testing.assert_array_equal(got, want)
     assert want[:, 0].sum() >= 10
     if name == "dropped":
         assert (want[:, 0] == ms).any()
     elif name == "trip_cut":
-        assert want[:, 0].max() <= 4
+        assert want[:, 0].max() <= 4 and (stats["trips"] == 31 * 3).all()
+    elif name == "rewind":
+        # a seed failed on its occurrences after more than MinSeed bases: the
+        # scan went back behind the base it had reached
+        assert (stats["trips"].numpy() > rlens + 2 * MIN_SEED).any()
+    elif name == "l_max_32768":
+        assert want[0, 0] > 250 and (want[1:, 0] == 0).all()
+
+
+def test_fm_sensitive_scan_kernel_on_host_trip_limits(host_lib, shim_genome):
+    """The trip limit at eight values, 93 to 310 trips: it cuts each read
+    inside a run of Ns, inside an extension and on the trip that records a
+    seed and starts the next, so a trip counted too many or too few shows."""
+    from test_torch_fm_search import _sensitive_reads
+
+    gidx, _ = shim_genome
+    reads, rlens, _, ms = _sensitive_reads(gidx, "trip_cut")
+    reads[1, 20:80] = 4  # 60 idle trips early in a read
+    fm = tfm.FMIndexTensors.from_genome_index(gidx, "cpu")
+    for l_max in range(MIN_SEED, 9 * MIN_SEED, MIN_SEED):
+        want = tfm.sensitive_scan_plain(fm, torch.from_numpy(reads), torch.from_numpy(rlens),
+                                        MIN_SEED, max_seeds=ms, l_max=l_max).numpy()
+        got = host_sensitive_scan(host_lib, fm, reads, rlens, l_max=l_max, ms=ms)
+        np.testing.assert_array_equal(got, want, err_msg=f"l_max {l_max}")
+
+
+def test_fm_sensitive_scan_kernel_on_host_refuses_a_read_wider_than_its_scratch(host_lib):
+    rc = host_lib.kart_fm_sensitive_scan(None, None, None, 0, None, None, 2, 600, MIN_SEED, 40,
+                                         93, None, 599, None, None)
+    assert rc != 0
+
+
+def test_sensitive_scratch_rows():
+    from kart_tpu_torch import kernels
+
+    assert kernels.sens_scratch_rows(640, 8192) == 640
+    assert kernels.sens_scratch_rows(4096, 32768) == kernels.SENS_SCRATCH // 32768
+    with pytest.raises(ValueError, match="exceeds"):
+        kernels.sens_scratch_rows(1, kernels.SENS_SCRATCH + 1)
 
 
 def test_fm_seed_scan_kernel_on_host_refuses_reads_too_long(host_lib):
