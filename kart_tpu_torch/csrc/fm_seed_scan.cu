@@ -233,6 +233,11 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
 //             loads rather than one an extension.
 // The extensions of a batch are evaluated in tiles of whole reads that fit
 // the caller's scratch.
+// What bounds them on this card: not bytes (the index stays in L2, and a
+// read's outcomes are 8 bytes a base) but dependent loads.  The extension
+// pass is a chain of up to 29 occ4 pairs a start; spread over the card,
+// thousands of such chains are in flight at once where the serial loop ran
+// one a read.  The chase's chain is the window loads of its longest read.
 constexpr int kWin = 30;       // an extension's window, bases
 constexpr int kAmbRun = 31;    // longest run of ambiguous bases one entry steps over
 constexpr int kExtThreads = 128;

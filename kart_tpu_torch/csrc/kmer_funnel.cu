@@ -145,7 +145,7 @@ struct Funnel {
   int LS;    // lane stride of the shared word arrays (odd: LB | 1)
   int nrw;   // read words a lane keeps in shared memory: nwl, SensitiveMode 4
   int* out;  // (B, 2 + 4 * max_seeds)
-  const int* sel;  // SensitiveMode: per slab, 1 where funnel_kernel runs it (nullptr: every slab)
+  const int* sel;  // SensitiveMode: per slab, 1 where funnel_kernel runs it
 };
 
 // The shared word arrays are word-major with an odd lane stride: word w of
@@ -282,13 +282,12 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   const int MS = f.max_seeds;
   // a slab that the chase ran exactly is left as it is, by every block of
   // its cluster alike; this kernel rewrites the rows of the others
-  const bool run_slab = !kSens || !f.sel || f.sel[blockIdx.x / C];
-  if (!run_slab) return;
+  if (kSens && !f.sel[blockIdx.x / C]) return;
 
   // no block may write into a peer's shared memory before the peer runs
   cluster.sync();
 
-  if (kSens && f.sel)
+  if (kSens)
     for (int i = t; i < nl * ocols; i += nt) f.out[(size_t)row0 * ocols + i] = 0;
 
   if (!kSens) {
@@ -557,6 +556,11 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
 // tiles of whole slabs.  A slab of more rows than a tile holds (thousands of
 // lanes at l_max 32768) is chained tile by tile and its overrun handled by
 // funnel_kernel<true> after the last tile instead.
+// What bounds them on this card: dependent loads, not bytes.  A position's
+// round is table_lo, then sa_full, then the text words, as in a round of
+// funnel_kernel, but every position's chain runs at once over every SM.  The
+// chase then follows one load of 64 outcomes for several rounds, the replay
+// one outcome load and two barriers a round.
 constexpr int kSkipField = 31;      // the skip field's escape: look the skip up
 constexpr int kCntMax = 32767;      // the hit count field's clamp
 constexpr int kEvalThreads = 128;
