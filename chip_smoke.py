@@ -61,9 +61,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cut from one copy of a repeat family, whose hits overrun the funnel's
      budget so that lanes are flagged; where the funnel says ok its seeds
      equal the stepper's; resolve_pack on both outputs in the 32-bit layout.
-     The funnel's slabs by path (chased, round-synchronous): the group must be
-     chased and the repeat family replayed, and the repeat family again in
-     scratch tiles of 8 rows (the cluster kernel) must give the same rows.
+     The funnel's slabs by path (chased, replayed round by round): the group
+     must be chased and the repeat family replayed.
      Slope and per-call times, bounds and chains as in phase 4, each new
      design's own chain beside the function's, and both kernels' launches
      by device time (torch.profiler);
@@ -866,12 +865,9 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float, other=None) -> dict:
     to_code = np.full(256, 4, np.int8)
     to_code[_ACGT] = np.arange(4)
 
-    def case(name, reads_i8, rlens, l_max, timed=False, tiles=0):
+    def case(name, reads_i8, rlens, l_max, timed=False):
         """Both kernels and resolve_pack on one batch against their plain
-        versions; the funnel's ok lanes must carry the stepper's seeds.  With
-        `tiles`, the funnel runs again with a scratch of that many rows, so
-        that its slab is chained tile by tile and an overrun goes through the
-        cluster kernel, and must give the same rows."""
+        versions; the funnel's ok lanes must carry the stepper's seeds."""
         B = reads_i8.shape[0]
         ms, H = l_max // msl + 2, B * max(64, l_max // 24)
         t0 = time.perf_counter()
@@ -889,18 +885,6 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float, other=None) -> dict:
         kernels.funnel_slab_paths(w.device, reset=True)
         got_a = kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka)
         paths = kernels.funnel_slab_paths(w.device, reset=True)
-        tiled = ""
-        if tiles:
-            scratch, kernels.SENS_SCRATCH = kernels.SENS_SCRATCH, tiles * l_max
-            try:
-                got_t = kernels.kmer_funnel(tt, w, ar, ap, rl, msl, **ka)
-            finally:
-                kernels.SENS_SCRATCH = scratch
-            require_equal(got_t, got_a, f"SensitiveMode kmer_funnel in tiles of {tiles} rows ({name})")
-            paths_t = kernels.funnel_slab_paths(w.device, reset=True)
-            if paths_t != paths:
-                raise AssertionError(f"{name}: slabs {paths_t} in tiles of {tiles} rows, {paths} whole")
-            tiled = f"; in tiles of {tiles} rows (the cluster kernel for an overrun slab): equal"
         err = max(err, require_equal(got_a, kmer_seed_scan_plain(tt, codes, rl, msl, stats=st_a, **ka),
                                      f"SensitiveMode kmer_funnel ({name})"))
         got_b = kernels.fm_sensitive_scan(fm, codes, rl, msl, **kb)
@@ -923,7 +907,7 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float, other=None) -> dict:
               f" {int(got_a[:, 0].sum())} funnel seeds, {res['seeds']} stepper seeds, {res['flagged']}"
               f" lanes flagged, {n_occ[0]} and {n_occ[1]} occurrences, {res['n_amb']} ambiguity entries"
               f" (the host packer took {1e3 * pack_s:.3f} ms); funnel slabs: {paths[0]} chased,"
-              f" {paths[1]} round-synchronous{tiled}")
+              f" {paths[1]} replayed")
         if other is not None and timed:
             require_equal(other.kmer_funnel(tt, w, ar, ap, rl, msl, **ka), got_a,
                           f"SensitiveMode kmer_funnel of the compared build ({name})")
@@ -985,14 +969,14 @@ def phase_sensitive(gidx, tb, pb: str, l2_load_ns: float, other=None) -> dict:
     p0 = repeat_window(gidx, tb, 4000)
     rep_reads = [to_code[np.frombuffer(simdata.noisy_copy(
         rng, genome[p0 + 40 * i : p0 + 40 * i + 3900], 3000, err=0.05), np.uint8)] for i in range(16)]
-    flagged = case("repeat family", *pad_batch(rep_reads, 16, 4096), 4096, tiles=8)
+    flagged = case("repeat family", *pad_batch(rep_reads, 16, 4096), 4096)
     if flagged["flagged"] == 0:
         raise AssertionError("the repeat-family batch flagged no lane")
     # which path each batch's slabs took: the group's rounds fit the budget
-    # (chased exactly), the repeat family's overrun it (round-synchronous)
+    # (chased exactly), the repeat family's overrun it (replayed round by round)
     if group["paths"] != (1, 0) or flagged["paths"] != (0, 1):
         raise AssertionError(f"funnel paths: group {group['paths']}, repeat family {flagged['paths']}"
-                             " (expected (1, 0) and (0, 1): chased, round-synchronous)")
+                             " (expected (1, 0) and (0, 1): chased, replayed)")
     if longc["seeds"] == 0 or group["seeds"] == 0:
         raise AssertionError("a SensitiveMode batch has no seeds")
 
@@ -1186,8 +1170,8 @@ def phase_pacbio_slice(prefix: str, pb: str) -> dict:
         us, n = by_name.get(name, (0.0, 0))
         by_name[name] = (us + t1 - t0, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    # every funnel call launches the evaluation (a tile at a time) or the cluster kernel
-    seen = sum(n for k, (_, n) in by_name.items() if "funnel_eval_kernel" in k or "funnel_kernel<" in k)
+    # every SensitiveMode funnel call launches the evaluation (a tile at a time)
+    seen = sum(n for k, (_, n) in by_name.items() if "funnel_eval_kernel" in k)
     whole = "" if seen >= launches["kmer_funnel"] else (
         f" PROFILE INCOMPLETE: {seen} funnel kernels seen for {launches['kmer_funnel']} calls;")
     print(f"phase 8 pacbio slice: {n_all} reads of 5-7 kb, -pacbio KART_SEED_MODE=device on the card")

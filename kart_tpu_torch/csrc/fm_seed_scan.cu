@@ -42,6 +42,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "window.cuh"
+
 namespace {
 
 constexpr int kOccThr = 50;
@@ -323,27 +325,6 @@ fm_extend_kernel(const int4* __restrict__ occ_cp, const uint4* __restrict__ bwt4
     x2 = nx2;
   }
   ext[i] = make_int2((p - s) | (min(x2, 63) << 5), x0);
-}
-
-// A window of 64 entries of a read's extensions, two a lane (entries base + j
-// and base + 32 + j): the chase's next start lies within some 30 bases, so a
-// window serves several extensions, and a lookup in it is two shuffles.
-struct Window {
-  int base = INT_MIN / 2;
-  int2 lo, hi;
-};
-
-// Entry p of e (p < n): every lane of the warp calls this with the same p.
-__device__ __forceinline__ int2 window_at(Window& w, const int2* __restrict__ e, int n, int p) {
-  const int j = threadIdx.x & 31;
-  if (p < w.base || p >= w.base + 64) {
-    w.base = p;
-    w.lo = p + j < n ? __ldg(e + p + j) : make_int2(0, 0);
-    w.hi = p + 32 + j < n ? __ldg(e + p + 32 + j) : make_int2(0, 0);
-  }
-  const int d = p - w.base;
-  const int2 h = d < 32 ? w.lo : w.hi;
-  return make_int2(__shfl_sync(kFull, h.x, d & 31), __shfl_sync(kFull, h.y, d & 31));
 }
 
 // A warp per read: every lane carries the same state, lanes 0-3 store a

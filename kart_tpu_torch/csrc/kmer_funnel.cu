@@ -1,7 +1,7 @@
-// The 13-mer funnel for Hopper (sm_90a), FastMode and SensitiveMode: 2-bit
-// read unpack plus the round loop of the direct-lookup seeding scan, one
-// thread-block cluster per slab.  The mode is a template parameter of one
-// kernel (see "SensitiveMode" below for what it changes).
+// The 13-mer funnel for Hopper (sm_90a): 2-bit read unpack plus the round
+// loop of the direct-lookup seeding scan, FastMode on one thread-block
+// cluster per slab, SensitiveMode position by position over the whole card
+// (see "SensitiveMode" below).
 //
 // Replaces kart_tpu/ops/pack.py::unpack_reads_device followed by
 // kart_tpu/ops/kmer_seed.py::kmer_seed_scan (either value of `sensitive`),
@@ -57,36 +57,49 @@
 // the same number of rounds and reaches every cluster.sync(), blocks whose
 // lanes are all past B included.
 //
-// SensitiveMode (PacBio; kart_tpu's sensitive=True): every lane restarts
-// once a round, an extension is capped at a 30-base window, a recorded seed
-// restarts at its end and a failed one MinSeed past its start, and there is
-// no sub-13 length.  The scan, the budget exchange and the ok flag are the
-// same code.  What differs:
-//   residency  reads go up to 32,768 bases (2,048 words a lane), a few
-//             hundred lanes run hundreds to thousands of rounds, and a
-//             round touches four words of a read.  So nothing of a read
-//             lives in shared memory: phase A reads the lane's two mask
-//             words and four read words at its restart from global memory
-//             (a 640 x 8192 group is 1.3 MB and stays in L2), cleans them
-//             and stages the four words in shared memory for phase B.  One
-//             plan for every l_max;
-//   phase A   the first-ambiguous search stops after 32 bases (only
-//             min(., 30) and ">= 13" of it are used); a lane that can start
-//             no further seed is skipped;
-//   phase B   W = 4 text words a hit instead of l_max / 16 + 2;
-//   phase C   the advance rules above.
-// That round-synchronous kernel now runs only a slab that overruns its budget
-// in some round and is larger than a scratch tile: every slab is evaluated
-// position by position over the whole card and chained lane by lane, and an
-// overrun slab that a tile holds is replayed round by round over those
-// outcomes (funnel_eval_kernel and the kernels after it, which say why that
-// is exact).
-//
 // What bounds it on this card: the dependent chain of rounds within a slab
 // (each round: table_lo, then sa_full, then the text words, three dependent
 // random loads from tables beyond L2, plus one cluster barrier), not bytes:
 // a 32,000-read group moves a few tens of MB.  A cluster of 8 gives 64
 // blocks of 512 lanes for such a group where one block per slab gave 8.
+//
+// SensitiveMode (PacBio; kart_tpu's sensitive=True): reads go up to 32,768
+// bases, every lane restarts once a round, an extension is capped at a
+// 30-base window, a recorded seed restarts at its end and a failed one
+// MinSeed past its start, and there is no sub-13 length.  A round of a lane
+// restarted at q (the ambiguity skip already taken) is a function of q alone
+// as long as the lane's hits fit the slab's budget: the 13-mer interval, the
+// hit_cap cut, the hits' LCPs, best, freq, row0, the record and the advance.
+// A lane whose hits do not fit gets no hits, so that round is a function of q
+// too: the overflow flag and an advance of MinSeed.  So
+//   funnel_eval_kernel   one thread per (lane, q < rlen - MinSeed, base q not
+//             ambiguous) runs the round that fits (phase A to C above for
+//             one lane; its hits eight at a time, so that their loads
+//             overlap), spread over the whole card, and stores 8 bytes:
+//             length (0: no record), freq, the overflow bit, the skip from
+//             the advance to the next restart (31: longer, looked up when
+//             needed), the hit count (32,767: as many or more, looked up
+//             where the budget H could take that many), and row0;
+//   funnel_chase_kernel  a warp per lane walks its rounds over the stored
+//             outcomes as if every round fitted, at most `rounds` of them, in
+//             windows of 64 entries; it writes the seeds in slot order and the
+//             ok flag, and adds each round's hit count into its slab's
+//             per-round total;
+//   funnel_replay_kernel one block per slab.  A slab whose every round's
+//             total is at most H gave every lane all its hits in every round,
+//             so the chase is exact there and the block leaves.  The block of
+//             any other slab replays its rounds in lockstep over the stored
+//             outcomes: a block scan of the lanes' hit counts a round decides
+//             which fit, exactly as the budget does, and a lane that does not
+//             fit takes the no-hit round.  No index access, one dependent load
+//             and two barriers a round.  Each block counts its slab's path.
+// The replay needs a whole slab's outcomes at once: the scratch holds whole
+// slabs (its caller sizes it so), and a slab holds at most kSlabMax lanes.
+// What bounds them on this card: dependent loads, not bytes.  A position's
+// round is table_lo, then sa_full, then the text words, as in a round of
+// funnel_kernel, but every position's chain runs at once over every SM.  The
+// chase then follows one load of 64 outcomes for several rounds, the replay
+// one outcome load and two barriers a round.
 //
 // unpack_codes_kernel / unpack_amb_kernel: the plain unpack to (B, l_max)
 // int32 codes, for the FM stepper's re-seed batches.
@@ -95,6 +108,8 @@
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "window.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -108,12 +123,8 @@ constexpr int kK = 13;
 constexpr int kOccThr = 50;
 constexpr int kIdxBits = 20;
 constexpr int kIdxMask = (1 << kIdxBits) - 1;
-constexpr int kWin = 30;        // SensitiveMode's extension window, bases
-constexpr int kSensWords = 4;   // read and text words that cover it at any shift
-constexpr int kSkipMax = 0x7FFF;  // the 15-bit field of the JAX restart skip
-// Width of the (damb - 1) field, which also bounds the packed hit start.
-template <bool kSens> constexpr int kDambBits = kSens ? 5 : 10;
-template <bool kSens> constexpr int kStartMax = (1 << (29 - kDambBits<kSens>)) - 1;
+constexpr int kDambBits = 10;
+constexpr int kStartMax = (1 << (29 - kDambBits)) - 1;
 constexpr int kOvfBit = 1 << 30;  // overflow flag beside the seed count
 constexpr int kMaxThreads = 1024;
 constexpr int kLaneArrays = 9;  // shared int arrays of LB lanes
@@ -121,6 +132,18 @@ constexpr int kLaneArrays = 9;  // shared int arrays of LB lanes
 // same on that card).
 constexpr int kTextChunk = 4;
 constexpr size_t kMaxSmem = 227 * 1024;
+
+// SensitiveMode
+constexpr int kWin = 30;            // an extension's window, bases
+constexpr int kSensWords = 4;       // read and text words that cover it at any shift
+constexpr int kSkipMax = 0x7FFF;    // the 15-bit field of the JAX restart skip
+constexpr int kSkipField = 31;      // the skip field's escape: look the skip up
+constexpr int kCntMax = 32767;      // the hit count field's escape: look the count up
+constexpr int kEvalThreads = 128;
+constexpr int kChaseThreads = 128;  // four lanes a block, a warp each
+constexpr int kHitChunk = 8;        // hits of a position whose loads overlap
+constexpr int kReplayPer = 4;       // lanes a replay thread holds
+constexpr int kSlabMax = 1024 * kReplayPer;
 
 struct Funnel {
   const int* table_lo;
@@ -143,9 +166,7 @@ struct Funnel {
   int H;     // hits per slab and round
   int LB;    // lanes per block: ceil(slab / cluster)
   int LS;    // lane stride of the shared word arrays (odd: LB | 1)
-  int nrw;   // read words a lane keeps in shared memory: nwl, SensitiveMode 4
   int* out;  // (B, 2 + 4 * max_seeds)
-  const int* sel;  // SensitiveMode: per slab, 1 where funnel_kernel runs it
 };
 
 // The shared word arrays are word-major with an odd lane stride: word w of
@@ -160,24 +181,15 @@ __device__ __forceinline__ unsigned text_word(const Funnel& f, int w) {
   return __ldg(f.text_words + w);
 }
 
-// Ambiguity word wi of lane l of the block, row `row` of the batch: from the
-// block's shared copy, or in SensitiveMode from the global mask.
-template <bool kSens>
-__device__ __forceinline__ unsigned amb_word(const Funnel& f, const unsigned* am, int l, int row,
-                                             int wi) {
-  return kSens ? __ldg(f.ambm + (size_t)row * f.nab + wi) : am[wi * f.LS + l];
-}
-
 // Distance from j (< l_max) to the first position at or after j whose
 // ambiguity is `amb`, looking at most `cap` bases ahead: min(distance, cap),
 // and cap if there is none.  With cap = l_max these are the JAX distance
-// tables.
-template <bool kSens>
-__device__ int dist_to(const Funnel& f, const unsigned* am, int l, int row, int j, bool amb,
-                       int cap) {
+// tables.  The lane's mask words are a[wi * stride]: a lane of the block's
+// shared copy in FastMode, a row of the global mask in SensitiveMode.
+__device__ int dist_to(const Funnel& f, const unsigned* a, int stride, int j, bool amb, int cap) {
   const int wend = min(f.nab, ((j + cap - 1) >> 5) + 1);
   for (int wi = j >> 5; wi < wend; ++wi) {
-    unsigned bits = amb_word<kSens>(f, am, l, row, wi);
+    unsigned bits = a[wi * stride];
     if (!amb) bits = ~bits;
     if (wi == (j >> 5)) bits &= ~0u << (j & 31);
     const int valid = f.l_max - wi * 32;
@@ -247,7 +259,6 @@ __global__ void amb_scatter_kernel(const int* __restrict__ amb_r, const int* __r
   atomicOr(ambm + (size_t)r * nab + (q >> 5), 1u << (q & 31));
 }
 
-template <bool kSens>
 __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   extern __shared__ int smem[];
   __shared__ int s_warp[kMaxThreads / 32];
@@ -269,10 +280,8 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   int* s_a1 = s_aux + LB;   // max of (lcp+1) << 20 | (IDXM - idx)
   int* s_a2 = s_a1 + LB;    // max of (lcp+1) << 20 | idx, bogus 1 << 30
   int* s_rl = s_a2 + LB;    // read length
-  // nrw read words per lane: the whole read, or in SensitiveMode the four at
-  // this round's restart
-  unsigned* s_rw = reinterpret_cast<unsigned*>(s_rl + LB);
-  unsigned* s_am = s_rw + (size_t)f.nrw * LS;  // nab mask words per lane (FastMode only)
+  unsigned* s_rw = reinterpret_cast<unsigned*>(s_rl + LB);  // nwl words per lane
+  unsigned* s_am = s_rw + (size_t)f.nwl * LS;               // nab mask words per lane
   const int t = threadIdx.x, nt = blockDim.x;
   const int lane0 = rank * LB;  // first slab lane of this block
   const int row0 = (int)(blockIdx.x / C) * f.slab + lane0;
@@ -280,25 +289,16 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   const int nl = max(0, min(LB, min(f.slab - lane0, f.B - row0)));
   const int ocols = 2 + 4 * f.max_seeds;
   const int MS = f.max_seeds;
-  // a slab that the chase ran exactly is left as it is, by every block of
-  // its cluster alike; this kernel rewrites the rows of the others
-  if (kSens && !f.sel[blockIdx.x / C]) return;
 
   // no block may write into a peer's shared memory before the peer runs
   cluster.sync();
 
-  if (kSens)
-    for (int i = t; i < nl * ocols; i += nt) f.out[(size_t)row0 * ocols + i] = 0;
-
-  if (!kSens) {
-    for (int i = t; i < nl * f.nab; i += nt)
-      s_am[(i % f.nab) * LS + i / f.nab] = f.ambm[(size_t)row0 * f.nab + i];
-    __syncthreads();
-    for (int i = t; i < nl * f.nwl; i += nt) {
-      const int l = i / f.nwl, w = i % f.nwl;
-      s_rw[w * LS + l] =
-          clean_word(f, f.words[(size_t)row0 * f.nwl + i], s_am[(w >> 1) * LS + l], w);
-    }
+  for (int i = t; i < nl * f.nab; i += nt)
+    s_am[(i % f.nab) * LS + i / f.nab] = f.ambm[(size_t)row0 * f.nab + i];
+  __syncthreads();
+  for (int i = t; i < nl * f.nwl; i += nt) {
+    const int l = i / f.nwl, w = i % f.nwl;
+    s_rw[w * LS + l] = clean_word(f, f.words[(size_t)row0 * f.nwl + i], s_am[(w >> 1) * LS + l], w);
   }
   if (t == 0) s_left = 0;
   __syncthreads();
@@ -311,48 +311,24 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   }
 
   const int last_valid = f.seq_len - kK;
-  const int W = kSens ? kSensWords : (f.l_max + 15) / 16 + 2;
-  const int skip_cap = min(f.l_max, kSkipMax);
-  const int amb_cap = kSens ? 32 : f.l_max;
+  const int W = (f.l_max + 15) / 16 + 2;
   const int per = (LB + nt - 1) / nt;  // lanes per thread in the scan
   for (int round = 0; round < f.rounds; ++round) {
     int* s_tot = s_tot2 + (round & 1) * kCluster;
     int* s_more = s_more2 + (round & 1) * kCluster;
     // phase A: restart, 13-mer interval, hit count
     for (int l = t; l < nl; l += nt) {
-      const int rlen = s_rl[l], row = row0 + l;
+      const int rlen = s_rl[l];
       int p = s_p[l], cnt = 0, lo = 0;
       s_a1[l] = INT_MIN;
       s_a2[l] = INT_MIN;
-      if (kSens && p >= rlen - f.msl) {  // no further seed: the skip only moves p on
-        s_cum[l] = 0;
-        s_aux[l] = 0;
-        continue;
-      }
-      p = min(p + dist_to<kSens>(f, s_am, l, row, min(p, f.l_max - 1), false, skip_cap), f.l_max);
+      p = min(p + dist_to(f, s_am + l, LS, min(p, f.l_max - 1), false, f.l_max), f.l_max);
       const int pidx = min(p, f.l_max - 1);
       const bool active = p < rlen - f.msl;
       const int ra = pidx >> 4;
-      unsigned w0, w1;
-      if (kSens) {
-        // the four words at the restart, cleaned, for this phase and phase B
-        const unsigned* src = f.words + (size_t)row * f.nwl;
-        const unsigned* msk = f.ambm + (size_t)row * f.nab;
-        unsigned w[kSensWords];
-#pragma unroll
-        for (int k = 0; k < kSensWords; ++k) {
-          const int wi = ra + k;
-          w[k] = wi < f.nwl ? clean_word(f, __ldg(src + wi), __ldg(msk + (wi >> 1)), wi) : 0u;
-          s_rw[k * LS + l] = w[k];
-        }
-        w0 = w[0];
-        w1 = w[1];
-      } else {
-        w0 = lane_word(s_rw, LS, f.nwl, l, ra);
-        w1 = lane_word(s_rw, LS, f.nwl, l, ra + 1);
-      }
-      const int km = kmer_of(w0, w1, pidx);
-      const int aoff = dist_to<kSens>(f, s_am, l, row, pidx, true, amb_cap);
+      const int km = kmer_of(lane_word(s_rw, LS, f.nwl, l, ra), lane_word(s_rw, LS, f.nwl, l, ra + 1),
+                             pidx);
+      const int aoff = dist_to(f, s_am + l, LS, pidx, true, f.l_max);
       // no ambiguous base in the window, and the window inside l_max
       const bool valid13 = active && aoff >= kK && pidx + kK <= f.l_max;
       if (valid13) {
@@ -363,8 +339,7 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         s_ns[l] |= kOvfBit;
         cnt = 0;
       }
-      const int damb1 = min(max(min(min(aoff, rlen - p), kSens ? kWin : f.l_max) - 1, 0),
-                            (1 << kDambBits<kSens>) - 1);
+      const int damb1 = min(max(min(min(aoff, rlen - p), f.l_max) - 1, 0), (1 << kDambBits) - 1);
       s_p[l] = p;
       s_cum[l] = cnt;
       s_lo[l] = lo;
@@ -420,7 +395,7 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
       const int l = a;
       if (s_cum[l] + base > f.H) continue;  // the lane's hits do not all fit
       const int start_b = l ? s_cum[l - 1] : 0;
-      const int hit_idx = jj + base - min(start_b + base, kStartMax<kSens>);
+      const int hit_idx = jj + base - min(start_b + base, kStartMax);
       const int loc = __ldg(f.sa_full + (s_lo[l] + jj - start_b));
       if (loc > last_valid) {  // bogus short-suffix row
         atomicMax(s_a1 + l, -1);
@@ -428,12 +403,10 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         continue;
       }
       const int pidx = min(s_p[l], f.l_max - 1);
-      const int damb = ((s_aux[l] >> 16) & ((1 << kDambBits<kSens>) - 1)) + 1;
+      const int damb = ((s_aux[l] >> 16) & ((1 << kDambBits) - 1)) + 1;
       const int ta = loc >> 4, tsh = 2 * (loc & 15);
-      // the lane's shared words start at the read's first word, or in
-      // SensitiveMode at the restart's
-      const int ra = kSens ? 0 : pidx >> 4, rsh = 2 * (pidx & 15);
-      unsigned t0 = text_word(f, ta), r0 = lane_word(s_rw, LS, f.nrw, l, ra);
+      const int ra = pidx >> 4, rsh = 2 * (pidx & 15);
+      unsigned t0 = text_word(f, ta), r0 = lane_word(s_rw, LS, f.nwl, l, ra);
       int lcp = (W - 1) * 16;
       bool same = true;  // read and text agree so far
       for (int w0 = 0; w0 < W - 1 && same; w0 += kTextChunk) {
@@ -445,7 +418,7 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         for (int k = 0; k < kTextChunk; ++k) {
           const int w = w0 + k;
           if (w >= W - 1 || !same) break;
-          const unsigned r1 = lane_word(s_rw, LS, f.nrw, l, ra + w + 1);
+          const unsigned r1 = lane_word(s_rw, LS, f.nwl, l, ra + w + 1);
           const unsigned x = __funnelshift_r(t0, tw[k], tsh) ^ __funnelshift_r(r0, r1, rsh);
           if (x) {
             lcp = w * 16 + ((__ffs(x) - 1) >> 1);
@@ -480,16 +453,12 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
       const bool has13 = valid13 && best >= kK;
       int length = best;
       if (!has13) {
-        length = 0;  // SensitiveMode: a failure advances MinSeed whatever matched
-        if (!kSens) {
-          const int msk = __ldg(f.sub_tbl + s_km[l]);
-          const int allow = msk & ((1 << (min(aoff, kK) + 1)) - 1);
-          length = allow ? 31 - __clz(allow) : 0;
-        }
+        const int msk = __ldg(f.sub_tbl + s_km[l]);
+        const int allow = msk & ((1 << (min(aoff, kK) + 1)) - 1);
+        length = allow ? 31 - __clz(allow) : 0;
       }
       const int p = s_p[l];
-      const bool record = active && has13 && length >= f.msl && freq <= kOccThr && freq > 0;
-      if (record) {
+      if (active && has13 && length >= f.msl && freq <= kOccThr && freq > 0) {
         const int n = ns & ~kOvfBit;
         if (n < MS) {
           int* o = f.out + (size_t)(row0 + l) * ocols + 2 + n;
@@ -500,8 +469,7 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
         }
         ++ns;
       }
-      int np = p;
-      if (active) np = kSens ? (record ? p + length : p + f.msl) : p + length + 1;
+      const int np = active ? p + length + 1 : p;
       s_p[l] = np;
       s_ns[l] = ns;
       if (np < rlen - f.msl) s_left = 1;
@@ -513,11 +481,9 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
 
   // a lane is clean iff it ran to completion without overflow
   for (int l = t; l < nl; l += nt) {
-    const int p = s_p[l], last = s_rl[l] - f.msl;
-    bool unfinished = p < last;  // the skip only moves p on
-    if (unfinished)
-      unfinished = min(p + dist_to<kSens>(f, s_am, l, row0 + l, min(p, f.l_max - 1), false,
-                                          skip_cap), f.l_max) < last;
+    const int p = s_p[l];
+    const int pf = min(p + dist_to(f, s_am + l, LS, min(p, f.l_max - 1), false, f.l_max), f.l_max);
+    const bool unfinished = pf < s_rl[l] - f.msl;
     int* o = f.out + (size_t)(row0 + l) * ocols;
     o[0] = s_ns[l] & ~kOvfBit;
     o[1] = !((s_ns[l] & kOvfBit) || unfinished);
@@ -526,47 +492,24 @@ __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
   cluster.sync();
 }
 
-// SensitiveMode, position-parallel.  A round of a lane restarted at q (the
-// ambiguity skip already taken) is a function of q alone as long as the
-// lane's hits fit the slab's budget: the 13-mer interval, the hit_cap cut,
-// the hits' LCPs, best, freq, row0, the record and the advance.  A lane whose
-// hits do not fit gets no hits, so that round is a function of q too: the
-// overflow flag and an advance of MinSeed.  So
-//   funnel_eval_kernel   one thread per (lane, q < rlen - MinSeed, base q not
-//             ambiguous) runs the round that fits (phase A to C of
-//             funnel_kernel for one lane; its hits eight at a time, so that
-//             their loads overlap), spread over the whole card, and stores 8
-//             bytes: length (0: no record), freq, the overflow bit, the skip
-//             from the advance to the next restart (31: longer, looked up when
-//             needed), the hit count (clamped to 32,767), and row0;
-//   funnel_chase_kernel  a warp per lane walks its rounds over the stored
-//             outcomes as if every round fitted, at most `rounds` of them, in
-//             windows of 64 entries; it writes the seeds in slot order and the
-//             ok flag, and adds each round's hit count into its slab's
-//             per-round total;
-//   funnel_check_kernel  one block per slab: a slab whose every round's total
-//             is at most H gave every lane all its hits in every round, so
-//             the chase is exact there.  Any other slab is selected;
-//   funnel_replay_kernel one block per selected slab replays its rounds in
-//             lockstep over the stored outcomes: a block scan of the lanes'
-//             hit counts a round decides which fit, exactly as the budget
-//             does, and a lane that does not fit takes the no-hit round.  No
-//             index access, one dependent load and two barriers a round.
-// The replay needs the whole slab's outcomes at once: the rows go through in
-// tiles of whole slabs.  A slab of more rows than a tile holds (thousands of
-// lanes at l_max 32768) is chained tile by tile and its overrun handled by
-// funnel_kernel<true> after the last tile instead.
-// What bounds them on this card: dependent loads, not bytes.  A position's
-// round is table_lo, then sa_full, then the text words, as in a round of
-// funnel_kernel, but every position's chain runs at once over every SM.  The
-// chase then follows one load of 64 outcomes for several rounds, the replay
-// one outcome load and two barriers a round.
-constexpr int kSkipField = 31;      // the skip field's escape: look the skip up
-constexpr int kCntMax = 32767;      // the hit count field's clamp
-constexpr int kEvalThreads = 128;
-constexpr int kChaseThreads = 128;  // four lanes a block, a warp each
-constexpr int kHitChunk = 8;        // hits of a position whose loads overlap
-constexpr int kReplayPer = 4;       // lanes a replay thread holds: 4,096-row slabs
+// SensitiveMode (see the top of the file).
+
+__device__ __forceinline__ const unsigned* mask_row(const Funnel& f, int row) {
+  return f.ambm + (size_t)row * f.nab;
+}
+
+// The N read words of row `row` from the one that holds base q, cleaned (0
+// past the read's words).
+template <int N>
+__device__ __forceinline__ void words_at(const Funnel& f, int row, int q, unsigned (&w)[N]) {
+  const unsigned* src = f.words + (size_t)row * f.nwl;
+  const unsigned* msk = mask_row(f, row);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int wi = (q >> 4) + k;
+    w[k] = wi < f.nwl ? clean_word(f, __ldg(src + wi), __ldg(msk + (wi >> 1)), wi) : 0u;
+  }
+}
 
 // outcome word: length | freq << 5 | overflow << 11 | skip << 12 | cnt << 17
 __global__ void __launch_bounds__(kEvalThreads) funnel_eval_kernel(Funnel f, int r0, int nr,
@@ -576,18 +519,12 @@ __global__ void __launch_bounds__(kEvalThreads) funnel_eval_kernel(Funnel f, int
   const int row = r0 + (int)(i / f.l_max), q = (int)(i % f.l_max);
   const int rlen = __ldg(f.rlens + row), last = rlen - f.msl;
   if (q >= last) return;
-  const unsigned* msk = f.ambm + (size_t)row * f.nab;
+  const unsigned* msk = mask_row(f, row);
   if ((__ldg(msk + (q >> 5)) >> (q & 31)) & 1u) return;  // never a restart
-  const unsigned* src = f.words + (size_t)row * f.nwl;
-  const int ra = q >> 4, rsh = 2 * (q & 15);
   unsigned w[kSensWords];
-#pragma unroll
-  for (int k = 0; k < kSensWords; ++k) {
-    const int wi = ra + k;
-    w[k] = wi < f.nwl ? clean_word(f, __ldg(src + wi), __ldg(msk + (wi >> 1)), wi) : 0u;
-  }
+  words_at(f, row, q, w);
   const int km = kmer_of(w[0], w[1], q);
-  const int aoff = dist_to<true>(f, nullptr, 0, row, q, true, 32);
+  const int aoff = dist_to(f, msk, 1, q, true, 32);
   const bool valid13 = aoff >= kK && q + kK <= f.l_max;
   int lo = 0, cnt = 0;
   if (valid13) {
@@ -596,8 +533,9 @@ __global__ void __launch_bounds__(kEvalThreads) funnel_eval_kernel(Funnel f, int
   }
   bool ovf = cnt > f.hit_cap;
   if (ovf) cnt = 0;
-  const int damb = min(max(min(min(aoff, rlen - q), kWin) - 1, 0), (1 << kDambBits<true>) - 1) + 1;
+  const int damb = max(min(min(aoff, rlen - q), kWin), 1);
   // the read's three aligned words at q
+  const int rsh = 2 * (q & 15);
   unsigned ral[kSensWords - 1];
 #pragma unroll
   for (int k = 0; k < kSensWords - 1; ++k) ral[k] = __funnelshift_r(w[k], w[k + 1], rsh);
@@ -640,10 +578,29 @@ __global__ void __launch_bounds__(kEvalThreads) funnel_eval_kernel(Funnel f, int
   const bool record = valid13 && best >= kK && best >= f.msl && freq <= kOccThr && freq > 0;
   const int np = record ? q + best : q + f.msl;
   int skip = 0;
-  if (np < last) skip = dist_to<true>(f, nullptr, 0, row, np, false, kSkipField);
+  if (np < last) skip = dist_to(f, msk, 1, np, false, kSkipField);
   const unsigned x = (record ? (unsigned)best | ((unsigned)freq << 5) : 0u) | ((unsigned)ovf << 11) |
                      ((unsigned)skip << 12) | ((unsigned)min(cnt, kCntMax) << 17);
   scr[i] = make_int2((int)x, record ? lo + first_off : 0);
+}
+
+// The hit count of the round of row `row` at q whose outcome word is x: its
+// field or, where the field holds its escape and kExact, the 13-mer's
+// interval size looked up again (the round took all of it: at most hit_cap).
+// Without kExact the escape stands for the count.  That is exact while
+// H < kCntMax: a count of kCntMax or more then overruns the budget whatever
+// its value, and so does every prefix sum that holds it.  The lookup's
+// presence in the loops, where it never ran, slowed a replayed 16-lane slab
+// from 0.50 to 0.62 ms on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), so
+// only a budget of kCntMax hits or more takes it.
+template <bool kExact>
+__device__ __forceinline__ int hit_count(const Funnel& f, int row, int q, unsigned x) {
+  const int c = (int)(x >> 17);
+  if (!kExact || c < kCntMax) return c;
+  unsigned w[2];
+  words_at(f, row, q, w);
+  const int km = kmer_of(w[0], w[1], q);
+  return __ldg(f.table_lo + km + 1) - __ldg(f.table_lo + km);
 }
 
 // The restart after an advance to np of a lane of row `row` whose last
@@ -652,13 +609,14 @@ __global__ void __launch_bounds__(kEvalThreads) funnel_eval_kernel(Funnel f, int
 __device__ __forceinline__ int next_restart(const Funnel& f, int row, int np, int skip, int last) {
   if (np >= last) return np;
   if (skip < kSkipField) return np + skip;
-  return min(np + dist_to<true>(f, nullptr, 0, row, np, false, min(f.l_max, kSkipMax)), f.l_max);
+  return min(np + dist_to(f, mask_row(f, row), 1, np, false, min(f.l_max, kSkipMax)), f.l_max);
 }
 
 // The first restart of a lane: 0 plus its skip, where the lane can seed at all.
 __device__ __forceinline__ int first_restart(const Funnel& f, int row, int last) {
-  return 0 < last ? min(dist_to<true>(f, nullptr, 0, row, 0, false, min(f.l_max, kSkipMax)), f.l_max)
-                  : 0;
+  return 0 < last
+             ? min(dist_to(f, mask_row(f, row), 1, 0, false, min(f.l_max, kSkipMax)), f.l_max)
+             : 0;
 }
 
 __device__ __forceinline__ void store_seed(const Funnel& f, int row, int n, int p, unsigned x, int row0,
@@ -669,27 +627,7 @@ __device__ __forceinline__ void store_seed(const Funnel& f, int row, int n, int 
         j == 0 ? p : j == 1 ? (int)(x & 31) : j == 2 ? row0 : (int)((x >> 5) & 63);
 }
 
-// A window of 64 outcomes of a lane, two a thread of its warp (entries
-// base + j and base + 32 + j): the next restart lies within some 60
-// positions, so a window serves several rounds, and a lookup is two shuffles.
-struct Window {
-  int base = INT_MIN / 2;
-  int2 lo, hi;
-};
-
-// Outcome p of e (p < n): every thread of the warp calls this with the same p.
-__device__ __forceinline__ int2 window_at(Window& w, const int2* __restrict__ e, int n, int p) {
-  const int j = threadIdx.x & 31;
-  if (p < w.base || p >= w.base + 64) {
-    w.base = p;
-    w.lo = p + j < n ? __ldg(e + p + j) : make_int2(0, 0);
-    w.hi = p + 32 + j < n ? __ldg(e + p + 32 + j) : make_int2(0, 0);
-  }
-  const int d = p - w.base;
-  const int2 h = d < 32 ? w.lo : w.hi;
-  return make_int2(__shfl_sync(0xFFFFFFFFu, h.x, d & 31), __shfl_sync(0xFFFFFFFFu, h.y, d & 31));
-}
-
+template <bool kExact>
 __global__ void __launch_bounds__(kChaseThreads) funnel_chase_kernel(Funnel f, int r0, int nr,
                                                                      const int2* __restrict__ scr,
                                                                      int* __restrict__ totals) {
@@ -706,8 +644,8 @@ __global__ void __launch_bounds__(kChaseThreads) funnel_chase_kernel(Funnel f, i
   for (int r = 0; r < f.rounds && p < last; ++r) {
     const int2 v = window_at(w, e, last, p);
     const unsigned x = (unsigned)v.x;
-    const int cnt = (int)(x >> 17), len = (int)(x & 31);
-    if (cnt && j == 0) atomicAdd(tot + r, cnt);
+    const int len = (int)(x & 31);
+    if (j == 0 && (x >> 17)) atomicAdd(tot + r, hit_count<kExact>(f, row, p, x));
     ovf |= (x >> 11) & 1u;
     if (len) store_seed(f, row, n++, p, x, v.y, j);
     p = next_restart(f, row, p + (len ? len : f.msl), (int)((x >> 12) & 31), last);
@@ -719,28 +657,22 @@ __global__ void __launch_bounds__(kChaseThreads) funnel_chase_kernel(Funnel f, i
   }
 }
 
-__global__ void funnel_check_kernel(const int* __restrict__ totals, int s0, int rounds, int H,
-                                    int force, int* __restrict__ sel, int* __restrict__ paths) {
-  const int slab = s0 + blockIdx.x;
-  int over = force;
-  for (int r = threadIdx.x; r < rounds && !force; r += blockDim.x)
-    over |= totals[(size_t)slab * rounds + r] > H;
-  over = __syncthreads_or(over);
-  if (threadIdx.x == 0) {
-    sel[slab] = over;
-    atomicAdd(paths + over, 1);
-  }
-}
-
-// Block sizes of the replay: one thread a lane up to 1,024 lanes, then up to
-// kReplayPer consecutive lanes a thread.
+// paths: [0] gains the slabs that the chase ran exactly, [1] those replayed.
+// Block sizes: one thread a lane up to 1,024 lanes, then up to kReplayPer
+// consecutive lanes a thread.
+template <bool kExact>
 __global__ void __launch_bounds__(1024) funnel_replay_kernel(Funnel f, int s0, int r0,
                                                              const int2* __restrict__ scr,
-                                                             const int* __restrict__ sel) {
+                                                             const int* __restrict__ totals,
+                                                             int* __restrict__ paths) {
   __shared__ int s_warp[32];
   const int slab = s0 + blockIdx.x;
-  if (!sel[slab]) return;
   const int t = threadIdx.x, nt = blockDim.x;
+  int over = 0;
+  for (int r = t; r < f.rounds; r += nt) over |= totals[(size_t)slab * f.rounds + r] > f.H;
+  over = __syncthreads_or(over);
+  if (t == 0) atomicAdd(paths + over, 1);
+  if (!over) return;
   const int row_a = slab * f.slab, nl = min(f.slab, f.B - row_a);
   const int ocols = 2 + 4 * f.max_seeds;
   // the chase wrote these rows as if every round fitted
@@ -764,9 +696,10 @@ __global__ void __launch_bounds__(1024) funnel_replay_kernel(Funnel f, int s0, i
 #pragma unroll
     for (int k = 0; k < kReplayPer; ++k) {
       const bool on = p[k] < last[k];
+      const int row = row_a + l0 + k;
       live |= on;
-      v[k] = on ? __ldg(scr + (size_t)(row_a + l0 + k - r0) * f.l_max + p[k]) : make_int2(0, 0);
-      cnt[k] = (int)((unsigned)v[k].x >> 17);
+      v[k] = on ? __ldg(scr + (size_t)(row - r0) * f.l_max + p[k]) : make_int2(0, 0);
+      cnt[k] = on ? hit_count<kExact>(f, row, p[k], (unsigned)v[k].x) : 0;
       sum += cnt[k];
     }
     if (!__syncthreads_or(live)) break;
@@ -832,27 +765,6 @@ __global__ void unpack_amb_kernel(const int* __restrict__ amb_r, const int* __re
   if (r >= 0 && r < B && q >= 0 && q < l_max) reads[(size_t)r * l_max + q] = 4;
 }
 
-template <bool kSens>
-cudaError_t launch_funnel(const Funnel& f, int n_slabs, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(funnel_kernel<kSens>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(n_slabs * kCluster));  // a multiple of the cluster size
-  // one thread a lane
-  cfg.blockDim = dim3((unsigned)min(kMaxThreads, (f.LB + 31) / 32 * 32));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, funnel_kernel<kSens>, f);
-}
-
 }  // namespace
 
 // Blocks per slab that kart_kmer_funnel launches as one cluster.
@@ -866,28 +778,26 @@ extern "C" int kart_kmer_funnel_cluster() { return kCluster; }
 // of at most slab_rows reads is one slab of B rows; a larger one is cut into
 // slabs of slab_rows.  Two memsets, the ambiguity scatter and the cluster
 // kernel on one stream.
-// SensitiveMode takes four more buffers: scr, scr_cap int2 entries (the
-// position-parallel pass runs in tiles of scr_cap / l_max rows), totals
-// (n_slabs * rounds int32), sel (n_slabs int32: 1 where the slab went
-// through funnel_kernel<true>) and paths (2 int32 that gain the slabs of
-// this call by path: [0] chased, [1] round-synchronous); it adds a memset,
-// the evaluation and chase launches of each tile, the check and the cluster
-// kernel.  Where H is at least the hit count field's clamp every slab takes
-// funnel_kernel<true>.  FastMode ignores them (null pointers will do).
+// SensitiveMode runs the kernels after the scatter in place of the cluster
+// kernel and takes three more buffers: scr, scr_cap int2 entries, at least
+// one slab of l_max entries a row (the position-parallel pass runs in tiles
+// of the whole slabs it holds); totals (n_slabs * rounds int32); and paths
+// (2 int32 that gain the slabs of this call by path: [0] chased, [1]
+// replayed).  It adds a memset and, a tile, the evaluation, chase and replay
+// launches.  FastMode ignores them (null pointers will do).
 // Returns the first CUDA error, cudaGetLastError() after the launches
 // (cudaErrorInvalidValue if the lanes of one block, ceil(slab / cluster),
-// exceed the shared memory of a block, or if one row of l_max positions
-// exceeds scr_cap in SensitiveMode).
+// exceed the shared memory of a block in FastMode, or in SensitiveMode if a
+// slab holds more than kSlabMax (4,096) rows or more entries than scr_cap).
 extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const void* sa_full,
                                 const void* text_words, int seq_len,
                                 const void* words, const void* amb_r, const void* amb_p,
                                 int n_amb, const void* rlens, int B, int l_max,
                                 int min_seed_len, int max_seeds, int hit_cap, int rounds,
                                 int slab_rows, int hit_budget, int sensitive, void* ambm,
-                                void* scr, long long scr_cap, void* totals, void* sel, void* paths,
+                                void* scr, long long scr_cap, void* totals, void* paths,
                                 void* out, void* stream) {
   if (l_max > (sensitive ? 32768 : 512)) return (int)cudaErrorInvalidValue;
-  if (sensitive && scr_cap < l_max) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Funnel f;
   f.table_lo = static_cast<const int*>(table_lo);
@@ -910,13 +820,12 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
   f.H = hit_budget * f.slab;
   f.LB = (f.slab + kCluster - 1) / kCluster;
   f.LS = f.LB | 1;
-  f.nrw = sensitive ? kSensWords : f.nwl;
   f.out = static_cast<int*>(out);
-  f.sel = sensitive ? static_cast<const int*>(sel) : nullptr;
   const int n_slabs = (B + f.slab - 1) / f.slab;
-  const size_t smem =
-      ((size_t)kLaneArrays * f.LB + (size_t)(f.nrw + (sensitive ? 0 : f.nab)) * f.LS) * sizeof(int);
-  if (smem + 4096 > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)kLaneArrays * f.LB + (size_t)(f.nwl + f.nab) * f.LS) * sizeof(int);
+  const long long slab_entries = (long long)f.slab * l_max;
+  if (sensitive ? f.slab > kSlabMax || scr_cap < slab_entries : smem + 4096 > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(ambm, 0, (size_t)B * f.nab * sizeof(unsigned), st);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(out, 0, (size_t)B * (2 + 4 * max_seeds) * sizeof(int), st);
@@ -929,49 +838,59 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
     if (err != cudaSuccess) return (int)err;
   }
   if (sensitive) {
-    const int chase = f.H < kCntMax;
-    const long long fit = scr_cap / l_max;  // rows a tile
-    // tiles of whole slabs, replayed tile by tile; a slab larger than a tile
-    // goes through funnel_kernel<true> where it overruns
-    const bool whole = fit >= f.slab && f.slab <= 1024 * kReplayPer;
-    const int tile = whole ? (int)min(fit / f.slab * f.slab, (long long)B) : (int)fit;
-    if (chase) {
-      err = cudaMemsetAsync(totals, 0, (size_t)n_slabs * rounds * sizeof(int), st);
-      if (err != cudaSuccess) return (int)err;
-    }
-    for (int r0 = 0; r0 < B && chase; r0 += tile) {
+    // tiles of whole slabs; counts past the outcome word's field looked up
+    // only where the budget could take them (hit_count)
+    const int tile = (int)min(scr_cap / slab_entries * f.slab, (long long)B);
+    const bool exact = f.H >= kCntMax;
+    err = cudaMemsetAsync(totals, 0, (size_t)n_slabs * rounds * sizeof(int), st);
+    if (err != cudaSuccess) return (int)err;
+    for (int r0 = 0; r0 < B; r0 += tile) {
       const int nr = min(tile, B - r0);
       const long long n = (long long)nr * l_max;
       funnel_eval_kernel<<<(unsigned)((n + kEvalThreads - 1) / kEvalThreads), kEvalThreads, 0, st>>>(
           f, r0, nr, static_cast<int2*>(scr));
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      funnel_chase_kernel<<<(nr + kChaseThreads / 32 - 1) / (kChaseThreads / 32), kChaseThreads, 0,
-                            st>>>(f, r0, nr, static_cast<const int2*>(scr), static_cast<int*>(totals));
+      const unsigned chase_blocks = (nr + kChaseThreads / 32 - 1) / (kChaseThreads / 32);
+      if (exact)
+        funnel_chase_kernel<true><<<chase_blocks, kChaseThreads, 0, st>>>(
+            f, r0, nr, static_cast<const int2*>(scr), static_cast<int*>(totals));
+      else
+        funnel_chase_kernel<false><<<chase_blocks, kChaseThreads, 0, st>>>(
+            f, r0, nr, static_cast<const int2*>(scr), static_cast<int*>(totals));
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      if (whole) {
-        const int s0 = r0 / f.slab, ns = (nr + f.slab - 1) / f.slab;
-        funnel_check_kernel<<<ns, 256, 0, st>>>(static_cast<const int*>(totals), s0, rounds, f.H, 0,
-                                                static_cast<int*>(sel), static_cast<int*>(paths));
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        const int threads = min(1024, (min(f.slab, nr) + 31) / 32 * 32);  // per <= kReplayPer
-        funnel_replay_kernel<<<ns, threads, 0, st>>>(
-            f, s0, r0, static_cast<const int2*>(scr), static_cast<const int*>(sel));
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-      }
+      const unsigned slabs = (nr + f.slab - 1) / f.slab;
+      const int threads = min(1024, (min(f.slab, nr) + 31) / 32 * 32);  // per <= kReplayPer
+      if (exact)
+        funnel_replay_kernel<true><<<slabs, threads, 0, st>>>(
+            f, r0 / f.slab, r0, static_cast<const int2*>(scr), static_cast<const int*>(totals),
+            static_cast<int*>(paths));
+      else
+        funnel_replay_kernel<false><<<slabs, threads, 0, st>>>(
+            f, r0 / f.slab, r0, static_cast<const int2*>(scr), static_cast<const int*>(totals),
+            static_cast<int*>(paths));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
     }
-    if (chase && whole) return 0;
-    funnel_check_kernel<<<n_slabs, 256, 0, st>>>(static_cast<const int*>(totals), 0, rounds, f.H,
-                                                 !chase, static_cast<int*>(sel),
-                                                 static_cast<int*>(paths));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return 0;
   }
-  err = sensitive ? launch_funnel<true>(f, n_slabs, smem, st)
-                  : launch_funnel<false>(f, n_slabs, smem, st);
+  err = cudaFuncSetAttribute(funnel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_slabs * kCluster));  // a multiple of the cluster size
+  // one thread a lane
+  cfg.blockDim = dim3((unsigned)min(kMaxThreads, (f.LB + 31) / 32 * 32));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, funnel_kernel, f);
   if (err != cudaSuccess) return (int)err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,11 @@
 `nvcc` compiles each `csrc/*.cu` for sm_90a (all sources at once, one
 process each) and links them into one shared library with a plain C
 interface, `_build/libkarttorch.so`, at first use (and again whenever a
-source is newer than the library).  The library is loaded with ctypes.
-Each wrapper checks its tensors, allocates its outputs with `torch.empty`,
-launches on the current CUDA stream, raises if the launch reports an error,
-and counts its launches in a plain integer attribute (`.launches`).
+source, or a header the sources include, is newer than the library).  The
+library is loaded with ctypes.  Each wrapper checks its tensors, allocates
+its outputs with `torch.empty`, launches on the current CUDA stream, raises
+if the launch reports an error, and counts its launches in a plain integer
+attribute (`.launches`).
 
 Nothing here falls back: a failed build raises with nvcc's output, and a
 wrapper given a tensor that is not on a CUDA device raises.
@@ -27,6 +28,7 @@ SOURCES = tuple(
     os.path.join(_PKG, "csrc", f)
     for f in ("fm_seed_scan.cu", "nw.cu", "kmer_funnel.cu", "resolve_pack.cu", "row_gather.cu")
 )
+HEADERS = (os.path.join(_PKG, "csrc", "window.cuh"),)  # included by the sources
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkarttorch.so")
 NVCC_FLAGS = (
@@ -35,8 +37,12 @@ NVCC_FLAGS = (
 )
 
 # positions (one a base of a read) a tile of the SensitiveMode kernels'
-# position-parallel pass holds, 8 bytes each in either kernel's scratch (64 MB)
+# position-parallel pass holds, 8 bytes each in either kernel's scratch (64 MB);
+# the funnel's tile holds at least one whole slab
 SENS_SCRATCH = 1 << 23
+# lanes of a SensitiveMode funnel slab: four a thread of the replay's block
+# (kSlabMax of csrc/kmer_funnel.cu)
+FUNNEL_SLAB_MAX = 4096
 
 _lib = None
 
@@ -56,7 +62,7 @@ def build(lib_path: str = LIB_PATH, sources=SOURCES) -> str:
     Returns nvcc's output (ptxas register and spill report), empty when
     the library was already up to date.  Another `lib_path` and `sources`
     build a library beside it (the kernel benchmark's latency probe)."""
-    newest = max(os.path.getmtime(s) for s in sources)
+    newest = max(os.path.getmtime(s) for s in (*sources, *HEADERS))
     if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -99,7 +105,7 @@ def _load():
                                                p, p]
         lib.kart_fm_sensitive_scan.restype = i
         lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
-                                         p, p, ctypes.c_longlong, p, p, p, p, p]
+                                         p, p, ctypes.c_longlong, p, p, p, p]
         lib.kart_kmer_funnel.restype = i
         lib.kart_kmer_funnel_cluster.argtypes = []
         lib.kart_kmer_funnel_cluster.restype = i
@@ -167,13 +173,26 @@ fm_seed_scan.launches = 0
 
 
 def sens_scratch_rows(B: int, width: int) -> int:
-    """Reads a tile of the SensitiveMode kernels' position-parallel pass
+    """Reads a tile of the SensitiveMode FM stepper's extension pass
     holds: as many of the B reads of `width` positions as SENS_SCRATCH
     positions take.  Raises where one read alone exceeds them."""
     if width > SENS_SCRATCH:
         raise ValueError(f"SensitiveMode scratch: a read of {width} positions exceeds the"
                          f" {SENS_SCRATCH} positions a tile holds")
     return max(1, min(B, SENS_SCRATCH // max(width, 1)))
+
+
+def funnel_tile_rows(B: int, l_max: int, slab_rows: int) -> int:
+    """Reads a tile of the SensitiveMode funnel's position-parallel pass
+    holds: whole slabs of min(B, slab_rows) rows, as many as SENS_SCRATCH
+    positions take and at least one (a 640-read group at l_max 32768 is one
+    tile of 168 MB).  Raises where a slab holds more than FUNNEL_SLAB_MAX
+    rows, which the replay cannot take."""
+    slab = min(B, slab_rows)
+    if slab > FUNNEL_SLAB_MAX:
+        raise ValueError(f"SensitiveMode kmer_funnel: a slab of {slab} rows exceeds the"
+                         f" {FUNNEL_SLAB_MAX} lanes its replay holds (slab_rows {slab_rows})")
+    return min(B, max(1, SENS_SCRATCH // (slab * l_max)) * slab)
 
 
 def fm_sensitive_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: int):
@@ -258,11 +277,10 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
     (`sensitive`, at least 4 hits a row and round) with l_max <= 32768.
     FastMode runs one thread-block cluster per slab of min(B, slab_rows)
     rows.  SensitiveMode evaluates a round at every restart position of
-    every lane over the whole card (in tiles of sens_scratch_rows(B, l_max)
-    rows), chains each lane's rounds, and replays round by round the slabs
-    where some round's hits overran the budget (with the cluster kernel where
-    a slab is larger than a tile); the slabs of each path are counted on the
-    card (funnel_slab_paths)."""
+    every lane over the whole card (in tiles of funnel_tile_rows(B, l_max,
+    slab_rows) rows), chains each lane's rounds, and replays round by round
+    the slabs where some round's hits overran the budget; the slabs of each
+    path are counted on the card (funnel_slab_paths)."""
     from .ops.kmer_seed import check_l_max
 
     check_l_max(l_max, sensitive)
@@ -284,14 +302,13 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
     if B == 0:
         return out
     ambm = torch.empty((B, nab), dtype=torch.int32, device=dev)
-    scr = totals = sel = paths = None
+    scr = totals = paths = None
     cap = 0
     if sensitive:
         n_slabs = -(-B // min(B, slab_rows))
-        cap = sens_scratch_rows(B, l_max) * l_max
+        cap = funnel_tile_rows(B, l_max, slab_rows) * l_max
         scr = torch.empty((cap, 2), dtype=torch.int32, device=dev)
         totals = torch.empty((n_slabs * rounds,), dtype=torch.int32, device=dev)
-        sel = torch.empty((n_slabs,), dtype=torch.int32, device=dev)
         paths = _slab_paths(dev)
 
     def ptr(t):
@@ -304,7 +321,7 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
             tt.text_words.data_ptr(), tt.seq_len,
             words.data_ptr(), amb_r.data_ptr(), amb_p.data_ptr(), n_amb, rlens.data_ptr(),
             B, l_max, int(min_seed_len), max_seeds, hit_cap, rounds, slab_rows, hit_budget,
-            int(sensitive), ambm.data_ptr(), ptr(scr), cap, ptr(totals), ptr(sel), ptr(paths),
+            int(sensitive), ambm.data_ptr(), ptr(scr), cap, ptr(totals), ptr(paths),
             out.data_ptr(), _stream(dev),
         )
     _raise_on(rc, "kmer_funnel")
@@ -326,7 +343,7 @@ def _slab_paths(dev) -> torch.Tensor:
 def funnel_slab_paths(dev, reset: bool = False) -> tuple[int, int]:
     """SensitiveMode slabs that kmer_funnel ran on `dev` (a CUDA tensor's
     device) since the counters were last reset, by path: (chased exactly,
-    round-synchronous).  Reads the counters from the card; `reset` then sets
+    replayed round by round).  Reads the counters from the card; `reset` then sets
     them to 0."""
     t = _slab_paths(dev)
     chased, sync = (int(x) for x in t.tolist())

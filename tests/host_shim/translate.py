@@ -92,7 +92,9 @@ def build(out_so: str, sources: list[str]) -> None:
             with open(s) as f, open(cpp, "w") as g:
                 g.write(translate(f.read()))
             cpps.append(cpp)
-        cmd = ["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-include", SHIM,
+        # the sources' own headers (#include "...") from their directories
+        incs = [f"-I{d}" for d in sorted({os.path.dirname(os.path.abspath(s)) for s in sources})]
+        cmd = ["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-include", SHIM, *incs,
                *cpps, "-o", out_so]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

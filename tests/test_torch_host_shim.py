@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import kart_tpu_torch
+from kart_tpu_torch import kernels
 from kart_tpu_torch.index import build_index, load_index
 from kart_tpu_torch.ops import fm_search as tfm
 from kart_tpu_torch.ops import kmer_seed as tks
@@ -45,7 +46,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
-                                     p, p, ctypes.c_longlong, p, p, p, p, p]
+                                     p, p, ctypes.c_longlong, p, p, p, p]
     lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, ctypes.c_longlong,
                                            p, p]
     lib.kart_fm_sensitive_scan.restype = i
@@ -95,8 +96,8 @@ def ptr(a: np.ndarray) -> int:
 def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_rows, hit_budget,
                 sensitive=False, ms=None, rounds=None, tile=None, paths=None):
     """The funnel through the host shim.  SensitiveMode's scratch holds
-    `tile` rows (all of them by default); `paths`, a (2,) int32 array, gains
-    the slabs of each path."""
+    `tile` rows (all of them by default), of which the kernels use whole
+    slabs; `paths`, a (2,) int32 array, gains the slabs of each path."""
     B = words.shape[0]
     ms = ms or l_max // (MIN_SEED + 1) + 1
     rounds = rounds or l_max // 10 + 4
@@ -110,14 +111,12 @@ def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_row
     cap = (tile or B) * l_max
     scr = np.full((cap, 2), -5, np.int32)
     totals = np.full(n_slabs * rounds, -9, np.int32)
-    sel = np.full(n_slabs, -9, np.int32)
     paths = np.zeros(2, np.int32) if paths is None else paths
     out = np.full((B, 2 + 4 * ms), -7, np.int32)
     rc = lib.kart_kmer_funnel(ptr(table_lo), ptr(sub_tbl), ptr(sa), ptr(text), int(tb.seq_len),
                               ptr(words), ptr(amb_r), ptr(amb_p), len(amb_r), ptr(rlens), B, l_max,
                               MIN_SEED, ms, hit_cap, rounds, slab_rows, hit_budget, int(sensitive),
-                              ptr(ambm), ptr(scr), cap, ptr(totals), ptr(sel), ptr(paths), ptr(out),
-                              None)
+                              ptr(ambm), ptr(scr), cap, ptr(totals), ptr(paths), ptr(out), None)
     assert rc == 0
     return out
 
@@ -167,29 +166,35 @@ def test_funnel_kernel_on_host_refuses_a_block_too_large(host_lib, shim_genome):
     ambm = np.zeros((B, 16), np.int32)
     rc = host_lib.kart_kmer_funnel(None, None, None, None, int(tb.seq_len), ptr(words), ptr(none),
                                    ptr(none), 0, ptr(np.zeros(B, np.int32)), B, l_max, MIN_SEED,
-                                   ms, 16, 10, 32000, 2, 0, ptr(ambm), None, 0, None, None, None,
+                                   ms, 16, 10, 32000, 2, 0, ptr(ambm), None, 0, None, None,
                                    ptr(out), None)
     assert rc != 0
 
 
 # name: (genome, B, l_max, slab_rows, hit_budget, rounds or None for the mapper's, rows a
-# tile of the scratch or None for all, the slabs (chased, round-synchronous))
+# tile of the scratch or None for all, the slabs (chased, replayed))
 SENS_FUNNEL_CASES = {
-    # short, pad and N lanes; a budget of 8 a lane, which every round fits
-    "b16_ragged": ("random", 16, 1024, 4096, 8, None, None, (1, 0)),
-    # a read of exactly l_max bases, an all-N read, a read below MinSeed, pad lanes
-    "one_read_l32768": ("long", 5, 32768, 4096, 16, None, None, (1, 0)),
+    # short, pad and N lanes; a budget of 4 a lane, which some round overruns
+    "b16_ragged": ("random", 16, 1024, 4096, 2, None, None, (0, 1)),
+    # the same at a budget of 8 a lane, which every round fits
+    "b16_ragged_chased": ("random", 16, 1024, 4096, 8, None, None, (1, 0)),
+    # a read of exactly l_max bases, an all-N read, a read below MinSeed, pad
+    # lanes; a budget of 4 a lane, then one of 16 that every round fits
+    "one_read_l32768": ("long", 5, 32768, 4096, 2, None, None, (0, 1)),
+    "one_read_l32768_chased": ("long", 5, 32768, 4096, 16, None, None, (1, 0)),
     # three slabs of 24 and a ragged fourth, 3 lanes a block; every lane asks
     # for some 40 hits of a budget of 4 * 24
     "slabs_flagged": ("repeat", 80, 512, 24, 1, None, None, (0, 4)),
     "budget_above_four": ("repeat", 20, 512, 4096, 9, None, None, (0, 1)),  # H = 9 * B
-    "rounds_cut": ("random", 16, 1024, 4096, 8, 20, None, (1, 0)),  # unfinished lanes are flagged
+    # unfinished lanes are flagged, at a budget some round overruns and at one all fit
+    "rounds_cut": ("random", 16, 1024, 4096, 2, 20, None, (0, 1)),
+    "rounds_cut_chased": ("random", 16, 1024, 4096, 8, 20, None, (1, 0)),
     # one slab of random reads whose rounds fit and one of the repeat whose
     # rounds overrun H: both paths in one call
     "both_paths": ("mixed", 48, 512, 24, 8, None, None, (1, 1)),
-    "tiles": ("random", 16, 1024, 4096, 8, None, 5, (1, 0)),  # rows in tiles of 5, 5, 5 and 1
-    # a slab larger than a tile that overruns: chained tile by tile, then funnel_kernel<true>
-    "tiles_overrun": ("repeat", 20, 512, 4096, 4, None, 7, (0, 1)),
+    # slabs of 4 rows in a scratch of 14, which the kernels use as tiles of
+    # three whole slabs: rows in tiles of 12 and 4, each slab replayed
+    "tiles": ("random", 16, 1024, 4, 8, None, 14, (0, 4)),
     # two slabs a tile, the second overrunning: replayed with the tile's outcomes
     "slabs_in_tiles": ("mixed", 48, 512, 24, 8, None, 48, (1, 1)),
 }
@@ -227,14 +232,14 @@ def test_sensitive_funnel_kernel_on_host_matches_plain(host_lib, shim_genome, na
     np.testing.assert_array_equal(got, want)
     assert tuple(paths - 100) == want_paths
     flagged = int((want[:, 1] == 0).sum())
-    if name in ("slabs_flagged", "rounds_cut"):
+    if name in ("slabs_flagged", "rounds_cut", "rounds_cut_chased"):
         assert flagged >= 8
     elif name in ("budget_above_four", "both_paths"):
         # 40 hits a lane fit a budget of 9 a lane four at a time; the random
         # slab's lanes all fit
         assert 0 < flagged < B
     assert want[:, 0].sum() >= 2 * min(B, 8)
-    if name == "one_read_l32768":
+    if name.startswith("one_read_l32768"):
         assert want[0, 0] > 250 and want[0, 2 + want[0, 0] - 1] > 32000
         assert (want[1:, 0] == 0).all() and (want[1:, 1] == 1).all()
 
@@ -280,8 +285,75 @@ def test_sensitive_funnel_kernel_on_host_refuses_l_max(host_lib):
 def test_sensitive_funnel_kernel_on_host_refuses_a_row_wider_than_its_scratch(host_lib):
     rc = host_lib.kart_kmer_funnel(None, None, None, None, 0, None, None, None, 0, None, 2, 1024,
                                    MIN_SEED, 9, 16, 10, 4096, 4, 1, None, None, 1023, None, None,
+                                   None, None)
+    assert rc != 0
+
+
+@pytest.mark.parametrize("B, slab_rows, cap", [
+    (2, 4096, 2 * 1024 - 1),  # a slab of two rows, a scratch of less than two
+    (6, 3, 3 * 1024 - 1),  # slabs of three rows
+    # a slab the replay cannot hold
+    (kernels.FUNNEL_SLAB_MAX + 1, 8192, (kernels.FUNNEL_SLAB_MAX + 1) * 1024),
+])
+def test_sensitive_funnel_kernel_on_host_refuses_a_slab_its_scratch_or_replay_cannot_hold(
+        host_lib, B, slab_rows, cap):
+    rc = host_lib.kart_kmer_funnel(None, None, None, None, 0, None, None, None, 0, None, B, 1024,
+                                   MIN_SEED, 9, 16, 10, slab_rows, 4, 1, None, None, cap, None,
                                    None, None, None)
     assert rc != 0
+
+
+@pytest.fixture(scope="module")
+def poly_a_genome(workdir):
+    """A 33 kb run of A between two random flanks of 2 kb: the 13-mer of As
+    has 32,989 hits, more than the outcome word's hit count field holds."""
+    d = workdir / "torch_host_shim_poly_a"
+    d.mkdir(exist_ok=True)
+    rng = np.random.default_rng(11)
+    seq = np.concatenate([_ACGT[rng.integers(0, 4, 2000)], np.full(33000, ord("A"), np.uint8),
+                          _ACGT[rng.integers(0, 4, 2000)]]).tobytes().decode()
+    fa = d / "g.fa"
+    fa.write_text(">c1\n" + "\n".join(seq[j : j + 70] for j in range(0, len(seq), 70)) + "\n")
+    build_index(str(fa), str(d / "idx"), verbose=False)
+    gidx = load_index(str(d / "idx"))
+    return gidx, tks.build_tables(gidx)
+
+
+def test_sensitive_funnel_kernel_on_host_hit_count_past_its_field(host_lib, poly_a_genome):
+    """Lane 0 reads into the run of As, whose rounds ask for 32,989 hits, more
+    than the outcome word's hit count field holds; lane 1 is a unique read
+    after it in the budget's order.  A budget of the busiest round's M hits
+    fits every round (chased); one of M - 2 (H still past the field) leaves
+    lane 1 no room in those rounds (replayed, lane 1 flagged): a kernel that
+    took the clamped field for the count there would give lane 1 its hits.
+    A budget of 4 a lane (H below the field) takes the field as it stands."""
+    gidx, tb = poly_a_genome
+    l_max, ms, rounds = 512, 512 // MIN_SEED + 2, 512 // MIN_SEED + 8
+    reads = np.full((2, l_max), 4, np.int32)
+    reads[0, :300] = gidx.ref_codes[1850:2150]
+    reads[1, :300] = gidx.ref_codes[35300:35600]
+    rlens = np.array([300, 300], np.int32)
+    tt = tks.KmerTablesTensors.from_tables(tb, "cpu")
+    hit_cap = tks.hit_cap_for(tb.max_mult)
+    kw = dict(max_seeds=ms, l_max=l_max, hit_cap=hit_cap, rounds=rounds, sensitive=True)
+    stats: list = []
+    tks.kmer_seed_scan_plain(tt, torch.from_numpy(reads), torch.from_numpy(rlens), MIN_SEED,
+                             hit_budget=10**6, stats=stats, **kw)
+    M = max(stats[0]["hits"])
+    assert 32767 < M - 2 and M <= 2 * hit_cap
+    words, amb_r, amb_p = tpack.pack_reads_2bit(reads.astype(np.int8))
+    oks = []
+    for hb, want_paths in (((M + 1) // 2, (1, 0)), ((M - 2) // 2, (0, 1)), (4, (0, 1))):
+        paths = np.zeros(2, np.int32)
+        got = host_funnel(host_lib, tb, words, amb_r, amb_p, rlens, l_max=l_max, hit_cap=hit_cap,
+                          slab_rows=4096, hit_budget=hb, sensitive=True, ms=ms, rounds=rounds,
+                          paths=paths)
+        want = tks.kmer_seed_scan_plain(tt, torch.from_numpy(reads), torch.from_numpy(rlens),
+                                        MIN_SEED, hit_budget=hb, **kw).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert tuple(paths) == want_paths and want[1, 0] > 0
+        oks.append(int(want[1, 1]))
+    assert oks == [1, 0, 0]
 
 
 def packed_seeds(rng, B, S, n_sa, has_ok, ok_frac):
@@ -510,8 +582,6 @@ def test_fm_sensitive_scan_kernel_on_host_refuses_a_read_wider_than_its_scratch(
 
 
 def test_sensitive_scratch_rows():
-    from kart_tpu_torch import kernels
-
     assert kernels.sens_scratch_rows(640, 8192) == 640
     assert kernels.sens_scratch_rows(4096, 32768) == kernels.SENS_SCRATCH // 32768
     with pytest.raises(ValueError, match="exceeds"):
@@ -550,3 +620,15 @@ def test_nw_kernel_on_host_matches_plain(host_lib, lm, n):
 
 def test_nw_kernel_on_host_refuses_an_unsupported_tile(host_lib):
     assert host_lib.kart_nw_planes(None, None, 4, 48, None, None) != 0
+
+
+def test_funnel_tile_rows():
+    """Whole slabs a tile, as many as SENS_SCRATCH positions take and at
+    least one; a slab the replay cannot hold is refused."""
+    assert kernels.funnel_tile_rows(640, 8192, 4096) == 640
+    assert kernels.funnel_tile_rows(640, 32768, 4096) == 640  # 21 M positions, one slab
+    assert kernels.funnel_tile_rows(16, 1024, 4) == 16
+    rows = kernels.funnel_tile_rows(40000, 512, 4096)
+    assert rows % 4096 == 0 and rows * 512 <= kernels.SENS_SCRATCH
+    with pytest.raises(ValueError, match="replay"):
+        kernels.funnel_tile_rows(5000, 512, 8192)
