@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (kart_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
+    python3 chip_smoke.py --phases 9      # phase 0, the set-up and phase 9 only (exit 4)
     python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
                                           # funnel, resolve_pack and SensitiveMode kernels
                                           # (another commit's, unpacked with git archive
@@ -75,6 +76,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the share of reads mapped within 50 bp of their simulated position
      (as POS stands, and with the leading soft clip taken off), and
      the card's busy share of run (a) under torch.profiler.
+  9. the sampled SA and the int64 index: the sa_walk kernel against its
+     plain version on the stream rows of phase 4's group (96,000) and of the
+     re-seed layout, on the int32 and the int64 index, with max_steps 4096
+     and 8; resolve_pack through the sampled SA at the group's shape
+     (pack16, also with max_steps 8 so that reads are flagged) and at int64
+     (the 32-bit tuple, and through an int64 full SA); the FM stepper at
+     int64 at B 4,000 and on the re-seed layout, and the SensitiveMode
+     stepper at int64 on phase 7's group, each equal to its plain version
+     and to the int32 result widened; each timed by slope and per call, the
+     walk with its bound and chain.  Then the sampled slice through the CLI
+     with KART_SA_MODE=sampled: (a) phase 6's 100,000 pairs device-pipelined
+     on the card, (b) the native mode, (c) the first 10,000 pairs on an
+     index forced to int64, (d) the first 1,000 pairs with -cpu, (e) the
+     first 320 PacBio reads with -pacbio, device-pipelined and native: (a),
+     (c) and (d) equal (b)'s SAM records, (a) equals phase 6's, (e) its
+     native run's; reads/s, set-up, launches (sa_walk on the path, the
+     funnel never), flagged lanes and the card's busy share of (a).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  Every kernel's record carries its launches
@@ -1197,6 +1215,365 @@ def phase_pacbio_slice(prefix: str, pb: str) -> dict:
     return total
 
 
+N_I64_PAIRS, N_SAMPLED_CPU_PAIRS, PB_SAMPLED_READS = 10_000, 1000, 320
+SAMPLED_KERNELS = ("sa_walk", "resolve_pack", "fm_seed_scan", "fm_sensitive_scan", "unpack_reads",
+                   "kmer_funnel")
+
+
+def fm_int64(fm):
+    """The int64 twin of an FMIndexTensors on the card (the BWT words shared),
+    without the full SA: the index an int64 GenomeIndex gives."""
+    from kart_tpu_torch.ops.fm_search import FMIndexTensors
+
+    return FMIndexTensors(occ_cp=fm.occ_cp.long(), bwt_words=fm.bwt_words,
+                          sa_samples=fm.sa_samples.long(), L2=fm.L2.long(), primary=fm.primary,
+                          seq_len=fm.seq_len)
+
+
+def stream_rows(seeds, max_seeds: int, H: int):
+    """The SA row of every slot of the resolved stream of a packed FM-stepper
+    array (row 1 past the last fitting read), as expand_resolve walks them."""
+    import torch
+
+    from kart_tpu_torch.ops.resolve import expand_resolve_plain, seed_fields
+
+    seen = []
+
+    def lookup(rows):
+        seen.append(rows)
+        return rows, torch.ones_like(rows, dtype=torch.bool)
+
+    o = seed_fields(seeds, max_seeds, False)
+    expand_resolve_plain(lookup, o["n_seeds"], o["rpos"], o["slen"], o["k0"], o["freq"], o["ok"],
+                         occ_budget=H)
+    return seen[0].contiguous()
+
+
+def walk_bound(fm, rows, steps, l2_load_ns: float) -> dict:
+    """Bound of one sa_walk call: the rows in and (pos, done) out once, per
+    step the checkpoint row and the block's eight BWT words (48 bytes, 64 on
+    an int64 index) and per row its sample, the index read at most once
+    whole; some 60 operations a step.  `chain_ms`: the longest walk's steps
+    and its sample, each a dependent load that hits L2."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    n_steps, isz = int(steps.sum()), fm.occ_cp.element_size()
+    index = fm.occ_cp.nbytes + fm.bwt_words.nbytes + fm.sa_samples.nbytes
+    n_bytes = rows.numel() * (2 * isz + 1) + min((16 + 4 * isz) * n_steps + isz * rows.numel(),
+                                                 index)
+    t_b, by = bound_ms(n_bytes, 60 * n_steps)
+    longest = int(steps.max())
+    return dict(bound_ms=t_b, bound_by=by, chain_ms=(longest + 1) * l2_load_ns / 1e6,
+                longest=longest, mean=float(steps.float().mean()), bytes=n_bytes)
+
+
+def phase_sampled_kernels(gidx, pb: str, l2_load_ns: float) -> dict:
+    """Phase 9's kernels against their plain versions on the card, byte-equal,
+    timed by slope and per call with their bounds."""
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops.fm_search import (
+        FMIndexTensors, sa_walk_plain, seed_scan_plain, sensitive_scan_plain,
+    )
+    from kart_tpu_torch.ops.pack import pack_reads_2bit
+    from kart_tpu_torch.ops.resolve import resolve_pack_plain
+    from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    msl = compute_min_seed_length(gidx.two_genome_size)
+    fm = FMIndexTensors.from_genome_index(gidx, "cuda")
+    fm64 = fm_int64(fm)
+    sa32 = fm.sa_full.cuda()
+    L, ms = L_MAX_GROUP, L_MAX_GROUP // (msl + 1) + 1
+    lines, rec = [], {}
+
+    def up(reads_i8, rlens):
+        words, amb_r, amb_p = pack_reads_2bit(reads_i8)
+        w, ar, ap = (torch.from_numpy(x).cuda() for x in (words.view(np.int32), amb_r, amb_p))
+        return kernels.unpack_reads(w, ar, ap, l_max=reads_i8.shape[1]), torch.from_numpy(rlens).cuda()
+
+    # the FastMode stepper at int64: phase 2's chunk shape (with short, all-N
+    # and pad lanes), the re-seed layout, and phase 4's group
+    rng = np.random.default_rng(29)
+    fk = dict(max_seeds=ms, l_max=L)
+    fm_cases = {}
+    for name, (B, n) in (("B 4000", (B_FM, B_FM)), ("re-seed layout", RESEED_FM)):
+        reads, rlens = fm_batch(gidx, rng, B, n, name == "B 4000")
+        r, rl = torch.from_numpy(reads).cuda(), torch.from_numpy(rlens).cuda()
+        got = kernels.fm_seed_scan(fm64, r, rl, msl, **fk)
+        narrow = kernels.fm_seed_scan(fm, r, rl, msl, **fk)
+        require_equal(got, seed_scan_plain(fm64, r, rl, msl, **fk), f"fm_seed_scan int64 ({name})")
+        require_equal(got, narrow.long(), f"fm_seed_scan int64 against int32 widened ({name})")
+        t64, t32 = time_both(lambda: kernels.fm_seed_scan(fm64, r, rl, msl, **fk)), time_both(
+            lambda: kernels.fm_seed_scan(fm, r, rl, msl, **fk))
+        fm_cases[name] = dict(t64=t64, t32=t32, plain=cuda_ms(
+            lambda: seed_scan_plain(fm64, r, rl, msl, **fk), 1), seeds=int(got[:, 0].sum()))
+        lines.append(f"fm_seed_scan int64 {name}: equal to the plain version and to int32 widened"
+                     f" ({fm_cases[name]['seeds']} seeds); slope {1e3 * t64[0]:.4f} ms, per call"
+                     f" {1e3 * t64[1]:.4f} ms (int32: slope {1e3 * t32[0]:.4f} ms, per call"
+                     f" {1e3 * t32[1]:.4f} ms), plain {fm_cases[name]['plain']:.4f} ms")
+    rec["fm_seed_scan_i64"] = fm_cases
+
+    # phase 4's group of 32,000 reads, seeded by the FM stepper: its stream's
+    # rows for the walk, and resolve_pack through the sampled SA
+    B, H = B_GROUP, 3 * B_GROUP
+    reads = group_reads(gidx, np.random.default_rng(13), B, L)
+    ur, rl = up(reads, np.full(B, READ_LEN, np.int32))
+    seeds = kernels.fm_seed_scan(fm, ur, rl, msl, **fk)
+    seeds64 = seeds.long()
+    Bb, nb = RESEED_FM
+    rr, rrl = fm_batch(gidx, rng, Bb, nb, False)
+    seeds_r = kernels.fm_seed_scan(fm, torch.from_numpy(rr).cuda(), torch.from_numpy(rrl).cuda(),
+                                   msl, **fk)
+    walks, walk_err = {}, 0
+    for name, rows in (("group", stream_rows(seeds, ms, H)),
+                       ("re-seed layout", stream_rows(seeds_r, ms, Bb * 64))):
+        for dt, f in (("int32", fm), ("int64", fm64)):
+            k = rows if dt == "int32" else rows.long()
+            for steps_max in (4096, 8):
+                st: dict = {}
+                want = sa_walk_plain(f, k, max_steps=steps_max, stats=st)
+                got = kernels.sa_walk(f, k, max_steps=steps_max)
+                walk_err = max(walk_err, require_equal(
+                    got[0], want[0], f"sa_walk pos ({name}, {dt}, max_steps {steps_max})"),
+                    require_equal(got[1], want[1], f"sa_walk done ({name}, {dt}, max_steps {steps_max})"))
+                if steps_max == 4096:
+                    if not bool(want[1].all()):
+                        raise AssertionError(f"sa_walk ({name}): a walk of 4,096 steps not done")
+                    walks[(name, dt)] = dict(steps=st["steps"], rows=k, f=f)
+                elif bool(want[1].all()):
+                    raise AssertionError(f"sa_walk ({name}): max_steps 8 cut no walk")
+    for (name, dt), wk in walks.items():
+        k, f = wk["rows"], wk["f"]
+        t = time_both(lambda: kernels.sa_walk(f, k))
+        plain = cuda_ms(lambda: sa_walk_plain(f, k), 1)
+        b = walk_bound(f, k, wk["steps"], l2_load_ns)
+        wk.update(t=t, plain=plain, b=b)
+        lines.append(f"sa_walk {name} {dt}: {k.numel()} rows, (pos, done) equal at max_steps 4096"
+                     f" and 8; steps mean {b['mean']:.2f}, longest {b['longest']}; slope"
+                     f" {1e3 * t[0]:.4f} ms, per call {1e3 * t[1]:.4f} ms, plain {plain:.4f} ms;"
+                     f" {b['bytes']} bytes: bound {b['bound_ms']:.4f} ms ({b['bound_by']}); chain"
+                     f" {b['longest'] + 1} loads x {l2_load_ns:.1f} ns = {b['chain_ms']:.4f} ms")
+    rec["walks"], rec["walk_err"] = walks, walk_err
+
+    # resolve_pack through the sampled SA: the group's pack16 stream (walks
+    # whole, and cut at 8 steps so that reads are flagged) and its int64 tuple
+    rk = dict(max_seeds=ms, has_ok=False, occ_budget=H)
+    full16 = kernels.resolve_pack(sa32, seeds, pack16=True, **rk)
+    res = {}
+    for name, args, kw in (
+            ("pack16", (None, seeds), dict(pack16=True, fm=fm)),
+            ("pack16, max_steps 8", (None, seeds), dict(pack16=True, fm=fm, max_steps=8)),
+            ("int64", (None, seeds64), dict(pack16=False, fm=fm64)),
+            ("int64 full SA", (sa32.long(), seeds64), dict(pack16=False))):
+        got = kernels.resolve_pack(*args, **rk, **kw)
+        want = resolve_pack_plain(*args, **rk, **kw)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            require_equal(g, w, f"resolve_pack ({name})")
+        if name == "pack16":
+            require_equal(got, full16, "resolve_pack sampled against full SA (pack16)")
+        if name == "int64":
+            require_equal(got[2], full16[B // 2 + H // 2:].long(), "resolve_pack int64 positions")
+            cnts = got[0]
+        if name == "pack16, max_steps 8":
+            cw = got[: B // 2].cpu().numpy().view(np.int16)
+            flagged = int((cw < 0).sum())
+            if flagged == 0:
+                raise AssertionError("resolve_pack with max_steps 8 flagged no read")
+        res[name] = dict(args=args, kw=kw)
+    for name in ("pack16", "int64"):
+        args, kw = res[name]["args"], res[name]["kw"]
+        res[name].update(t=time_both(lambda: kernels.resolve_pack(*args, **rk, **kw)),
+                         plain=cuda_ms(lambda: resolve_pack_plain(*args, **rk, **kw), 1))
+    t_full = time_both(lambda: kernels.resolve_pack(sa32, seeds, pack16=True, **rk))
+    n_occ = int((cnts.clamp(min=0)).sum())
+    wb = walks[("group", "int32")]["b"]
+    lines.append(f"resolve_pack sampled B={B} H={H}: pack16, and int64 (32-bit, tuple) and int64"
+                 f" through the full SA equal their plain versions; the sampled streams equal the"
+                 f" full SA's ({n_occ} occurrences); max_steps 8: {flagged} reads flagged, equal;"
+                 f" pack16 slope {1e3 * res['pack16']['t'][0]:.4f} ms, per call"
+                 f" {1e3 * res['pack16']['t'][1]:.4f} ms, plain {res['pack16']['plain']:.4f} ms;"
+                 f" int64 slope {1e3 * res['int64']['t'][0]:.4f} ms, per call"
+                 f" {1e3 * res['int64']['t'][1]:.4f} ms, plain {res['int64']['plain']:.4f} ms;"
+                 f" through the full SA (pack16) slope {1e3 * t_full[0]:.4f} ms; the walk's chain"
+                 f" {wb['chain_ms']:.4f} ms")
+    rec["resolve"] = dict(res, t_full=t_full)
+
+    # the SensitiveMode stepper at int64: phase 7's group
+    codes_i8, rl8 = pad_batch(fastq_codes(pb, PB_B), PB_B, PB_L)
+    cr, crl = up(codes_i8, rl8)
+    kb = dict(max_seeds=PB_L // msl + 2, l_max=PB_L)
+    got = kernels.fm_sensitive_scan(fm64, cr, crl, msl, **kb)
+    require_equal(got, kernels.fm_sensitive_scan(fm, cr, crl, msl, **kb).long(),
+                  "fm_sensitive_scan int64 against int32 widened")
+    t0 = time.perf_counter()
+    require_equal(got, sensitive_scan_plain(fm64, cr, crl, msl, **kb), "fm_sensitive_scan int64")
+    plain_s = time.perf_counter() - t0
+    reps = dict(reps=8, n_small=4, n_big=36)
+    t64 = time_both(lambda: kernels.fm_sensitive_scan(fm64, cr, crl, msl, **kb), **reps)
+    t32 = time_both(lambda: kernels.fm_sensitive_scan(fm, cr, crl, msl, **kb), **reps)
+    lines.append(f"fm_sensitive_scan int64 B={PB_B} l_max={PB_L}: equal to the plain version (which"
+                 f" took {plain_s:.1f} s of host wall time) and to int32 widened"
+                 f" ({int(got[:, 0].sum())} seeds); slope {1e3 * t64[0]:.4f} ms, per call"
+                 f" {1e3 * t64[1]:.4f} ms (int32: slope {1e3 * t32[0]:.4f} ms, per call"
+                 f" {1e3 * t32[1]:.4f} ms)")
+    rec["sens_i64"] = dict(t64=t64, t32=t32)
+    for ln in lines:
+        print("phase 9 " + ln)
+    return rec
+
+
+def walk_record(rec: dict) -> dict:
+    """The kernels record's sa_walk entry: the group's int32 rows; the int64
+    walk, the re-seed layout and resolve_pack's sampled and int64 times
+    beside them."""
+    w = rec["walks"][("group", "int32")]
+    r = rec["resolve"]
+    return dict(ms=1e3 * w["t"][0], plain_ms=w["plain"], err=rec["walk_err"], bound_ms=w["b"]["bound_ms"],
+                bound_by=w["b"]["bound_by"], chain_ms=w["b"]["chain_ms"],
+                shape=f"the stream rows of a {B_GROUP}-read group, H {3 * B_GROUP}, int32",
+                int64=dict(ms=1e3 * rec["walks"][("group", "int64")]["t"][0],
+                           bound_ms=rec["walks"][("group", "int64")]["b"]["bound_ms"]),
+                reseed_layout=dict(ms=1e3 * rec["walks"][("re-seed layout", "int32")]["t"][0],
+                                   shape=f"B {RESEED_FM[0]}, of which {RESEED_FM[1]} reads, H"
+                                         f" {RESEED_FM[0] * 64}"),
+                resolve_pack_sampled_ms=1e3 * r["pack16"]["t"][0],
+                resolve_pack_int64_ms=1e3 * r["int64"]["t"][0],
+                resolve_pack_full_ms=1e3 * r["t_full"][0],
+                fm_seed_scan_int64_ms=1e3 * rec["fm_seed_scan_i64"]["B 4000"]["t64"][0],
+                fm_sensitive_scan_int64_ms=1e3 * rec["sens_i64"]["t64"][0])
+
+
+def phase_sampled_slice(prefix: str, pb: str, full_sam: str | None) -> dict:
+    """Phase 9's sampled slice: KART_SA_MODE=sampled through the CLI in the
+    device-pipelined mode on the card, the native mode, an int64 index, -cpu,
+    and PacBio reads."""
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.index import loader
+    from kart_tpu_torch.tools.bench_kernels import busy_seconds, device_spans
+
+    r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
+    if not os.path.exists(r2):
+        simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_DEV_PAIRS)
+    sam = {k: os.path.join(DATA, f"sampled_{k}.sam")
+           for k in ("dev", "nat", "i64", "cpu", "prof", "pb_dev", "pb_nat")}
+    base = ["-i", prefix, "-silent"]
+
+    def run(args, out):
+        """One CLI run with the launch counts set to 0 just before it and
+        read just after: (log, launches)."""
+        for k in SAMPLED_KERNELS:
+            getattr(kernels, k).launches = 0
+        log = run_cli([*base, *args, "-o", out])
+        torch.cuda.synchronize()
+        return log, {k: getattr(kernels, k).launches for k in SAMPLED_KERNELS}
+
+    def times(log):
+        m = re.search(r"set-up ([\d.]+) s .*mapping ([\d.]+) s", log)
+        return float(m.group(1)), float(m.group(2))
+
+    def counts(log, dev):
+        g = re.search(rf"groups on {dev} = (\d+), flagged lanes = (\d+), re-seeded on the device ="
+                      r" (\d+), on the host = (\d+)", log)
+        return tuple(int(x) for x in g.groups())
+
+    pe = ["-f", r1, "-f2", r2]
+    total = {k: 0 for k in SAMPLED_KERNELS}
+    os.environ["KART_SA_MODE"] = "sampled"
+    try:
+        log_nat, _ = run(pe, sam["nat"])  # (b) the C++ FM seeder
+        nat_setup, nat_map = times(log_nat)
+        want = sam_records(sam["nat"])
+        os.environ["KART_SEED_MODE"] = "device"
+        try:
+            log, launches = run(pe, sam["dev"])  # (a)
+            setup_s, map_s = times(log)
+            groups, flagged, on_dev, on_host = counts(log, "cuda")
+            recs = sam_records(sam["dev"])
+            if recs != want:
+                raise AssertionError("sampled: the device-pipelined SAM differs from the native mode's")
+            if full_sam is not None and recs != sam_records(full_sam):
+                raise AssertionError("sampled: the device-pipelined SAM differs from phase 6's (full SA)")
+            if launches["sa_walk"] == 0 or launches["resolve_pack"] == 0 or launches["fm_seed_scan"] == 0:
+                raise AssertionError(f"sampled: a kernel of the path never launched: {launches}")
+            if launches["kmer_funnel"] != 0:
+                raise AssertionError(f"sampled: the funnel ran, so its tables were built: {launches}")
+            # (c) the first pairs on an int64 index
+            i1 = head_fastq(r1, os.path.join(DATA, "i64_r1.fq"), N_I64_PAIRS)
+            i2 = head_fastq(r2, os.path.join(DATA, "i64_r2.fq"), N_I64_PAIRS)
+            dtype = loader.GenomeIndex.index_dtype
+            loader.GenomeIndex.index_dtype = property(lambda self: np.int64)
+            try:
+                log_i64, launches_i64 = run(["-f", i1, "-f2", i2], sam["i64"])
+            finally:
+                loader.GenomeIndex.index_dtype = dtype
+            if sam_records(sam["i64"]) != want[: 2 * N_I64_PAIRS]:
+                raise AssertionError("sampled: the int64 index's SAM differs from the native mode's")
+            if launches_i64["sa_walk"] == 0:
+                raise AssertionError(f"sampled int64: the walk never launched: {launches_i64}")
+            # (d) the first pairs with -cpu (plain versions)
+            c1 = head_fastq(r1, os.path.join(DATA, "sampled_r1_cpu.fq"), N_SAMPLED_CPU_PAIRS)
+            c2 = head_fastq(r2, os.path.join(DATA, "sampled_r2_cpu.fq"), N_SAMPLED_CPU_PAIRS)
+            run(["-f", c1, "-f2", c2, "-cpu"], sam["cpu"])
+            if sam_records(sam["cpu"]) != want[: 2 * N_SAMPLED_CPU_PAIRS]:
+                raise AssertionError("sampled: the -cpu SAM differs from the native mode's")
+            # (e) PacBio reads
+            pbh = head_fastq(pb, os.path.join(DATA, "pb_sampled.fq"), PB_SAMPLED_READS)
+            log_pb, launches_pb = run(["-f", pbh, "-pacbio"], sam["pb_dev"])
+            pb_map = times(log_pb)[1]
+            # run (a) again under the profiler: the card's busy share
+            prof_log: list = []
+            spans = device_spans(lambda: prof_log.append(run_cli([*base, *pe, "-o", sam["prof"]])),
+                                 warm=lambda: run_cli([*base, "-f", c1, "-f2", c2, "-o",
+                                                       sam["cpu"] + ".warm"]))
+            prof_map = times(prof_log[0])[1]
+        finally:
+            del os.environ["KART_SEED_MODE"]
+        run(["-f", pbh, "-pacbio"], sam["pb_nat"])
+        if sam_records(sam["pb_dev"]) != sam_records(sam["pb_nat"]):
+            raise AssertionError("sampled PacBio: the device-pipelined SAM differs from the native mode's")
+        if launches_pb["sa_walk"] == 0 or launches_pb["fm_sensitive_scan"] == 0:
+            raise AssertionError(f"sampled PacBio: a kernel never launched: {launches_pb}")
+    finally:
+        del os.environ["KART_SA_MODE"]
+    if sam_records(sam["prof"]) != recs:
+        raise AssertionError("sampled: the profiled run's SAM differs")
+    for lc in (launches, launches_i64, launches_pb):
+        for k in SAMPLED_KERNELS:
+            total[k] += lc[k]
+    first = next((k for k, sp in enumerate(spans) if "Pinned -> Device" in sp[2]), None)
+    if first is None:
+        raise AssertionError("the profile holds no pinned upload of a group")
+    busy_s, span_s = busy_seconds(spans[first:])
+    by_name: dict = {}
+    for t0, t1, name in spans[first:]:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + t1 - t0, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    n_reads = 2 * N_DEV_PAIRS
+    print(f"phase 9 sampled slice: {n_reads} reads, KART_SA_MODE=sampled KART_SEED_MODE=device on the card")
+    print(f"phase 9 reads/s: {n_reads / map_s:.1f} (mapping {map_s:.3f} s); set-up {setup_s:.3f} s;"
+          f" native mode, sampled: {n_reads / nat_map:.1f} reads/s (mapping {nat_map:.3f} s, set-up"
+          f" {nat_setup:.3f} s)")
+    print(f"phase 9 groups {groups}; launches {launches}; flagged lanes {flagged}, re-seeded on the"
+          f" card {on_dev}, on the host {on_host}; SAM records equal to the native mode's"
+          + ("" if full_sam is None else " and to phase 6's (full SA)")
+          + f"; int64 index, first {N_I64_PAIRS} pairs: launches {launches_i64}, mapping"
+          f" {times(log_i64)[1]:.3f} s, SAM records equal; first {N_SAMPLED_CPU_PAIRS} pairs:"
+          f" -cpu SAM records equal")
+    print(f"phase 9 PacBio, first {PB_SAMPLED_READS} reads, -pacbio sampled: launches {launches_pb},"
+          f" mapping {pb_map:.3f} s, SAM records equal to the native mode's")
+    print(f"phase 9 device busy (torch.profiler over run (a) again, mapping {prof_map:.3f} s):"
+          f" {1e3 * busy_s:.3f} ms busy = {100 * busy_s / prof_map:.4f}% of the mapping time, within"
+          f" {span_s:.3f} s; device ms by name (launches): "
+          + ", ".join(f"{short(k)} {us / 1e3:.3f} ({n})" for k, (us, n) in top))
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1286,6 +1663,10 @@ def main(argv: list[str] | None = None) -> int:
         sens = phase_sensitive(gidx, build_tables(gidx), pb, fm["l2_ns"], other)
     if want(8):
         pb_launches = phase_pacbio_slice(prefix, pb)
+    if want(9):
+        sampled = phase_sampled_kernels(gidx, pb, fm["l2_ns"])
+        sampled_launches = phase_sampled_slice(
+            prefix, pb, os.path.join(DATA, "dev.sam") if want(6) else None)
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
     if loaded:
@@ -1297,7 +1678,10 @@ def main(argv: list[str] | None = None) -> int:
     def entry(name, source, replaces, n_launches, r, library_ms=None):
         # shape, reseed_layout: what a record's times refer to, where phase lines alone do not say
         extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms", "design_chain_ms",
-                                   "slab_paths") if k in r}
+                                   "slab_paths", "int64", "resolve_pack_sampled_ms",
+                                   "resolve_pack_int64_ms", "resolve_pack_full_ms",
+                                   "fm_seed_scan_int64_ms", "fm_sensitive_scan_int64_ms")
+                 if k in r}
         return dict(name=name, route="cuda", source=f"kart_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=n_launches, max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1307,10 +1691,11 @@ def main(argv: list[str] | None = None) -> int:
     # library_ms: table[rid] for the row gather; no one PyTorch call computes
     # an FM backward search (windowed or not), an NW traceback plane, the
     # funnel's rounds in either mode, the budgeted expansion into a packed
-    # stream or the 2-bit unpack
+    # stream, the 2-bit unpack or an inverse-Psi walk
     record = {"kernels": [
         entry("fm_seed_scan", "fm_seed_scan.cu", "kart_tpu/ops/fm_search.py:165",
-              launches["fm_seed_scan"] + dev_launches["fm_seed_scan"], fm),
+              launches["fm_seed_scan"] + dev_launches["fm_seed_scan"]
+              + sampled_launches["fm_seed_scan"], fm),
         entry("nw_planes", "nw.cu", "kart_tpu/ops/nw.py:55 and kart_tpu/ops/nw.py:160",
               launches["nw_planes"], nw),
         entry("kmer_funnel", "kmer_funnel.cu",
@@ -1320,12 +1705,16 @@ def main(argv: list[str] | None = None) -> int:
               "kart_tpu/ops/kmer_seed.py:327 (sensitive=True) and kart_tpu/ops/pack.py:98",
               pb_launches["kmer_funnel"], sens["funnel"]),
         entry("fm_sensitive_scan", "fm_seed_scan.cu", "kart_tpu/ops/fm_search.py:287",
-              pb_launches["fm_sensitive_scan"], sens["fm"]),
+              pb_launches["fm_sensitive_scan"] + sampled_launches["fm_sensitive_scan"], sens["fm"]),
         entry("resolve_pack", "resolve_pack.cu",
               "kart_tpu/ops/resolve.py:47 and kart_tpu/ops/pack.py:161",
-              dev_launches["resolve_pack"] + pb_launches["resolve_pack"], funnel["resolve"]),
+              dev_launches["resolve_pack"] + pb_launches["resolve_pack"]
+              + sampled_launches["resolve_pack"], funnel["resolve"]),
         entry("unpack_reads", "kmer_funnel.cu", "kart_tpu/ops/pack.py:98",
-              dev_launches["unpack_reads"] + pb_launches["unpack_reads"], funnel["unpack"]),
+              dev_launches["unpack_reads"] + pb_launches["unpack_reads"]
+              + sampled_launches["unpack_reads"], funnel["unpack"]),
+        entry("sa_walk", "sa_walk.cu", "kart_tpu/ops/fm_search.py:420",
+              sampled_launches["sa_walk"], walk_record(sampled)),
         entry("row_gather", "row_gather.cu", "tools/bench_gather.py:208", gather["launches"],
               gather, gather["library_ms"]),
     ]}

@@ -7,8 +7,13 @@
 // occ4_from, _count4_word and _occ4_pair_replicated: the jnp FM stepper that
 // XLA ran as l_max+1 uniform batched steps.  The plain PyTorch version is
 // kart_tpu_torch/ops/fm_search.py::seed_scan_plain; the output is the same
-// packed (B, 1 + 4*max_seeds) int32 row per read:
+// packed (B, 1 + 4*max_seeds) row per read in the index type:
 //   [n_seeds | rpos[max_seeds] | slen[max_seeds] | k0[max_seeds] | freq[max_seeds]]
+//
+// Every kernel here is a template on the index type T: int below 2**31 text
+// bases, long long above (human scale), where the checkpoint counts, the
+// interval bounds and the packed rows are 64-bit and the BWT words stay
+// 32-bit.
 //
 // What bounds it on this card: a chain, not bytes.  Every base of a read is
 // one backward step whose two occ4 lookups (both ends of the SA interval)
@@ -42,17 +47,30 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fm_index.cuh"
 #include "window.cuh"
 
 namespace {
 
 constexpr int kOccThr = 50;
-constexpr unsigned kM55 = 0x55555555u;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kThreads = 128;
 constexpr int kGroup = 16;                     // lanes a read
 constexpr int kPerBlock = kThreads / kGroup;   // reads a block
 constexpr size_t kMaxSmem = 232448;            // a block's shared memory on sm_90
+
+// A SensitiveMode outcome (length | min(x2, 63) << 5, x0), or (-run, 0) for
+// a run of ambiguous bases: int2, or longlong2 where x0 is 64-bit.
+template <typename T>
+struct ExtOf;
+template <>
+struct ExtOf<int> {
+  using type = int2;
+};
+template <>
+struct ExtOf<long long> {
+  using type = longlong2;
+};
 
 // Per-code counts of one 32-bit BWT word (16 bases of 2 bits), one byte each:
 // code c in bits 8c..8c+7.
@@ -65,13 +83,14 @@ __device__ __forceinline__ unsigned count4_packed(unsigned w) {
 // One lane's share of occ4(k) (kk is k less the primary shift): the counts of
 // word wj of k's block, bases past k masked out (they read as code 0 and are
 // taken off again), nothing for the words past k.
-__device__ __forceinline__ unsigned word_counts(const unsigned* __restrict__ bwt, int kk, int wj) {
-  const int jk = (kk & 0x7F) >> 4;
+template <typename T>
+__device__ __forceinline__ unsigned word_counts(const unsigned* __restrict__ bwt, T kk, int wj) {
+  const int jk = static_cast<int>(kk & 0x7F) >> 4;
   if (wj > jk) return 0;
   unsigned w = __ldg(bwt + (static_cast<size_t>(kk >> 7) << 3) + wj);
-  if (wj == jk) w &= ~((1u << ((~kk & 0xF) << 1)) - 1u);
+  if (wj == jk) w &= ~((1u << ((~static_cast<int>(kk) & 0xF) << 1)) - 1u);
   unsigned cnt = count4_packed(w);
-  if (wj == jk) cnt -= ~kk & 0xF;
+  if (wj == jk) cnt -= ~static_cast<int>(kk) & 0xF;
   return cnt;
 }
 
@@ -79,7 +98,8 @@ __device__ __forceinline__ unsigned word_counts(const unsigned* __restrict__ bwt
 // the eight lanes that share the block's words; a block holds 128 bases, so
 // the byte-wide sums cannot carry.  Every lane of the warp calls this; `on`
 // says whether the lane's read takes a step.
-__device__ __forceinline__ unsigned block_counts(const unsigned* __restrict__ bwt, bool on, int kk,
+template <typename T>
+__device__ __forceinline__ unsigned block_counts(const unsigned* __restrict__ bwt, bool on, T kk,
                                                  int wj) {
   unsigned v = on ? word_counts(bwt, kk, wj) : 0;
 #pragma unroll
@@ -87,19 +107,17 @@ __device__ __forceinline__ unsigned block_counts(const unsigned* __restrict__ bw
   return v;
 }
 
-__device__ __forceinline__ int pick4(int i, int a, int b, int c, int d) {
-  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
-}
-
-// Shared memory of a block, per read: the seed row (row_len ints), then the
-// read's codes as bytes (code_words ints).
+// Shared memory of a block, per read: the seed row (row_len T), then the
+// read's codes as bytes (code_words ints, even for a long long row).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ bwt,
-                 const int* __restrict__ L2, int primary,
+seed_scan_kernel(const typename CpRow<T>::type* __restrict__ occ_cp,
+                 const unsigned* __restrict__ bwt, const T* __restrict__ L2, T primary,
                  const int* __restrict__ reads, const int* __restrict__ rlens,
                  int B, int l_max, int min_seed_len, int max_seeds, int code_words,
-                 int* __restrict__ out) {
+                 T* __restrict__ out) {
   extern __shared__ int smem[];
+  constexpr int kWords = sizeof(T) / sizeof(int);  // ints a row entry
   const int row_len = 1 + 4 * max_seeds;
   const int g = threadIdx.x / kGroup;  // the read of this block
   const int j = threadIdx.x % kGroup;  // the lane of its group
@@ -107,11 +125,11 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
   const int wj = j % 8;                // the lane's word of a BWT block
   const int b = blockIdx.x * kPerBlock + g;
   const bool valid = b < B;
-  int* row = smem + g * (row_len + code_words);
+  T* row = reinterpret_cast<T*>(smem + g * (row_len * kWords + code_words));
   unsigned char* codes = reinterpret_cast<unsigned char*>(row + row_len);
 
-  const int l2_0 = __ldg(L2), l2_1 = __ldg(L2 + 1), l2_2 = __ldg(L2 + 2), l2_3 = __ldg(L2 + 3),
-            l2_4 = __ldg(L2 + 4);
+  const T l2_0 = __ldg(L2), l2_1 = __ldg(L2 + 1), l2_2 = __ldg(L2 + 2), l2_3 = __ldg(L2 + 3),
+          l2_4 = __ldg(L2 + 4);
   // a seed can start at p only while p < last_start
   const int last_start = valid ? __ldg(rlens + b) - min_seed_len : 0;
   for (int k = j; k < row_len; k += kGroup) row[k] = 0;
@@ -125,7 +143,8 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
   __syncwarp();
 
   bool active = false;
-  int start = 0, x0 = 0, x1 = 0, x2 = 0, n_seeds = 0;
+  int start = 0, n_seeds = 0;
+  T x0 = 0, x1 = 0, x2 = 0;
   // p == l_max reads an extra ambiguous column, so the last extension of
   // every read ends, and emits, inside the loop
   for (int p = 0;; ++p) {
@@ -138,33 +157,33 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
 
     // occ4 at both ends of the interval: the checkpoint rows, and the eight
     // words' counts, which a lane sums at its end before the ends swap
-    int kka = 0, kkb = 0;
-    int4 cpk = make_int4(0, 0, 0, 0), cpl = cpk;
+    T kka = 0, kkb = 0;
+    typename CpRow<T>::type cpk{}, cpl{};
     if (extend) {
-      const int ka = x1 - 1, kb = ka + x2;
+      const T ka = x1 - 1, kb = ka + x2;
       kka = ka - (ka >= primary);
       kkb = kb - (kb >= primary);
-      cpk = __ldg(occ_cp + (kka >> 7));
-      cpl = __ldg(occ_cp + (kkb >> 7));
+      cpk = load_cp(occ_cp, kka >> 7);
+      cpl = load_cp(occ_cp, kkb >> 7);
     }
     const unsigned mine = block_counts(bwt, extend, end ? kkb : kka, wj);
     const unsigned other = __shfl_xor_sync(kFull, mine, 8);
     const unsigned ck = end ? other : mine, cl = end ? mine : other;
 
     bool ext_fail = true;
-    int nx0 = 0, nx1 = 0, nx2 = 0;
+    T nx0 = 0, nx1 = 0, nx2 = 0;
     if (extend) {
-      const int tk0 = cpk.x + (ck & 0xFF), tk1 = cpk.y + ((ck >> 8) & 0xFF),
-                tk2 = cpk.z + ((ck >> 16) & 0xFF), tk3 = cpk.w + (ck >> 24);
-      const int tl0 = cpl.x + (cl & 0xFF), tl1 = cpl.y + ((cl >> 8) & 0xFF),
-                tl2 = cpl.z + ((cl >> 16) & 0xFF), tl3 = cpl.w + (cl >> 24);
+      const T tk0 = cpk.x + (ck & 0xFF), tk1 = cpk.y + ((ck >> 8) & 0xFF),
+              tk2 = cpk.z + ((ck >> 16) & 0xFF), tk3 = cpk.w + (ck >> 24);
+      const T tl0 = cpl.x + (cl & 0xFF), tl1 = cpl.y + ((cl >> 8) & 0xFF),
+              tl2 = cpl.z + ((cl >> 16) & 0xFF), tl3 = cpl.w + (cl >> 24);
       const int i = 3 - cs;  // complement base
-      const int s3 = x0 + ((x1 <= primary) && (x1 + x2 - 1 >= primary));
-      const int s2 = s3 + (tl3 - tk3);
-      const int s1 = s2 + (tl2 - tk2);
-      const int s0 = s1 + (tl1 - tk1);
-      const int tki = pick4(i, tk0, tk1, tk2, tk3);
-      const int tli = pick4(i, tl0, tl1, tl2, tl3);
+      const T s3 = x0 + ((x1 <= primary) && (x1 + x2 - 1 >= primary));
+      const T s2 = s3 + (tl3 - tk3);
+      const T s1 = s2 + (tl2 - tk2);
+      const T s0 = s1 + (tl1 - tk1);
+      const T tki = pick4(i, tk0, tk1, tk2, tk3);
+      const T tli = pick4(i, tl0, tl1, tl2, tl3);
       nx0 = pick4(i, s0, s1, s2, s3);
       nx1 = pick4(i, l2_0, l2_1, l2_2, l2_3) + 1 + tki;
       nx2 = tli - tki;
@@ -176,7 +195,7 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
       if (length >= min_seed_len && x2 <= kOccThr) {
         // past max_seeds the record is dropped, and counted
         if (n_seeds < max_seeds && j < 4)
-          row[1 + j * max_seeds + n_seeds] = pick4(j, start, length, x0, x2);
+          row[1 + j * max_seeds + n_seeds] = pick4<T>(j, start, length, x0, x2);
         ++n_seeds;
       }
     }
@@ -199,7 +218,7 @@ seed_scan_kernel(const int4* __restrict__ occ_cp, const unsigned* __restrict__ b
   if (j == 0) row[0] = n_seeds;
   __syncwarp();
   if (valid) {
-    int* dst = out + static_cast<size_t>(b) * row_len;
+    T* dst = out + static_cast<size_t>(b) * row_len;
     for (int k = j; k < row_len; k += kGroup) dst[k] = row[k];
   }
 }
@@ -250,10 +269,11 @@ constexpr int kChaseReads = kChaseThreads / 32;  // a warp a read
 // this thread: the codes of the bases up to kk (the bases past it masked off)
 // counted with three popcounts a pair of words per code; code 3's count is
 // the rest.
-__device__ __forceinline__ int4 occ4_words(int4 cp, uint4 a, uint4 b, int kk) {
+template <typename C, typename T>
+__device__ __forceinline__ C occ4_words(C cp, uint4 a, uint4 b, T kk) {
   const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  const int jk = (kk & 0x7F) >> 4;
-  const unsigned part = ~((1u << ((~kk & 0xF) << 1)) - 1u) & kM55;
+  const int jk = static_cast<int>(kk & 0x7F) >> 4;
+  const unsigned part = ~((1u << ((~static_cast<int>(kk) & 0xF) << 1)) - 1u) & kM55;
   int c0 = 0, c1 = 0, c2 = 0;
 #pragma unroll
   for (int j = 0; j < 8; j += 2) {
@@ -266,15 +286,22 @@ __device__ __forceinline__ int4 occ4_words(int4 cp, uint4 a, uint4 b, int kk) {
     c1 += __popc((lo0 & ~hi0 & m0) | ((lo1 & ~hi1 & m1) << 1));
     c2 += __popc((hi0 & ~lo0 & m0) | ((hi1 & ~lo1 & m1) << 1));
   }
-  const int n = (kk & 0x7F) + 1;  // bases of the block up to kk
-  return make_int4(cp.x + c0, cp.y + c1, cp.z + c2, cp.w + (n - c0 - c1 - c2));
+  const int n = static_cast<int>(kk & 0x7F) + 1;  // bases of the block up to kk
+  C r;
+  r.x = cp.x + c0;
+  r.y = cp.y + c1;
+  r.z = cp.z + c2;
+  r.w = cp.w + (n - c0 - c1 - c2);
+  return r;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kExtThreads)
-fm_extend_kernel(const int4* __restrict__ occ_cp, const uint4* __restrict__ bwt4,
-                   const int* __restrict__ L2, int primary, const int* __restrict__ reads,
-                   const int* __restrict__ rlens, int b0, int nb, int width, int min_seed_len,
-                   int2* __restrict__ ext) {
+fm_extend_kernel(const typename CpRow<T>::type* __restrict__ occ_cp,
+                 const uint4* __restrict__ bwt4, const T* __restrict__ L2, T primary,
+                 const int* __restrict__ reads, const int* __restrict__ rlens, int b0, int nb,
+                 int width, int min_seed_len, typename ExtOf<T>::type* __restrict__ ext) {
+  using E = typename ExtOf<T>::type;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)nb * width) return;
   const int b = b0 + (int)(i / width), s = (int)(i % width);
@@ -286,72 +313,75 @@ fm_extend_kernel(const int4* __restrict__ occ_cp, const uint4* __restrict__ bwt4
   if (c > 3) {
     int k = 1;
     while (k < kAmbRun && s + k < end && __ldg(read + s + k) > 3) ++k;
-    ext[i] = make_int2(-k, 0);
+    ext[i] = E{-k, 0};
     return;
   }
-  const int l2_0 = __ldg(L2), l2_1 = __ldg(L2 + 1), l2_2 = __ldg(L2 + 2), l2_3 = __ldg(L2 + 3),
-            l2_4 = __ldg(L2 + 4);
-  int x0 = pick4(c, l2_0, l2_1, l2_2, l2_3) + 1;
-  int x1 = pick4(3 - c, l2_0, l2_1, l2_2, l2_3) + 1;
-  int x2 = pick4(c, l2_1, l2_2, l2_3, l2_4) - pick4(c, l2_0, l2_1, l2_2, l2_3);
+  const T l2_0 = __ldg(L2), l2_1 = __ldg(L2 + 1), l2_2 = __ldg(L2 + 2), l2_3 = __ldg(L2 + 3),
+          l2_4 = __ldg(L2 + 4);
+  T x0 = pick4(c, l2_0, l2_1, l2_2, l2_3) + 1;
+  T x1 = pick4(3 - c, l2_0, l2_1, l2_2, l2_3) + 1;
+  T x2 = pick4(c, l2_1, l2_2, l2_3, l2_4) - pick4(c, l2_0, l2_1, l2_2, l2_3);
   const int stop = min(s + kWin, rlen);
   int p = s + 1;
   for (; p < stop; ++p) {
     const int cp = p < width ? __ldg(read + p) : 4;
     if (cp > 3) break;
-    const int ka = x1 - 1, kb = ka + x2;
-    const int kka = ka - (ka >= primary), kkb = kb - (kb >= primary);
-    const int blka = kka >> 7, blkb = kkb >> 7;
-    const int4 cpa = __ldg(occ_cp + blka);
+    const T ka = x1 - 1, kb = ka + x2;
+    const T kka = ka - (ka >= primary), kkb = kb - (kb >= primary);
+    const T blka = kka >> 7, blkb = kkb >> 7;
+    const typename CpRow<T>::type cpa = load_cp(occ_cp, blka);
     const uint4 wa0 = __ldg(bwt4 + 2 * blka), wa1 = __ldg(bwt4 + 2 * blka + 1);
-    int4 cpb = cpa;
+    typename CpRow<T>::type cpb = cpa;
     uint4 wb0 = wa0, wb1 = wa1;
     if (blkb != blka) {
-      cpb = __ldg(occ_cp + blkb);
+      cpb = load_cp(occ_cp, blkb);
       wb0 = __ldg(bwt4 + 2 * blkb);
       wb1 = __ldg(bwt4 + 2 * blkb + 1);
     }
-    const int4 tk = occ4_words(cpa, wa0, wa1, kka), tl = occ4_words(cpb, wb0, wb1, kkb);
+    const auto tk = occ4_words(cpa, wa0, wa1, kka), tl = occ4_words(cpb, wb0, wb1, kkb);
     const int ci = 3 - cp;  // complement base
-    const int s3 = x0 + ((x1 <= primary) && (x1 + x2 - 1 >= primary));
-    const int s2 = s3 + (tl.w - tk.w);
-    const int s1 = s2 + (tl.z - tk.z);
-    const int s0 = s1 + (tl.y - tk.y);
-    const int tki = pick4(ci, tk.x, tk.y, tk.z, tk.w);
-    const int nx2 = pick4(ci, tl.x, tl.y, tl.z, tl.w) - tki;
+    const T s3 = x0 + ((x1 <= primary) && (x1 + x2 - 1 >= primary));
+    const T s2 = s3 + (tl.w - tk.w);
+    const T s1 = s2 + (tl.z - tk.z);
+    const T s0 = s1 + (tl.y - tk.y);
+    const T tki = pick4(ci, tk.x, tk.y, tk.z, tk.w);
+    const T nx2 = pick4(ci, tl.x, tl.y, tl.z, tl.w) - tki;
     if (nx2 == 0) break;
     x0 = pick4(ci, s0, s1, s2, s3);
     x1 = pick4(ci, l2_0, l2_1, l2_2, l2_3) + 1 + tki;
     x2 = nx2;
   }
-  ext[i] = make_int2((p - s) | (min(x2, 63) << 5), x0);
+  ext[i] = E{(p - s) | (static_cast<int>(min(x2, T(63))) << 5), x0};
 }
 
 // A warp per read: every lane carries the same state, lanes 0-3 store a
 // seed's four fields.
+template <typename T>
 __global__ void __launch_bounds__(kChaseThreads)
-fm_chase_kernel(const int2* __restrict__ ext, const int* __restrict__ rlens, int b0, int nb,
-                int width, int min_seed_len, int max_seeds, int max_trips, int* __restrict__ out) {
+fm_chase_kernel(const typename ExtOf<T>::type* __restrict__ ext, const int* __restrict__ rlens,
+                int b0, int nb, int width, int min_seed_len, int max_seeds, int max_trips,
+                T* __restrict__ out) {
+  using E = typename ExtOf<T>::type;
   const int bl = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int j = threadIdx.x & 31;
   if (bl >= nb) return;  // the whole warp
   const int b = b0 + bl;
   const int end = min(__ldg(rlens + b) - min_seed_len, width);
-  const int2* e = ext + (size_t)bl * width;
-  int* row = out + (size_t)b * (1 + 4 * max_seeds);
-  Window w;
+  const E* e = ext + (size_t)bl * width;
+  T* row = out + (size_t)b * (1 + 4 * max_seeds);
+  WindowOf<E> w;
   int n = 0, t = 0, p = 0;  // seeds, trips run, scan position
   while (p < end && t < max_trips) {
-    int2 v = window_at(w, e, end, p);
+    E v = window_at(w, e, end, p);
     if (v.x < 0) {  // ambiguous bases: one idle trip each
-      p -= v.x;
-      t -= v.x;
+      p -= static_cast<int>(v.x);
+      t -= static_cast<int>(v.x);
       continue;
     }
     // an extension starts at p in trip t; it ends in trip t + length
     int s = p;
     for (;;) {
-      const int len = v.x & 31, x2 = v.x >> 5;
+      const int len = static_cast<int>(v.x) & 31, x2 = static_cast<int>(v.x) >> 5;
       t += len;
       if (t >= max_trips) break;  // cut before it ends: not recorded
       if (len < min_seed_len || x2 > kOccThr) {  // a failed seed: rewind
@@ -360,7 +390,7 @@ fm_chase_kernel(const int2* __restrict__ ext, const int* __restrict__ rlens, int
         break;
       }
       if (n < max_seeds) {
-        if (j < 4) row[1 + j * max_seeds + n] = pick4(j, s, len, v.y, x2);
+        if (j < 4) row[1 + j * max_seeds + n] = pick4<T>(j, s, len, v.y, x2);
         ++n;
       }
       // the next extension starts at the seed's end in the same trip, if it can
@@ -380,9 +410,68 @@ fm_chase_kernel(const int2* __restrict__ ext, const int* __restrict__ rlens, int
   if (j == 0) row[0] = n;
 }
 
+template <typename T>
+int launch_seed_scan(const void* occ_cp, const void* bwt_words, const void* L2, T primary,
+                     const void* reads, const void* rlens, int B, int l_max, int min_seed_len,
+                     int max_seeds, void* out, void* stream) {
+  if (B <= 0) return 0;
+  // a long long row starts on 8 bytes: an even count of code words
+  constexpr int kWords = sizeof(T) / sizeof(int);
+  const int code_words = (l_max / 4 + kWords) / kWords * kWords;
+  const size_t smem =
+      sizeof(int) * kPerBlock * ((1 + 4 * static_cast<size_t>(max_seeds)) * kWords + code_words);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        seed_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  seed_scan_kernel<T><<<(B + kPerBlock - 1) / kPerBlock, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const typename CpRow<T>::type*>(occ_cp), static_cast<const unsigned*>(bwt_words),
+      static_cast<const T*>(L2), primary, static_cast<const int*>(reads),
+      static_cast<const int*>(rlens), B, l_max, min_seed_len, max_seeds, code_words,
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_sensitive_scan(const void* occ_cp, const void* bwt_words, const void* L2, T primary,
+                          const void* reads, const void* rlens, int B, int width,
+                          int min_seed_len, int max_seeds, int max_trips, void* ext,
+                          long long ext_cap, void* out, void* stream) {
+  if (B <= 0) return 0;
+  if (width <= 0 || ext_cap < width) return static_cast<int>(cudaErrorInvalidValue);
+  using E = typename ExtOf<T>::type;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(
+      out, 0, sizeof(T) * static_cast<size_t>(B) * (1 + 4 * static_cast<size_t>(max_seeds)), st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const long long fit = ext_cap / width;  // reads a tile
+  const int tile = fit < B ? static_cast<int>(fit) : B;
+  for (int b0 = 0; b0 < B; b0 += tile) {
+    const int nb = min(tile, B - b0);
+    const long long n = static_cast<long long>(nb) * width;
+    fm_extend_kernel<T><<<static_cast<unsigned>((n + kExtThreads - 1) / kExtThreads), kExtThreads,
+                          0, st>>>(
+        static_cast<const typename CpRow<T>::type*>(occ_cp), static_cast<const uint4*>(bwt_words),
+        static_cast<const T*>(L2), primary, static_cast<const int*>(reads),
+        static_cast<const int*>(rlens), b0, nb, width, min_seed_len, static_cast<E*>(ext));
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    fm_chase_kernel<T><<<(nb + kChaseReads - 1) / kChaseReads, kChaseThreads, 0, st>>>(
+        static_cast<const E*>(ext), static_cast<const int*>(rlens), b0, nb, width, min_seed_len,
+        max_seeds, max_trips, static_cast<T*>(out));
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  return 0;
+}
+
 }  // namespace
 
-// Plain C entry for ctypes.  Pointers are device pointers; occ_cp and
+// Plain C entries for ctypes, one an index type (the _i64 ones: occ_cp, L2,
+// primary and out 64-bit).  Pointers are device pointers; occ_cp and
 // bwt_words must be 16-byte aligned.  Returns cudaGetLastError() after the
 // launch (0 on success), or cudaErrorInvalidValue where a block's reads of
 // l_max bases and their seed rows exceed its shared memory.
@@ -391,58 +480,41 @@ extern "C" int kart_fm_seed_scan(const void* occ_cp, const void* bwt_words,
                                  const void* rlens, int B, int l_max,
                                  int min_seed_len, int max_seeds, void* out,
                                  void* stream) {
-  if (B <= 0) return 0;
-  const int code_words = l_max / 4 + 1;
-  const size_t smem = sizeof(int) * kPerBlock * (1 + 4 * static_cast<size_t>(max_seeds) + code_words);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        seed_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  seed_scan_kernel<<<(B + kPerBlock - 1) / kPerBlock, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(occ_cp), static_cast<const unsigned*>(bwt_words),
-      static_cast<const int*>(L2), primary, static_cast<const int*>(reads),
-      static_cast<const int*>(rlens), B, l_max, min_seed_len, max_seeds, code_words,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_seed_scan<int>(occ_cp, bwt_words, L2, primary, reads, rlens, B, l_max,
+                               min_seed_len, max_seeds, out, stream);
+}
+
+extern "C" int kart_fm_seed_scan_i64(const void* occ_cp, const void* bwt_words,
+                                     const void* L2, long long primary, const void* reads,
+                                     const void* rlens, int B, int l_max,
+                                     int min_seed_len, int max_seeds, void* out,
+                                     void* stream) {
+  return launch_seed_scan<long long>(occ_cp, bwt_words, L2, primary, reads, rlens, B, l_max,
+                                     min_seed_len, max_seeds, out, stream);
 }
 
 // SensitiveMode scan.  reads: (B, width) int32 codes; out: (B, 1 +
-// 4*max_seeds) int32, zeroed here; max_trips: the trip limit of the loop;
-// ext: scratch of ext_cap int2 entries, one a base of every read of a tile.
-// One memset, then per tile of ext_cap / width reads the extension and the
-// chase launches, on one stream.  Returns the first CUDA error, or
-// cudaErrorInvalidValue where one read's width exceeds the scratch.
+// 4*max_seeds) of the index type, zeroed here; max_trips: the trip limit of
+// the loop; ext: scratch of ext_cap entries (int2, or longlong2 for the _i64
+// entry), one a base of every read of a tile.  One memset, then per tile of
+// ext_cap / width reads the extension and the chase launches, on one stream.
+// Returns the first CUDA error, or cudaErrorInvalidValue where one read's
+// width exceeds the scratch.
 extern "C" int kart_fm_sensitive_scan(const void* occ_cp, const void* bwt_words,
                                       const void* L2, int primary, const void* reads,
                                       const void* rlens, int B, int width, int min_seed_len,
                                       int max_seeds, int max_trips, void* ext, long long ext_cap,
                                       void* out, void* stream) {
-  if (B <= 0) return 0;
-  if (width <= 0 || ext_cap < width) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaMemsetAsync(
-      out, 0, sizeof(int) * static_cast<size_t>(B) * (1 + 4 * static_cast<size_t>(max_seeds)), st);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const long long fit = ext_cap / width;  // reads a tile
-  const int tile = fit < B ? static_cast<int>(fit) : B;
-  for (int b0 = 0; b0 < B; b0 += tile) {
-    const int nb = min(tile, B - b0);
-    const long long n = static_cast<long long>(nb) * width;
-    fm_extend_kernel<<<static_cast<unsigned>((n + kExtThreads - 1) / kExtThreads), kExtThreads, 0,
-                         st>>>(
-        static_cast<const int4*>(occ_cp), static_cast<const uint4*>(bwt_words),
-        static_cast<const int*>(L2), primary, static_cast<const int*>(reads),
-        static_cast<const int*>(rlens), b0, nb, width, min_seed_len, static_cast<int2*>(ext));
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    fm_chase_kernel<<<(nb + kChaseReads - 1) / kChaseReads, kChaseThreads, 0, st>>>(
-        static_cast<const int2*>(ext), static_cast<const int*>(rlens), b0, nb, width, min_seed_len,
-        max_seeds, max_trips, static_cast<int*>(out));
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  return 0;
+  return launch_sensitive_scan<int>(occ_cp, bwt_words, L2, primary, reads, rlens, B, width,
+                                    min_seed_len, max_seeds, max_trips, ext, ext_cap, out, stream);
+}
+
+extern "C" int kart_fm_sensitive_scan_i64(const void* occ_cp, const void* bwt_words,
+                                          const void* L2, long long primary, const void* reads,
+                                          const void* rlens, int B, int width, int min_seed_len,
+                                          int max_seeds, int max_trips, void* ext,
+                                          long long ext_cap, void* out, void* stream) {
+  return launch_sensitive_scan<long long>(occ_cp, bwt_words, L2, primary, reads, rlens, B, width,
+                                          min_seed_len, max_seeds, max_trips, ext, ext_cap, out,
+                                          stream);
 }

@@ -1,16 +1,19 @@
-// Occurrence expansion, full-SA resolution and stream packing for Hopper
-// (sm_90a): from a packed seed array to the one int32 stream the host
-// downloads.
+// Occurrence expansion, SA resolution and stream packing for Hopper
+// (sm_90a): from a packed seed array to the stream the host downloads.
 //
-// Replaces kart_tpu/ops/resolve.py::expand_resolve with the full-SA lookup
-// followed by kart_tpu/ops/pack.py::_pack_stream (plain and pack16
-// layouts), which XLA ran as cumsums, a repeat, gathers and a concatenate.
-// The plain PyTorch version is kart_tpu_torch/ops/resolve.py::
+// Replaces kart_tpu/ops/resolve.py::expand_resolve with either lookup of
+// kart_tpu/ops/pack.py::_resolver (the full-SA gather, or the sampled-SA
+// walk fm_search.sa_walk) followed by kart_tpu/ops/pack.py::_pack_stream
+// (plain and pack16 layouts, or the (cnts, meta, gpos) arrays of an int64
+// index), which XLA ran as cumsums, a repeat, gathers, a while-loop and a
+// concatenate.  The plain PyTorch version is kart_tpu_torch/ops/resolve.py::
 // resolve_pack_plain (expand_resolve_plain, then pack_stream_plain).  The
 // seed array is the funnel's (B, 2 + 4*S) [n_seeds | ok | rpos | slen | k0 |
-// freq] or the FM stepper's (B, 1 + 4*S) without the ok column.
+// freq] or the FM stepper's (B, 1 + 4*S) without the ok column, in the index
+// type P (int, or long long for an int64 index).
 //
-// A memset and two launches on one stream:
+// Through the full SA of an int32 index, a memset and two launches on one
+// stream:
 //   totals  grid-wide, 256 reads a block.  The block reads its 256 x S tile
 //           of freqs with S consecutive threads to a read's row (coalesced
 //           within the row, four independent loads a thread in flight) and
@@ -37,11 +40,38 @@
 // read's occurrences, lets a thread own a whole output word, so the pack16
 // pairs need no atomics.
 //
+// Through the sampled SA, or on an int64 index, the positions come from
+// passes of their own between totals and emit (kart_resolve_rows, then the
+// walk, then kart_resolve_finish; kernels.resolve_pack makes the calls):
+//   rows    one thread per stream slot j: its read (or -1 past the last
+//           fitting read) and its row k0 + off as above; through an int64
+//           full SA it writes gpos[j] = sa_full[row] (or -1) at once;
+//   walk    csrc/sa_walk.cu's kernel on the H rows (a slot past the last
+//           read walks row 0, a sample, at once), into the positions;
+//   flag    one thread per slot: -1 past the last read, and for a slot
+//           whose walk max_steps cut, its read's count set to -tot-1 (every
+//           such slot of a read writes the same value, so no atomic);
+//   emit    the count and meta words only (the positions are in the stream
+//           already, int32, or in their own array, int64, with the counts
+//           and meta in the 32-bit layout).
+// A read's flag is known only once every walk of it has ended, and a pack16
+// count word holds two reads, so the flags cannot be written where emit
+// writes the count words.  Of the two orders (walk inside emit and flag
+// with atomics, then write the counts in a last pass; or walk first, then
+// flag, then emit) this takes the second: the walk is the same kernel that
+// resolves rows alone, held against its plain version and timed as one;
+// no walking thread holds the slot search's registers; and emit reads the
+// counts as they finally stand, with no atomics.  It costs three launches
+// and 9 to 13 bytes of scratch a slot.  The slot's meta and position stay
+// in the stream for a flagged read, as kart_tpu's do.
+//
 // What bounds it on this card: the emit pass reads about 2H words of
 // sa_full at random (H = 96,000 for a 32,000-read group) and writes the
 // stream once: about 10 MB in all, so the two launches' latencies and the
 // emit pass's dependent chain (binary search, seed walk, sa_full) weigh more
-// than the bytes.
+// than the bytes.  Through the sampled SA the walk of the H slots' rows
+// bounds the call: its longest walk, some 32 ln H dependent loads that hit
+// L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,8 +81,9 @@ namespace {
 constexpr int kScanBlock = 256;  // reads (and threads) per block of the totals pass
 constexpr int kTileLoads = 4;    // freq loads a thread of the totals pass has in flight
 
+template <typename P>
 struct Seeds {
-  const int* packed;  // (B, cols)
+  const P* packed;  // (B, cols)
   int cols;
   int c_rpos;  // first rpos column: 1 (FM stepper) or 2 (funnel)
   int has_ok;
@@ -60,11 +91,13 @@ struct Seeds {
   int B;
 };
 
-__device__ __forceinline__ int n_used(const Seeds& s, int b) {
-  return min(max(s.packed[(size_t)b * s.cols], 0), s.S);
+template <typename P>
+__device__ __forceinline__ int n_used(const Seeds<P>& s, int b) {
+  return min(max(static_cast<int>(s.packed[(size_t)b * s.cols]), 0), s.S);
 }
 
-__device__ __forceinline__ int seed_field(const Seeds& s, int b, int field, int k) {
+template <typename P>
+__device__ __forceinline__ P seed_field(const Seeds<P>& s, int b, int field, int k) {
   return s.packed[(size_t)b * s.cols + s.c_rpos + field * s.S + k];
 }
 
@@ -79,7 +112,8 @@ constexpr unsigned long long kInclusive = 2ull << 32;  // the sum up to and with
 
 // state[0] is the ticket counter, state[1 + b] block b's word; all zero at
 // the launch.
-__global__ void __launch_bounds__(kScanBlock) totals_kernel(Seeds s, int H,
+template <typename P>
+__global__ void __launch_bounds__(kScanBlock) totals_kernel(Seeds<P> s, int H,
                                                             unsigned long long* state,
                                                             int* read_end, int* cnts) {
   __shared__ int s_warp[kScanBlock / 32];
@@ -108,7 +142,8 @@ __global__ void __launch_bounds__(kScanBlock) totals_kernel(Seeds s, int H,
       r[j] = min(e / s.S, kScanBlock - 1);
       const int k = e - r[j] * s.S;
       v[j] = e < n_el && k < s_n[r[j]]
-                 ? __ldg(s.packed + (size_t)(row0 + r[j]) * s.cols + c_freq + k) : 0;
+                 ? static_cast<int>(__ldg(s.packed + (size_t)(row0 + r[j]) * s.cols + c_freq + k))
+                 : 0;
     }
 #pragma unroll
     for (int j = 0; j < kTileLoads; ++j)
@@ -166,41 +201,88 @@ __global__ void __launch_bounds__(kScanBlock) totals_kernel(Seeds s, int H,
   cnts[b] = ok ? tot : -tot - 1;
 }
 
-// Slot j of the stream: meta and gpos, or -1 for both past the last
-// fitting read.  want_gpos selects which one is computed.
-__device__ int slot_value(const Seeds& s, const int* __restrict__ read_end,
-                          const int* __restrict__ sa_full, int H, int j, bool want_gpos) {
-  if (s.B == 0 || j >= read_end[s.B - 1]) return -1;
-  int a = 0, b = s.B - 1;
-  while (a < b) {
-    const int m = (a + b) >> 1;
-    if (read_end[m] > j) b = m; else a = m + 1;
+// Slot j of the stream: false past the last fitting read; else its read a,
+// its seed k and the offset of its row in the seed's SA interval.
+template <typename P>
+__device__ bool find_slot(const Seeds<P>& s, const int* __restrict__ read_end, int H, int j,
+                          int& a, int& k, int& off) {
+  if (s.B == 0 || j >= read_end[s.B - 1]) return false;
+  int lo = 0, hi = s.B - 1;
+  while (lo < hi) {
+    const int m = (lo + hi) >> 1;
+    if (read_end[m] > j) hi = m; else lo = m + 1;
   }
-  if (read_end[a] > H) return -1;
-  int off = j - (a ? read_end[a - 1] : 0);
+  a = lo;
+  if (read_end[a] > H) return false;
+  off = j - (a ? read_end[a - 1] : 0);
   const int n = n_used(s, a);
-  for (int k = 0; k < n; ++k) {
-    const int f = seed_field(s, a, 3, k);
-    if (off < f) {
-      if (!want_gpos) return seed_field(s, a, 0, k) | (seed_field(s, a, 1, k) << 16);
-      return __ldg(sa_full + seed_field(s, a, 2, k) + off);
-    }
+  for (k = 0; k < n; ++k) {
+    const int f = static_cast<int>(seed_field(s, a, 3, k));
+    if (off < f) return true;
     off -= f;
   }
-  return -1;  // not reached for non-negative freqs
+  return false;  // not reached for non-negative freqs
+}
+
+// Slot j of the stream: meta, or gpos through the full SA; -1 for both past
+// the last fitting read.  want_gpos selects which one is computed.
+template <typename P>
+__device__ int slot_value(const Seeds<P>& s, const int* __restrict__ read_end,
+                          const int* __restrict__ sa_full, int H, int j, bool want_gpos) {
+  int a, k, off;
+  if (!find_slot(s, read_end, H, j, a, k, off)) return -1;
+  if (!want_gpos)
+    return static_cast<int>(seed_field(s, a, 0, k)) | (static_cast<int>(seed_field(s, a, 1, k)) << 16);
+  return __ldg(sa_full + static_cast<int>(seed_field(s, a, 2, k)) + off);
 }
 
 __device__ __forceinline__ unsigned meta16(int meta) {
   return (unsigned)((meta & 0xFF) | ((((meta >> 16) & 0xFFFF) - 1) << 8)) & 0xFFFFu;
 }
 
-__global__ void emit_kernel(Seeds s, const int* __restrict__ read_end,
+// The read of every slot (-1 past the last fitting read) and its row; with
+// an int64 full SA (sa_full given) the position itself instead of the row.
+template <typename P>
+__global__ void rows_kernel(Seeds<P> s, const int* __restrict__ read_end, int H,
+                            const P* __restrict__ sa_full, P* __restrict__ rows,
+                            int* __restrict__ slot_read, P* __restrict__ gpos) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= H) return;
+  int a, k, off;
+  const bool valid = find_slot(s, read_end, H, j, a, k, off);
+  slot_read[j] = valid ? a : -1;
+  const P row = valid ? seed_field(s, a, 2, k) + off : P(0);
+  if (sa_full)
+    gpos[j] = valid ? __ldg(sa_full + row) : P(-1);
+  else
+    rows[j] = row;
+}
+
+// After the walk: -1 past the last fitting read, and the count of a read
+// with a walk that max_steps cut set to -tot-1.
+template <typename P>
+__global__ void flag_kernel(const int* __restrict__ read_end, const int* __restrict__ slot_read,
+                            const unsigned char* __restrict__ done, int H, int* cnts,
+                            P* __restrict__ gpos) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= H) return;
+  const int a = slot_read[j];
+  if (a < 0)
+    gpos[j] = -1;
+  else if (!done[j])
+    cnts[a] = -(read_end[a] - (a ? read_end[a - 1] : 0)) - 1;
+}
+
+// The count words, the meta words and, with_gpos (the full SA of an int32
+// index), the position words.
+template <typename P>
+__global__ void emit_kernel(Seeds<P> s, const int* __restrict__ read_end,
                             const int* __restrict__ cnts, const int* __restrict__ sa_full,
-                            int H, int pack16, int* __restrict__ out) {
+                            int H, int pack16, int with_gpos, int* __restrict__ out) {
   const int nc = pack16 ? s.B / 2 : s.B;
   const int nm = pack16 ? H / 2 : H;
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= nc + nm + H) return;
+  if (w >= nc + nm + (with_gpos ? H : 0)) return;
   int v;
   if (w < nc) {
     v = pack16 ? (int)(((unsigned)cnts[2 * w] & 0xFFFFu) | ((unsigned)cnts[2 * w + 1] << 16))
@@ -225,6 +307,83 @@ __global__ void emit_kernel(Seeds s, const int* __restrict__ read_end,
 // 8-byte words of scan state that kart_resolve_pack needs for B reads.
 extern "C" int kart_resolve_scan_words(int B) { return 1 + (B + kScanBlock - 1) / kScanBlock; }
 
+namespace {
+
+constexpr int kThreads = 256;  // of the emit, rows and flag passes
+
+template <typename P>
+Seeds<P> seeds_of(const void* packed, int B, int has_ok, int max_seeds) {
+  Seeds<P> s;
+  s.packed = static_cast<const P*>(packed);
+  s.cols = 1 + (has_ok ? 1 : 0) + 4 * max_seeds;
+  s.c_rpos = has_ok ? 2 : 1;
+  s.has_ok = has_ok;
+  s.S = max_seeds;
+  s.B = B;
+  return s;
+}
+
+// The memset and the totals pass.
+template <typename P>
+cudaError_t totals(const Seeds<P>& s, int H, void* read_end, void* cnts, void* scan_state,
+                   cudaStream_t st) {
+  if (s.B == 0) return cudaSuccess;
+  const int n_blocks = (s.B + kScanBlock - 1) / kScanBlock;
+  const cudaError_t err = cudaMemsetAsync(scan_state, 0, (size_t)(1 + n_blocks) * 8, st);
+  if (err != cudaSuccess) return err;
+  totals_kernel<P><<<n_blocks, kScanBlock, 0, st>>>(
+      s, H, static_cast<unsigned long long*>(scan_state), static_cast<int*>(read_end),
+      static_cast<int*>(cnts));
+  return cudaGetLastError();
+}
+
+// The emit pass: the count and meta words and, through an int32 full SA,
+// the position words.
+template <typename P>
+cudaError_t emit(const Seeds<P>& s, int H, int pack16, const void* read_end, const void* cnts,
+                 const void* sa_full, void* out, cudaStream_t st) {
+  const long long n_words =
+      (pack16 ? s.B / 2 + H / 2 : s.B + H) + (sa_full ? (long long)H : 0);
+  if (n_words == 0) return cudaSuccess;
+  emit_kernel<P><<<(unsigned)((n_words + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      s, static_cast<const int*>(read_end), static_cast<const int*>(cnts),
+      static_cast<const int*>(sa_full), H, pack16, sa_full ? 1 : 0, static_cast<int*>(out));
+  return cudaGetLastError();
+}
+
+template <typename P>
+int resolve_rows(const void* packed, int B, int has_ok, int max_seeds, const void* sa_full, int H,
+                 void* read_end, void* cnts, void* scan_state, void* rows, void* slot_read,
+                 void* gpos, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Seeds<P> s = seeds_of<P>(packed, B, has_ok, max_seeds);
+  cudaError_t err = totals(s, H, read_end, cnts, scan_state, st);
+  if (err != cudaSuccess || H == 0) return (int)err;
+  rows_kernel<P><<<(H + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      s, static_cast<const int*>(read_end), H, static_cast<const P*>(sa_full),
+      static_cast<P*>(rows), static_cast<int*>(slot_read), static_cast<P*>(gpos));
+  return (int)cudaGetLastError();
+}
+
+template <typename P>
+int resolve_finish(const void* packed, int B, int has_ok, int max_seeds, int H, int pack16,
+                   const void* read_end, void* cnts, const void* slot_read, const void* done,
+                   void* gpos, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (done && H > 0) {
+    flag_kernel<P><<<(H + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        static_cast<const int*>(read_end), static_cast<const int*>(slot_read),
+        static_cast<const unsigned char*>(done), H, static_cast<int*>(cnts),
+        static_cast<P*>(gpos));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)emit(seeds_of<P>(packed, B, has_ok, max_seeds), H, pack16, read_end, cnts, nullptr,
+                   out, st);
+}
+
+}  // namespace
+
 // packed: (B, cols) int32 seeds, cols = 1 + has_ok + 4*max_seeds; sa_full:
 // the full SA, int32; read_end, cnts: (B,) int32 scratch; scan_state:
 // kart_resolve_scan_words(B) 8-byte words of scratch; out: (B + 2H,) int32,
@@ -234,28 +393,50 @@ extern "C" int kart_resolve_pack(const void* packed, int B, int has_ok, int max_
                                  const void* sa_full, int H, int pack16, void* read_end,
                                  void* cnts, void* scan_state, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Seeds s;
-  s.packed = static_cast<const int*>(packed);
-  s.cols = 1 + (has_ok ? 1 : 0) + 4 * max_seeds;
-  s.c_rpos = has_ok ? 2 : 1;
-  s.has_ok = has_ok;
-  s.S = max_seeds;
-  s.B = B;
-  if (B > 0) {
-    const int n_blocks = (B + kScanBlock - 1) / kScanBlock;
-    cudaError_t err = cudaMemsetAsync(scan_state, 0, (size_t)(1 + n_blocks) * 8, st);
-    if (err != cudaSuccess) return (int)err;
-    totals_kernel<<<n_blocks, kScanBlock, 0, st>>>(
-        s, H, static_cast<unsigned long long*>(scan_state), static_cast<int*>(read_end),
-        static_cast<int*>(cnts));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long n_words = (pack16 ? B / 2 + H / 2 : B + H) + (long long)H;
-  if (n_words == 0) return 0;
-  const int threads = 256;
-  emit_kernel<<<(unsigned)((n_words + threads - 1) / threads), threads, 0, st>>>(
-      s, static_cast<const int*>(read_end), static_cast<const int*>(cnts),
-      static_cast<const int*>(sa_full), H, pack16, static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const Seeds<int> s = seeds_of<int>(packed, B, has_ok, max_seeds);
+  const cudaError_t err = totals(s, H, read_end, cnts, scan_state, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)emit(s, H, pack16, read_end, cnts, sa_full, out, st);
+}
+
+// The passes before the walk (the memset, totals, rows) of a stream that is
+// not kart_resolve_pack's: through the sampled SA (sa_full null; rows gets
+// each slot's row), or through an int64 full SA (gpos gets each slot's
+// position).  packed, read_end, cnts and scan_state as kart_resolve_pack's;
+// slot_read: (H,) int32, each slot's read or -1; rows and gpos (H,) of the
+// index type (gpos: the stream's last H words for an int32 stream).  The
+// _i64 entry takes int64 seeds and positions.
+extern "C" int kart_resolve_rows(const void* packed, int B, int has_ok, int max_seeds,
+                                 const void* sa_full, int H, void* read_end, void* cnts,
+                                 void* scan_state, void* rows, void* slot_read, void* gpos,
+                                 void* stream) {
+  return resolve_rows<int>(packed, B, has_ok, max_seeds, sa_full, H, read_end, cnts, scan_state,
+                           rows, slot_read, gpos, stream);
+}
+
+extern "C" int kart_resolve_rows_i64(const void* packed, int B, int has_ok, int max_seeds,
+                                     const void* sa_full, int H, void* read_end, void* cnts,
+                                     void* scan_state, void* rows, void* slot_read, void* gpos,
+                                     void* stream) {
+  return resolve_rows<long long>(packed, B, has_ok, max_seeds, sa_full, H, read_end, cnts,
+                                 scan_state, rows, slot_read, gpos, stream);
+}
+
+// The passes after the walk: with done (the walk's (H,) bytes) the flag
+// pass, then emit's count and meta words into out: (B + H,) int32, or (B/2
+// + H/2,) with pack16, followed in an int32 stream by the H positions.
+extern "C" int kart_resolve_finish(const void* packed, int B, int has_ok, int max_seeds, int H,
+                                   int pack16, const void* read_end, void* cnts,
+                                   const void* slot_read, const void* done, void* gpos, void* out,
+                                   void* stream) {
+  return resolve_finish<int>(packed, B, has_ok, max_seeds, H, pack16, read_end, cnts, slot_read,
+                             done, gpos, out, stream);
+}
+
+extern "C" int kart_resolve_finish_i64(const void* packed, int B, int has_ok, int max_seeds,
+                                       int H, const void* read_end, void* cnts,
+                                       const void* slot_read, const void* done, void* gpos,
+                                       void* out, void* stream) {
+  return resolve_finish<long long>(packed, B, has_ok, max_seeds, H, 0, read_end, cnts, slot_read,
+                                   done, gpos, out, stream);
 }

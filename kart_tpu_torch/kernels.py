@@ -26,9 +26,11 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", f)
-    for f in ("fm_seed_scan.cu", "nw.cu", "kmer_funnel.cu", "resolve_pack.cu", "row_gather.cu")
+    for f in ("fm_seed_scan.cu", "nw.cu", "kmer_funnel.cu", "resolve_pack.cu", "row_gather.cu",
+              "sa_walk.cu")
 )
-HEADERS = (os.path.join(_PKG, "csrc", "window.cuh"),)  # included by the sources
+# included by the sources
+HEADERS = tuple(os.path.join(_PKG, "csrc", f) for f in ("window.cuh", "fm_index.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkarttorch.so")
 NVCC_FLAGS = (
@@ -96,14 +98,19 @@ def _load():
     if _lib is None:
         build()
         lib = ctypes.CDLL(LIB_PATH)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kart_fm_seed_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, p, p]
-        lib.kart_fm_seed_scan.restype = i
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for name, prim in (("", i), ("_i64", ll)):
+            fn = getattr(lib, "kart_fm_seed_scan" + name)
+            fn.argtypes = [p, p, p, prim, p, p, i, i, i, i, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_fm_sensitive_scan" + name)
+            fn.argtypes = [p, p, p, prim, p, p, i, i, i, i, i, p, ll, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_sa_walk" + name)
+            fn.argtypes = [p, p, p, p, prim, p, i, i, p, p, p]
+            fn.restype = i
         lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
         lib.kart_nw_planes.restype = i
-        lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, ctypes.c_longlong,
-                                               p, p]
-        lib.kart_fm_sensitive_scan.restype = i
         lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
                                          p, p, ctypes.c_longlong, p, p, p, p]
         lib.kart_kmer_funnel.restype = i
@@ -113,6 +120,14 @@ def _load():
         lib.kart_unpack_reads.restype = i
         lib.kart_resolve_pack.argtypes = [p, i, i, i, p, i, i, p, p, p, p, p]
         lib.kart_resolve_pack.restype = i
+        for name in ("", "_i64"):
+            fn = getattr(lib, "kart_resolve_rows" + name)
+            fn.argtypes = [p, i, i, i, p, i, p, p, p, p, p, p, p]
+            fn.restype = i
+        lib.kart_resolve_finish.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p]
+        lib.kart_resolve_finish.restype = i
+        lib.kart_resolve_finish_i64.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p]
+        lib.kart_resolve_finish_i64.restype = i
         lib.kart_resolve_scan_words.argtypes = [i]
         lib.kart_resolve_scan_words.restype = i
         lib.kart_row_gather.argtypes = [p, p, i, p, p]
@@ -139,27 +154,38 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
+def _check_fm(fm, dev) -> tuple[torch.dtype, str]:
+    """Check an FMIndexTensors on the card; returns its index dtype and the
+    suffix of the C entries of that type ("" for int32, "_i64")."""
+    idt = fm.index_dtype
+    if idt not in (torch.int32, torch.int64):
+        raise TypeError(f"FM index: expected an int32 or int64 index, got {idt}")
+    n_blocks = fm.occ_cp.numel() // 4
+    _check("occ_cp", fm.occ_cp, idt, (4 * n_blocks,), dev, align=16)
+    _check("bwt_words", fm.bwt_words, torch.int32, (8 * n_blocks,), dev, align=16)
+    _check("L2", fm.L2, idt, (5,), dev)
+    _check("sa_samples", fm.sa_samples, idt, (fm.sa_samples.shape[0],), dev)
+    return idt, "" if idt == torch.int32 else "_i64"
+
+
 def fm_seed_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: int):
-    """csrc/fm_seed_scan.cu: packed FastMode seeds (B, 1 + 4*max_seeds)
-    int32 for reads (B, l_max) int32 and rlens (B,) int32 on the card.  A
-    group of 16 lanes steps each read; the launch is
-    refused where a block's reads of l_max bases exceed its shared memory
-    (l_max in the tens of thousands)."""
+    """csrc/fm_seed_scan.cu: packed FastMode seeds (B, 1 + 4*max_seeds) in
+    the index dtype (int32, or int64) for reads (B, l_max) int32 and rlens
+    (B,) int32 on the card.  A group of 16 lanes steps each read; the launch
+    is refused where a block's reads of l_max bases exceed its shared
+    memory (l_max in the tens of thousands)."""
     dev = reads.device
     B = reads.shape[0]
     _check("reads", reads, torch.int32, (B, l_max), dev)
     _check("rlens", rlens, torch.int32, (B,), dev)
-    n_blocks = fm.occ_cp.numel() // 4
-    _check("occ_cp", fm.occ_cp, torch.int32, (4 * n_blocks,), dev, align=16)
-    _check("bwt_words", fm.bwt_words, torch.int32, (8 * n_blocks,), dev, align=16)
-    _check("L2", fm.L2, torch.int32, (5,), dev)
-    out = torch.empty((B, 1 + 4 * max_seeds), dtype=torch.int32, device=dev)
+    idt, sfx = _check_fm(fm, dev)
+    out = torch.empty((B, 1 + 4 * max_seeds), dtype=idt, device=dev)
     if B == 0:
         return out
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.kart_fm_seed_scan(
+        rc = getattr(lib, "kart_fm_seed_scan" + sfx)(
             fm.occ_cp.data_ptr(), fm.bwt_words.data_ptr(), fm.L2.data_ptr(),
             int(fm.primary), reads.data_ptr(), rlens.data_ptr(), B, l_max,
             int(min_seed_len), int(max_seeds), out.data_ptr(), stream,
@@ -197,8 +223,8 @@ def funnel_tile_rows(B: int, l_max: int, slab_rows: int) -> int:
 
 def fm_sensitive_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_max: int):
     """csrc/fm_seed_scan.cu (fm_extend_kernel, fm_chase_kernel): packed
-    SensitiveMode seeds (B, 1 + 4*max_seeds) int32 for reads (B, width)
-    int32 and rlens (B,) int32 on the card.  Every start of every read is
+    SensitiveMode seeds (B, 1 + 4*max_seeds) in the index dtype for reads
+    (B, width) int32 and rlens (B,) int32 on the card.  Every start of every read is
     extended in parallel, then a warp a read chains the extensions;
     reads go through in tiles of sens_scratch_rows(B, width).  `l_max` sets
     the trip limit, 31 * (l_max // min_seed_len + 2), as in kart_tpu."""
@@ -206,19 +232,16 @@ def fm_sensitive_scan(fm, reads, rlens, min_seed_len: int, *, max_seeds: int, l_
     B, width = reads.shape
     _check("reads", reads, torch.int32, (B, width), dev)
     _check("rlens", rlens, torch.int32, (B,), dev)
-    n_blocks = fm.occ_cp.numel() // 4
-    _check("occ_cp", fm.occ_cp, torch.int32, (4 * n_blocks,), dev, align=16)
-    _check("bwt_words", fm.bwt_words, torch.int32, (8 * n_blocks,), dev, align=16)
-    _check("L2", fm.L2, torch.int32, (5,), dev)
-    out = torch.empty((B, 1 + 4 * max_seeds), dtype=torch.int32, device=dev)
+    idt, sfx = _check_fm(fm, dev)
+    out = torch.empty((B, 1 + 4 * max_seeds), dtype=idt, device=dev)
     if B == 0:
         return out
     cap = sens_scratch_rows(B, width) * width
-    ext = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+    ext = torch.empty((cap, 2), dtype=idt, device=dev)  # an int2 or longlong2 a position
     max_trips = 31 * (l_max // max(int(min_seed_len), 1) + 2)
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.kart_fm_sensitive_scan(
+        rc = getattr(lib, "kart_fm_sensitive_scan" + sfx)(
             fm.occ_cp.data_ptr(), fm.bwt_words.data_ptr(), fm.L2.data_ptr(),
             int(fm.primary), reads.data_ptr(), rlens.data_ptr(), B, width,
             int(min_seed_len), int(max_seeds), max_trips, ext.data_ptr(), cap, out.data_ptr(),
@@ -380,34 +403,114 @@ unpack_reads.launches = 0
 
 
 def resolve_pack(sa_full, packed, *, max_seeds: int, has_ok: bool, occ_budget: int,
-                 pack16: bool):
-    """csrc/resolve_pack.cu: the packed int32 resolved stream of a packed
-    seed array on the card (the funnel's, has_ok, or the FM stepper's)."""
+                 pack16: bool, fm=None, max_steps: int = 4096):
+    """csrc/resolve_pack.cu: the resolved stream of a packed seed array on
+    the card (the funnel's, has_ok, or the FM stepper's), through the full
+    SA sa_full or, where sa_full is None, through the sampled SA of fm: the
+    rows of the stream's slots are walked by csrc/sa_walk.cu's kernel
+    (counted in sa_walk.launches), and a walk cut at max_steps flags its
+    read.  Seeds and positions in int32 give one int32 array; in int64 (an
+    int64 index) the tuple (cnts, meta, gpos) in the 32-bit layout, gpos
+    int64."""
     dev = packed.device
     B = packed.shape[0]
     H = int(occ_budget)
-    _check("packed", packed, torch.int32, (B, 1 + int(has_ok) + 4 * max_seeds), dev)
-    _check("sa_full", sa_full, torch.int32, (sa_full.shape[0],), dev)
-    if pack16 and (B % 2 or H % 2):
-        raise ValueError(f"pack16 needs an even batch and budget, got B={B} H={H}")
-    n = (B // 2 + H // 2 + H) if pack16 else (B + 2 * H)
+    pdt = packed.dtype
+    if pdt not in (torch.int32, torch.int64):
+        raise TypeError(f"packed: expected int32 or int64 seeds, got {pdt}")
+    _check("packed", packed, pdt, (B, 1 + int(has_ok) + 4 * max_seeds), dev)
+    if sa_full is not None:
+        _check("sa_full", sa_full, pdt, (sa_full.shape[0],), dev)
+    else:
+        if fm is None:
+            raise ValueError("resolve_pack: neither a full SA nor an FM index to walk")
+        if _check_fm(fm, dev)[0] != pdt:
+            raise TypeError(f"resolve_pack: {pdt} seeds on an {fm.index_dtype} index")
+    wide = pdt == torch.int64
+    if pack16 and (wide or B % 2 or H % 2):
+        raise ValueError(f"pack16 needs int32 seeds, an even batch and budget, got {pdt} B={B}"
+                         f" H={H}")
+    n = (B // 2 + H // 2 + H) if pack16 else (B + H if wide else B + 2 * H)
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     read_end = torch.empty((B,), dtype=torch.int32, device=dev)
     cnts = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _load()
     scan_state = torch.empty((lib.kart_resolve_scan_words(B),), dtype=torch.int64, device=dev)
+    head = (packed.data_ptr(), B, int(has_ok), max_seeds)
     with torch.cuda.device(dev):
-        rc = lib.kart_resolve_pack(
-            packed.data_ptr(), B, int(has_ok), max_seeds, sa_full.data_ptr(), H, int(pack16),
-            read_end.data_ptr(), cnts.data_ptr(), scan_state.data_ptr(), out.data_ptr(),
-            _stream(dev),
-        )
-    _raise_on(rc, "resolve_pack")
+        if not wide and sa_full is not None:  # one call: totals, then emit with the gather
+            rc = lib.kart_resolve_pack(*head, sa_full.data_ptr(), H, int(pack16),
+                                       read_end.data_ptr(), cnts.data_ptr(),
+                                       scan_state.data_ptr(), out.data_ptr(), _stream(dev))
+            _raise_on(rc, "resolve_pack")
+        else:
+            # the positions: their own int64 array, or the int32 stream's last H words
+            gpos = torch.empty((H,), dtype=torch.int64, device=dev) if wide else out[n - H:]
+            slot_read = torch.empty((H,), dtype=torch.int32, device=dev)
+            rows = torch.empty((H,), dtype=pdt, device=dev) if sa_full is None else None
+            done = torch.empty((H,), dtype=torch.bool, device=dev) if sa_full is None else None
+            sfx = "_i64" if wide else ""
+            rc = getattr(lib, "kart_resolve_rows" + sfx)(
+                *head, None if sa_full is None else sa_full.data_ptr(), H, read_end.data_ptr(),
+                cnts.data_ptr(), scan_state.data_ptr(), None if rows is None else rows.data_ptr(),
+                slot_read.data_ptr(), gpos.data_ptr(), _stream(dev))
+            _raise_on(rc, "resolve_pack")
+            if rows is not None and H:
+                _walk(fm, rows, max_steps, gpos, done)
+            tail = (None if done is None else done.data_ptr(), gpos.data_ptr(), out.data_ptr(),
+                    _stream(dev))
+            if wide:
+                rc = lib.kart_resolve_finish_i64(*head, H, read_end.data_ptr(), cnts.data_ptr(),
+                                                 slot_read.data_ptr(), *tail)
+            else:
+                rc = lib.kart_resolve_finish(*head, H, int(pack16), read_end.data_ptr(),
+                                             cnts.data_ptr(), slot_read.data_ptr(), *tail)
+            _raise_on(rc, "resolve_pack")
     resolve_pack.launches += 1
+    if wide:
+        return out[:B], out[B:], gpos
     return out
 
 
 resolve_pack.launches = 0
+
+
+def _walk(fm, rows, max_steps: int, pos, done) -> None:
+    """Launch csrc/sa_walk.cu's kernel on rows (n,) of the index dtype, into
+    pos (n,) of that dtype and done (n,) bool, all on the card."""
+    n = rows.shape[0]
+    lib = _load()
+    sfx = "" if fm.index_dtype == torch.int32 else "_i64"
+    with torch.cuda.device(rows.device):
+        rc = getattr(lib, "kart_sa_walk" + sfx)(
+            fm.occ_cp.data_ptr(), fm.bwt_words.data_ptr(), fm.L2.data_ptr(),
+            fm.sa_samples.data_ptr(), int(fm.primary), rows.data_ptr(), n, int(max_steps),
+            pos.data_ptr(), done.data_ptr(), _stream(rows.device))
+    _raise_on(rc, "sa_walk")
+    sa_walk.launches += 1
+
+
+def sa_walk(fm, rows, *, max_steps: int = 4096):
+    """csrc/sa_walk.cu: (pos, done) of the sampled-SA walk of rows (N,) on
+    the card, a thread a row: pos = steps + sa_samples[row >> 5] also where
+    max_steps cut the walk, done (bool) where it reached a sample.  Rows are
+    walked in the index dtype; pos comes back in the wider of the rows' and
+    the index's dtype, as the plain version's."""
+    dev = rows.device
+    n = rows.shape[0]
+    if rows.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"rows: expected int32 or int64, got {rows.dtype}")
+    idt, _ = _check_fm(fm, dev)
+    k = rows.to(idt).contiguous()
+    _check("rows", k, idt, (n,), dev)
+    pos = torch.empty((n,), dtype=idt, device=dev)
+    done = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n:
+        _walk(fm, k, max_steps, pos, done)
+    return pos.to(torch.promote_types(rows.dtype, idt)), done
+
+
+sa_walk.launches = 0
 
 
 def row_gather(table, rid):

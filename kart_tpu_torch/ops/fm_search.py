@@ -1,16 +1,20 @@
-"""FM-index seeding on PyTorch tensors: FastMode and SensitiveMode.
+"""FM-index seeding and sampled-SA resolution on PyTorch tensors.
 
 Counterpart of `kart_tpu/ops/fm_search.py` (FMIndexArrays, occ4,
-_count4_word, seed_scan, sensitive_scan).  `seed_scan` (FastMode, Illumina)
-and `sensitive_scan` (SensitiveMode, PacBio) return the same packed
-(B, 1 + 4*max_seeds) int32 array as the JAX functions.  On CPU tensors they
-run the plain PyTorch versions below; on CUDA tensors they launch the
-hand-written kernels of `csrc/fm_seed_scan.cu` (kernels.fm_seed_scan,
-kernels.fm_sensitive_scan).
+_count4_word, bwt_char, inv_psi, seed_scan, sensitive_scan, sa_walk).
+`seed_scan` (FastMode, Illumina) and `sensitive_scan` (SensitiveMode,
+PacBio) return the same packed (B, 1 + 4*max_seeds) array as the JAX
+functions, in the index dtype; `sa_walk` resolves SA rows to text positions
+through the sampled SA.  On CPU tensors they run the plain PyTorch versions
+below; on CUDA tensors they launch the hand-written kernels of
+`csrc/fm_seed_scan.cu` (kernels.fm_seed_scan, kernels.fm_sensitive_scan)
+and `csrc/sa_walk.cu` (kernels.sa_walk).
 
-Only the int32 index (seq_len < 2**31) is supported.  BWT words are uint32
-bit patterns held in int32 tensors; the plain version widens them to int64
-and masks with 0xFFFFFFFF because CPU torch has no uint32 shifts.
+The index dtype is int32 below 2**31 text bases and int64 at human scale
+(GenomeIndex.index_dtype): occ_cp, sa_samples, L2, the interval bounds and
+the packed seeds carry it.  BWT words are uint32 bit patterns held in int32
+tensors; the plain version widens them to int64 and masks with 0xFFFFFFFF
+because CPU torch has no uint32 shifts.
 """
 
 from __future__ import annotations
@@ -30,13 +34,14 @@ _M32 = 0xFFFFFFFF
 class FMIndexTensors:
     """Device-resident FM-index, flat like kart_tpu's FMIndexArrays.
 
-    occ_cp     (n_blocks*4,) int32  Occ counts at each 128-base checkpoint
+    occ_cp     (n_blocks*4,) idt    Occ counts at each 128-base checkpoint
     bwt_words  (n_blocks*8,) int32  uint32 BWT words, 16 bases each
-    sa_samples (n_sa,)       int32  sampled SA
-    L2         (5,)          int32  cumulative char counts
+    sa_samples (n_sa,)       idt    sampled SA, every 32nd row
+    L2         (5,)          idt    cumulative char counts
     primary, seq_len         Python ints
-    sa_full    (seq_len+1,)  int32  full SA, or None; it stays on the host
-                                    (no device code reads it yet)
+    sa_full    (seq_len+1,)  idt    full SA, or None; it stays on the host
+                                    (the mapper uploads it where it is used)
+    idt, the index dtype, is int32 or int64 (`index_dtype`).
     """
 
     occ_cp: torch.Tensor
@@ -52,13 +57,15 @@ class FMIndexTensors:
         """From numpy arrays keyed like FMIndexArrays' fields (for example
         `np.asarray` of each field of a kart_tpu FMIndexArrays)."""
         seq_len = int(arrays["seq_len"])
-        _require_int32_index(seq_len)
 
         def put(x, device=device):
+            """int32, uint32 bits as int32, or int64 kept as it is."""
             x = np.ascontiguousarray(x).reshape(-1)
             if x.dtype == np.uint32:
                 x = x.view(np.int32)
-            return torch.tensor(x.astype(np.int32, copy=False), device=device)
+            elif x.dtype != np.int64:
+                x = x.astype(np.int32, copy=False)
+            return torch.tensor(x, device=device)
 
         sa_full = arrays.get("sa_full")
         return cls(
@@ -72,12 +79,14 @@ class FMIndexTensors:
         )
 
     @classmethod
-    def from_genome_index(cls, gidx, device) -> FMIndexTensors:
-        """From a loaded kart_tpu GenomeIndex, as FMIndexArrays.
-        from_genome_index builds its arrays (the full SA ships with every
-        int32 index)."""
-        _require_int32_index(gidx.seq_len)
+    def from_genome_index(cls, gidx, device, with_full_sa=None) -> FMIndexTensors:
+        """From a loaded GenomeIndex, as FMIndexArrays.from_genome_index
+        builds its arrays, in the index's dtype.  with_full_sa=None (auto)
+        carries the full SA only below 2**31 text bases (at human scale it
+        is 17+ GB); without it gidx.sa_full is never read, so never built."""
         d = gidx.device_arrays
+        if with_full_sa is None:
+            with_full_sa = gidx.seq_len < 2**31
         return cls.from_numpy(
             dict(
                 occ_cp=d["occ_cp"],
@@ -86,18 +95,14 @@ class FMIndexTensors:
                 L2=d["L2"],
                 primary=d["primary"],
                 seq_len=d["seq_len"],
-                sa_full=gidx.sa_full,
+                sa_full=gidx.sa_full.astype(gidx.index_dtype, copy=False) if with_full_sa else None,
             ),
             device,
         )
 
-
-def _require_int32_index(seq_len: int) -> None:
-    if seq_len >= 2**31:
-        raise NotImplementedError(
-            "int64 FM-index (seq_len >= 2**31) is not ported yet "
-            "(ROADMAP Queue 1 item 8, frugal and human-scale slice)"
-        )
+    @property
+    def index_dtype(self) -> torch.dtype:
+        return self.L2.dtype
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +130,9 @@ def _count4_word(w: torch.Tensor) -> torch.Tensor:
 
 
 def occ4(fm: FMIndexTensors, k: torch.Tensor) -> torch.Tensor:
-    """bwt_occ4 for each row in k (N,) int32, 0 <= k <= seq_len: counts of
-    each code in bwt[0..k] -> (N, 4) int32."""
+    """bwt_occ4 for each row in k (N,), 0 <= k <= seq_len: counts of each
+    code in bwt[0..k] -> (N, 4) in the dtype of occ_cp and k (int32, or int64
+    at human scale)."""
     kk = k - (k >= fm.primary).to(k.dtype)
     blk = (kk >> 7).long()
     dev = k.device
@@ -148,10 +154,11 @@ def occ4(fm: FMIndexTensors, k: torch.Tensor) -> torch.Tensor:
 def seed_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max):
     """The FastMode scan of kart_tpu's seed_scan_impl, vectorised over the
     batch: l_max+1 uniform steps, one paired occ4 lookup per step.
-    reads (B, l_max) int32 codes (>3 ambiguous), rlens (B,) int32."""
+    reads (B, l_max) int32 codes (>3 ambiguous), rlens (B,) int32; the
+    interval bounds and the packed result are in the index dtype."""
     B = reads.shape[0]
     dev = reads.device
-    i32 = torch.int32
+    i32, idt = torch.int32, fm.index_dtype
     # extra trailing ambiguous column: the last extension of every read
     # ends (and emits) inside the fixed-trip loop
     reads = torch.nn.functional.pad(reads.to(i32), (0, 1), value=4)
@@ -160,9 +167,11 @@ def seed_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max):
     bidx = torch.arange(B, device=dev)
     zero = torch.zeros(B, dtype=i32, device=dev)
     active = torch.zeros(B, dtype=torch.bool, device=dev)
-    start, x0, x1, x2, n_seeds = (zero.clone() for _ in range(5))
-    # one dump column past max_seeds takes the dropped records
-    fields = torch.zeros((4, B, max_seeds + 1), dtype=i32, device=dev)
+    start, n_seeds = zero.clone(), zero.clone()
+    x0, x1, x2 = (torch.zeros(B, dtype=idt, device=dev) for _ in range(3))
+    # one dump column past max_seeds takes the dropped records; every field
+    # is held in the index dtype, as the packed result is
+    fields = torch.zeros((4, B, max_seeds + 1), dtype=idt, device=dev)
     for p in range(l_max + 1):
         c = reads[:, p]
         amb = c > 3
@@ -187,7 +196,7 @@ def seed_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max):
         length = p - start
         record = active & ext_fail & (length >= min_seed_len) & (x2 <= OCC_THR)
         slot = torch.where(record, n_seeds.clamp(max=max_seeds), max_seeds).long()
-        fields[:, bidx, slot] = torch.stack([start, length, x0, x2])
+        fields[:, bidx, slot] = torch.stack([start.to(idt), length.to(idt), x0, x2])
         n_seeds = n_seeds + record.to(i32)
 
         # state transition
@@ -199,13 +208,13 @@ def seed_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max):
         x2 = torch.where(cont, nx2, torch.where(can_start, L2[cs + 1] - L2[cs], x2))
         active = cont | can_start
     f = fields[:, :, :max_seeds]
-    return torch.cat([n_seeds[:, None], f[0], f[1], f[2], f[3]], dim=1)
+    return torch.cat([n_seeds[:, None].to(idt), f[0], f[1], f[2], f[3]], dim=1)
 
 
 def seed_scan(fm: FMIndexTensors, reads, rlens, min_seed_len, *, max_seeds, l_max):
     """Packed FastMode seeds [n_seeds | rpos | slen | k0 | freq] per read,
-    (B, 1 + 4*max_seeds) int32.  CPU tensors run the plain version, CUDA
-    tensors the kernel."""
+    (B, 1 + 4*max_seeds) in the index dtype.  CPU tensors run the plain
+    version, CUDA tensors the kernel."""
     reads = reads.to(torch.int32)
     if reads.device.type == "cuda":
         from ..kernels import fm_seed_scan
@@ -235,7 +244,7 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
     each lane started."""
     B = reads.shape[0]
     dev = reads.device
-    i32 = torch.int32
+    i32, idt = torch.int32, fm.index_dtype
     msl = int(min_seed_len)
     reads = torch.nn.functional.pad(reads.to(i32), (0, 1), value=4)
     L = reads.shape[1] - 1
@@ -245,10 +254,12 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
     bidx = torch.arange(B, device=dev)
     zero = torch.zeros(B, dtype=i32, device=dev)
     active = torch.zeros(B, dtype=torch.bool, device=dev)
-    p, s, x0, x2, n_seeds = (zero.clone() for _ in range(5))
-    x1 = torch.ones(B, dtype=i32, device=dev)
-    # one dump column past max_seeds takes the dropped records
-    fields = torch.zeros((4, B, max_seeds + 1), dtype=i32, device=dev)
+    p, s, n_seeds = (zero.clone() for _ in range(3))
+    x0, x2 = (torch.zeros(B, dtype=idt, device=dev) for _ in range(2))
+    x1 = torch.ones(B, dtype=idt, device=dev)
+    # one dump column past max_seeds takes the dropped records; every field
+    # is held in the index dtype, as the packed result is
+    fields = torch.zeros((4, B, max_seeds + 1), dtype=idt, device=dev)
     max_trips = 31 * (l_max // max(msl, 1) + 2)
     trips, steps, starts = zero.clone(), zero.clone(), zero.clone()
     for _ in range(max_trips):
@@ -282,7 +293,7 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
         freq_ok = (length >= msl) & (x2 <= OCC_THR)
         record = ext_fail & freq_ok & (n_seeds < max_seeds)
         slot = torch.where(record, n_seeds, max_seeds).long()
-        fields[:, bidx, slot] = torch.stack([s, length, x0, x2])
+        fields[:, bidx, slot] = torch.stack([s.to(idt), length.to(idt), x0, x2])
         n_seeds = n_seeds + record.to(i32)
 
         # next state: a lane idle at p (never started, or just ended with
@@ -302,13 +313,13 @@ def sensitive_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max, st
     if stats is not None:
         stats.update(trips=trips, steps=steps, starts=starts)
     f = fields[:, :, :max_seeds]
-    return torch.cat([n_seeds[:, None], f[0], f[1], f[2], f[3]], dim=1)
+    return torch.cat([n_seeds[:, None].to(idt), f[0], f[1], f[2], f[3]], dim=1)
 
 
 def sensitive_scan(fm: FMIndexTensors, reads, rlens, min_seed_len, *, max_seeds, l_max):
     """Packed SensitiveMode seeds [n_seeds | rpos | slen | k0 | freq] per
-    read, (B, 1 + 4*max_seeds) int32.  CPU tensors run the plain version,
-    CUDA tensors the kernel."""
+    read, (B, 1 + 4*max_seeds) in the index dtype.  CPU tensors run the
+    plain version, CUDA tensors the kernel."""
     reads = reads.to(torch.int32)
     kw = dict(max_seeds=max_seeds, l_max=l_max)
     if reads.device.type == "cuda":
@@ -318,6 +329,67 @@ def sensitive_scan(fm: FMIndexTensors, reads, rlens, min_seed_len, *, max_seeds,
     if reads.device.type != "cpu":
         raise ValueError(f"sensitive_scan: unsupported device {reads.device}")
     return sensitive_scan_plain(fm, reads, rlens, int(min_seed_len), **kw)
+
+
+# ---------------------------------------------------------------------------
+# Sampled-SA resolution
+# ---------------------------------------------------------------------------
+
+SA_INTV_LOG2 = 5  # the sampled SA keeps every 32nd row (bwt.c:101-123)
+SA_WALK_MAX_STEPS = 4096
+
+
+def bwt_char(fm: FMIndexTensors, x: torch.Tensor) -> torch.Tensor:
+    """bwt_B0: the 2-bit code at primary-adjusted rows x (N,) -> (N,) int64."""
+    w = fm.bwt_words[((x >> 7) * 8 + ((x & 0x7F) >> 4)).long()].long() & _M32
+    return (w >> ((~x & 0xF) << 1).long()) & 3
+
+
+def inv_psi(fm: FMIndexTensors, k: torch.Tensor) -> torch.Tensor:
+    """bwt_invPsi for each row in k (N,): the row of the previous text
+    position; the row `primary` maps to row 0."""
+    x = k - (k > fm.primary).to(k.dtype)
+    c = bwt_char(fm, x)
+    nk = fm.L2[c] + occ4(fm, k).gather(1, c[:, None])[:, 0]
+    return torch.where(k == fm.primary, 0, nk).to(k.dtype)
+
+
+def sa_walk_plain(fm: FMIndexTensors, rows: torch.Tensor, *, max_steps: int = SA_WALK_MAX_STEPS,
+                  stats: dict | None = None):
+    """kart_tpu's sa_walk, vectorised: each row takes inverse-Psi steps until
+    it reaches a sampled row (row % 32 == 0) or has taken max_steps steps.
+    Returns (pos, done): pos = steps + sa_samples[row >> 5] for every row,
+    also where the walk was cut, and done marks the rows that reached a
+    sample.  rows (N,) int32 or int64; pos is in the wider of the rows' and
+    the index's dtype.  `stats`, a dict, gets `steps` (N,), the steps each
+    row took."""
+    wt = torch.promote_types(rows.dtype, fm.index_dtype)
+    mask = (1 << SA_INTV_LOG2) - 1
+    k = rows.to(wt, copy=True)
+    add = torch.zeros_like(k)
+    for _ in range(max_steps):
+        walking = (k & mask) != 0
+        if not bool(walking.any()):
+            break
+        idx = torch.nonzero(walking).flatten()
+        k[idx] = inv_psi(fm, k[idx])
+        add[idx] += 1
+    done = (k & mask) == 0
+    if stats is not None:
+        stats["steps"] = add.clone()
+    return add + fm.sa_samples[(k >> SA_INTV_LOG2).long()].to(wt), done
+
+
+def sa_walk(fm: FMIndexTensors, rows: torch.Tensor, *, max_steps: int = SA_WALK_MAX_STEPS):
+    """(pos, done) of sa_walk_plain.  CPU tensors run the plain version, CUDA
+    tensors the kernel."""
+    if rows.device.type == "cuda":
+        from ..kernels import sa_walk as kernel
+
+        return kernel(fm, rows, max_steps=max_steps)
+    if rows.device.type != "cpu":
+        raise ValueError(f"sa_walk: unsupported device {rows.device}")
+    return sa_walk_plain(fm, rows, max_steps=max_steps)
 
 
 def unpack_seed_scan(packed, max_seeds: int) -> dict:

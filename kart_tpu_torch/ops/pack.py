@@ -15,8 +15,10 @@ stream of ops/resolve.py:
                                   with sensitive=True), then the same
 
 On CUDA tensors they launch the port's kernels (the funnel kernel unpacks
-the reads itself); on CPU tensors they run the plain versions.  Occurrences
-resolve through the full SA only.
+the reads itself); on CPU tensors they run the plain versions.  The FM
+entry points resolve occurrences through the full SA or, with sa_mode
+"sampled", through the walk over the sampled SA; the funnel's tables carry
+their own full SA.
 """
 
 from __future__ import annotations
@@ -102,9 +104,12 @@ def _native_pack(reads_i8):
         cap = 1 << int(np.ceil(np.log2(n)))
 
 
-def unpack_stream(packed: np.ndarray, B: int, H: int, pack16: bool = False):
+def unpack_stream(packed, B: int, H: int, pack16: bool = False):
     """Host inverse of the stream packing -> (cnts i32 (B,), meta i32
-    rpos | slen << 16 (H,), gpos (H,))."""
+    rpos | slen << 16 (H,), gpos (H,)); a (cnts, meta, gpos) tuple (an int64
+    index's stream) comes back as numpy arrays."""
+    if isinstance(packed, (tuple, list)):
+        return tuple(np.asarray(x) for x in packed)
     arr = np.asarray(packed)
     if not pack16:
         return arr[:B], arr[B : B + H], arr[B + H :]
@@ -157,14 +162,28 @@ def unpack_reads(words, amb_r, amb_p, l_max: int):
     return unpack_reads_plain(words, amb_r, amb_p, l_max)
 
 
+def _resolver(sa_full, sa_mode: str):
+    """kart_tpu's _resolver: the full SA for "full" (which must be given),
+    None (the sampled-SA walk over the FM index) for "sampled"."""
+    if sa_mode == "sampled":
+        return None
+    if sa_mode != "full":
+        raise ValueError(f"unknown sa_mode {sa_mode!r}")
+    if sa_full is None:
+        raise ValueError('sa_mode "full" needs the full SA')
+    return sa_full
+
+
 def seed_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_seed_len, *,
-                              max_seeds, l_max, occ_budget, pack16=False):
+                              max_seeds, l_max, occ_budget, sa_mode="full", pack16=False):
     """FM-stepper seeding of packed reads, resolved through the full SA
-    (sa_full on the reads' device) and packed into one int32 stream."""
+    (sa_full on the reads' device) or, with sa_mode "sampled", through the
+    walk over fm's sampled SA, and packed into one int32 stream (the tuple
+    (cnts, meta, gpos) on an int64 index)."""
     reads = unpack_reads(words, amb_r, amb_p, l_max)
     packed = seed_scan(fm, reads, rlens, min_seed_len, max_seeds=max_seeds, l_max=l_max)
-    return resolve_pack(sa_full, packed, max_seeds=max_seeds, has_ok=False,
-                        occ_budget=occ_budget, pack16=pack16)
+    return resolve_pack(_resolver(sa_full, sa_mode), packed, max_seeds=max_seeds, has_ok=False,
+                        occ_budget=occ_budget, pack16=pack16, fm=fm)
 
 
 def sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds, l_max):
@@ -175,14 +194,13 @@ def sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len, *, max_s
 
 
 def sensitive_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_seed_len, *,
-                                   max_seeds, l_max, occ_budget, pack16=False):
-    """SensitiveMode FM-stepper seeding of packed reads, resolved through
-    the full SA (sa_full on the reads' device) and packed into one int32
-    stream."""
+                                   max_seeds, l_max, occ_budget, sa_mode="full", pack16=False):
+    """SensitiveMode FM-stepper seeding of packed reads, resolved as
+    seed_scan_resolved_packed resolves them."""
     packed = sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len,
                                    max_seeds=max_seeds, l_max=l_max)
-    return resolve_pack(sa_full, packed, max_seeds=max_seeds, has_ok=False,
-                        occ_budget=occ_budget, pack16=pack16)
+    return resolve_pack(_resolver(sa_full, sa_mode), packed, max_seeds=max_seeds, has_ok=False,
+                        occ_budget=occ_budget, pack16=pack16, fm=fm)
 
 
 def kmer_seed_scan_resolved_packed(tt, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds,

@@ -1,26 +1,32 @@
-"""Occurrence expansion, full-SA resolution and stream packing on PyTorch
+"""Occurrence expansion, SA resolution and stream packing on PyTorch
 tensors.
 
-Counterpart of `kart_tpu/ops/resolve.py` (`expand_resolve` with the
-full-SA lookup, `decode_resolved_counts`) and of `_pack_stream` in
+Counterpart of `kart_tpu/ops/resolve.py` (`expand_resolve`,
+`decode_resolved_counts`), of `_resolver` and of `_pack_stream` in
 `kart_tpu/ops/pack.py`.  `resolve_pack` turns a packed seed array (the
-funnel's (B, 2 + 4*S) or the FM stepper's (B, 1 + 4*S)) into the one int32
-stream the host downloads.  On CPU tensors it composes the plain versions
+funnel's (B, 2 + 4*S) or the FM stepper's (B, 1 + 4*S)) into the stream the
+host downloads, resolving each occurrence's SA row through the full SA
+(one gather) or, where the full SA is absent, through the sampled SA
+(`fm_search.sa_walk`).  On CPU tensors it composes the plain versions
 below; on CUDA tensors it launches the hand-written kernel
 `csrc/resolve_pack.cu` (kernels.resolve_pack).
 
 The stream (see kart_tpu's expand_resolve): per-read counts `cnts` (B,),
 `tot` when the read's occurrences are in the stream and `-tot-1` when it
-must be re-seeded; `meta` (H,) = rpos | slen << 16 per occurrence and
-`gpos` (H,) its text position, both -1 past the last occurrence.  A read
-fits the budget H whole or not at all, so the reads that do not fit are a
-suffix of the batch.
+must be re-seeded (over the budget, flagged by the seeder, or a walk cut at
+max_steps); `meta` (H,) = rpos | slen << 16 per occurrence and `gpos` (H,)
+its text position in the lookup's dtype, both -1 past the last occurrence.
+A read fits the budget H whole or not at all, so the reads that do not fit
+are a suffix of the batch.  With int32 positions the three are one int32
+array; int64 positions leave as the tuple (cnts, meta, gpos).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .fm_search import SA_WALK_MAX_STEPS, sa_walk
 
 
 def decode_resolved_counts(cnts: np.ndarray):
@@ -33,10 +39,22 @@ def decode_resolved_counts(cnts: np.ndarray):
     return ok, tot.astype(np.int32), offs
 
 
-def expand_resolve_plain(sa_full, n_seeds, rpos, slen, k0, freq, ok_in, *, occ_budget):
-    """Flat resolved occurrence stream (cnts, meta, gpos), all int32, from
-    per-read seed blocks: n_seeds (B,), rpos/slen/k0/freq (B, S), ok_in (B,)
-    bool.  Occurrence order: seed emission order, then SA-row order."""
+def full_lookup(sa_full: torch.Tensor):
+    """The full-SA lookup: rows -> (sa_full[rows], all done)."""
+    return lambda rows: (sa_full[rows.long()], torch.ones_like(rows, dtype=torch.bool))
+
+
+def sampled_lookup(fm, max_steps: int = SA_WALK_MAX_STEPS):
+    """The sampled-SA lookup: rows -> sa_walk's (pos, done)."""
+    return lambda rows: sa_walk(fm, rows, max_steps=max_steps)
+
+
+def expand_resolve_plain(lookup, n_seeds, rpos, slen, k0, freq, ok_in, *, occ_budget):
+    """Flat resolved occurrence stream (cnts, meta, gpos) from per-read seed
+    blocks: n_seeds (B,), rpos/slen/k0/freq (B, S), ok_in (B,) bool; lookup
+    maps SA rows (in k0's dtype) to (pos, done).  cnts and meta are int32,
+    gpos in the lookup's dtype.  A read any of whose walks is not done is
+    flagged.  Occurrence order: seed emission order, then SA-row order."""
     B, S = rpos.shape
     H = int(occ_budget)
     dev = rpos.device
@@ -57,12 +75,15 @@ def expand_resolve_plain(sa_full, n_seeds, rpos, slen, k0, freq, ok_in, *, occ_b
     lane = slot_c // S
     valid = (jh < total) & fits[lane]
     off = jh - start[slot_c]
-    rows = k0.reshape(-1)[slot_c] + off
-    gpos = sa_full[torch.where(valid, rows, 1).long()]
-    ok = ok_in & fits
+    rows = k0.reshape(-1)[slot_c] + off.to(k0.dtype)
+    gpos, done = lookup(torch.where(valid, rows, 1).to(k0.dtype))
+    # an unresolved walk (max_steps cut) invalidates its whole read
+    undone = torch.zeros(B, dtype=i32, device=dev)
+    undone.scatter_reduce_(0, lane.long(), (valid & ~done).to(i32), "amax")
+    ok = ok_in & fits & (undone == 0)
     meta = rpos.reshape(-1)[slot_c].to(i32) | (slen.reshape(-1)[slot_c].to(i32) << 16)
     meta = torch.where(valid, meta, -1)
-    gpos = torch.where(valid, gpos, -1).to(i32)
+    gpos = torch.where(valid, gpos, -1).to(gpos.dtype)
     cnts = torch.where(ok, tot, -tot - 1).to(i32)
     return cnts, meta, gpos
 
@@ -73,10 +94,13 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_stream_plain(cnts, meta, gpos, pack16: bool = False):
-    """kart_tpu's _pack_stream for int32 gpos: one (B + 2H,) int32 array,
+    """kart_tpu's _pack_stream: for int32 gpos one (B + 2H,) int32 array,
     or with pack16 (B/2 + H/2 + H,): cnts as int16 pairs, meta as 16-bit
     rpos | (slen-1) << 8 pairs, then gpos.  pack16 wraps cnts to 16 bits
-    and turns meta's -1 fill into 0xFEFF, as kart_tpu does."""
+    and turns meta's -1 fill into 0xFEFF, as kart_tpu does.  int64 gpos
+    leaves as the (cnts, meta, gpos) tuple, whatever pack16 says."""
+    if gpos.dtype != torch.int32:
+        return cnts, meta, gpos
     if not pack16:
         return torch.cat([cnts, meta, gpos])
     B, H = cnts.shape[0], meta.shape[0]
@@ -87,7 +111,7 @@ def pack_stream_plain(cnts, meta, gpos, pack16: bool = False):
     m = meta.long()
     m16 = ((m & 0xFF) | ((((m >> 16) & 0xFFFF) - 1) << 8)) & 0xFFFF
     mw = _wrap_i32(m16[0::2] | (m16[1::2] << 16))
-    return torch.cat([cw, mw, gpos.to(torch.int32)])
+    return torch.cat([cw, mw, gpos])
 
 
 def seed_fields(packed: torch.Tensor, max_seeds: int, has_ok: bool) -> dict:
@@ -104,19 +128,29 @@ def seed_fields(packed: torch.Tensor, max_seeds: int, has_ok: bool) -> dict:
     )
 
 
-def resolve_pack_plain(sa_full, packed, *, max_seeds, has_ok, occ_budget, pack16):
+def resolve_pack_plain(sa_full, packed, *, max_seeds, has_ok, occ_budget, pack16, fm=None,
+                       max_steps=SA_WALK_MAX_STEPS):
+    """expand_resolve_plain, then pack_stream_plain, of a packed seed array;
+    sa_full None resolves through fm's sampled SA, walks cut at max_steps."""
     o = seed_fields(packed, max_seeds, has_ok)
+    lookup = full_lookup(sa_full) if sa_full is not None else sampled_lookup(fm, max_steps)
     return pack_stream_plain(
-        *expand_resolve_plain(sa_full, o["n_seeds"], o["rpos"], o["slen"], o["k0"], o["freq"],
+        *expand_resolve_plain(lookup, o["n_seeds"], o["rpos"], o["slen"], o["k0"], o["freq"],
                               o["ok"], occ_budget=occ_budget),
         pack16=pack16,
     )
 
 
-def resolve_pack(sa_full, packed, *, max_seeds, has_ok, occ_budget, pack16):
-    """The packed int32 stream of a packed seed array.  CPU tensors run the
-    plain composition, CUDA tensors the kernel."""
-    kw = dict(max_seeds=max_seeds, has_ok=has_ok, occ_budget=int(occ_budget), pack16=pack16)
+def resolve_pack(sa_full, packed, *, max_seeds, has_ok, occ_budget, pack16, fm=None,
+                 max_steps=SA_WALK_MAX_STEPS):
+    """The resolved stream of a packed seed array: through the full SA
+    sa_full, or with sa_full None through the sampled SA of fm (walks cut at
+    max_steps flag their reads).  CPU tensors run the plain composition,
+    CUDA tensors the kernel."""
+    if sa_full is None and fm is None:
+        raise ValueError("resolve_pack: neither a full SA nor an FM index to walk")
+    kw = dict(max_seeds=max_seeds, has_ok=has_ok, occ_budget=int(occ_budget), pack16=pack16,
+              fm=fm, max_steps=max_steps)
     if packed.device.type == "cuda":
         from ..kernels import resolve_pack as kernel
 

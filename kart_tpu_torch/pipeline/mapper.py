@@ -8,7 +8,8 @@ Illumina reads and, with `pacbio`, PacBio reads, in three modes:
 * device-pipelined (`KART_SEED_MODE=device`, native backend): groups of G
   reader chunks are encoded and 2-bit packed on the host, seeded on the
   device by the 13-mer funnel (or by the FM stepper when the tables fail
-  kart_tpu's gate), expanded and resolved through the full SA and packed
+  kart_tpu's gate), expanded and resolved through the full SA (or, in the
+  sampled SA mode, by inverse-Psi walks over the sampled SA) and packed
   into one int32 stream there, downloaded, and mapped by the C++ engine
   (`process_chunk_flat`).  Lanes that the funnel or the occurrence budget
   flag are re-seeded exactly by the FM stepper.  PacBio reads take the
@@ -19,9 +20,17 @@ Illumina reads and, with `pacbio`, PacBio reads, in three modes:
   host; with `-cpu` the plain versions run in line.  A device or kernel
   error raises: there is no fall-back to the host engine.
 * python backend (`-backend python`): device seeding
-  (`ops/fm_search.seed_scan`, or `sensitive_scan` for PacBio), host divide
-  and report, every NW fragment of a chunk as one device batch
+  (`ops/fm_search.seed_scan`, or `sensitive_scan` for PacBio), occurrences
+  resolved by a full-SA gather or a device `sa_walk`, host divide and
+  report, every NW fragment of a chunk as one device batch
   (`ops/nw.nw_align_batch`).
+
+The SA mode (KART_SA_MODE, as kart_tpu reads it): "full" resolves
+occurrences through the full suffix array, "sampled" through the intv-32
+sampled SA that Kart itself walks (bwt.c:101-123), and never builds the
+full SA nor the funnel's tables (which are made from it); "auto" (the
+default) is full where the index has its .saf sidecar or fewer than 2**31
+text bases.  An index of 2**31 text bases or more is int64 throughout.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import torch
 from ..index.format import NT4_TABLE
 from ..index.loader import GenomeIndex
 from ..io.fastq import RawRead, ReadStream, next_chunk
-from ..ops.fm_search import FMIndexTensors, seed_scan, sensitive_scan, unpack_seed_scan
+from ..ops.fm_search import FMIndexTensors, sa_walk, seed_scan, sensitive_scan, unpack_seed_scan
 from ..ops.kmer_seed import KmerTablesTensors, build_tables, hit_cap_for
 from ..ops.nw import nw_align_batch
 from ..ops.pack import (
@@ -83,7 +92,6 @@ _PB_CHUNK = 10  # PacBio reads per reader chunk
 
 # environment switches of kart_tpu that select paths not ported yet
 _UNPORTED_ENV = (
-    ("KART_SA_MODE", "sampled", "sampled-SA resolution, ROADMAP Queue 1 item 8"),
     ("KART_DEVICE_CLUSTER", "1", "device clustering, ROADMAP Queue 1 item 9"),
     ("KART_DEVICE_PAIR", "1", "device pairing, ROADMAP Queue 1 item 9"),
 )
@@ -102,6 +110,14 @@ def _bucket(x: int, buckets: list[int]) -> int:
         if x <= b:
             return b
     return x
+
+
+def _host_arrays(stream):
+    """A downloaded or CPU stream as numpy: one int32 array, or an int64
+    index's (cnts, meta, gpos) tuple."""
+    if isinstance(stream, tuple):
+        return tuple(t.cpu().numpy() for t in stream)
+    return stream.cpu().numpy()
 
 
 def _no_seeds(n: int):
@@ -135,11 +151,6 @@ class TorchKartMapper:
         for var, value, what in _UNPORTED_ENV:
             if os.environ.get(var) == value:
                 raise NotImplementedError(f"{var}={value}: {what}, is not ported yet")
-        if gidx.seq_len >= 2**31:
-            raise NotImplementedError(
-                "int64 FM-index (seq_len >= 2**31) is not ported yet "
-                "(ROADMAP Queue 1 item 8, frugal and human-scale slice)"
-            )
         if backend not in ("native", "python"):
             raise ValueError(f"unknown backend {backend!r}")
         self.device = torch.device(device)
@@ -151,7 +162,13 @@ class TorchKartMapper:
         self.multi_hit = multi_hit
         self.min_seed_len = compute_min_seed_length(gidx.two_genome_size)
         self.conquer = Conquer(gidx.ref_seq, pacbio, max_gaps)
-        self.sa_full_np = gidx.sa_full
+        sa_mode = os.environ.get("KART_SA_MODE", "auto")
+        if sa_mode == "auto":
+            has_saf = bool(gidx.raw.prefix) and os.path.exists(gidx.raw.prefix + ".saf")
+            sa_mode = "full" if (has_saf or gidx.seq_len < 2**31) else "sampled"
+        if sa_mode not in ("full", "sampled"):
+            raise ValueError(f"KART_SA_MODE={sa_mode!r}: expected auto, full or sampled")
+        self.sa_mode = sa_mode
         # device arrays are made at first use: the native mode never needs them
         self._fm = None
         self._tables = None
@@ -174,18 +191,28 @@ class TorchKartMapper:
         self.group_log: list[dict] = []
 
     @property
+    def sa_full_np(self):
+        """The host's full SA in the full SA mode (built or loaded at first
+        use), None in the sampled mode."""
+        return self.gidx.sa_full if self.sa_mode == "full" else None
+
+    @property
     def fm(self) -> FMIndexTensors:
         if self._fm is None:
-            self._fm = FMIndexTensors.from_genome_index(self.gidx, self.device)
+            self._fm = FMIndexTensors.from_genome_index(
+                self.gidx, self.device, with_full_sa=None if self.sa_mode == "full" else False)
         return self._fm
 
     def _get_kmer_tables(self):
         """kart_tpu's gate for the 13-mer funnel: genome at most
         KART_KMER_GATE bases, every 4-mer present (exact sub-13 restarts),
-        13-mer multiplicity at most 4096.  None when the gate refuses."""
+        13-mer multiplicity at most 4096.  None when the gate refuses, and
+        in the sampled SA mode (the tables are built around the full SA)."""
         if self._tables_tried:
             return self._tables
         self._tables_tried = True
+        if self.sa_mode != "full":
+            return None
         gate = int(os.environ.get("KART_KMER_GATE", "1200000000"))
         if self.gidx.seq_len > gate:
             return None
@@ -199,14 +226,20 @@ class TorchKartMapper:
             self._tables_dev = KmerTablesTensors.from_tables(self._get_kmer_tables(), self.device)
         return self._tables_dev
 
-    def _device_sa(self) -> torch.Tensor:
-        """The full SA on the device (the funnel tables' copy when they exist)."""
-        if self._sa_dev is None:
-            if self._get_kmer_tables() is not None:
+    def _device_sa_mode(self) -> str:
+        """The device resolver, chosen from what the device index holds (as
+        kart_tpu's): "full" where it carries the full SA, else "sampled"."""
+        return "full" if self.fm.sa_full is not None else "sampled"
+
+    def _device_sa(self) -> torch.Tensor | None:
+        """The full SA on the device in the index dtype (the funnel tables'
+        copy when they exist and the index is int32); None in the sampled
+        device mode."""
+        if self._sa_dev is None and self._device_sa_mode() == "full":
+            if self._get_kmer_tables() is not None and self.fm.index_dtype == torch.int32:
                 self._sa_dev = self._device_tables().sa_full
             else:
-                sa = np.ascontiguousarray(self.sa_full_np, dtype=np.int32)
-                self._sa_dev = torch.from_numpy(sa).to(self.device)
+                self._sa_dev = self.fm.sa_full.to(self.device)
         return self._sa_dev
 
     # ------------------------------------------------------------------
@@ -267,9 +300,23 @@ class TorchKartMapper:
         ).cpu().numpy()[:n]
         return self._flatten_seeds(packed, max_seeds)
 
+    def _resolve_rows(self, rows: np.ndarray) -> np.ndarray:
+        """SA rows -> text positions (int64): one full-SA gather in the full
+        SA mode; in the sampled mode one sa_walk of the rows on the device,
+        and the rows whose walk max_steps cut finished on the host
+        (fm_ref.sa_lookup), as kart_tpu's _resolve_rows."""
+        if self.sa_mode == "full":
+            return self.sa_full_np[rows].astype(np.int64)
+        idt = np.int64 if self.fm.index_dtype == torch.int64 else np.int32
+        pos, done = sa_walk(self.fm, torch.from_numpy(rows.astype(idt)).to(self.device))
+        pos = pos.cpu().numpy().astype(np.int64)
+        for i in np.nonzero(~done.cpu().numpy())[0]:
+            pos[i] = self._host_fm().sa_lookup(int(rows[i]))
+        return pos
+
     def _flatten_seeds(self, packed: np.ndarray, max_seeds: int):
         """Packed FM-stepper seeds of n reads -> flat per-occurrence arrays
-        (counts (n,), rpos, length, gpos), resolved with one full-SA gather."""
+        (counts (n,), rpos, length, gpos), resolved by _resolve_rows."""
         out = unpack_seed_scan(packed, max_seeds)
         n_seeds, rpos, slen = out["n_seeds"], out["rpos"], out["slen"]
         k0, freq = out["k0"], out["freq"]
@@ -282,7 +329,7 @@ class TorchKartMapper:
         base = np.repeat(k0.reshape(-1).astype(np.int64), reps)
         cum = np.cumsum(reps)
         offs = np.arange(total) - np.repeat(cum - reps, reps)
-        locs = self.sa_full_np[base + offs].astype(np.int64)
+        locs = self._resolve_rows(base + offs)
         rp_flat = np.repeat(rpos.reshape(-1), reps).astype(np.int32)
         ln_flat = np.repeat(slen.reshape(-1), reps).astype(np.int32)
         cnts = f.sum(axis=1).astype(np.int32)
@@ -478,9 +525,10 @@ class TorchKartMapper:
         return int(os.environ.get("KART_OCC_BUDGET", "3")) * B
 
     def _pack16(self, l_max: int) -> bool:
-        """16-bit stream packing is exact for l_max <= 256 on an int32
-        index (rpos < 256, slen <= 256)."""
-        return l_max <= 256
+        """16-bit stream packing is exact for l_max <= 256 (rpos < 256,
+        slen <= 256) on an int32 index; an int64 index keeps the 32-bit
+        layout."""
+        return l_max <= 256 and self.gidx.index_dtype is np.int32
 
     def _max_seeds(self, l_max: int) -> int:
         if self.pacbio:
@@ -514,7 +562,8 @@ class TorchKartMapper:
                 hit_cap=hit_cap_for(tb.max_mult), rounds=rounds, sensitive=self.pacbio, **kw,
             )
         fn = sensitive_scan_resolved_packed if self.pacbio else seed_scan_resolved_packed
-        return fn(self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len, **kw)
+        return fn(self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len,
+                  sa_mode=self._device_sa_mode(), **kw)
 
     def _dispatch_seed_async(self, reads_i8, rl, l_max):
         """Pack a (B, l_max) int8 group to 2 bits and seed it.  On a CUDA
@@ -533,10 +582,15 @@ class TorchKartMapper:
         with torch.cuda.stream(self._stream):
             (w, ar, ap, r), pinned = self._to_device((words, amb_r, amb_p, rl))
             stream = self._seed_resolved(w, ar, ap, r, l_max, B)
-            host = torch.empty(stream.shape, dtype=torch.int32, pin_memory=True)
-            host.copy_(stream, non_blocking=True)
+            # one int32 array, or an int64 index's (cnts, meta, gpos)
+            parts = stream if isinstance(stream, tuple) else (stream,)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts)
+            for h, t in zip(host, parts):
+                h.copy_(t, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
+        if not isinstance(stream, tuple):
+            host = host[0]
         return dict(host=host, event=event, keep=(pinned, w, ar, ap, r, stream))
 
     def _host_fm(self):
@@ -575,9 +629,10 @@ class TorchKartMapper:
         fn = sensitive_scan_resolved_packed if self.pacbio else seed_scan_resolved_packed
         stream = fn(
             self.fm, self._device_sa(), w, ar, ap, r, self.min_seed_len,
-            max_seeds=self._max_seeds(l_max), l_max=l_max, occ_budget=budget, pack16=pack16,
-        ).cpu().numpy()
-        cnts, meta, gpos = unpack_stream(stream, Bb, budget, pack16)
+            max_seeds=self._max_seeds(l_max), l_max=l_max, occ_budget=budget,
+            sa_mode=self._device_sa_mode(), pack16=pack16,
+        )
+        cnts, meta, gpos = unpack_stream(_host_arrays(stream), Bb, budget, pack16)
         ok, tot, offs = decode_resolved_counts(cnts)
         out = {}
         n_host = 0
@@ -602,7 +657,7 @@ class TorchKartMapper:
             entry["event"].synchronize()
         B = reads_i8.shape[0]
         cnts, meta, gpos = unpack_stream(
-            entry["host"].numpy(), B, self._occ_budget(B, l_max), self._pack16(l_max)
+            _host_arrays(entry["host"]), B, self._occ_budget(B, l_max), self._pack16(l_max)
         )
         ok, tot, offs = decode_resolved_counts(cnts)
         rpos = (meta & 0xFFFF).astype(np.int32)
@@ -758,7 +813,8 @@ class TorchKartMapper:
         """Make the chosen mode's state before the first read: the native
         engine's seeding index, or for KART_SEED_MODE=device the kernel
         library, the funnel's tables, the FM index and the full SA on the
-        device.  map_stream makes whatever is missing itself."""
+        device (neither of the last two in the sampled SA mode).  map_stream
+        makes whatever is missing itself."""
         if self.backend != "native":
             return
         if os.environ.get("KART_SEED_MODE", "native") != "device":

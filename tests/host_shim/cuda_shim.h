@@ -59,9 +59,13 @@ struct alignas(16) int4 {
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(16) longlong2 {
+  long long x, y;
+};
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
+inline longlong2 make_longlong2(long long x, long long y) { return longlong2{x, y}; }
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -298,6 +302,12 @@ inline int __shfl_sync(unsigned, int v, int src) {
   long long all[32];
   shim::warp_exchange(v, all);
   return (int)all[src & 31];
+}
+
+inline long long __shfl_sync(unsigned, long long v, int src) {
+  long long all[32];
+  shim::warp_exchange(v, all);
+  return all[src & 31];
 }
 
 inline int __shfl_xor_sync(unsigned, int v, int mask) {

@@ -47,10 +47,16 @@ def test_from_numpy_equals_from_genome_index(index):
 
 
 def test_int64_index_not_ported():
-    arrays = dict(occ_cp=np.zeros(4), bwt_words=np.zeros(8, np.uint32), sa_samples=np.zeros(1),
-                  L2=np.zeros(5), primary=0, seq_len=2**31)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        torch_fm.FMIndexTensors.from_numpy(arrays, "cpu")
+    """An index of 2**31 text bases, once refused, is now taken in int64:
+    from_numpy keeps the arrays' index dtype (the BWT words stay int32
+    bits)."""
+    arrays = dict(occ_cp=np.zeros(4, np.int64), bwt_words=np.zeros(8, np.uint32),
+                  sa_samples=np.zeros(1, np.int64), L2=np.zeros(5, np.int64), primary=0,
+                  seq_len=2**31)
+    fm = torch_fm.FMIndexTensors.from_numpy(arrays, "cpu")
+    assert fm.index_dtype == torch.int64 and fm.seq_len == 2**31
+    assert fm.occ_cp.dtype == fm.sa_samples.dtype == torch.int64
+    assert fm.bwt_words.dtype == torch.int32
 
 
 def test_occ4_matches_jax(index):

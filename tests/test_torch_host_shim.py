@@ -1,6 +1,7 @@
 """The CUDA kernels run on the CPU: `csrc/kmer_funnel.cu` (FastMode and
-SensitiveMode), `csrc/resolve_pack.cu`, `csrc/fm_seed_scan.cu` (both
-steppers) and `csrc/nw.cu` compiled as
+SensitiveMode), `csrc/resolve_pack.cu` (full and sampled SA, int32 and
+int64), `csrc/fm_seed_scan.cu` (both steppers, both index types),
+`csrc/sa_walk.cu` and `csrc/nw.cu` compiled as
 host C++ against `tests/host_shim/cuda_shim.h` (threads as std::threads, a
 warp's shuffles an exchange between its 32 threads, the
 blocks of a cluster at the same time, cluster.sync() a barrier over all of
@@ -42,9 +43,17 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(kart_tpu_torch.__file__)), "
 def host_lib(tmp_path_factory):
     so = tmp_path_factory.mktemp("host_shim") / "libkarthost.so"
     translate.build(str(so), [os.path.join(CSRC, f) for f in (
-        "kmer_funnel.cu", "resolve_pack.cu", "fm_seed_scan.cu", "nw.cu")])
+        "kmer_funnel.cu", "resolve_pack.cu", "fm_seed_scan.cu", "nw.cu", "sa_walk.cu")])
     lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for sfx, prim in (("", i), ("_i64", ll)):
+        getattr(lib, "kart_sa_walk" + sfx).argtypes = [p, p, p, p, prim, p, i, i, p, p, p]
+        getattr(lib, "kart_fm_seed_scan" + sfx).argtypes = [p, p, p, prim, p, p, i, i, i, i, p, p]
+        getattr(lib, "kart_fm_sensitive_scan" + sfx).argtypes = [p, p, p, prim, p, p, i, i, i, i,
+                                                                 i, p, ll, p, p]
+        getattr(lib, "kart_resolve_rows" + sfx).argtypes = [p, i, i, i, p, i, p, p, p, p, p, p, p]
+    lib.kart_resolve_finish.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.kart_resolve_finish_i64.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p]
     lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
                                      p, p, ctypes.c_longlong, p, p, p, p]
     lib.kart_fm_sensitive_scan.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p, ctypes.c_longlong,
@@ -632,3 +641,177 @@ def test_funnel_tile_rows():
     assert rows % 4096 == 0 and rows * 512 <= kernels.SENS_SCRATCH
     with pytest.raises(ValueError, match="replay"):
         kernels.funnel_tile_rows(5000, 512, 8192)
+
+
+# ---------------------------------------------------------------------------
+# The sampled-SA walk, resolve_pack through it, and the int64 index
+# ---------------------------------------------------------------------------
+
+
+def fm_index(gidx, dtype):
+    """The genome's FMIndexTensors on the CPU in one index dtype."""
+    from test_torch_sampled import arrays64
+
+    if dtype == "int32":
+        return tfm.FMIndexTensors.from_genome_index(gidx, "cpu")
+    return tfm.FMIndexTensors.from_numpy(arrays64(gidx), "cpu")
+
+
+def fm_ptrs(fm):
+    """occ_cp, bwt_words, L2 and sa_samples of an FMIndexTensors, as the C
+    entries take them, and primary."""
+    return (ptr(fm.occ_cp.numpy()), ptr(fm.bwt_words.numpy()), ptr(fm.L2.numpy()),
+            ptr(fm.sa_samples.numpy()), fm.primary)
+
+
+@pytest.mark.parametrize("max_steps", [4096, 8])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sa_walk_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, max_steps):
+    """Random rows and the rows at the edges (1, 31, 32, primary and its
+    neighbours, seq_len), walks cut at max_steps 8 included."""
+    from test_torch_sampled import walk_rows
+
+    gidx, _ = shim_genome
+    fm = fm_index(gidx, dtype)
+    idt = np.int32 if dtype == "int32" else np.int64
+    rows = walk_rows(gidx, 700).astype(idt)
+    pos = np.full(len(rows), -7, idt)
+    done = np.full(len(rows), 9, np.uint8)
+    sfx = "" if dtype == "int32" else "_i64"
+    rc = getattr(host_lib, "kart_sa_walk" + sfx)(*fm_ptrs(fm), ptr(rows), len(rows), max_steps,
+                                                 ptr(pos), ptr(done), None)
+    assert rc == 0
+    want_pos, want_done = tfm.sa_walk_plain(fm, torch.from_numpy(rows), max_steps=max_steps)
+    np.testing.assert_array_equal(pos, want_pos.numpy())
+    np.testing.assert_array_equal(done.astype(bool), want_done.numpy())
+    assert (~want_done).any() == (max_steps == 8)
+
+
+# name: (B, S, H, has_ok, pack16, index dtype, max_steps, through the full SA)
+RESOLVE_WALK_CASES = {
+    "int32_pack16": (300, 6, 900, True, True, "int32", 4096, False),
+    "int32_32bit_four_blocks": (1000, 9, 4000, False, False, "int32", 4096, False),
+    "int32_cut_walks": (300, 6, 900, True, True, "int32", 8, False),
+    "int64": (300, 9, 1200, False, False, "int64", 4096, False),
+    "int64_cut_walks": (300, 9, 1200, True, False, "int64", 8, False),
+    "int64_full_sa": (300, 9, 1200, True, False, "int64", 4096, True),
+    "int64_budget_zero": (40, 6, 0, False, False, "int64", 4096, False),
+}
+
+
+@pytest.mark.parametrize("name", list(RESOLVE_WALK_CASES))
+def test_resolve_pack_sampled_and_int64_on_host_matches_plain(host_lib, shim_genome, name):
+    """resolve_pack through the sampled SA (int32: the positions in the one
+    stream; int64: the counts and meta words, and the positions in their own
+    array) and through an int64 full SA, as kernels.resolve_pack makes the
+    calls: the rows pass, the walk of sa_walk.cu, then the flag and emit
+    passes; walks cut at max_steps 8 flag their reads."""
+    B, S, H, has_ok, pack16, dtype, max_steps, full = RESOLVE_WALK_CASES[name]
+    gidx, _ = shim_genome
+    fm = fm_index(gidx, dtype)
+    idt = np.int32 if dtype == "int32" else np.int64
+    rng = np.random.default_rng(B + H + max_steps)
+    packed = np.ascontiguousarray(packed_seeds(rng, B, S, gidx.seq_len, has_ok, 0.9), idt)
+    wide = dtype == "int64"
+    n = B + H if wide else ((B // 2 + H // 2 + H) if pack16 else (B + 2 * H))
+    out = np.full(n, -7, np.int32)
+    gpos = np.full(H, -7, np.int64)
+    read_end, cnts = np.full(B, -7, np.int32), np.full(B, -7, np.int32)
+    state = np.full(host_lib.kart_resolve_scan_words(B), -1, np.int64)
+    sa = np.ascontiguousarray(gidx.sa_full, idt) if full else None
+    # scratch arrives as garbage; an int32 stream's positions are its last H words
+    rows, slot_read = np.full(H, -5, idt), np.full(H, -5, np.int32)
+    done = np.full(H, 7, np.uint8)
+    g = gpos if wide else out[n - H:]
+    head = (ptr(packed), B, int(has_ok), S)
+    sfx = "_i64" if wide else ""
+    rc = getattr(host_lib, "kart_resolve_rows" + sfx)(
+        *head, None if sa is None else ptr(sa), H, ptr(read_end), ptr(cnts), ptr(state),
+        ptr(rows), ptr(slot_read), g.ctypes.data, None)
+    assert rc == 0
+    if not full and H:
+        rc = getattr(host_lib, "kart_sa_walk" + sfx)(*fm_ptrs(fm), ptr(rows), H, max_steps,
+                                                     g.ctypes.data, ptr(done), None)
+        assert rc == 0
+    tail = (ptr(read_end), ptr(cnts), ptr(slot_read), None if full else ptr(done), g.ctypes.data,
+            ptr(out), None)
+    if wide:
+        rc = host_lib.kart_resolve_finish_i64(*head, H, *tail)
+    else:
+        rc = host_lib.kart_resolve_finish(*head, H, int(pack16), *tail)
+    assert rc == 0
+    want = tres.resolve_pack_plain(None if sa is None else torch.from_numpy(sa),
+                                   torch.from_numpy(packed), max_seeds=S, has_ok=has_ok,
+                                   occ_budget=H, pack16=pack16, fm=fm, max_steps=max_steps)
+    if wide:
+        for g, w in zip((out[:B], out[B:], gpos), want):
+            np.testing.assert_array_equal(g, w.numpy())
+    else:
+        np.testing.assert_array_equal(out, want.numpy())
+    c = (want[0] if wide else torch.from_numpy(tpack.unpack_stream(want.numpy(), B, H,
+                                                                   pack16)[0])).numpy()
+    ok, tot, offs = tres.decode_resolved_counts(c)
+    fits = (offs[1:] <= H) & (tot > 0)
+    if max_steps == 8:  # reads that fit and were ok are flagged by their cut walks
+        assert (fits & ~ok).sum() > (fits & ~ok & ~packed_ok(packed, has_ok)).sum() + 5
+    elif H:
+        assert (fits & ok).sum() > 50
+
+
+def packed_ok(packed, has_ok):
+    return packed[:, 1] != 0 if has_ok else np.ones(len(packed), bool)
+
+
+@pytest.mark.parametrize("name", ["ragged_127", "edges", "seeds_dropped"])
+def test_fm_seed_scan_kernel_on_host_int64_matches_plain(host_lib, shim_genome, name):
+    """The int64 instance of the FastMode stepper: its packed int64 rows
+    equal the plain version's on the int64 index, and the int32 result
+    widened."""
+    gidx, _ = shim_genome
+    B, l_max, ms = FM_CASES[name]
+    ms = ms or l_max // (MIN_SEED + 1) + 1
+    if name == "edges":
+        reads, rlens = fm_edge_reads(gidx, l_max)
+    else:
+        reads, rlens = make_reads(gidx, B, l_max, seed=B)
+        if name == "seeds_dropped":
+            reads[:, 14::15] = (reads[:, 14::15] + 1) % 4
+    B = len(reads)
+    fm = fm_index(gidx, "int64")
+    want = tfm.seed_scan_plain(fm, torch.from_numpy(reads), torch.from_numpy(rlens), MIN_SEED,
+                               max_seeds=ms, l_max=l_max).numpy()
+    out = np.full((B, 1 + 4 * ms), -7, np.int64)
+    rc = host_lib.kart_fm_seed_scan_i64(ptr(fm.occ_cp.numpy()), ptr(fm.bwt_words.numpy()),
+                                        ptr(fm.L2.numpy()), fm.primary, ptr(reads), ptr(rlens), B,
+                                        l_max, MIN_SEED, ms, ptr(out), None)
+    assert rc == 0
+    np.testing.assert_array_equal(out, want)
+    narrow = tfm.seed_scan_plain(fm_index(gidx, "int32"), torch.from_numpy(reads),
+                                 torch.from_numpy(rlens), MIN_SEED, max_seeds=ms, l_max=l_max)
+    np.testing.assert_array_equal(out, narrow.numpy().astype(np.int64))
+    assert want[:, 0].sum() >= 6
+
+
+@pytest.mark.parametrize("name", ["ragged", "trip_cut", "tiles"])
+def test_fm_sensitive_scan_kernel_on_host_int64_matches_plain(host_lib, shim_genome, name):
+    """The int64 instances of the SensitiveMode extension and chase (the
+    outcomes as longlong2 entries of the window)."""
+    from test_torch_fm_search import _sensitive_reads
+
+    gidx, _ = shim_genome
+    l_max, ms, tile = FM_SENS_CASES[name]
+    reads, rlens, l_max, ms = _sensitive_reads(gidx, "long" if name == "tiles" else name)
+    fm = fm_index(gidx, "int64")
+    want = tfm.sensitive_scan_plain(fm, torch.from_numpy(reads), torch.from_numpy(rlens),
+                                    MIN_SEED, max_seeds=ms, l_max=l_max).numpy()
+    B, width = reads.shape
+    cap = (tile or B) * width
+    ext = np.full((cap, 2), -3, np.int64)
+    out = np.full((B, 1 + 4 * ms), -7, np.int64)
+    rc = host_lib.kart_fm_sensitive_scan_i64(
+        ptr(fm.occ_cp.numpy()), ptr(fm.bwt_words.numpy()), ptr(fm.L2.numpy()), fm.primary,
+        ptr(reads), ptr(rlens), B, width, MIN_SEED, ms, 31 * (l_max // MIN_SEED + 2), ptr(ext),
+        cap, ptr(out), None)
+    assert rc == 0
+    np.testing.assert_array_equal(out, want)
+    assert want[:, 0].sum() >= 10

@@ -29,8 +29,8 @@ def run_both(sa, blocks, H):
     jsa = jnp.asarray(sa)
     want = jres.expand_resolve(lambda rows: (jsa[rows], rows == rows),
                                *map(jnp.asarray, blocks), occ_budget=H)
-    got = tres.expand_resolve_plain(torch.from_numpy(sa), *map(torch.from_numpy, blocks),
-                                    occ_budget=H)
+    got = tres.expand_resolve_plain(tres.full_lookup(torch.from_numpy(sa)),
+                                    *map(torch.from_numpy, blocks), occ_budget=H)
     return [np.asarray(w) for w in want], got
 
 

@@ -255,8 +255,6 @@ def test_cli_without_gpu_fails(slice_data):
     "extra, env, item",
     [
         (["-backend", "python", "-idx-shards", "2"], {}, "item 10"),
-        (["-backend", "python"], {"KART_SA_MODE": "sampled"}, "item 8"),
-        ([], {"KART_SEED_MODE": "device", "KART_SA_MODE": "sampled"}, "item 8"),
         (["-backend", "python"], {"KART_DEVICE_CLUSTER": "1"}, "item 9"),
         (["-pacbio"], {"KART_SEED_MODE": "device", "KART_DEVICE_PAIR": "1"}, "item 9"),
     ],
