@@ -24,10 +24,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
      reads); timed by slope and per call, with the latency of a dependent
      load that hits L2 (a working set of the index's size), from which the
      log gives the chain bound: the longest read's steps times that latency;
-  3. the slice: 4,000 simulated 150 bp pairs mapped by the port's CLI
-     (-backend python) on the card; kernel launch counts, NW coverage and
-     memo misses checked; the first 500 pairs mapped again with -cpu must
-     give the same SAM records;
+  3. the python slice: 4,000 simulated 150 bp pairs mapped by the port's CLI
+     (-backend python) on the card: (a) the funnel seeds (the FM stepper
+     re-seeds only the lanes it flags), NW coverage and memo misses checked;
+     (b) the same pairs with KART_DEVICE_CLUSTER=1 KART_DEVICE_PAIR=1, one
+     cluster_illumina and one pair_candidates launch a 4,000-read chunk; (c)
+     the first 500 pairs with both switches and -cpu; (d) the first 500
+     pairs with KART_KMER_GATE=0 (the FM stepper seeds): the SAM records of
+     (b), (c) and (d) equal (a)'s.  Both new kernels equal their plain
+     versions at the chunk's shape (from run (b)'s own inputs) and on edge
+     batches (B 1, no seeds, 9,000 chromosome keys; C2 70 and 3,100, ties
+     and steals), timed by slope and per call with their bounds and chains,
+     and the host seconds of their wrappers beside the host's own clustering
+     and mating on the first chunk;
   4. the 13-mer funnel, expand/resolve/pack and the FM re-seed against their
      plain versions on the card at the device-pipelined mode's shape: one
      dispatch group of 32,000 reads of 150 bp at l_max 160 (1% substitutions,
@@ -407,32 +416,159 @@ def head_fastq(src: str, dst: str, n: int) -> str:
     return dst
 
 
-def phase_slice(prefix: str) -> dict:
+class Spy:
+    """Stands in for `attr` of `module` inside the block: calls the original,
+    keeps `keep(args)` of the first call, hands every result to `on_out` and
+    sums the calls' host seconds."""
+
+    def __init__(self, module, attr: str, keep=None, on_out=None):
+        self.module, self.attr, self.keep, self.on_out = module, attr, keep, on_out
+        self.first, self.seconds = None, 0.0
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.attr)
+
+        def spy(*a, **k):
+            if self.first is None and self.keep is not None:
+                self.first = self.keep(a)
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            self.seconds += time.perf_counter() - t0
+            if self.on_out is not None:
+                self.on_out(out)
+            return out
+
+        setattr(self.module, self.attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """os.environ with `env` set (None: unset) inside the block."""
+    old = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+PATH_KERNELS = ("fm_seed_scan", "nw_planes", "kmer_funnel", "cluster_illumina", "pair_candidates")
+
+
+def slice_run(prefix, r1, r2, sam, extra=(), **env) -> tuple[str, dict, list, float]:
+    """One run of the python backend through the CLI with `env`: its log, the
+    launches of the path's kernels (every count set to 0 just before), the
+    lanes the funnel flagged in each chunk, and the wall seconds."""
     import torch
 
     from kart_tpu_torch import kernels
+    from kart_tpu_torch.pipeline import mapper as tm
+
+    flags: list[int] = []
+    for name in PATH_KERNELS:
+        getattr(kernels, name).launches = 0
+    t0 = time.perf_counter()
+    with environ(**env), Spy(tm, "kmer_seed_scan",
+                             on_out=lambda out: flags.append(int((out[:, 1] == 0).sum()))):
+        log = run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", sam, "-backend", "python",
+                       "-silent", *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return log, {n: getattr(kernels, n).launches for n in PATH_KERNELS}, flags, wall
+
+
+def cluster_edges(rng, args):
+    """Edge batches of the clustering beside the run's chunk: its first read
+    alone, reads without a seed, and 64 reads of 100 slots whose 9,000
+    chromosome keys are searched in device memory (past the kernel's shared
+    copy), some with a negative starting threshold."""
+    import torch
+
+    keys, pd, gp, ln, n, thr0 = args
+    out = {"B 1": (keys, pd[:1], gp[:1], ln[:1], n[:1], thr0[:1]),
+           "no seeds": (keys, pd[:50], gp[:50], ln[:50], torch.zeros_like(n[:50]), thr0[:50])}
+    B, S = 64, 100
+    many = np.sort(rng.choice(10**8, 9000, replace=False)).astype(np.int32)
+    p = np.sort(rng.integers(-3, 10**8, (B, S)), axis=1).astype(np.int32)
+    p[:, 1::2] = p[:, ::2] + rng.integers(0, 8, (B, S // 2))
+    g = (p + rng.integers(0, 100, (B, S))).astype(np.int32)
+    g[:, 5] = many[rng.integers(0, 9000, B)]
+    t = np.full(B, 20, np.int32)
+    t[::7] = -60
+    out["9,000 keys, S 100"] = tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        for a in (many, p, g, rng.integers(13, 40, (B, S)).astype(np.int32),
+                  rng.integers(0, S + 1, B).astype(np.int32), t))
+    return out
+
+
+def pair_edges(rng):
+    """Edge batches of the mating: C2 > 32 with few distinct scores (ties and
+    steals), and pairs of 40 + 3,100 slots (kept in device memory, past the
+    kernel's shared copy)."""
+    import torch
+
+    out = {}
+    for name, (P, C1, C2, top, span, est) in {"C1 40, C2 70": (256, 40, 70, 4, 400, 100),
+                                              "C1 40, C2 3,100": (8, 40, 3100, 10**5, 5000, 60)}.items():
+        out[name] = tuple(torch.from_numpy(a).cuda() for a in (
+            rng.integers(0, 4, (P, C1)).astype(np.int32),
+            rng.integers(0, span, (P, C1)).astype(np.int32),
+            rng.integers(0, top, (P, C2)).astype(np.int32),
+            rng.integers(0, span, (P, C2)).astype(np.int32))) + (est,)
+    # kart_tpu's tie and steal cases
+    s1, d1 = [[10, 20], [10, 0], [10, 30]], [[100, 100], [100, 0], [100, 100]]
+    s2, d2 = [[30, 0], [30, 30], [7, 9]], [[200, 0], [200, 300], [200, 400]]
+    out["ties and steals"] = tuple(torch.tensor(a, dtype=torch.int32).cuda()
+                                   for a in (s1, d1, s2, d2)) + (1500,)
+    return out
+
+
+def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
+    import copy
+
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops import cluster as ops_cluster
+    from kart_tpu_torch.ops import pairing as ops_pairing
     from kart_tpu_torch.ops.nw import nw_stats
+    from kart_tpu_torch.pipeline import mapper as tm
+    from kart_tpu_torch.pipeline.candidates import gen_candidates_illumina
+    from kart_tpu_torch.pipeline.pairing import check_paired_candidates
+    from kart_tpu_torch.tools.bench_kernels import bound_ms, time_both
 
     r1, r2 = os.path.join(DATA, "r1.fq"), os.path.join(DATA, "r2.fq")
     simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_PAIRS)
     sam_gpu = os.path.join(DATA, "gpu.sam")
+    stages = dict(KART_DEVICE_CLUSTER="1", KART_DEVICE_PAIR="1")
 
-    kernels.fm_seed_scan.launches = 0
-    kernels.nw_planes.launches = 0
+    # (a) the funnel seeds, the host clusters and mates
     nw_stats.update(device=0, host=0)
-    t0 = time.perf_counter()
-    log = run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", sam_gpu, "-backend", "python", "-silent"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(fm_seed_scan=kernels.fm_seed_scan.launches, nw_planes=kernels.nw_planes.launches)
+    log, launches, flags, wall = slice_run(prefix, r1, r2, sam_gpu, KART_KMER_GATE=None,
+                                           KART_DEVICE_CLUSTER=None, KART_DEVICE_PAIR=None)
     nw = dict(nw_stats)
-
     misses = int(re.search(r"memo misses = (\d+)", log).group(1))
     sens = re.search(r"sensitivity = ([\d.]+)%", log).group(1)
     paired = re.search(r"paired sequences = \d+ \(([\d.]+)%\)", log).group(1)
     recs = sam_records(sam_gpu)
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    n_chunks = -(-2 * N_PAIRS // 4000)
+    want = dict(fm_seed_scan=sum(1 for f in flags if f), nw_planes=launches["nw_planes"],
+                kmer_funnel=n_chunks, cluster_illumina=0, pair_candidates=0)
+    if launches != want or launches["nw_planes"] == 0 or len(flags) != n_chunks:
+        raise AssertionError(f"(a): launches {launches}, expected {want} (flagged lanes {flags})")
     if nw["device"] == 0 or misses != 0:
         raise AssertionError(f"NW not served by the device batch: {nw}, memo misses {misses}")
     if len(recs) != 2 * N_PAIRS:
@@ -447,20 +583,134 @@ def phase_slice(prefix: str) -> dict:
     if near < 0.9 * N_PAIRS:
         raise AssertionError(f"only {near} of {N_PAIRS} read-1 records at their simulated position")
 
-    # the first 500 pairs again on the CPU (plain versions): same records
+    # (b) the same pairs with both device stages; the kernels' inputs and the
+    # wrappers' host inputs of the first chunk are kept
+    def clone(a):
+        return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+
+    sam_dev = os.path.join(DATA, "gpu_stages.sam")
+    with Spy(ops_cluster, "cluster_illumina", clone) as k_cl, \
+            Spy(ops_pairing, "pair_candidates", clone) as k_pr, \
+            Spy(tm, "cluster_batch_to_candidates",
+                lambda a: (copy.deepcopy(a[1]), list(a[2]), a[3])) as w_cl, \
+            Spy(tm, "pair_chunk_on_device", copy.deepcopy) as w_pr:
+        _, launches_b, _, wall_b = slice_run(prefix, r1, r2, sam_dev, KART_KMER_GATE=None, **stages)
+    if sam_records(sam_dev) != recs:
+        raise AssertionError("(b): the SAM records with the device stages differ from (a)'s")
+    if (launches_b["cluster_illumina"], launches_b["pair_candidates"]) != (n_chunks, n_chunks):
+        raise AssertionError(f"(b): launches {launches_b}, expected one of each new kernel a chunk")
+
+    # (c) the first pairs with both stages on the CPU, (d) with the funnel's gate closed
     r1c = head_fastq(r1, os.path.join(DATA, "r1_cpu.fq"), N_CPU_PAIRS)
     r2c = head_fastq(r2, os.path.join(DATA, "r2_cpu.fq"), N_CPU_PAIRS)
-    sam_cpu = os.path.join(DATA, "cpu.sam")
-    run_cli(["-i", prefix, "-f", r1c, "-f2", r2c, "-o", sam_cpu, "-backend", "python", "-silent", "-cpu"])
-    if sam_records(sam_cpu) != recs[: 2 * N_CPU_PAIRS]:
-        raise AssertionError("the -cpu SAM of the first pairs differs from the GPU run's")
+    for tag, extra, env in (("c", ["-cpu"], dict(KART_KMER_GATE=None, **stages)),
+                            ("d", [], dict(KART_KMER_GATE="0", KART_DEVICE_CLUSTER=None,
+                                           KART_DEVICE_PAIR=None))):
+        sam = os.path.join(DATA, f"slice_{tag}.sam")
+        _, l_run, _, _ = slice_run(prefix, r1c, r2c, sam, extra, **env)
+        if sam_records(sam) != recs[: 2 * N_CPU_PAIRS]:
+            raise AssertionError(f"({tag}): the SAM records of the first pairs differ from (a)'s")
+        if tag == "c" and any(l_run.values()):
+            raise AssertionError(f"(c): a kernel launched in the -cpu run: {l_run}")
+        if tag == "d" and (l_run["kmer_funnel"] or not l_run["fm_seed_scan"]):
+            raise AssertionError(f"(d): the FM stepper did not seed alone: {l_run}")
+        if tag == "d":
+            launches_d = l_run
+
+    # the two kernels against their plain versions at the chunk's shape and on edges
+    rng = np.random.default_rng(909)
+    cl_args, mg, S = k_cl.first[:6], k_cl.first[6], k_cl.first[1].shape[1]
+    err = 0
+    for what, args in {f"chunk B {cl_args[1].shape[0]} S {S}": cl_args,
+                       **cluster_edges(rng, cl_args)}.items():
+        s_ = args[1].shape[1]
+        got = kernels.cluster_illumina(*args, mg, max_seeds=s_)
+        ref = ops_cluster.cluster_illumina_plain(*args, mg, max_seeds=s_)
+        for g, w, part in zip(got, ref, ("cluster_id", "accept", "scores")):
+            err = max(err, require_equal(g, w, f"cluster_illumina {part}, {what}"))
+    pr_args = k_pr.first
+    pr_err = 0
+    for what, args in {f"chunk P {pr_args[0].shape[0]} C1 {pr_args[0].shape[1]} C2"
+                       f" {pr_args[2].shape[1]}": pr_args, **pair_edges(rng)}.items():
+        got = kernels.pair_candidates(*args)
+        ref = ops_pairing.pair_candidates_plain(*args)
+        for g, w, part in zip(got, ref, ("paired1", "paired2", "pairing")):
+            pr_err = max(pr_err, require_equal(g, w, f"pair_candidates {part}, {what}"))
+
+    # times, bounds and chains at the chunk's shape
+    t_ck, t_cw = time_both(lambda: kernels.cluster_illumina(*cl_args, mg, max_seeds=S))
+    t_cp = cuda_ms(lambda: ops_cluster.cluster_illumina_plain(*cl_args, mg, max_seeds=S), 3)
+    t_pk, t_pw = time_both(lambda: kernels.pair_candidates(*pr_args))
+    t_pp = cuda_ms(lambda: ops_pairing.pair_candidates_plain(*pr_args), 3)
+    B = cl_args[1].shape[0]
+    # the keys and three (B, S) arrays and two (B,) in, two (B, S) int32 and one
+    # (B, S) byte array out; some twenty operations a slot
+    c_bytes = cl_args[0].nbytes + 3 * B * S * 4 + 2 * B * 4 + B * S * 9
+    c_bound, c_by = bound_ms(c_bytes, 20 * B * S)
+    P, C1 = pr_args[0].shape
+    C2 = pr_args[2].shape[1]
+    live = int((pr_args[0] > 0).sum())  # read-1 slots that sweep C2 (a slot of score 0 is skipped)
+    p_bytes = 2 * P * C1 * 4 + 2 * P * C2 * 4 + P * (C1 + C2) * 4 + P
+    p_bound, p_by = bound_ms(p_bytes, 10 * live * C2)
+    c_steps, p_steps = S, int((pr_args[0] > 0).sum(dim=1).max())
+    cluster = dict(ms=1e3 * t_ck, plain_ms=t_cp, err=err, bound_ms=c_bound, bound_by=c_by,
+                   chain_steps=c_steps, chain_ms=c_steps * l2_load_ns / 1e6,
+                   shape=f"B {B}, S {S} (the first chunk of run (b))")
+    pair = dict(ms=1e3 * t_pk, plain_ms=t_pp, err=pr_err, bound_ms=p_bound, bound_by=p_by,
+                chain_steps=p_steps, chain_ms=p_steps * l2_load_ns / 1e6,
+                shape=f"P {P}, C1 {C1}, C2 {C2} (the first chunk of run (b))")
+
+    # the wrappers' host seconds beside the host's own clustering and mating,
+    # on the first chunk's seeds and candidates
+    seeds_lists, rlens, _ = w_cl.first
+    dev_c, host_c = copy.deepcopy(seeds_lists), copy.deepcopy(seeds_lists)
+    t0 = time.perf_counter()
+    dev_c = ops_cluster.cluster_batch_to_candidates(gidx, dev_c, rlens, mg, device="cuda")
+    t_wc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_c = [gen_candidates_illumina(rl, s, gidx, mg) for rl, s in zip(rlens, host_c)]
+    t_hc = time.perf_counter() - t0
+    if [[(c.score, c.posdiff, len(c.seeds)) for c in x] for x in dev_c] != [
+            [(c.score, c.posdiff, len(c.seeds)) for c in x] for x in host_c]:
+        raise AssertionError("the device clustering's candidates differ from the host's")
+    est, pairs = w_pr.first
+    dev_p, host_p = copy.deepcopy(pairs), copy.deepcopy(pairs)
+    t0 = time.perf_counter()
+    flags_dev = ops_pairing.pair_chunk_on_device(est, dev_p, device="cuda")
+    t_wp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flags_host = [check_paired_candidates(est, a, b) for a, b in host_p]
+    t_hp = time.perf_counter() - t0
+    if flags_dev != flags_host or [[c.paired_idx for c in a + b] for a, b in dev_p] != [
+            [c.paired_idx for c in a + b] for a, b in host_p]:
+        raise AssertionError("the device mating differs from the host's")
+
     print(
         f"phase 3 slice: {2 * N_PAIRS} reads in {wall:.3f} s = {2 * N_PAIRS / wall:.1f} reads/s;"
         f" mapped {sens}%, paired {paired}%, read-1 at simulated position {near}/{total};"
-        f" launches {launches}; nw_stats {nw}; memo misses {misses};"
-        f" first {N_CPU_PAIRS} pairs: -cpu SAM records equal"
+        f" (a) launches {launches}, lanes the funnel flagged by chunk {flags}; nw_stats {nw};"
+        f" memo misses {misses}; (b) KART_DEVICE_CLUSTER=1 KART_DEVICE_PAIR=1: {wall_b:.3f} s,"
+        f" launches {launches_b}, SAM records equal (a)'s; (c) first {N_CPU_PAIRS} pairs with both"
+        f" stages and -cpu, (d) with KART_KMER_GATE=0 on the card (launches {launches_d}): SAM"
+        f" records equal"
     )
-    return launches
+    print(
+        f"phase 3 cluster_illumina: equal to the plain version at the chunk's shape ({cluster['shape']})"
+        f" and on B 1, no seeds, 9,000 keys; slope {cluster['ms']:.4f} ms, per call"
+        f" {1e3 * t_cw:.4f} ms, plain {t_cp:.4f} ms, bound {c_bound:.4f} ms ({c_by}), chain"
+        f" {c_steps} steps x {l2_load_ns:.1f} ns = {cluster['chain_ms']:.4f} ms; host seconds of the"
+        f" chunk: wrapper {t_wc:.4f} s (run (b), both chunks: {w_cl.seconds:.4f} s), host"
+        f" gen_candidates_illumina {t_hc:.4f} s"
+    )
+    print(
+        f"phase 3 pair_candidates: equal to the plain version at the chunk's shape ({pair['shape']})"
+        f" and on C2 70, C2 3,100, ties and steals; slope {pair['ms']:.4f} ms, per call"
+        f" {1e3 * t_pw:.4f} ms, plain {t_pp:.4f} ms, bound {p_bound:.4f} ms ({p_by}), chain"
+        f" {p_steps} steps x {l2_load_ns:.1f} ns = {pair['chain_ms']:.4f} ms; host seconds of the"
+        f" chunk: wrapper {t_wp:.4f} s (run (b), both chunks: {w_pr.seconds:.4f} s), host"
+        f" check_paired_candidates {t_hp:.4f} s"
+    )
+    return dict(launches=launches, launches_b=launches_b, cluster=cluster, pair=pair)
 
 
 def require_equal(got, want, what: str) -> int:
@@ -1640,7 +1890,7 @@ def main(argv: list[str] | None = None) -> int:
 
         fm = dict(l2_ns=dependent_load_ns(working_set_bytes=3 * gidx.seq_len // 8))
     if want(3):
-        launches = phase_slice(prefix)
+        slice3 = phase_slice(prefix, gidx, fm["l2_ns"])
     from kart_tpu_torch.ops.kmer_seed import build_tables
     from kart_tpu_torch.tools import simdata
 
@@ -1677,7 +1927,8 @@ def main(argv: list[str] | None = None) -> int:
 
     def entry(name, source, replaces, n_launches, r, library_ms=None):
         # shape, reseed_layout: what a record's times refer to, where phase lines alone do not say
-        extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms", "design_chain_ms",
+        extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms", "chain_steps",
+                                   "design_chain_ms",
                                    "slab_paths", "int64", "resolve_pack_sampled_ms",
                                    "resolve_pack_int64_ms", "resolve_pack_full_ms",
                                    "fm_seed_scan_int64_ms", "fm_sensitive_scan_int64_ms")
@@ -1691,7 +1942,10 @@ def main(argv: list[str] | None = None) -> int:
     # library_ms: table[rid] for the row gather; no one PyTorch call computes
     # an FM backward search (windowed or not), an NW traceback plane, the
     # funnel's rounds in either mode, the budgeted expansion into a packed
-    # stream, the 2-bit unpack or an inverse-Psi walk
+    # stream, the 2-bit unpack, an inverse-Psi walk, a clustering whose
+    # breaks and threshold run in order along the seeds, or a mate choice
+    # that steals in order along the candidates
+    launches, launches_b = slice3["launches"], slice3["launches_b"]
     record = {"kernels": [
         entry("fm_seed_scan", "fm_seed_scan.cu", "kart_tpu/ops/fm_search.py:165",
               launches["fm_seed_scan"] + dev_launches["fm_seed_scan"]
@@ -1700,7 +1954,7 @@ def main(argv: list[str] | None = None) -> int:
               launches["nw_planes"], nw),
         entry("kmer_funnel", "kmer_funnel.cu",
               "kart_tpu/ops/kmer_seed.py:272 and kart_tpu/ops/pack.py:98",
-              dev_launches["kmer_funnel"], funnel["funnel"]),
+              dev_launches["kmer_funnel"] + launches["kmer_funnel"], funnel["funnel"]),
         entry("kmer_funnel_sensitive", "kmer_funnel.cu",
               "kart_tpu/ops/kmer_seed.py:327 (sensitive=True) and kart_tpu/ops/pack.py:98",
               pb_launches["kmer_funnel"], sens["funnel"]),
@@ -1717,6 +1971,10 @@ def main(argv: list[str] | None = None) -> int:
               sampled_launches["sa_walk"], walk_record(sampled)),
         entry("row_gather", "row_gather.cu", "tools/bench_gather.py:208", gather["launches"],
               gather, gather["library_ms"]),
+        entry("cluster_illumina", "cluster.cu", "kart_tpu/ops/cluster.py:27",
+              launches_b["cluster_illumina"], slice3["cluster"]),
+        entry("pair_candidates", "pairing.cu", "kart_tpu/ops/pairing.py:22",
+              launches_b["pair_candidates"], slice3["pair"]),
     ]}
     print(smi)
     print(json.dumps(record))

@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", f)
     for f in ("fm_seed_scan.cu", "nw.cu", "kmer_funnel.cu", "resolve_pack.cu", "row_gather.cu",
-              "sa_walk.cu")
+              "sa_walk.cu", "cluster.cu", "pairing.cu")
 )
 # included by the sources
 HEADERS = tuple(os.path.join(_PKG, "csrc", f) for f in ("window.cuh", "fm_index.cuh"))
@@ -132,6 +132,10 @@ def _load():
         lib.kart_resolve_scan_words.restype = i
         lib.kart_row_gather.argtypes = [p, p, i, p, p]
         lib.kart_row_gather.restype = i
+        lib.kart_cluster_illumina.argtypes = [p, i, p, p, p, p, p, i, i, i, p, p, p, p]
+        lib.kart_cluster_illumina.restype = i
+        lib.kart_pair_candidates.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
+        lib.kart_pair_candidates.restype = i
         _lib = lib
     return _lib
 
@@ -536,3 +540,68 @@ def row_gather(table, rid):
 
 
 row_gather.launches = 0
+
+
+def cluster_illumina(chr_keys, pd, gp, ln, n_seeds, thr0, max_gaps: int, *, max_seeds: int):
+    """csrc/cluster.cu: (cluster_id (B, S) int32, accept (B, S) bool, scores
+    (B, S) int32) of the seed clustering, for chr_keys (K,) int32, pd, gp,
+    ln (B, S) int32 and n_seeds, thr0 (B,) int32 on the card, S = max_seeds:
+    a warp a read."""
+    dev = pd.device
+    B, S = pd.shape
+    if S != max_seeds:
+        raise ValueError(f"cluster_illumina: {S} seed slots, max_seeds {max_seeds}")
+    K = chr_keys.shape[0]
+    _check("chr_keys", chr_keys, torch.int32, (K,), dev)
+    for name, t in (("pd", pd), ("gp", gp), ("ln", ln)):
+        _check(name, t, torch.int32, (B, S), dev)
+    _check("n_seeds", n_seeds, torch.int32, (B,), dev)
+    _check("thr0", thr0, torch.int32, (B,), dev)
+    cluster_id = torch.empty((B, S), dtype=torch.int32, device=dev)
+    accept = torch.empty((B, S), dtype=torch.bool, device=dev)
+    scores = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if B == 0 or S == 0:
+        return cluster_id, accept, scores
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.kart_cluster_illumina(
+            chr_keys.data_ptr(), K, pd.data_ptr(), gp.data_ptr(), ln.data_ptr(),
+            n_seeds.data_ptr(), thr0.data_ptr(), int(max_gaps), B, S, cluster_id.data_ptr(),
+            accept.data_ptr(), scores.data_ptr(), _stream(dev))
+    _raise_on(rc, "cluster_illumina")
+    if not torch.cuda.is_current_stream_capturing():
+        cluster_illumina.launches += 1
+    return cluster_id, accept, scores
+
+
+cluster_illumina.launches = 0
+
+
+def pair_candidates(score1, pd1, score2, pd2, est: int):
+    """csrc/pairing.cu: (paired1 (P, C1) int32, paired2 (P, C2) int32,
+    pairing (P,) bool) of the paired-end mating, for score1/pd1 (P, C1) and
+    score2/pd2 (P, C2) int32 on the card: a warp a pair."""
+    dev = score1.device
+    P, C1 = score1.shape
+    C2 = score2.shape[1]
+    _check("score1", score1, torch.int32, (P, C1), dev)
+    _check("pd1", pd1, torch.int32, (P, C1), dev)
+    _check("score2", score2, torch.int32, (P, C2), dev)
+    _check("pd2", pd2, torch.int32, (P, C2), dev)
+    paired1 = torch.empty((P, C1), dtype=torch.int32, device=dev)
+    paired2 = torch.empty((P, C2), dtype=torch.int32, device=dev)
+    pairing = torch.empty((P,), dtype=torch.bool, device=dev)
+    if P == 0:
+        return paired1, paired2, pairing
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.kart_pair_candidates(
+            score1.data_ptr(), pd1.data_ptr(), score2.data_ptr(), pd2.data_ptr(), int(est), P, C1,
+            C2, paired1.data_ptr(), paired2.data_ptr(), pairing.data_ptr(), _stream(dev))
+    _raise_on(rc, "pair_candidates")
+    if not torch.cuda.is_current_stream_capturing():
+        pair_candidates.launches += 1
+    return paired1, paired2, pairing
+
+
+pair_candidates.launches = 0

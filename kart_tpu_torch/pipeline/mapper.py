@@ -19,11 +19,16 @@ Illumina reads and, with `pacbio`, PacBio reads, in three modes:
   ended by an event, so group k seeds while group k-1 is mapped on the
   host; with `-cpu` the plain versions run in line.  A device or kernel
   error raises: there is no fall-back to the host engine.
-* python backend (`-backend python`): device seeding
-  (`ops/fm_search.seed_scan`, or `sensitive_scan` for PacBio), occurrences
-  resolved by a full-SA gather or a device `sa_walk`, host divide and
-  report, every NW fragment of a chunk as one device batch
-  (`ops/nw.nw_align_batch`).
+* python backend (`-backend python`): device seeding (the 13-mer funnel,
+  `ops/kmer_seed.kmer_seed_scan`, where the tables pass the gate, its
+  flagged lanes re-seeded by `ops/fm_search.seed_scan`; else `seed_scan`
+  alone, or `sensitive_scan` for PacBio), occurrences resolved by a full-SA
+  gather or a device `sa_walk`, host divide and report, every NW fragment
+  of a chunk as one device batch (`ops/nw.nw_align_batch`).  With
+  KART_DEVICE_CLUSTER=1 the Illumina candidates are clustered on the device
+  (`ops/cluster`), and with KART_DEVICE_PAIR=1 the paired-end candidates
+  are mated there (`ops/pairing`), both read at every chunk as kart_tpu
+  reads them; the other modes read neither switch.
 
 The SA mode (KART_SA_MODE, as kart_tpu reads it): "full" resolves
 occurrences through the full suffix array, "sampled" through the intv-32
@@ -45,8 +50,15 @@ import torch
 from ..index.format import NT4_TABLE
 from ..index.loader import GenomeIndex
 from ..io.fastq import RawRead, ReadStream, next_chunk
+from ..ops.cluster import check_int32_index, cluster_batch_to_candidates
 from ..ops.fm_search import FMIndexTensors, sa_walk, seed_scan, sensitive_scan, unpack_seed_scan
-from ..ops.kmer_seed import KmerTablesTensors, build_tables, hit_cap_for
+from ..ops.kmer_seed import (
+    KmerTablesTensors,
+    build_tables,
+    hit_cap_for,
+    kmer_seed_scan,
+    unpack_seed_result,
+)
 from ..ops.nw import nw_align_batch
 from ..ops.pack import (
     kmer_seed_scan_resolved_packed,
@@ -55,6 +67,7 @@ from ..ops.pack import (
     sensitive_scan_resolved_packed,
     unpack_stream,
 )
+from ..ops.pairing import pair_chunk_on_device
 from ..ops.resolve import decode_resolved_counts
 from .candidates import (
     Seed,
@@ -82,19 +95,14 @@ from .sam import (
 # so the port pads to the same l_max everywhere.  In the device-pipelined
 # mode the batch is padded to the B buckets too: the funnel's slabs and the
 # occurrence budget depend on B, and with them which lanes are flagged.
-# The python backend does not pad the batch (its rows are independent).
+# The python backend does not pad the batch: its rows are independent, and
+# the lanes its funnel flags (which depend on the slabs) are re-seeded exactly.
 _B_BUCKETS = [2048, 16000]
 _L_BUCKETS = [64, 128, 160, 256, 384, 512]
 _CHUNK = 4000  # reads per reader chunk (kart_tpu's native reader)
 _PB_B_BUCKETS = [16]
 _PB_L_BUCKETS = [512, 1024, 2048, 4096, 8192, 16384, 32768]
 _PB_CHUNK = 10  # PacBio reads per reader chunk
-
-# environment switches of kart_tpu that select paths not ported yet
-_UNPORTED_ENV = (
-    ("KART_DEVICE_CLUSTER", "1", "device clustering, ROADMAP Queue 1 item 9"),
-    ("KART_DEVICE_PAIR", "1", "device pairing, ROADMAP Queue 1 item 9"),
-)
 
 
 def compute_min_seed_length(two_genome_size: int) -> int:
@@ -148,9 +156,6 @@ class TorchKartMapper:
         n_threads: int = 0,
         debug: bool = False,
     ):
-        for var, value, what in _UNPORTED_ENV:
-            if os.environ.get(var) == value:
-                raise NotImplementedError(f"{var}={value}: {what}, is not ported yet")
         if backend not in ("native", "python"):
             raise ValueError(f"unknown backend {backend!r}")
         self.device = torch.device(device)
@@ -253,7 +258,9 @@ class TorchKartMapper:
         """FastMode seeding for a batch of encoded reads -> flat arrays
         (per-read counts, rpos, length, gpos) in emission x occurrence
         order (the order IdentifySeedPairs_FastMode pushes seeds, before
-        its PosDiff sort)."""
+        its PosDiff sort).  The funnel seeds where the tables pass the gate,
+        and the FM stepper re-seeds the lanes it flags; else the FM stepper
+        seeds every read."""
         n = len(enc_reads)
         if n == 0:
             return _no_seeds(0)
@@ -263,15 +270,43 @@ class TorchKartMapper:
         for i, e in enumerate(enc_reads):
             reads[i, : len(e)] = e[:l_max]
         max_seeds = self._max_seeds(l_max)
-        packed = seed_scan(
-            self.fm,
+
+        def fm_seeds(rows):
+            packed = seed_scan(
+                self.fm,
+                torch.from_numpy(reads[rows]).to(self.device),
+                torch.from_numpy(rlens[rows]).to(self.device),
+                self.min_seed_len,
+                max_seeds=max_seeds,
+                l_max=l_max,
+            ).cpu().numpy()
+            return unpack_seed_scan(packed, max_seeds)
+
+        tb = self._get_kmer_tables()
+        if tb is None:
+            return self._flatten_seeds(fm_seeds(slice(None)), max_seeds)
+        # kart_tpu pads the batch to its B buckets, which changes the funnel's
+        # slabs and so which lanes it flags; a flagged lane is re-seeded
+        # exactly, so the seeds are the same either way, and the port does
+        # not pad
+        out = unpack_seed_result(kmer_seed_scan(
+            self._device_tables(),
             torch.from_numpy(reads).to(self.device),
             torch.from_numpy(rlens).to(self.device),
             self.min_seed_len,
             max_seeds=max_seeds,
             l_max=l_max,
-        ).cpu().numpy()
-        return self._flatten_seeds(packed, max_seeds)
+            hit_cap=hit_cap_for(tb.max_mult),
+            rounds=l_max // 10 + 4,
+        ).cpu().numpy(), max_seeds)
+        fields = {k: out[k] for k in ("n_seeds", "rpos", "slen", "freq")}
+        fields["k0"] = out["k0"].astype(np.int64)  # an int64 index's re-seeds carry int64 rows
+        bad = np.nonzero(~out["ok"])[0]
+        if len(bad):
+            again = fm_seeds(bad)
+            for k, a in fields.items():
+                a[bad] = again[k]
+        return self._flatten_seeds(fields, max_seeds)
 
     def _seed_sensitive_batch_flat(self, enc_reads: list[np.ndarray]):
         """SensitiveMode seeding for a batch of encoded reads on the device
@@ -298,7 +333,7 @@ class TorchKartMapper:
             max_seeds=max_seeds,
             l_max=l_max,
         ).cpu().numpy()[:n]
-        return self._flatten_seeds(packed, max_seeds)
+        return self._flatten_seeds(unpack_seed_scan(packed, max_seeds), max_seeds)
 
     def _resolve_rows(self, rows: np.ndarray) -> np.ndarray:
         """SA rows -> text positions (int64): one full-SA gather in the full
@@ -314,10 +349,10 @@ class TorchKartMapper:
             pos[i] = self._host_fm().sa_lookup(int(rows[i]))
         return pos
 
-    def _flatten_seeds(self, packed: np.ndarray, max_seeds: int):
-        """Packed FM-stepper seeds of n reads -> flat per-occurrence arrays
-        (counts (n,), rpos, length, gpos), resolved by _resolve_rows."""
-        out = unpack_seed_scan(packed, max_seeds)
+    def _flatten_seeds(self, out: dict, max_seeds: int):
+        """The seed fields of n reads (n_seeds (n,), and rpos, slen, k0, freq
+        (n, max_seeds)) -> flat per-occurrence arrays (counts (n,), rpos,
+        length, gpos), resolved by _resolve_rows."""
         n_seeds, rpos, slen = out["n_seeds"], out["rpos"], out["slen"]
         k0, freq = out["k0"], out["freq"]
         sidx = np.arange(max_seeds)[None, :] < n_seeds[:, None]
@@ -325,7 +360,7 @@ class TorchKartMapper:
         reps = f.reshape(-1)
         total = int(reps.sum())
         if total == 0:
-            return _no_seeds(len(packed))
+            return _no_seeds(len(n_seeds))
         base = np.repeat(k0.reshape(-1).astype(np.int64), reps)
         cum = np.cumsum(reps)
         offs = np.arange(total) - np.repeat(cum - reps, reps)
@@ -444,15 +479,21 @@ class TorchKartMapper:
         seeds_all = self._seeds_to_lists(
             n, self._seed_batch_flat([self._encode(r.seq) for r in chunk])
         )
+        cands_all = self._device_cluster(states, seeds_all)
+        if cands_all is None:
+            cands_all = [gen_candidates_illumina(st.rlen, seeds, self.gidx, self.max_gaps)
+                         for st, seeds in zip(states, seeds_all)]
         if pair_end and n % 2 == 0:
             est = self._est_distance()
-            cands_all: list = [None] * n
+            pairing_flags = self._device_pair(est, cands_all)
             for i in range(0, n, 2):
                 j = i + 1
                 st1, st2 = states[i], states[j]
-                cands1 = gen_candidates_illumina(st1.rlen, seeds_all[i], self.gidx, self.max_gaps)
-                cands2 = gen_candidates_illumina(st2.rlen, seeds_all[j], self.gidx, self.max_gaps)
-                pairing = check_paired_candidates(est, cands1, cands2)
+                cands1, cands2 = cands_all[i], cands_all[j]
+                if pairing_flags is not None:
+                    pairing = pairing_flags[i // 2]
+                else:
+                    pairing = check_paired_candidates(est, cands1, cands2)
                 if not pairing:
                     pairing = rescue_unpaired(
                         self.gidx, est, self.max_insert_size, self.max_gaps,
@@ -462,7 +503,6 @@ class TorchKartMapper:
                     remove_unmated_candidates(cands1, cands2)
                 remove_redundant_candidates(cands1, pacbio=False)
                 remove_redundant_candidates(cands2, pacbio=False)
-                cands_all[i], cands_all[j] = cands1, cands2
             self._batch_nw([(i % 2 == 0, states[i], cands_all[i]) for i in range(n)])
             for i in range(0, n, 2):
                 j = i + 1
@@ -483,11 +523,8 @@ class TorchKartMapper:
                     output_paired(self.gidx, states[i], states[i + 1], fastq, self.multi_hit, my)
                 )
         else:
-            cands_all = []
-            for i, st in enumerate(states):
-                cands = gen_candidates_illumina(st.rlen, seeds_all[i], self.gidx, self.max_gaps)
+            for cands in cands_all:
                 remove_redundant_candidates(cands, pacbio=False)
-                cands_all.append(cands)
             self._batch_nw([(True, states[i], cands_all[i]) for i in range(n)])
             for i, st in enumerate(states):
                 gen_mapping_report(
@@ -502,6 +539,35 @@ class TorchKartMapper:
         for k in ("unique", "unmapped", "paired", "distance"):
             self.stats[k] += my[k]
         return sam
+
+    def _device_cluster(self, states, seeds_all):
+        """The Illumina candidates of a chunk clustered on the device
+        (KART_DEVICE_CLUSTER=1, read at every call as kart_tpu reads it);
+        None where the switch is off and the host clusters."""
+        if os.environ.get("KART_DEVICE_CLUSTER") != "1":
+            return None
+        return cluster_batch_to_candidates(
+            self.gidx, seeds_all, [st.rlen for st in states], self.max_gaps, device=self.device
+        )
+
+    def _device_pair(self, est: int, cands_all: list):
+        """The paired-end candidates of a chunk mated on the device
+        (KART_DEVICE_PAIR=1, read at every call): the pairs' flags, with
+        paired_idx written into the candidates; None where the switch is off
+        and the host mates them.  The reference's pre-prune of a pair whose
+        candidate product is over 1000 (Mapping.cpp:356-360) runs on the
+        host first."""
+        if os.environ.get("KART_DEVICE_PAIR") != "1":
+            return None
+        check_int32_index(self.gidx, "device pairing")
+        pairs = []
+        for i in range(0, len(cands_all), 2):
+            c1, c2 = cands_all[i], cands_all[i + 1]
+            if len(c1) * len(c2) > 1000:
+                remove_redundant_candidates(c1, pacbio=False)
+                remove_redundant_candidates(c2, pacbio=False)
+            pairs.append((c1, c2))
+        return pair_chunk_on_device(est, pairs, device=self.device)
 
     def map_chunks(self, chunks: list, pair_end: bool, fastq: bool) -> list[str]:
         """Map several 4000-read chunks in order (per-chunk pairing sees the

@@ -336,6 +336,31 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   return r;
 }
 
+// The warp reductions of sm_80 and later: every lane gets the result.
+inline int __reduce_max_sync(unsigned, int v) {
+  long long all[32];
+  shim::warp_exchange(v, all);
+  long long r = all[0];
+  for (int i = 1; i < 32; ++i) r = all[i] > r ? all[i] : r;
+  return (int)r;
+}
+
+inline int __reduce_min_sync(unsigned, int v) {
+  long long all[32];
+  shim::warp_exchange(v, all);
+  long long r = all[0];
+  for (int i = 1; i < 32; ++i) r = all[i] < r ? all[i] : r;
+  return (int)r;
+}
+
+inline int __reduce_add_sync(unsigned, int v) {
+  long long all[32];
+  shim::warp_exchange(v, all);
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r += (unsigned)all[i];
+  return (int)r;
+}
+
 template <typename T>
 inline T __ldg(const T* p) {
   return *p;

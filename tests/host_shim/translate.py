@@ -12,8 +12,9 @@ result with g++ -std=c++20 into a shared library with the source's own C
 entry points, which take host pointers.
 
 It handles the constructs of csrc/kmer_funnel.cu, csrc/resolve_pack.cu,
-csrc/fm_seed_scan.cu, csrc/sa_walk.cu and csrc/nw.cu
-(tests/test_torch_host_shim.py runs all five against their plain versions);
+csrc/fm_seed_scan.cu, csrc/sa_walk.cu, csrc/nw.cu, csrc/cluster.cu and
+csrc/pairing.cu (tests/test_torch_host_shim.py runs all seven against their
+plain versions);
 cuda_shim.h says what such a run can and cannot show.
 """
 

@@ -1,7 +1,8 @@
 """The CUDA kernels run on the CPU: `csrc/kmer_funnel.cu` (FastMode and
 SensitiveMode), `csrc/resolve_pack.cu` (full and sampled SA, int32 and
 int64), `csrc/fm_seed_scan.cu` (both steppers, both index types),
-`csrc/sa_walk.cu` and `csrc/nw.cu` compiled as
+`csrc/sa_walk.cu`, `csrc/nw.cu`, `csrc/cluster.cu` and `csrc/pairing.cu`
+compiled as
 host C++ against `tests/host_shim/cuda_shim.h` (threads as std::threads, a
 warp's shuffles an exchange between its 32 threads, the
 blocks of a cluster at the same time, cluster.sync() a barrier over all of
@@ -43,7 +44,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(kart_tpu_torch.__file__)), "
 def host_lib(tmp_path_factory):
     so = tmp_path_factory.mktemp("host_shim") / "libkarthost.so"
     translate.build(str(so), [os.path.join(CSRC, f) for f in (
-        "kmer_funnel.cu", "resolve_pack.cu", "fm_seed_scan.cu", "nw.cu", "sa_walk.cu")])
+        "kmer_funnel.cu", "resolve_pack.cu", "fm_seed_scan.cu", "nw.cu", "sa_walk.cu",
+        "cluster.cu", "pairing.cu")])
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for sfx, prim in (("", i), ("_i64", ll)):
@@ -69,6 +71,10 @@ def host_lib(tmp_path_factory):
     lib.kart_fm_seed_scan.restype = i
     lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
     lib.kart_nw_planes.restype = i
+    lib.kart_cluster_illumina.argtypes = [p, i, p, p, p, p, p, i, i, i, p, p, p, p]
+    lib.kart_cluster_illumina.restype = i
+    lib.kart_pair_candidates.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
+    lib.kart_pair_candidates.restype = i
     assert lib.kart_kmer_funnel_cluster() == CLUSTER
     return lib
 
@@ -815,3 +821,101 @@ def test_fm_sensitive_scan_kernel_on_host_int64_matches_plain(host_lib, shim_gen
     assert rc == 0
     np.testing.assert_array_equal(out, want)
     assert want[:, 0].sum() >= 10
+
+
+# ---------------------------------------------------------------------------
+# The python backend's device clustering and paired-end mating
+# ---------------------------------------------------------------------------
+
+
+def host_cluster(lib, keys, pd, gp, ln, n, thr0, max_gaps):
+    """csrc/cluster.cu through the host shim; its outputs start as garbage."""
+    B, S = pd.shape
+    cid = np.full((B, S), -7, np.int32)
+    accept = np.full((B, S), 9, np.uint8)
+    scores = np.full((B, S), -7, np.int32)
+    args = [np.ascontiguousarray(a, dtype=np.int32) for a in (keys, pd, gp, ln, n, thr0)]
+    rc = lib.kart_cluster_illumina(ptr(args[0]), len(keys), *(ptr(a) for a in args[1:]), max_gaps,
+                                   B, S, ptr(cid), ptr(accept), ptr(scores), None)
+    assert rc == 0
+    return cid, accept.view(bool), scores
+
+
+@pytest.fixture(scope="module")
+def cluster_genome(workdir):
+    from test_torch_cluster import three_chromosomes
+
+    return three_chromosomes(workdir)
+
+
+@pytest.mark.parametrize("name", ["random_200", "wide_chunks", "no_seeds", "negative_posdiffs",
+                                  "chromosome_keys", "gap_edges", "one_slot", "threshold_rises",
+                                  "many_keys"])
+def test_cluster_kernel_on_host_matches_plain(host_lib, cluster_genome, name):
+    """test_torch_cluster's batches (which hold the plain version against
+    kart_tpu), and one whose 9,000 chromosome keys are searched in device
+    memory rather than shared memory."""
+    from test_torch_cluster import MAX_GAPS, cluster_cases
+
+    from kart_tpu_torch.ops import cluster as tcl
+
+    gidx, _ = cluster_genome
+    if name == "many_keys":
+        rng = np.random.default_rng(31)
+        keys = np.sort(rng.choice(10**7, 9000, replace=False)).astype(np.int32)
+        B, S = 60, 40
+        pd = np.sort(rng.integers(-3, 10**7, (B, S)), axis=1).astype(np.int32)
+        pd[:, 1::2] = pd[:, ::2] + rng.integers(0, 8, (B, S // 2))
+        gp = (pd + rng.integers(0, 100, (B, S))).astype(np.int32)
+        gp[:, 5] = keys[rng.integers(0, 9000, B)]  # seeds on a key
+        args = (keys, pd, gp, rng.integers(13, 40, (B, S)).astype(np.int32),
+                rng.integers(0, S + 1, B).astype(np.int32), np.full(B, 20, np.int32))
+    else:
+        args = cluster_cases(gidx.chr_map[0], gidx.two_genome_size)[name]
+    want = tcl.cluster_illumina_plain(*(torch.from_numpy(a) for a in args), MAX_GAPS,
+                                      max_seeds=args[1].shape[1])
+    got = host_cluster(host_lib, *args, MAX_GAPS)
+    for g, w, what in zip(got, want, ("cluster_id", "accept", "scores")):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=what)
+    if name == "many_keys":
+        assert (want[0].max(dim=1).values >= 3).sum() > 30
+
+
+def host_pair(lib, s1, d1, s2, d2, est):
+    """csrc/pairing.cu through the host shim; its outputs start as garbage."""
+    P, C1 = s1.shape
+    C2 = s2.shape[1]
+    p1 = np.full((P, C1), -7, np.int32)
+    p2 = np.full((P, C2), -7, np.int32)
+    flag = np.full(P, 9, np.uint8)
+    rc = lib.kart_pair_candidates(ptr(s1), ptr(d1), ptr(s2), ptr(d2), est, P, C1, C2, ptr(p1),
+                                  ptr(p2), ptr(flag), None)
+    assert rc == 0
+    return p1, p2, flag.view(bool)
+
+
+@pytest.mark.parametrize("name", ["random", "wide", "tie_and_steal", "distance_edges", "empty",
+                                  "past_shared_memory"])
+def test_pair_kernel_on_host_matches_plain(host_lib, name):
+    """test_torch_pairing's batches (which hold the plain version against
+    kart_tpu), and pairs of 40 + 3,100 slots, whose mates are kept in the
+    output arrays rather than shared memory."""
+    from test_torch_pairing import pairing_cases
+
+    from kart_tpu_torch.ops import pairing as tpa
+
+    if name == "past_shared_memory":
+        rng = np.random.default_rng(8)
+        P, C1, C2 = 5, 40, 3100
+        args = (rng.integers(0, 9, (P, C1)).astype(np.int32),
+                rng.integers(0, 5000, (P, C1)).astype(np.int32),
+                rng.integers(0, 10**5, (P, C2)).astype(np.int32),
+                rng.integers(0, 5000, (P, C2)).astype(np.int32), 60)
+    else:
+        args = pairing_cases()[name]
+    want = tpa.pair_candidates_plain(*(torch.from_numpy(a) for a in args[:4]), args[4])
+    got = host_pair(host_lib, *args)
+    for g, w, what in zip(got, want, ("paired1", "paired2", "pairing")):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=what)
+    if name == "past_shared_memory":
+        assert want[2].all() and (want[0] >= 0).sum() > 50

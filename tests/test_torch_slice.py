@@ -7,6 +7,7 @@ bench.py's genome and reads from its own generators."""
 
 import filecmp
 import importlib.util
+import json
 import os
 import re
 import subprocess
@@ -45,23 +46,119 @@ def slice_data(workdir):
     return d
 
 
+DEVICE_STAGES = ("KART_DEVICE_CLUSTER", "KART_DEVICE_PAIR")
+
+
+@pytest.mark.parametrize("stages", ["host", "device"])
+@pytest.mark.parametrize("gate", ["fm", "funnel"])
 @pytest.mark.parametrize("mode", ["pe", "se"])
-def test_cpu_sam_matches_jax_python_backend(slice_data, mode, monkeypatch, capsys):
+def test_cpu_sam_matches_jax_python_backend(slice_data, mode, gate, stages, monkeypatch, capsys):
+    """The python backend under the same environment in both packages: the
+    FM stepper seeding every read (KART_KMER_GATE=0) or the funnel with its
+    flagged lanes re-seeded (the default gate); candidates clustered and
+    mated on the host, or on the device (KART_DEVICE_CLUSTER=1,
+    KART_DEVICE_PAIR=1)."""
     d = slice_data
     reads = ["-f", str(d / "r1.fq")] + (["-f2", str(d / "r2.fq")] if mode == "pe" else [])
     args = ["-i", str(d / "idx"), *reads, "-backend", "python", "-silent"]
     monkeypatch.setenv("KART_BATCH_NW", "1")
-    monkeypatch.setenv("KART_KMER_GATE", "0")
-    assert jax_cli.main(["kart-tpu", *args, "-o", str(d / f"jax_{mode}.sam")]) == 0
+    if gate == "fm":
+        monkeypatch.setenv("KART_KMER_GATE", "0")
+    else:
+        monkeypatch.delenv("KART_KMER_GATE", raising=False)
+    for var in DEVICE_STAGES:
+        if stages == "device":
+            monkeypatch.setenv(var, "1")
+        else:
+            monkeypatch.delenv(var, raising=False)
+    tag = f"{mode}_{gate}_{stages}"
+    assert jax_cli.main(["kart-tpu", *args, "-o", str(d / f"jax_{tag}.sam")]) == 0
     capsys.readouterr()
-    assert torch_cli.main(["kart-tpu-torch", *args, "-cpu", "-o", str(d / f"torch_{mode}.sam")]) == 0
+    assert torch_cli.main(["kart-tpu-torch", *args, "-cpu", "-o", str(d / f"torch_{tag}.sam")]) == 0
     out = capsys.readouterr().out
-    want = (d / f"jax_{mode}.sam").read_bytes()
-    assert (d / f"torch_{mode}.sam").read_bytes() == want
+    want = (d / f"jax_{tag}.sam").read_bytes()
+    assert (d / f"torch_{tag}.sam").read_bytes() == want
     assert want.count(b"\n") > (400 if mode == "pe" else 200)
     m = re.search(r"NW fragments on cpu = (\d+), on the host = (\d+), memo misses = (\d+)", out)
     assert m is not None, out
     assert int(m.group(1)) > 0 and int(m.group(3)) == 0, out
+
+
+_SEED_FLAT = """
+import json, os, sys
+import numpy as np
+sys.path.insert(0, {tests!r})
+from kart_tpu.index import load_index as jax_load
+from kart_tpu.ops import kmer_seed as jks
+from kart_tpu.pipeline.mapper import KartMapper
+from kart_tpu_torch.index import load_index
+from kart_tpu_torch.pipeline import mapper as tm
+from test_torch_kmer_seed import make_reads, repeat_batch
+
+prefix = {prefix!r}
+gidx, jgidx = load_index(prefix), jax_load(prefix)
+reads, rlens = make_reads(gidx, 300, 150, seed=11)
+rep, rep_l = repeat_batch(gidx, 40, 400)
+enc = [r[:n] for r, n in zip(reads, rlens)] + [r[:n] for r, n in zip(rep, rep_l)]
+enc.insert(7, np.full(30, 4, np.int32))  # an all-N read
+calls = {{"jax": 0, "port": [], "port_reseeded": 0}}
+jax_scan = jks.kmer_seed_scan
+def jax_spy(*a, **k):
+    calls["jax"] += 1
+    return jax_scan(*a, **k)
+jks.kmer_seed_scan = jax_spy
+port_scan, port_fm = tm.kmer_seed_scan, tm.seed_scan
+def port_spy(*a, **k):
+    out = port_scan(*a, **k)
+    calls["port"].append(int((out[:, 1] == 0).sum()))
+    return out
+def fm_spy(fm, reads, *a, **k):
+    calls["port_reseeded"] += reads.shape[0]
+    return port_fm(fm, reads, *a, **k)
+tm.kmer_seed_scan, tm.seed_scan = port_spy, fm_spy
+want = KartMapper(jgidx, backend="python")._seed_batch_flat(enc)
+port = tm.TorchKartMapper(gidx, device="cpu", backend="python")
+got = port._seed_batch_flat(enc)
+tm.seed_scan = port_fm
+os.environ["KART_KMER_GATE"] = "0"
+fm_only = tm.TorchKartMapper(gidx, device="cpu", backend="python")._seed_batch_flat(enc)
+same = [bool(a.dtype == b.dtype and np.array_equal(a, b)) for a, b in zip(got, want)]
+same_fm = [bool(np.array_equal(a, b)) for a, b in zip(got, fm_only)]
+print("RESULT", json.dumps(dict(same=same, same_fm=same_fm, calls=calls, n=int(got[0].sum()))))
+"""
+
+
+@pytest.mark.parametrize("budget", ["default", "small"])
+def test_seed_batch_flat_funnel_matches_jax(workdir, budget):
+    """_seed_batch_flat through the funnel: the port's flat arrays (counts,
+    rpos, length, gpos) equal kart_tpu's byte for byte and the port's own FM
+    stepper's, on the repeat genome's reads with an all-N read among them.
+    kart_tpu pads the batch to 2,048 lanes and the port does not, so their
+    slabs differ; with a hit budget of 1 and slabs of 64 rows
+    (KART_HIT_BUDGET, KART_SLAB_ROWS, read where the funnel module is
+    imported, hence a process of its own) lanes are flagged and re-seeded by
+    the FM stepper."""
+    from test_torch_kmer_seed import build_repeat_genome
+
+    build_repeat_genome(workdir / "torch_seed_flat")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    for k in ("KART_HIT_BUDGET", "KART_SLAB_ROWS", "KART_KMER_GATE", "KART_SA_MODE"):
+        env.pop(k, None)
+    if budget == "small":
+        env.update(KART_HIT_BUDGET="1", KART_SLAB_ROWS="64")
+    code = _SEED_FLAT.format(tests=str(REPO / "tests"),
+                             prefix=str(workdir / "torch_seed_flat" / "idx"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=env, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.split("RESULT ", 1)[1])
+    assert res["same"] == [True] * 4 and res["same_fm"] == [True] * 4, res
+    calls = res["calls"]
+    assert calls["jax"] == 1 and len(calls["port"]) == 1 and res["n"] > 1000, res
+    flagged = calls["port"][0]
+    assert calls["port_reseeded"] == flagged
+    if budget == "small":
+        assert flagged >= 20, res
 
 
 def test_port_maps_without_jax(slice_data, tmp_path):
@@ -255,8 +352,6 @@ def test_cli_without_gpu_fails(slice_data):
     "extra, env, item",
     [
         (["-backend", "python", "-idx-shards", "2"], {}, "item 10"),
-        (["-backend", "python"], {"KART_DEVICE_CLUSTER": "1"}, "item 9"),
-        (["-pacbio"], {"KART_SEED_MODE": "device", "KART_DEVICE_PAIR": "1"}, "item 9"),
     ],
 )
 def test_unported_paths_raise(slice_data, monkeypatch, extra, env, item):
@@ -266,3 +361,76 @@ def test_unported_paths_raise(slice_data, monkeypatch, extra, env, item):
     with pytest.raises(NotImplementedError, match=item):
         torch_cli.main(["kart-tpu-torch", "-i", str(d / "idx"), "-f", str(d / "r1.fq"),
                         "-o", str(d / "unported.sam"), "-cpu", *extra])
+
+
+@pytest.fixture(scope="module")
+def sample_reads(slice_data):
+    """The first 20 reads of each file of the slice's pairs."""
+    out = []
+    for k in (1, 2):
+        src, dst = slice_data / f"r{k}.fq", slice_data / f"head_r{k}.fq"
+        dst.write_bytes(b"\n".join(src.read_bytes().split(b"\n")[:80]) + b"\n")
+        out.append(str(dst))
+    return out
+
+
+SWITCH_MODES = {
+    "native": ([], {}),
+    "device": ([], {"KART_SEED_MODE": "device"}),
+    "pacbio": (["-pacbio"], {"KART_SEED_MODE": "device"}),
+    "pacbio_python": (["-pacbio", "-backend", "python"], {}),
+}
+
+
+@pytest.mark.parametrize("switch", DEVICE_STAGES)
+@pytest.mark.parametrize("mode", list(SWITCH_MODES))
+def test_device_stage_switches_leave_other_modes_alone(slice_data, sample_reads, mode, switch,
+                                                        monkeypatch):
+    """KART_DEVICE_CLUSTER and KART_DEVICE_PAIR are read by the python
+    backend's Illumina path only, as in kart_tpu: the native and
+    device-pipelined modes and -pacbio map with the same SAM with the
+    switch as without it."""
+    extra, env = SWITCH_MODES[mode]
+    for k in ("KART_SEED_MODE", "KART_KMER_GATE", *DEVICE_STAGES):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    reads = ["-f", sample_reads[0]] + ([] if "-pacbio" in extra else ["-f2", sample_reads[1]])
+    args = ["kart-tpu-torch", "-i", str(slice_data / "idx"), *reads, "-silent", "-cpu", *extra]
+    off, on = slice_data / f"switch_{mode}_off.sam", slice_data / f"switch_{mode}_{switch}.sam"
+    assert torch_cli.main([*args, "-o", str(off)]) == 0
+    monkeypatch.setenv(switch, "1")
+    assert torch_cli.main([*args, "-o", str(on)]) == 0
+    recs = [ln for ln in off.read_bytes().splitlines() if not ln.startswith(b"@")]
+    assert len(recs) == (20 if "-pacbio" in extra else 40)
+    assert on.read_bytes() == off.read_bytes()
+
+
+def test_device_stages_on_an_int64_index(slice_data, sample_reads, monkeypatch):
+    """An index forced to int64 on a small genome still clusters and mates
+    on the device (its positions fit int32): the same SAM as the int32
+    index's; an index of 2**31 text bases or more is refused by both hooks."""
+    from kart_tpu_torch.index import loader
+    from kart_tpu_torch.index import load_index
+    from kart_tpu_torch.pipeline.mapper import TorchKartMapper
+    from kart_tpu_torch.pipeline.report import ReadState
+
+    for k in ("KART_SEED_MODE", "KART_KMER_GATE"):
+        monkeypatch.delenv(k, raising=False)
+    for var in DEVICE_STAGES:
+        monkeypatch.setenv(var, "1")
+    args = ["kart-tpu-torch", "-i", str(slice_data / "idx"), "-f", sample_reads[0], "-f2",
+            sample_reads[1], "-backend", "python", "-silent", "-cpu"]
+    narrow, wide = slice_data / "stages_int32.sam", slice_data / "stages_int64.sam"
+    assert torch_cli.main([*args, "-o", str(narrow)]) == 0
+    monkeypatch.setattr(loader.GenomeIndex, "index_dtype", property(lambda self: np.int64))
+    assert torch_cli.main([*args, "-o", str(wide)]) == 0
+    assert wide.read_bytes() == narrow.read_bytes()
+
+    mapper = TorchKartMapper(load_index(str(slice_data / "idx")), device="cpu", backend="python")
+    monkeypatch.setattr(loader.GenomeIndex, "two_genome_size", property(lambda self: 2**31))
+    states = [ReadState(header=b"r", seq=b"ACGT" * 25, qual=b"I" * 100, rlen=100)]
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        mapper._device_cluster(states, [[]])
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        mapper._device_pair(1500, [[], []])
