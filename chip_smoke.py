@@ -30,9 +30,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (b) the same pairs with KART_DEVICE_CLUSTER=1 KART_DEVICE_PAIR=1, one
      cluster_illumina and one pair_candidates launch a 4,000-read chunk; (c)
      the first 500 pairs with both switches and -cpu; (d) the first 500
-     pairs with KART_KMER_GATE=0 (the FM stepper seeds): the SAM records of
-     (b), (c) and (d) equal (a)'s.  Both new kernels equal their plain
-     versions at the chunk's shape (from run (b)'s own inputs) and on edge
+     pairs with KART_KMER_GATE=0 (the FM stepper seeds); (e) the first 500
+     pairs with KART_HIT_BUDGET=1 KART_SLAB_ROWS=64 in a process of its own,
+     so that the funnel flags lanes and the FM stepper re-seeds them: the SAM
+     records of (b) to (e) equal (a)'s; reads/s are over the CLI's mapping
+     seconds (the funnel's tables are built before the phase).  Both new
+     kernels equal their plain versions at the chunk's shape (from run (b)'s
+     own inputs) and on edge
      batches (B 1, no seeds, 9,000 chromosome keys; C2 70 and 3,100, ties
      and steals), timed by slope and per call with their bounds and chains,
      and the host seconds of their wrappers beside the host's own clustering
@@ -470,7 +474,8 @@ PATH_KERNELS = ("fm_seed_scan", "nw_planes", "kmer_funnel", "cluster_illumina", 
 def slice_run(prefix, r1, r2, sam, extra=(), **env) -> tuple[str, dict, list, float]:
     """One run of the python backend through the CLI with `env`: its log, the
     launches of the path's kernels (every count set to 0 just before), the
-    lanes the funnel flagged in each chunk, and the wall seconds."""
+    lanes the funnel flagged in each chunk, and the wall seconds (the log
+    splits them into set-up and mapping, see cli_seconds)."""
     import torch
 
     from kart_tpu_torch import kernels
@@ -489,11 +494,40 @@ def slice_run(prefix, r1, r2, sam, extra=(), **env) -> tuple[str, dict, list, fl
     return log, {n: getattr(kernels, n).launches for n in PATH_KERNELS}, flags, wall
 
 
+def cli_seconds(log: str) -> tuple[float, float]:
+    """The set-up and the mapping seconds that the CLI's log gives."""
+    m = re.search(r"set-up ([\d.]+) s .*mapping ([\d.]+) s", log)
+    return float(m.group(1)), float(m.group(2))
+
+
+# run (e) of phase 3 in a process of its own: the funnel module reads
+# KART_HIT_BUDGET and KART_SLAB_ROWS where it is imported
+_SMALL_BUDGET_RUN = """
+import json, sys
+import chip_smoke
+_, launches, flags, _ = chip_smoke.slice_run(*sys.argv[1:5])
+print(json.dumps(dict(launches=launches, flags=flags)))
+"""
+
+
+def small_budget_run(prefix, r1, r2, sam) -> dict:
+    """The python backend with a hit budget of 1 and slabs of 64 rows, so that
+    the funnel flags lanes and the FM stepper re-seeds them: its launches and
+    the lanes flagged by chunk, from a child process."""
+    env = dict(os.environ, KART_HIT_BUDGET="1", KART_SLAB_ROWS="64")
+    for k in ("KART_KMER_GATE", "KART_DEVICE_CLUSTER", "KART_DEVICE_PAIR"):
+        env.pop(k, None)
+    proc = subprocess.run([sys.executable, "-c", _SMALL_BUDGET_RUN, prefix, r1, r2, sam],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"(e) exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def cluster_edges(rng, args):
     """Edge batches of the clustering beside the run's chunk: its first read
-    alone, reads without a seed, and 64 reads of 100 slots whose 9,000
-    chromosome keys are searched in device memory (past the kernel's shared
-    copy), some with a negative starting threshold."""
+    alone, reads without a seed, and 64 reads of 100 slots on 9,000
+    chromosome keys, some with a negative starting threshold."""
     import torch
 
     keys, pd, gp, ln, n, thr0 = args
@@ -516,8 +550,7 @@ def cluster_edges(rng, args):
 
 def pair_edges(rng):
     """Edge batches of the mating: C2 > 32 with few distinct scores (ties and
-    steals), and pairs of 40 + 3,100 slots (kept in device memory, past the
-    kernel's shared copy)."""
+    steals), and pairs of 40 + 3,100 slots."""
     import torch
 
     out = {}
@@ -563,6 +596,7 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
     misses = int(re.search(r"memo misses = (\d+)", log).group(1))
     sens = re.search(r"sensitivity = ([\d.]+)%", log).group(1)
     paired = re.search(r"paired sequences = \d+ \(([\d.]+)%\)", log).group(1)
+    setup_a, map_a = cli_seconds(log)
     recs = sam_records(sam_gpu)
     n_chunks = -(-2 * N_PAIRS // 4000)
     want = dict(fm_seed_scan=sum(1 for f in flags if f), nw_planes=launches["nw_planes"],
@@ -594,7 +628,8 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
             Spy(tm, "cluster_batch_to_candidates",
                 lambda a: (copy.deepcopy(a[1]), list(a[2]), a[3])) as w_cl, \
             Spy(tm, "pair_chunk_on_device", copy.deepcopy) as w_pr:
-        _, launches_b, _, wall_b = slice_run(prefix, r1, r2, sam_dev, KART_KMER_GATE=None, **stages)
+        log_b, launches_b, _, _ = slice_run(prefix, r1, r2, sam_dev, KART_KMER_GATE=None, **stages)
+    setup_b, map_b = cli_seconds(log_b)
     if sam_records(sam_dev) != recs:
         raise AssertionError("(b): the SAM records with the device stages differ from (a)'s")
     if (launches_b["cluster_illumina"], launches_b["pair_candidates"]) != (n_chunks, n_chunks):
@@ -616,6 +651,17 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
             raise AssertionError(f"(d): the FM stepper did not seed alone: {l_run}")
         if tag == "d":
             launches_d = l_run
+    # (e) the first pairs with a hit budget of 1 and slabs of 64 rows: the
+    # funnel flags lanes and the FM stepper re-seeds them
+    sam_e = os.path.join(DATA, "slice_e.sam")
+    small = small_budget_run(prefix, r1c, r2c, sam_e)
+    l_e, flags_e = small["launches"], small["flags"]
+    if sam_records(sam_e) != recs[: 2 * N_CPU_PAIRS]:
+        raise AssertionError("(e): the SAM records of the first pairs differ from (a)'s")
+    if not any(flags_e) or l_e["fm_seed_scan"] != sum(1 for f in flags_e if f) \
+            or l_e["kmer_funnel"] != len(flags_e):
+        raise AssertionError(f"(e): launches {l_e}, flagged lanes by chunk {flags_e}: the FM"
+                             " stepper must re-seed each chunk whose lanes the funnel flags")
 
     # the two kernels against their plain versions at the chunk's shape and on edges
     rng = np.random.default_rng(909)
@@ -686,13 +732,16 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
         raise AssertionError("the device mating differs from the host's")
 
     print(
-        f"phase 3 slice: {2 * N_PAIRS} reads in {wall:.3f} s = {2 * N_PAIRS / wall:.1f} reads/s;"
+        f"phase 3 slice: {2 * N_PAIRS} reads, mapping {map_a:.3f} s = {2 * N_PAIRS / map_a:.1f}"
+        f" reads/s (set-up {setup_a:.3f} s, CLI wall {wall:.3f} s);"
         f" mapped {sens}%, paired {paired}%, read-1 at simulated position {near}/{total};"
         f" (a) launches {launches}, lanes the funnel flagged by chunk {flags}; nw_stats {nw};"
-        f" memo misses {misses}; (b) KART_DEVICE_CLUSTER=1 KART_DEVICE_PAIR=1: {wall_b:.3f} s,"
-        f" launches {launches_b}, SAM records equal (a)'s; (c) first {N_CPU_PAIRS} pairs with both"
-        f" stages and -cpu, (d) with KART_KMER_GATE=0 on the card (launches {launches_d}): SAM"
-        f" records equal"
+        f" memo misses {misses}; (b) KART_DEVICE_CLUSTER=1 KART_DEVICE_PAIR=1: mapping"
+        f" {map_b:.3f} s = {2 * N_PAIRS / map_b:.1f} reads/s (set-up {setup_b:.3f} s), launches"
+        f" {launches_b}, SAM records equal (a)'s; (c) first {N_CPU_PAIRS} pairs with both"
+        f" stages and -cpu, (d) with KART_KMER_GATE=0 on the card (launches {launches_d}),"
+        f" (e) with KART_HIT_BUDGET=1 KART_SLAB_ROWS=64 (launches {l_e}, lanes flagged by chunk"
+        f" {flags_e}): SAM records equal"
     )
     print(
         f"phase 3 cluster_illumina: equal to the plain version at the chunk's shape ({cluster['shape']})"
@@ -1889,15 +1938,15 @@ def main(argv: list[str] | None = None) -> int:
         from kart_tpu_torch.tools.bench_kernels import dependent_load_ns
 
         fm = dict(l2_ns=dependent_load_ns(working_set_bytes=3 * gidx.seq_len // 8))
-    if want(3):
-        slice3 = phase_slice(prefix, gidx, fm["l2_ns"])
     from kart_tpu_torch.ops.kmer_seed import build_tables
     from kart_tpu_torch.tools import simdata
 
     t0 = time.perf_counter()
-    tb = build_tables(gidx)
+    tb = build_tables(gidx)  # and its .kmt sidecar, which the CLI runs load
     print(f"setup: funnel tables built or loaded in {time.perf_counter() - t0:.1f} s"
           f" (max 13-mer multiplicity {tb.max_mult})")
+    if want(3):
+        slice3 = phase_slice(prefix, gidx, fm["l2_ns"])
     if want(4):
         funnel = phase_funnel(gidx, tb, other, fm["l2_ns"])
     del tb

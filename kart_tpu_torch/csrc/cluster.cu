@@ -29,9 +29,8 @@
 // score and the acceptance of that slot, and no scatter-add is needed.  The
 // slots past the last cluster get score 0 and the acceptance the jnp scan
 // gives a score of 0 (true only where the threshold is negative).  The
-// chromosome keys (2 per chromosome) are staged in shared memory when
-// there are at most kSmemKeys of them, and searched in device memory past
-// that.
+// chromosome keys (2 per chromosome) are searched where they lie in device
+// memory; every read searches the same few, so they stay in L1.
 //
 // What bounds it on this card: the bytes, (B, S) int32 three times in and
 // three arrays out, at a few tens of integer operations a slot; the chain
@@ -46,7 +45,6 @@
 namespace {
 
 constexpr int kWarps = 4;  // reads a block
-constexpr int kSmemKeys = 8192;  // chromosome keys staged in shared memory up to this many
 constexpr int kBig = 0x7FFFFFFF;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -69,18 +67,11 @@ __device__ __forceinline__ int wrap_sub(int a, int b) {
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
-cluster_kernel(const int* __restrict__ chr_keys, int K, const int* __restrict__ pd,
+cluster_kernel(const int* __restrict__ keys, int K, const int* __restrict__ pd,
                const int* __restrict__ gp, const int* __restrict__ ln,
                const int* __restrict__ n_seeds, const int* __restrict__ thr0, int max_gaps,
                int B, int S, int* __restrict__ cluster_id, unsigned char* __restrict__ accept,
                int* __restrict__ scores) {
-  extern __shared__ int s_keys[];
-  const bool staged = K <= kSmemKeys;
-  if (staged) {
-    for (int k = threadIdx.x; k < K; k += blockDim.x) s_keys[k] = chr_keys[k];
-  }
-  __syncthreads();
-  const int* keys = staged ? s_keys : chr_keys;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp: no barrier follows
@@ -173,8 +164,7 @@ extern "C" int kart_cluster_illumina(const void* chr_keys, int K, const void* pd
                                      int max_gaps, int B, int S, void* cluster_id, void* accept,
                                      void* scores, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  const size_t smem = K <= kSmemKeys ? static_cast<size_t>(K) * sizeof(int) : 0;
-  cluster_kernel<<<(B + kWarps - 1) / kWarps, 32 * kWarps, smem,
+  cluster_kernel<<<(B + kWarps - 1) / kWarps, 32 * kWarps, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(chr_keys), K, static_cast<const int*>(pd),
       static_cast<const int*>(gp), static_cast<const int*>(ln), static_cast<const int*>(n_seeds),

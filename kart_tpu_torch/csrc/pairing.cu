@@ -20,10 +20,8 @@
 // the first slot it saw it at; three warp reductions (__reduce_max_sync,
 // __reduce_add_sync, __reduce_min_sync) give the best score, the count of
 // slots that hold it and its first slot.  Lane 0 then makes the step's one
-// decision.  paired1 and paired2 of the pair stay in shared memory across
-// the C1 steps when both fit (kSmemSlots slots a warp; only lane 0 touches
-// them between the two copies) and are kept in the output arrays in device
-// memory past that.
+// decision.  paired1 and paired2 of the pair are kept in the output arrays
+// (only lane 0 touches them after the warp has set them to -1).
 //
 // What bounds it on this card: the bytes, the four (P, C) int32 inputs in and
 // the outputs out once, at a few integer operations a (i, j) pair; the chain
@@ -41,24 +39,19 @@
 namespace {
 
 constexpr int kWarps = 4;  // pairs a block
-constexpr int kSmemSlots = 3072;  // C1 + C2 at most this, paired1 and paired2 in shared memory
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <bool kShared>
 __global__ void __launch_bounds__(32 * kWarps)
 pair_kernel(const int* __restrict__ score1, const int* __restrict__ pd1,
             const int* __restrict__ score2, const int* __restrict__ pd2, int est, int P, int C1,
             int C2, int* __restrict__ paired1, int* __restrict__ paired2,
             unsigned char* __restrict__ pairing) {
-  extern __shared__ int smem[];
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarps + w;
   if (p >= P) return;  // the whole warp: no block barrier in this kernel
-  int* const out1 = paired1 + static_cast<size_t>(p) * C1;
-  int* const out2 = paired2 + static_cast<size_t>(p) * C2;
-  int* const m1 = kShared ? smem + w * (C1 + C2) : out1;
-  int* const m2 = kShared ? m1 + C1 : out2;
+  int* const m1 = paired1 + static_cast<size_t>(p) * C1;
+  int* const m2 = paired2 + static_cast<size_t>(p) * C2;
   const int* const s1 = score1 + static_cast<size_t>(p) * C1;
   const int* const d1 = pd1 + static_cast<size_t>(p) * C1;
   const int* const s2 = score2 + static_cast<size_t>(p) * C2;
@@ -100,11 +93,6 @@ pair_kernel(const int* __restrict__ score1, const int* __restrict__ pd1,
       }
     }
   }
-  if (kShared) {
-    __syncwarp();
-    for (int k = lane; k < C1; k += 32) out1[k] = m1[k];
-    for (int k = lane; k < C2; k += 32) out2[k] = m2[k];
-  }
   if (lane == 0) pairing[p] = paired;
 }
 
@@ -118,20 +106,10 @@ extern "C" int kart_pair_candidates(const void* score1, const void* pd1, const v
                                     const void* pd2, int est, int P, int C1, int C2,
                                     void* paired1, void* paired2, void* pairing, void* stream) {
   if (P <= 0) return 0;
-  const dim3 grid((P + kWarps - 1) / kWarps);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const int*>(score1);
-  const auto* b = static_cast<const int*>(pd1);
-  const auto* c = static_cast<const int*>(score2);
-  const auto* d = static_cast<const int*>(pd2);
-  auto* o1 = static_cast<int*>(paired1);
-  auto* o2 = static_cast<int*>(paired2);
-  auto* o3 = static_cast<unsigned char*>(pairing);
-  if (C1 + C2 <= kSmemSlots) {
-    const size_t smem = static_cast<size_t>(kWarps) * (C1 + C2) * sizeof(int);
-    pair_kernel<true><<<grid, 32 * kWarps, smem, s>>>(a, b, c, d, est, P, C1, C2, o1, o2, o3);
-  } else {
-    pair_kernel<false><<<grid, 32 * kWarps, 0, s>>>(a, b, c, d, est, P, C1, C2, o1, o2, o3);
-  }
+  pair_kernel<<<(P + kWarps - 1) / kWarps, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(score1), static_cast<const int*>(pd1),
+      static_cast<const int*>(score2), static_cast<const int*>(pd2), est, P, C1, C2,
+      static_cast<int*>(paired1), static_cast<int*>(paired2),
+      static_cast<unsigned char*>(pairing));
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,8 +15,7 @@ CUDA tensors the hand-written kernel `csrc/cluster.cu`
 (kernels.cluster_illumina).  `cluster_batch_to_candidates` builds the host
 Candidate lists from them, as kart_tpu's wrapper does.
 
-Positions are int32, as kart_tpu has them: an index of 2**31 text bases or
-more is refused (kart_tpu would overflow or wrap there).
+Positions are int32, as kart_tpu has them (`ops/int32.py`).
 """
 
 from __future__ import annotations
@@ -24,25 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .int32 import int32_array
+
 _BIG = 2**31 - 1  # the chromosome end past the last key, and the pad posdiff
-INT32_LIMIT = 2**31
-
-
-def check_int32_index(gidx, what: str) -> None:
-    """Refuse an index whose text positions do not fit int32 (two_genome_size
-    at 2**31 or more): the device clustering and mating take int32."""
-    if gidx.two_genome_size >= INT32_LIMIT:
-        raise ValueError(
-            f"{what}: positions are int32, so the index must have fewer than 2**31 text bases;"
-            f" this one has {gidx.two_genome_size}")
-
-
-def int32_array(values, what: str) -> np.ndarray:
-    """A list of Python ints as an int32 array; ValueError if one does not fit."""
-    a = np.asarray(values, dtype=np.int64)
-    if a.size and (a.min() < -INT32_LIMIT or a.max() >= INT32_LIMIT):
-        raise ValueError(f"{what}: a value does not fit int32 (the device stages take int32)")
-    return a.astype(np.int32)
 
 
 def cluster_illumina_plain(chr_keys, pd, gp, ln, n_seeds, thr0, max_gaps, *, max_seeds: int):
@@ -110,7 +93,6 @@ def cluster_batch_to_candidates(gidx, seeds_lists, rlens, max_gaps: int, *, devi
     by gPos, exactly as the host path (gen_candidates_illumina) builds them."""
     from ..pipeline.candidates import Candidate, Seed, sort_by_gpos
 
-    check_int32_index(gidx, "device clustering")
     B = len(seeds_lists)
     n = np.array([len(s) for s in seeds_lists], dtype=np.int64)
     S = max(1, int(n.max()) if B else 1)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cluster import int32_array
+from .int32 import int32_array
 
 
 def pair_candidates_plain(score1, pd1, score2, pd2, est):

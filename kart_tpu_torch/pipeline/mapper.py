@@ -50,8 +50,9 @@ import torch
 from ..index.format import NT4_TABLE
 from ..index.loader import GenomeIndex
 from ..io.fastq import RawRead, ReadStream, next_chunk
-from ..ops.cluster import check_int32_index, cluster_batch_to_candidates
+from ..ops.cluster import cluster_batch_to_candidates
 from ..ops.fm_search import FMIndexTensors, sa_walk, seed_scan, sensitive_scan, unpack_seed_scan
+from ..ops.int32 import check_int32_index
 from ..ops.kmer_seed import (
     KmerTablesTensors,
     build_tables,
@@ -546,6 +547,7 @@ class TorchKartMapper:
         None where the switch is off and the host clusters."""
         if os.environ.get("KART_DEVICE_CLUSTER") != "1":
             return None
+        check_int32_index(self.gidx, "device clustering")
         return cluster_batch_to_candidates(
             self.gidx, seeds_all, [st.rlen for st in states], self.max_gaps, device=self.device
         )
@@ -877,11 +879,22 @@ class TorchKartMapper:
 
     def prepare(self) -> None:
         """Make the chosen mode's state before the first read: the native
-        engine's seeding index, or for KART_SEED_MODE=device the kernel
+        engine's seeding index, for KART_SEED_MODE=device the kernel
         library, the funnel's tables, the FM index and the full SA on the
-        device (neither of the last two in the sampled SA mode).  map_stream
-        makes whatever is missing itself."""
-        if self.backend != "native":
+        device (neither of the last two in the sampled SA mode), and for the
+        python backend the kernel library and, where the FastMode funnel
+        seeds, its tables on the device and the host packer of its reads.
+        map_stream makes whatever is missing itself."""
+        if self.backend == "python":
+            if self.device.type == "cuda":
+                from .. import kernels
+
+                kernels.build()
+                if not self.pacbio and self._get_kmer_tables() is not None:
+                    from ..native.post import load_postlib
+
+                    self._device_tables()
+                    load_postlib()
             return
         if os.environ.get("KART_SEED_MODE", "native") != "device":
             self._native_seeding_ready()

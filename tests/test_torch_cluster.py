@@ -16,6 +16,7 @@ from kart_tpu.index import load_index as jax_load
 from kart_tpu.ops import cluster as jcl
 from kart_tpu_torch.index import build_index, load_index
 from kart_tpu_torch.ops import cluster as tcl
+from kart_tpu_torch.ops import int32 as i32
 from kart_tpu_torch.pipeline.candidates import Seed, gen_candidates_illumina
 
 from conftest import make_genome
@@ -192,10 +193,15 @@ def test_cluster_batch_to_candidates_matches_jax(genome):
 
 def test_int32_guard_refuses_a_large_index():
     """An index of 2**31 text bases or more is refused with a ValueError that
-    names the limit, not wrapped; one just under it passes the guard."""
-    big = types.SimpleNamespace(two_genome_size=2**31, chr_map=(np.array([2**31 - 1]), None))
+    names the limit, not wrapped; one just under it passes the guard.  A host
+    value past int32 is refused too.  (The mapper's two hooks call the guard:
+    tests/test_torch_slice.py holds them to it.)"""
+    big = types.SimpleNamespace(two_genome_size=2**31)
     with pytest.raises(ValueError, match=r"2\*\*31"):
-        tcl.cluster_batch_to_candidates(big, [[]], [100], MAX_GAPS, device="cpu")
-    tcl.check_int32_index(types.SimpleNamespace(two_genome_size=2**31 - 1), "x")
-    with pytest.raises(ValueError, match="int32"):
-        tcl.int32_array([2**31], "seed gpos")
+        i32.check_int32_index(big, "device clustering")
+    i32.check_int32_index(types.SimpleNamespace(two_genome_size=2**31 - 1), "x")
+    for bad in (2**31, -(2**31) - 1):
+        with pytest.raises(ValueError, match="int32"):
+            i32.int32_array([0, bad], "seed gpos")
+    edge = i32.int32_array([-(2**31), 2**31 - 1], "seed gpos")
+    assert edge.dtype == np.int32 and edge.tolist() == [-(2**31), 2**31 - 1]

@@ -853,8 +853,7 @@ def cluster_genome(workdir):
                                   "many_keys"])
 def test_cluster_kernel_on_host_matches_plain(host_lib, cluster_genome, name):
     """test_torch_cluster's batches (which hold the plain version against
-    kart_tpu), and one whose 9,000 chromosome keys are searched in device
-    memory rather than shared memory."""
+    kart_tpu), and one with 9,000 chromosome keys, many seeds on a key."""
     from test_torch_cluster import MAX_GAPS, cluster_cases
 
     from kart_tpu_torch.ops import cluster as tcl
@@ -898,8 +897,8 @@ def host_pair(lib, s1, d1, s2, d2, est):
                                   "past_shared_memory"])
 def test_pair_kernel_on_host_matches_plain(host_lib, name):
     """test_torch_pairing's batches (which hold the plain version against
-    kart_tpu), and pairs of 40 + 3,100 slots, whose mates are kept in the
-    output arrays rather than shared memory."""
+    kart_tpu), and pairs of 40 + 3,100 slots, more than a block's shared
+    memory would hold for its four pairs."""
     from test_torch_pairing import pairing_cases
 
     from kart_tpu_torch.ops import pairing as tpa
