@@ -106,6 +106,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (c) and (d) equal (b)'s SAM records, (a) equals phase 6's, (e) its
      native run's; reads/s, set-up, launches (sa_walk on the path, the
      funnel never), flagged lanes and the card's busy share of (a).
+ 10. the port's tools (kart_tpu_torch/tools): (a) profile_device's stage
+     table of one group of phase 6's reads (8 chunks, B 32,000, l_max 160)
+     for the funnel, the FM stepper (KART_KMER_GATE=0) and the FM stepper
+     with the sampled SA (KART_SA_MODE=sampled), the scan and scan+resolve
+     timed by slope over CUDA graphs, the copies by event windows, each
+     profiled stream equal to the mapper's own dispatch of the group (the
+     tables are loaded from the .kmt sidecar that phase 6's run loads); (b)
+     analyze_trace's top 10 device ops of one funnel group (3 reps under
+     torch.profiler, the tool's command in a process of its own, once)
+     beside (a)'s scan_resolve_dev; (c) simulate_reads' 2,000
+     pairs of 125 bp on the bench genome (err 0.015, mut 0.002, seed 99, as
+     tests/test_accuracy.py) mapped with KART_SEED_MODE=device on the card and
+     with -cpu: evaluate_sam's two score dicts must be equal.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  Every kernel's record carries its launches
@@ -1873,6 +1886,105 @@ def phase_sampled_slice(prefix: str, pb: str, full_sam: str | None) -> dict:
     return total
 
 
+PROFILE_ENGINES = ("kmer", "fm", "fm_sampled")
+PROFILE_GROUP, PROFILE_REPS, TRACE_REPS, TRACE_TOP = 8, 5, 3, 10
+ACC_PAIRS = 2000  # phase 10's accuracy reads, with tests/test_accuracy.py's settings
+
+
+def phase_tools(gidx, prefix: str) -> dict:
+    """Phase 10: the port's tools on the card.  (a) profile_device's stage
+    table of one group of phase 6's reads for each engine; (b) analyze_trace's
+    top device ops of one funnel group beside (a)'s scan_resolve_dev; (c)
+    simulate_reads' pairs mapped device-pipelined on the card and with -cpu,
+    scored by evaluate_sam: equal dicts."""
+    import shutil
+
+    import torch
+
+    from kart_tpu_torch.tools import analyze_trace, evaluate_sam, profile_device, simulate_reads
+
+    r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
+    if not os.path.exists(r2):
+        simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_DEV_PAIRS)
+    reports = {}
+    for engine in PROFILE_ENGINES:
+        t0 = time.perf_counter()
+        mapper = profile_device.make_mapper(gidx, engine, "cuda")
+        setup = time.perf_counter() - t0
+        rep, _ = profile_device.profile(mapper, r1, r2, group=PROFILE_GROUP, reps=PROFILE_REPS)
+        der, st = rep["derived"], rep["stages_s"]
+        if (der["B"], der["l_max"]) != (PROFILE_GROUP * 4000, L_MAX_GROUP):
+            raise AssertionError(f"profile_device {engine}: B {der['B']} l_max {der['l_max']}")
+        if any(st[k] is None or rep["timing"][k] not in ("slope", "window")
+               for k in ("h2d_words", "scan_dev", "scan_resolve_dev", "d2h_stream")):
+            raise AssertionError(f"profile_device {engine}: a device stage was not timed on the"
+                                 f" card: {rep['timing']}")
+        with open(os.path.join(DATA, f"profile_{engine}.json"), "w") as f:
+            json.dump(rep, f, indent=1)
+        reports[engine] = rep
+        print(f"phase 10 profile_device {engine} ({der['engine']}), B {der['B']} l_max"
+              f" {der['l_max']}, mapper set-up {setup:.3f} s: "
+              + ", ".join(f"{k} {1e3 * v:.4f} ms ({rep['timing'][k]})" for k, v in st.items())
+              + f"; per read {1e6 * st['group_serial'] / der['B']:.4f} us serial;"
+              f" flagged {der['flagged_lanes']}, re-seeded on the card {der['reseeded_device']};"
+              f" upload {der['upload_bytes']} bytes, stream {der['stream_bytes']} bytes;"
+              f" scan+resolve window"
+              f" {1e3 * der['scan_resolve_dev_window_s']:.4f} ms; the stream equals the"
+              f" mapper's own")
+        del mapper
+        torch.cuda.empty_cache()
+
+    # (b) one funnel group under torch.profiler, 3 reps, by the tool's own
+    # command in a process of its own, once: in this process, after the
+    # earlier phases' profiler sessions, every second session loses the
+    # device's records (PERF.md, section 7), and device_trace refuses such a
+    # trace
+    trace_dir = os.path.join(DATA, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "kart_tpu_torch.tools.analyze_trace", "--top", str(TRACE_TOP),
+           "--reps", str(TRACE_REPS), "--dir", trace_dir, "--group", str(PROFILE_GROUP),
+           "--index", prefix, "--reads", r1, r2]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"analyze_trace exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        top = analyze_trace.analyze(trace_dir, TRACE_TOP, TRACE_REPS)
+    funnel = [n for name, n, _, _ in (top or {"rows": ()})["rows"] if "funnel" in name]
+    if funnel != [TRACE_REPS]:
+        raise AssertionError(f"analyze_trace: funnel kernel calls {funnel} in the trace, not"
+                             f" [{TRACE_REPS}]: {top}")
+    sr, reps = reports["kmer"]["stages_s"]["scan_resolve_dev"], TRACE_REPS
+    print(f"phase 10 analyze_trace, one funnel group x {reps} (its own process): {top['events']}"
+          f" events, device"
+          f" {top['device_us'] / reps:.2f} us a rep (busy {top['busy_us'] / reps:.2f}) beside (a)'s"
+          f" kmer scan_resolve_dev {1e6 * sr:.2f} us by slope; top {TRACE_TOP} (us a rep, calls): "
+          + "; ".join(f"{name.replace('(anonymous namespace)::', '').split('(')[0]} {per:.2f}"
+                      f" ({n})" for name, n, _, per in top["rows"]))
+
+    # (c) accuracy: the wgsim-equivalent reads scored against their truth
+    fa = os.path.join(DATA, "genome.fa")
+    a1, a2 = os.path.join(DATA, "acc_r1.fq"), os.path.join(DATA, "acc_r2.fq")
+    t0 = time.perf_counter()
+    simulate_reads.simulate(fa, a1, a2, n_reads=2 * ACC_PAIRS, read_len=125, err=0.015,
+                            mut=0.002, seed=99)
+    t_sim = time.perf_counter() - t0
+    scores = {}
+    with environ(KART_SEED_MODE="device"):
+        for tag, extra in (("device", []), ("cpu", ["-cpu"])):
+            sam = os.path.join(DATA, f"acc_{tag}.sam")
+            run_cli(["-i", prefix, "-f", a1, "-f2", a2, "-o", sam, "-silent", *extra])
+            with contextlib.redirect_stderr(io.StringIO()):
+                scores[tag] = evaluate_sam.evaluate(sam)
+    if scores["device"] != scores["cpu"]:
+        raise AssertionError(f"evaluate_sam: device {scores['device']} != -cpu {scores['cpu']}")
+    if scores["device"]["reads"] != ACC_PAIRS or scores["device"]["mapped"] == 0:
+        raise AssertionError(f"evaluate_sam: {scores['device']}")
+    print(f"phase 10 accuracy: {ACC_PAIRS} pairs of 125 bp (simulate_reads, err 0.015, mut 0.002,"
+          f" seed 99; {t_sim:.1f} s), KART_SEED_MODE=device on the card {scores['device']},"
+          f" -cpu {scores['cpu']}: equal")
+    return dict(reports=reports, top=top, scores=scores)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1966,6 +2078,8 @@ def main(argv: list[str] | None = None) -> int:
         sampled = phase_sampled_kernels(gidx, pb, fm["l2_ns"])
         sampled_launches = phase_sampled_slice(
             prefix, pb, os.path.join(DATA, "dev.sam") if want(6) else None)
+    if want(10):
+        phase_tools(gidx, prefix)
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
     if loaded:

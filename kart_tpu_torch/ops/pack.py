@@ -5,7 +5,8 @@ packs (B, l_max) int8 codes 16 bases per uint32 word with a sparse list of
 ambiguous positions (the C++ packer of native/kart_post.cpp;
 `pack_reads_2bit_plain` is its numpy version), and `unpack_stream` decodes
 the downloaded stream.  Device half (torch):
-`unpack_reads` (the inverse of the packer), `sensitive_scan_packed`, and the
+`unpack_reads` (the inverse of the packer), the three scans of packed reads
+(`seed_scan_packed`, `sensitive_scan_packed`, `kmer_seed_scan_packed`), and the
 three resolved entry points, each from packed reads to the packed int32
 stream of ops/resolve.py:
 
@@ -174,14 +175,21 @@ def _resolver(sa_full, sa_mode: str):
     return sa_full
 
 
+def seed_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds, l_max):
+    """FM-stepper seeds of packed reads, in seed_scan's packed
+    (B, 1 + 4*max_seeds) layout."""
+    reads = unpack_reads(words, amb_r, amb_p, l_max)
+    return seed_scan(fm, reads, rlens, min_seed_len, max_seeds=max_seeds, l_max=l_max)
+
+
 def seed_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_seed_len, *,
                               max_seeds, l_max, occ_budget, sa_mode="full", pack16=False):
     """FM-stepper seeding of packed reads, resolved through the full SA
     (sa_full on the reads' device) or, with sa_mode "sampled", through the
     walk over fm's sampled SA, and packed into one int32 stream (the tuple
     (cnts, meta, gpos) on an int64 index)."""
-    reads = unpack_reads(words, amb_r, amb_p, l_max)
-    packed = seed_scan(fm, reads, rlens, min_seed_len, max_seeds=max_seeds, l_max=l_max)
+    packed = seed_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len,
+                              max_seeds=max_seeds, l_max=l_max)
     return resolve_pack(_resolver(sa_full, sa_mode), packed, max_seeds=max_seeds, has_ok=False,
                         occ_budget=occ_budget, pack16=pack16, fm=fm)
 
@@ -203,22 +211,34 @@ def sensitive_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_
                         occ_budget=occ_budget, pack16=pack16, fm=fm)
 
 
+def kmer_seed_scan_packed(tt, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds, l_max,
+                          hit_cap, rounds, sensitive=False, slab_rows=SLAB_ROWS,
+                          hit_budget=HIT_BUDGET):
+    """13-mer funnel seeds of packed reads (FastMode, or SensitiveMode) in
+    the funnel's (B, 2 + 4*max_seeds) layout; flagged lanes carry ok 0.
+    CPU tensors run the plain version, CUDA tensors the kernel (which
+    unpacks the reads itself)."""
+    kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds,
+              sensitive=sensitive, slab_rows=slab_rows, hit_budget=hit_budget)
+    if words.device.type == "cuda":
+        from ..kernels import kmer_funnel
+
+        return kmer_funnel(tt, words, amb_r, amb_p, rlens, int(min_seed_len), **kw)
+    if words.device.type != "cpu":
+        raise ValueError(f"kmer_seed_scan_packed: unsupported device {words.device}")
+    reads = unpack_reads_plain(words, amb_r, amb_p, l_max)
+    return kmer_seed_scan_plain(tt, reads, rlens, min_seed_len, **kw)
+
+
 def kmer_seed_scan_resolved_packed(tt, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds,
                                    l_max, hit_cap, rounds, occ_budget, sensitive=False,
                                    pack16=False, slab_rows=SLAB_ROWS, hit_budget=HIT_BUDGET):
     """13-mer funnel seeding of packed reads (FastMode, or SensitiveMode),
     resolved through the full SA and packed into one int32 stream; lanes
     the funnel flags carry cnts < 0."""
-    kw = dict(max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap, rounds=rounds,
-              sensitive=sensitive, slab_rows=slab_rows, hit_budget=hit_budget)
-    if words.device.type == "cuda":
-        from ..kernels import kmer_funnel
-
-        packed = kmer_funnel(tt, words, amb_r, amb_p, rlens, int(min_seed_len), **kw)
-    elif words.device.type == "cpu":
-        reads = unpack_reads_plain(words, amb_r, amb_p, l_max)
-        packed = kmer_seed_scan_plain(tt, reads, rlens, min_seed_len, **kw)
-    else:
-        raise ValueError(f"kmer_seed_scan_resolved_packed: unsupported device {words.device}")
+    packed = kmer_seed_scan_packed(tt, words, amb_r, amb_p, rlens, min_seed_len,
+                                   max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap,
+                                   rounds=rounds, sensitive=sensitive, slab_rows=slab_rows,
+                                   hit_budget=hit_budget)
     return resolve_pack(tt.sa_full, packed, max_seeds=max_seeds, has_ok=True,
                         occ_budget=occ_budget, pack16=pack16)

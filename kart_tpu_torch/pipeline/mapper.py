@@ -603,6 +603,11 @@ class TorchKartMapper:
             return l_max // self.min_seed_len + 2
         return l_max // (self.min_seed_len + 1) + 1
 
+    def _funnel_rounds(self, l_max: int) -> int:
+        """The funnel's round limit for a group: a SensitiveMode round
+        restarts every lane once, so a read takes about rlen / MinSeed rounds."""
+        return l_max // self.min_seed_len + 8 if self.pacbio else l_max // 10 + 4
+
     def _to_device(self, arrays):
         """numpy arrays -> tensors on the mapper's device.  On a CUDA device
         the copies go through pinned memory without blocking, on the
@@ -622,12 +627,10 @@ class TorchKartMapper:
                   occ_budget=self._occ_budget(B, l_max), pack16=self._pack16(l_max))
         tb = self._get_kmer_tables()
         if tb is not None:
-            # a SensitiveMode round restarts every lane once, so a read takes
-            # about rlen / MinSeed rounds
-            rounds = l_max // self.min_seed_len + 8 if self.pacbio else l_max // 10 + 4
             return kmer_seed_scan_resolved_packed(
                 self._device_tables(), words, amb_r, amb_p, rlens, self.min_seed_len,
-                hit_cap=hit_cap_for(tb.max_mult), rounds=rounds, sensitive=self.pacbio, **kw,
+                hit_cap=hit_cap_for(tb.max_mult), rounds=self._funnel_rounds(l_max),
+                sensitive=self.pacbio, **kw,
             )
         fn = sensitive_scan_resolved_packed if self.pacbio else seed_scan_resolved_packed
         return fn(self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len,

@@ -22,7 +22,10 @@ from __future__ import annotations
 
 import ctypes
 import importlib.util
+import json
 import os
+import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -53,26 +56,24 @@ def time_both(fn, reps: int = 32, n_small: int = 8, n_big: int = 136) -> tuple[f
 
 def device_us_by_kernel(fn, reps: int = 10) -> dict[str, float]:
     """Device microseconds per call of fn(), by kernel or copy name, from
-    `torch.profiler` over `reps` eager calls.  A session that saw no device
-    activity (a process that has run many sessions and CUDA graphs gave one
-    on an H100) is taken once more; raises if that one saw none either."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-                out[ev.key] = ev.self_device_time_total / reps
-        if out:
-            return out
-    raise RuntimeError("torch.profiler recorded no device activity")
+    `torch.profiler` over `reps` eager calls (`device_spans`).  A session
+    that recorded no device event (on an H100 a process that has run many
+    sessions loses the device's records of some; PERF.md, section 7) is
+    taken once more, and says so on stderr; raises if that one lost them
+    too."""
+    for attempt in range(2):
+        try:
+            spans = device_spans(lambda: [fn() for _ in range(reps)], warm=fn)
+            break
+        except RuntimeError:
+            if attempt:
+                raise
+            print("device_us_by_kernel: the torch.profiler session recorded no device event;"
+                  " taken once more", file=sys.stderr)
+    out: dict[str, float] = {}
+    for t0, t1, name in spans:
+        out[name] = out.get(name, 0.0) + (t1 - t0) / reps
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -133,12 +134,14 @@ def dependent_load_ns(n: int = 1 << 26, steps: int = 20000, seed: int = 0, *,
 
 def device_spans(fn, warm) -> list[tuple[float, float, str]]:
     """fn() once under `torch.profiler`: the (start us, end us, name) of every
-    kernel and copy the device ran, in order of start.  warm() runs first as
+    kernel, copy and set the device ran, in order of start, read from the
+    session's Chrome trace (`utils.trace.trace_spans`).  warm() runs first as
     the profiler's warm-up step, whose events are dropped: a profiler started
     cold can lose the device's first events.  Raises if the profiler saw no
     device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ..utils.trace import trace_spans
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -148,9 +151,11 @@ def device_spans(fn, warm) -> list[tuple[float, float, str]]:
         prof.step()
         fn()
         torch.cuda.synchronize()
-    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
-                   and not ev.name.startswith("ProfilerStep"))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            spans = [s for s in trace_spans(json.load(f)) if s[1] > s[0]]
     if not spans:
         raise RuntimeError("torch.profiler recorded no device activity")
     return spans

@@ -8,10 +8,14 @@ families, 150 bp read pairs with insert 500 +- 50, 1% substitutions and
 indels at 0.001 per base, and PacBio-like reads of 5,000 to 7,000 bases with
 15% errors (substitutions, deletions and insertions 2:1:1).  All draw from a
 numpy `Generator` in the same order as bench.py, so the same seed gives the
-same bytes (tests/test_torch_slice.py holds them equal).
+same bytes (tests/test_torch_slice.py holds them equal).  `ensure_assets`
+makes bench.py's whole set (genome, index and 100,000 pairs) under bench.py's
+file names.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -19,6 +23,7 @@ GENOME_LEN = 4_639_680
 GENOME_SEED = 7
 READS_SEED = 20260817
 READ_LEN = 150
+N_PAIRS = 100_000  # bench.py's read set
 GENOME_NAME = b"bench_ecoli_synthetic_repeats"
 PB_READS_SEED = 20260821
 PB_N_READS = 1500
@@ -78,6 +83,32 @@ def read_genome_fasta(path: str) -> np.ndarray:
     """The bases of a one-record FASTA written by write_genome_fasta."""
     with open(path, "rb") as f:
         return np.frombuffer(b"".join(f.read().split(b"\n")[1:]), np.uint8)
+
+
+def ensure_assets(data_dir: str) -> tuple[str, str, str]:
+    """bench.py's genome, its index (built by the port's builder, byte for
+    byte kart_tpu's) and its 100,000 read pairs in data_dir under bench.py's
+    file names, each made where missing -> (index prefix, r1, r2)."""
+    from ..index import build_index, index_files_exist
+
+    os.makedirs(data_dir, exist_ok=True)
+    fa = os.path.join(data_dir, "bench_genome_v2.fa")
+    prefix = os.path.join(data_dir, "bench_idx_v2")
+    r1, r2 = (os.path.join(data_dir, f"bench_v2_r{k}.fq") for k in (1, 2))
+    if not os.path.exists(fa):
+        write_genome_fasta(fa, make_repeat_genome(np.random.default_rng(GENOME_SEED)))
+    if not (index_files_exist(prefix) and os.path.exists(prefix + ".saf")):
+        build_index(fa, prefix, verbose=False)
+
+    def n_reads(path):
+        if not os.path.exists(path):
+            return 0
+        with open(path, "rb") as f:
+            return sum(1 for _ in f) // 4
+
+    if n_reads(r1) != N_PAIRS or n_reads(r2) != N_PAIRS:
+        simulate_reads(read_genome_fasta(fa), r1, r2, N_PAIRS)
+    return prefix, r1, r2
 
 
 def simulate_reads(genome: np.ndarray, out1: str, out2: str, n_pairs: int,

@@ -1,0 +1,143 @@
+"""Tracing and profiling helpers of the port.
+
+Counterpart of kart_tpu's `utils/trace.py`.  The reference has no tracing
+beyond a wall-clock progress line (src/Mapping.cpp:509) and indexer phase
+timers (src/BWT_Index/bwtindex.c:93-145).  This module adds:
+
+  * StageTimers — lightweight named accumulators for the host pipeline
+    stages (read / seed / post / emit), printed as a per-read breakdown;
+  * device_trace — context manager around torch.profiler that writes a
+    Chrome trace of the enclosed block (CPU and, where there is a CUDA
+    device, its kernels and copies) into a directory (KART_TRACE_DIR or
+    arg), and refuses one that lost the device's records of a block that
+    queued device work; tools/analyze_trace.py reads it;
+  * trace_spans — the device events of such a trace, the one parser of
+    device lanes that the port's tools share;
+  * progress_line — the reference's \\r-rewritten progress reporter.
+
+Enable stage timing with KART_TIMERS=1; the native pipeline's own
+per-stage profile is KART_PROF=1 (kart_post.cpp).  StageTimers and
+progress_line are kart_tpu's, byte for byte in what they print.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+# the Chrome trace's device lanes: kernels, copies and sets
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+class StageTimers:
+    """Named wall-clock accumulators: with timers.stage("seed"): ..."""
+
+    def __init__(self, enabled: bool | None = None):
+        self.enabled = (
+            enabled if enabled is not None else os.environ.get("KART_TIMERS") == "1"
+        )
+        self.acc: dict[str, float] = defaultdict(float)
+        self.n: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.acc[name] += time.perf_counter() - t0
+            self.n[name] += 1
+
+    def report(self, n_items: int | None = None, file=sys.stderr) -> None:
+        if not self.enabled or not self.acc:
+            return
+        parts = []
+        for k in sorted(self.acc, key=self.acc.get, reverse=True):
+            line = f"{k}={self.acc[k]:.3f}s"
+            if n_items:
+                line += f" ({1e9 * self.acc[k] / n_items:.0f}ns/item)"
+            parts.append(line)
+        print("[kart_timers] " + "  ".join(parts), file=file)
+
+
+def trace_spans(trace: dict) -> list[tuple[float, float, str]]:
+    """The (start us, end us, name) of every device event of a Chrome trace
+    (its DEVICE_CATS events), in order of start."""
+    return sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]), ev.get("name", "?"))
+                  for ev in trace.get("traceEvents", [])
+                  if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATS and "dur" in ev)
+
+
+def host_launches(trace: dict) -> int:
+    """The CUDA runtime and driver calls of a Chrome trace that queue device
+    work: kernel and graph launches, copies and sets."""
+    return sum(1 for ev in trace.get("traceEvents", [])
+               if ev.get("cat") in ("cuda_runtime", "cuda_driver")
+               and any(k in ev.get("name", "") for k in ("Launch", "Memcpy", "Memset")))
+
+
+def check_device_events(trace: dict, where: str, port_launches: int = 0) -> None:
+    """Raise if `trace` holds no device event while the traced block queued
+    device work: calls that queue it in the trace, or `port_launches`
+    launches that the port's kernel wrappers counted.  Such a session lost
+    the device's records (PERF.md, section 7)."""
+    n = host_launches(trace) + port_launches
+    if n and not trace_spans(trace):
+        raise RuntimeError(f"{where}: torch.profiler recorded no device event of a block that"
+                           f" queued device work ({host_launches(trace)} launches, copies or sets"
+                           f" in the trace, {port_launches} launches of the port's kernels)")
+
+
+def _port_launches() -> int:
+    """The sum of the port's kernel wrappers' launch counts."""
+    from .. import kernels
+
+    return sum(getattr(f, "launches", 0) for f in vars(kernels).values() if callable(f))
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None = None):
+    """Write a torch.profiler Chrome trace of the enclosed block into
+    `trace_dir` (made if missing) as `kart_<pid>_<ns>.trace.json`: CPU
+    activity, and the CUDA device's kernels and copies where a CUDA device
+    is available (the block's queued work is synchronised before the trace
+    closes).  Raises if the block queued device work and the trace holds no
+    device event (check_device_events).  No-op unless a directory is given
+    or KART_TRACE_DIR is set."""
+    trace_dir = trace_dir or os.environ.get("KART_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(trace_dir, exist_ok=True)
+    launched = _port_launches()
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    path = os.path.join(trace_dir, f"kart_{os.getpid()}_{time.time_ns()}.trace.json")
+    prof.export_chrome_trace(path)
+    if cuda:
+        with open(path) as f:
+            check_device_events(json.load(f), path, _port_launches() - launched)
+
+
+def progress_line(total: int, kind: str, t0: float, file=sys.stdout) -> None:
+    """The reference's progress reporter (Mapping.cpp:509)."""
+    print(
+        f"\r{total} {kind} reads have been processed in {int(time.time() - t0)} seconds...",
+        end="",
+        flush=True,
+        file=file,
+    )

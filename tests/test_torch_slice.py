@@ -224,13 +224,22 @@ assert not os.path.exists(os.path.join(os.environ["HOME"], ".cache", "kart_tpu_j
 
 def test_port_sources_do_not_import_jax():
     """No source of the port, and not chip_smoke.py, imports jax, the JAX
-    package kart_tpu (kart_tpu_torch is the port itself) or bench.py."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|kart_tpu|bench)(\.[\w.]*)?(\s|$)", re.M)
+    package kart_tpu (kart_tpu_torch is the port itself), bench.py or a
+    module of the repository's tools/ (the port has its own copies)."""
+    root_tools = "simulate_reads|evaluate_sam|make_huge_genome|profile_device|analyze_trace|bench_huge"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|kart_tpu|bench|tools|" + root_tools
+                     + r")(\.[\w.]*)?(\s|$)", re.M)
     for bad in ("import jax", "from jax.numpy import x", "  import kart_tpu", "from kart_tpu.io import y",
-                "import bench", "from bench import z", "import kart_tpu.index as i"):
+                "import bench", "from bench import z", "import kart_tpu.index as i",
+                "from simulate_reads import simulate", "import evaluate_sam",
+                "    from make_huge_genome import write_genome", "import profile_device",
+                "from analyze_trace import analyze", "import bench_huge",
+                "from tools.simulate_reads import simulate", "from tools import evaluate_sam"):
         assert pat.search(bad), bad
     for good in ("import kart_tpu_torch.cli", "from kart_tpu_torch import cli",
-                 "from kart_tpu_torch.tools import bench_gather", "from .tools import bench_gather"):
+                 "from kart_tpu_torch.tools import bench_gather", "from .tools import bench_gather",
+                 "from .simulate_reads import simulate", "from . import profile_device",
+                 "from kart_tpu_torch.tools import bench_huge", "from .profile_device import x"):
         assert not pat.search(good), good
     files = sorted((REPO / "kart_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 30
