@@ -119,6 +119,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      pairs of 125 bp on the bench genome (err 0.015, mut 0.002, seed 99, as
      tests/test_accuracy.py) mapped with KART_SEED_MODE=device on the card and
      with -cpu: evaluate_sam's two score dicts must be equal.
+ 11. the sharded index (-idx-shards; kart_tpu_torch/parallel/, the four
+     kernels of csrc/sharded_fm.cu), all shards on cuda:0: (a) G1 (masked
+     occ4) and G2 (the scan step) at step 40 of the sharded scan of 16,000 of
+     phase 6's reads (l_max 160), G3 (the walk step) and G4 (the masked
+     gathers) at phase 4's 96,000 stream rows, each byte-equal to its plain
+     version, int32 and int64, at 1, 2 and 4 shards; the sharded scan equal
+     to its plain version and to fm_seed_scan, the sharded walk to sa_walk
+     and sa_walk_plain (also cut at 8 steps), the resolved stream (full and
+     sampled) to resolve_pack's; each kernel timed by slope (shard 0 of 2)
+     with its bound and chain, beside the whole scan and walk per call;
+     (b) the mapper (native backend, the python reader) with 2 and 4 shards
+     on cuda:0 over phase 6's 200,000 reads, full SA and
+     KART_SA_MODE=sampled: SAM records equal to the native mode's; reads/s,
+     set-up, launches, flagged lanes; (c) two processes on cuda:0 (the gloo
+     group of init_distributed, an all_gather, the TCP stat relay,
+     map_shard with 2 shards each) over 16,000 pairs: merged records equal
+     to a single process's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  Every kernel's record carries its launches
@@ -1985,6 +2002,390 @@ def phase_tools(gidx, prefix: str) -> dict:
     return dict(reports=reports, top=top, scores=scores)
 
 
+SHARD_COUNTS = (1, 2, 4)  # shards of phase 11, all on cuda:0
+SHARD_B = 16000  # a sharded call of the mapper: four reader chunks
+SHARD_SNAP = 40  # the scan step whose G1 and G2 launches are held against their plain versions
+SHARD_TIMED = 2  # the shard count whose kernels are timed
+SHARD_MH_PAIRS = 16000  # (c): eight reader chunks, past the 1,000-pair threshold
+SHARDED_KERNELS = ("sharded_occ4", "sharded_scan_step", "sharded_inv_psi", "sharded_gather",
+                   "resolve_pack")
+
+
+def sectors(offsets) -> int:
+    """The distinct 32-byte sectors that the byte offsets fall in."""
+    import torch
+
+    return int(torch.unique(offsets >> 5).numel())
+
+
+def sharded_bounds(sfm, kind: str, rows, touched: int, l2_load_ns: float) -> dict:
+    """Bound of one shard's launch (G1, G3, G4) or of one step (G2): the
+    rows in and the results out once, and `touched`, the index bytes the
+    launch reads: each distinct 32-byte sector of the BWT words, checkpoint
+    rows (G1, G3) or slab rows (G4) it loads, once (`touched_bytes`); G3
+    also reads and writes the step count of each row not at a sample; G2
+    its state in and out, the counts, the codes of one column and the seed
+    counts.  Some 60 operations a row (G1, G3: the popcounts), 40 a lane
+    (G2), 4 a row (G4).  `chain_ms`: the dependent loads of one row: k, then
+    the block (G1, G3: two), the slab row (G4: two), the counts (G2: one)."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    isz = sfm.L2.element_size()
+    n = rows.numel()
+    if kind == "occ4":
+        n_bytes, ops, chain = n * isz + 4 * n * isz + touched, 60 * n, 2
+    elif kind == "inv_psi":
+        n_steps = int(((rows & 31) != 0).sum())
+        n_bytes, ops, chain = 2 * n * isz + 8 * n_steps + touched, 60 * n, 2
+    elif kind == "gather":
+        n_bytes, ops, chain = 2 * n * isz + touched, 4 * n, 2
+    else:  # the step: B lanes, rows (2B,) the next rows
+        B = n // 2
+        n_bytes = 2 * B * 4 * isz + B * 8 + 2 * (3 * B * 4 + 3 * B * isz) + 2 * B * isz + B * isz
+        ops, chain = 40 * B, 1
+    t_b, by = bound_ms(n_bytes, ops)
+    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, chain_ms=chain * l2_load_ns / 1e6)
+
+
+def touched_bytes(sfm, kind: str, rows) -> int:
+    """The index bytes that shard 0's launch of G1 (kind occ4), G3 (inv_psi)
+    or G4 (gather, full SA) reads for `rows`: 32 bytes for each distinct
+    sector of the owned rows' blocks (eight BWT words, a sector each) and
+    checkpoint rows (16 or 32 bytes), or of their slab rows.  G3 loads
+    nothing for a row at a sample."""
+    isz = sfm.L2.element_size()
+    if kind == "gather":
+        own = rows[rows < sfm.ns_local].long()
+        return 32 * sectors(isz * own)
+    if kind == "inv_psi":
+        rows = rows[(rows & 31) != 0]
+    blk = (rows - (rows >= sfm.primary).to(rows.dtype)) >> 7
+    blk = blk[(blk >= 0) & (blk < sfm.nb_local)].long()
+    return 32 * (sectors(32 * blk) + sectors(4 * isz * blk))
+
+
+def phase_sharded_kernels(gidx, l2_load_ns: float) -> dict:
+    """Phase 11 (a): G1 to G4 against their plain versions on cuda:0, byte
+    for byte, int32 and int64, at 1, 2 and 4 shards: G1 and G2 at step
+    SHARD_SNAP of the sharded scan of a 16,000-read group of phase 6's reads
+    (l_max 160), whose packed seeds must equal its plain version's and
+    kernels.fm_seed_scan's; G3 and G4 at phase 4's stream rows (a step at
+    the rows and after 10 steps, the whole walk against sa_walk and
+    sa_walk_plain whole and cut at 8 steps, the sample and full-SA gathers);
+    the resolved stream, full and sampled, against resolve_pack's.  Each
+    kernel timed by slope at SHARD_TIMED shards (int32) with its bound."""
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops import fm_search as tfm
+    from kart_tpu_torch.parallel import sharded_index as tsi
+    from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    msl = compute_min_seed_length(gidx.two_genome_size)
+    L, ms = L_MAX_GROUP, L_MAX_GROUP // (msl + 1) + 1
+    dev = torch.device("cuda", 0)
+    r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
+    if not os.path.exists(r2):
+        simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_DEV_PAIRS)
+    half = SHARD_B // 2
+    seqs = [s for pair in zip(fastq_codes(r1, half), fastq_codes(r2, half)) for s in pair]
+    reads_i8, rl = pad_batch(seqs, SHARD_B, L)
+    reads = torch.from_numpy(reads_i8.astype(np.int32)).to(dev)
+    rlens = torch.from_numpy(rl).to(dev)
+    fm32 = tfm.FMIndexTensors.from_genome_index(gidx, dev)
+    # phase 4's group, seeded by the FM stepper: its stream's rows
+    g_reads = torch.from_numpy(group_reads(gidx, np.random.default_rng(13), B_GROUP, L).astype(
+        np.int32)).to(dev)
+    g_seeds = kernels.fm_seed_scan(fm32, g_reads, torch.full((B_GROUP,), READ_LEN, dtype=torch.int32,
+                                                             device=dev), msl, max_seeds=ms, l_max=L)
+    rows32 = stream_rows(g_seeds, ms, 3 * B_GROUP)
+    sa32 = fm32.sa_full.to(dev)
+    lines, timed = [], {}
+    for dtype in ("int32", "int64"):
+        g = gidx if dtype == "int32" else tsi.index_int64(gidx)
+        fm = fm32 if dtype == "int32" else fm_int64(fm32)
+        rows = rows32 if dtype == "int32" else rows32.long()
+        want_seeds = kernels.fm_seed_scan(fm, reads, rlens, msl, max_seeds=ms, l_max=L)
+        for n in SHARD_COUNTS:
+            what = f"{n} shards {dtype}"
+            sfm = tsi.build_sharded_fm(g, [dev] * n, "full")
+            snap: dict = {}
+            calls = [0]
+
+            def occ4_rows(k, sfm=sfm, snap=snap, calls=calls):
+                parts = [tsi.shard_occ4(sfm, s, k) for s in sfm.shards]
+                if calls[0] == SHARD_SNAP:
+                    for s, part in zip(sfm.shards, parts):
+                        require_equal(part, tsi.shard_occ4_plain(sfm, s, k), f"G1 ({what}, shard"
+                                      f" {s.index})")
+                    snap["k"] = k.clone()
+                calls[0] += 1
+                return tsi.combine(parts, dev)
+
+            def step(p, cnt, codes_t, rl_, L2, primary, m, s_, state, out, snap=snap):
+                if p == SHARD_SNAP:
+                    want_out = out.clone()
+                    want = tfm.seed_scan_step_plain(p, cnt, codes_t, rl_, L2, primary, m, s_,
+                                                    state, want_out)
+                    got = kernels.sharded_scan_step(p, cnt, codes_t, rl_, L2, primary, m, s_,
+                                                    state, out)
+                    for a, b, nm in ((got[0][0], want[0][0], "ist"), (got[0][1], want[0][1], "tst"),
+                                     (got[1], want[1], "rows"), (out, want_out, "seeds")):
+                        require_equal(a, b, f"G2 {nm} ({what}, step {p})")
+                    snap.update(step=(p, cnt.clone(), codes_t, rl_, L2, primary, m, s_,
+                                      tuple(x.clone() for x in state), out.clone()))
+                    return got
+                return kernels.sharded_scan_step(p, cnt, codes_t, rl_, L2, primary, m, s_, state,
+                                                 out)
+
+            got = tfm.seed_scan_loop(occ4_rows, step, sfm.L2, sfm.primary, reads, rlens, msl,
+                                     max_seeds=ms, l_max=L)
+            require_equal(got, want_seeds, f"sharded scan against fm_seed_scan ({what})")
+            require_equal(tsi.sharded_seed_scan(sfm, reads, rlens, msl, max_seeds=ms, l_max=L),
+                          got, f"sharded_seed_scan ({what})")
+            plain = tfm.seed_scan_loop(
+                lambda k, sfm=sfm: tsi.combine([tsi.shard_occ4_plain(sfm, s, k)
+                                                for s in sfm.shards], dev),
+                tfm.seed_scan_step_plain, sfm.L2, sfm.primary, reads, rlens, msl, max_seeds=ms,
+                l_max=L)
+            require_equal(got, plain, f"sharded scan against its plain version ({what})")
+
+            # G3 and G4 at the stream rows: a step at the rows and after 10 steps
+            k = rows
+            for it in range(11):
+                if it in (0, 10):
+                    for s in sfm.shards:
+                        add_k = torch.zeros(k.numel(), dtype=torch.int32, device=dev)
+                        add_p = add_k.clone()
+                        require_equal(tsi.shard_inv_psi(sfm, s, k, add_k),
+                                      tsi.shard_inv_psi_plain(sfm, s, k, add_p),
+                                      f"G3 ({what}, shard {s.index}, step {it})")
+                        require_equal(add_k, add_p, f"G3 steps ({what}, step {it})")
+                k = tsi.sharded_inv_psi_batch(sfm, k)
+            for steps in (4096, 8):
+                w = tsi.sharded_sa_walk(sfm, rows, max_steps=steps)
+                for a, b, r in zip(w, kernels.sa_walk(fm, rows, max_steps=steps),
+                                   tfm.sa_walk_plain(fm, rows, max_steps=steps)):
+                    require_equal(a, b, f"sharded walk against sa_walk ({what}, {steps} steps)")
+                    require_equal(a, r, f"sharded walk against sa_walk_plain ({what}, {steps})")
+                if bool(w[1].all()) != (steps == 4096):
+                    raise AssertionError(f"sharded walk ({what}): max_steps {steps} cut"
+                                         f" {int((~w[1]).sum())} walks")
+            for s in sfm.shards:
+                for slab, lo, shift, nm in ((s.sa_full, s.index * sfm.ns_local, 0, "full SA"),
+                                            (s.sa_samples, s.index * sfm.nsamp_local, 5,
+                                             "samples")):
+                    require_equal(tsi.shard_gather(slab, lo, rows, shift),
+                                  tsi.shard_gather_plain(slab, lo, rows, shift),
+                                  f"G4 {nm} ({what}, shard {s.index})")
+            require_equal(tsi.sharded_sa_gather(sfm, rows), sa32[rows.long()].to(rows.dtype),
+                          f"sharded full-SA gather ({what})")
+
+            # the resolved stream, full and sampled, against resolve_pack
+            H = 3 * SHARD_B
+            full = kernels.resolve_pack(sa32.to(fm.index_dtype), want_seeds, max_seeds=ms,
+                                        has_ok=False, occ_budget=H, pack16=False)
+            full = full if isinstance(full, tuple) else (full[:SHARD_B], full[SHARD_B:SHARD_B + H],
+                                                         full[SHARD_B + H:])
+            for mode in ("full", "sampled"):
+                sf = sfm if mode == "full" else tsi.build_sharded_fm(g, [dev] * n, "sampled")
+                res = tsi.sharded_seed_scan_resolved(sf, reads, rlens, msl, max_seeds=ms, l_max=L,
+                                                     occ_budget=H)
+                for a, b, nm in zip(res, full, ("cnts", "meta", "gpos")):
+                    require_equal(a, b, f"sharded resolved {nm} ({what}, {mode})")
+            lines.append(f"{what}: G1 and G2 at step {SHARD_SNAP}, the scan ({int(got[:, 0].sum())}"
+                         f" seeds), G3 at steps 0 and 10, the walk (4096 and 8 steps), G4 (full SA,"
+                         f" samples) of {rows.numel()} rows, the resolved stream (full, sampled)"
+                         f" equal")
+            if n == SHARD_TIMED and dtype == "int32":
+                timed = dict(sfm=sfm, snap=snap, rows=rows, fm=fm)
+    # times at SHARD_TIMED shards, int32: shard 0's launch of each kernel
+    sfm, snap, rows = timed["sfm"], timed["snap"], timed["rows"]
+    s0 = sfm.shards[0]
+    k2 = snap["k"]
+    p, cnt, codes_t, rl_, L2, primary, m, s_, state, out = snap["step"]
+    add = torch.zeros(rows.numel(), dtype=torch.int32, device=dev)
+    lo_sa = 0
+    cases = {
+        "sharded_occ4": ("occ4", k2, lambda: tsi.shard_occ4(sfm, s0, k2),
+                         lambda: tsi.shard_occ4_plain(sfm, s0, k2), None),
+        "sharded_scan_step": ("step", k2, lambda: kernels.sharded_scan_step(
+            p, cnt, codes_t, rl_, L2, primary, m, s_, state, out),
+            lambda: tfm.seed_scan_step_plain(p, cnt, codes_t, rl_, L2, primary, m, s_, state,
+                                             out.clone()), None),
+        "sharded_inv_psi": ("inv_psi", rows, lambda: tsi.shard_inv_psi(sfm, s0, rows, add),
+                            lambda: tsi.shard_inv_psi_plain(sfm, s0, rows, add.clone()), None),
+        "sharded_gather": ("gather", rows, lambda: tsi.shard_gather(s0.sa_full, lo_sa, rows),
+                           lambda: tsi.shard_gather_plain(s0.sa_full, lo_sa, rows),
+                           lambda: s0.sa_full[(rows - lo_sa).clamp(0, sfm.ns_local - 1).long()]),
+    }
+    rec = {}
+    for name, (kind, r, fn, plain_fn, lib_fn) in cases.items():
+        t = time_both(fn)
+        plain = cuda_ms(plain_fn, 3)
+        lib = None if lib_fn is None else time_both(lib_fn)[0] * 1e3
+        b = sharded_bounds(sfm, kind, r, 0 if kind == "step" else touched_bytes(sfm, kind, r),
+                           l2_load_ns)
+        rec[name] = dict(ms=1e3 * t[0], per_call_ms=1e3 * t[1], plain_ms=plain, err=0,
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"], chain_ms=b["chain_ms"],
+                         library_ms=lib,
+                         shape=f"shard 0 of {SHARD_TIMED} on one card, {r.numel()} rows, int32"
+                               if kind != "step" else f"{r.numel() // 2} lanes, int32")
+        what = f"{r.numel() // 2} lanes" if kind == "step" else f"{r.numel()} rows"
+        lines.append(f"{name} (shard 0 of {SHARD_TIMED}, {what}, int32): slope"
+                     f" {1e3 * t[0]:.4f} ms, per call {1e3 * t[1]:.4f} ms, plain {plain:.4f} ms"
+                     + ("" if lib is None else f", library call {lib:.4f} ms")
+                     + f"; {b['bytes']} bytes: bound {b['bound_ms']:.4f} ms ({b['bound_by']}),"
+                     f" chain {b['chain_ms']:.4f} ms")
+    for n in SHARD_COUNTS:
+        sf = tsi.build_sharded_fm(gidx, [dev] * n, "full")
+        scan_ms = cuda_ms(lambda: tsi.sharded_seed_scan(sf, reads, rlens, msl, max_seeds=ms,
+                                                        l_max=L), 3)
+        walk_ms = cuda_ms(lambda: tsi.sharded_sa_walk(sf, rows), 3)
+        lines.append(f"{n} shards int32, per call (event window): the sharded scan of"
+                     f" {SHARD_B} reads {scan_ms:.4f} ms ({L + 1} steps of {n} G1 + the sum + G2),"
+                     f" the walk of {rows.numel()} rows {walk_ms:.4f} ms")
+        rec[f"scan_{n}_ms"], rec[f"walk_{n}_ms"] = scan_ms, walk_ms
+    rec["fm_seed_scan_ms"] = cuda_ms(lambda: kernels.fm_seed_scan(fm32, reads, rlens, msl,
+                                                                  max_seeds=ms, l_max=L), 3)
+    lines.append(f"replicated fm_seed_scan of the same {SHARD_B} reads, per call:"
+                 f" {rec['fm_seed_scan_ms']:.4f} ms")
+    for ln in lines:
+        print("phase 11 " + ln)
+    return rec
+
+
+MH_WORKER = os.path.join(ROOT, "tests", "torch_mh_worker.py")
+
+
+def two_process_run(prefix: str, r1: str, r2: str, want: list[bytes]) -> dict:
+    """Phase 11 (c): two processes of MH_WORKER, both on cuda:0, each with the
+    index in two slabs there: the gloo group (an all_gather), the TCP stat relay and
+    map_shard over the first SHARD_MH_PAIRS pairs; the merged records must
+    equal `want`, a single process's."""
+    import socket
+
+    from kart_tpu_torch.parallel.stats_sync import StatRelayServer, chunk_aligned_ranges
+
+    recs = {}
+    for k, path in (("1", r1), ("2", r2)):
+        with open(path, "rb") as f:
+            lines = f.read().split(b"\n")[: 4 * SHARD_MH_PAIRS]
+        recs[k] = [b"\n".join(lines[4 * i: 4 * i + 4]) + b"\n" for i in range(SHARD_MH_PAIRS)]
+    ranges = chunk_aligned_ranges(SHARD_MH_PAIRS, 2)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    server = StatRelayServer()
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for pid, (lo, hi, first) in enumerate(ranges):
+            files = []
+            for k in ("1", "2"):
+                p = os.path.join(DATA, f"mh{pid}_r{k}.fq")
+                with open(p, "wb") as f:
+                    f.write(b"".join(recs[k][lo:hi]))
+                files.append(p)
+            out = os.path.join(DATA, f"mh{pid}.sam")
+            outs.append(out)
+            cfg = os.path.join(DATA, f"mh{pid}.json")
+            with open(cfg, "w") as f:
+                json.dump(dict(repo=ROOT, coordinator=f"127.0.0.1:{port}", nprocs=2, pid=pid,
+                               prefix=prefix, r1=files[0], r2=files[1],
+                               relay_host=server.address[0], relay_port=server.address[1],
+                               first_chunk=first, out=out, device="cuda:0", idx_shards=2), f)
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+            procs.append(subprocess.Popen([sys.executable, MH_WORKER, cfg], cwd=ROOT, env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        logs = []
+        for p in procs:
+            sout, serr = p.communicate(timeout=300)
+            if p.returncode != 0 or "WORKER_OK" not in sout:
+                raise AssertionError(f"(c) worker exited {p.returncode}: {serr[-3000:]}")
+            logs.append(json.loads(sout.split("WORKER_OK", 1)[1].split(" ", 2)[2]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        server.close()
+    wall = time.perf_counter() - t0
+    merged = [r for out in outs for r in sam_records(out)]
+    if merged != want:
+        raise AssertionError("(c) the two processes' merged SAM differs from a single process's")
+    return dict(wall=wall, workers=logs)
+
+
+def phase_sharded_slice(prefix: str, gidx) -> dict:
+    """Phase 11 (b) and (c): the mapper's sharded path end to end on cuda:0
+    at 2 and 4 shards over phase 6's reads, full SA and KART_SA_MODE=sampled,
+    each SAM equal to the native mode's (phase 6's); then the two-process
+    run."""
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.pipeline.mapper import TorchKartMapper
+    from kart_tpu_torch.pipeline.sam import sam_header
+
+    r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
+    if not os.path.exists(r2):
+        simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_DEV_PAIRS)
+    sam_nat = os.path.join(DATA, "native.sam")
+    if not os.path.exists(sam_nat):
+        run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", sam_nat, "-silent"])
+    want = sam_records(sam_nat)
+    dev = torch.device("cuda", 0)
+    total, runs = {k: 0 for k in SHARDED_KERNELS}, {}
+    for mode in ("full", "sampled"):
+        for n in SHARD_COUNTS[1:]:
+            out = os.path.join(DATA, f"sharded_{n}_{mode}.sam")
+            with environ(KART_SA_MODE=mode, KART_SEED_MODE=None):
+                t0 = time.perf_counter()
+                mapper = TorchKartMapper(gidx, device=dev, idx_shards=n, shard_devices=[dev] * n)
+                mapper.prepare()
+                torch.cuda.synchronize()
+                setup = time.perf_counter() - t0
+                for k in SHARDED_KERNELS:
+                    getattr(kernels, k).launches = 0
+                t0 = time.perf_counter()
+                with open(out, "wb") as f:
+                    def writer(s, f=f):
+                        f.write(s if isinstance(s, bytes) else s.encode("ascii"))
+
+                    writer(sam_header(gidx, "2.5.6"))
+                    mapper.map_stream(r1, r2, True, True, writer)
+                torch.cuda.synchronize()
+                map_s = time.perf_counter() - t0
+                launches = {k: getattr(kernels, k).launches for k in SHARDED_KERNELS}
+            need = [k for k in SHARDED_KERNELS if k != "sharded_inv_psi" or mode == "sampled"]
+            if any(launches[k] == 0 for k in need):
+                raise AssertionError(f"(b) {n} shards {mode}: a kernel of the path never"
+                                     f" launched: {launches}")
+            if sam_records(out) != want:
+                raise AssertionError(f"(b) {n} shards {mode}: the SAM differs from the native"
+                                     f" mode's")
+            log = mapper.group_log
+            runs[(n, mode)] = dict(reads_s=len(want) / map_s, map_s=map_s, setup_s=setup,
+                                   launches=launches, calls=len(log),
+                                   flagged=sum(x["flagged"] for x in log))
+            for k in SHARDED_KERNELS:
+                total[k] += launches[k]
+            print(f"phase 11 (b) {n} shards on cuda:0, {mode} SA: {len(want)} reads,"
+                  f" {len(want) / map_s:.1f} reads/s (mapping {map_s:.3f} s), set-up {setup:.3f} s;"
+                  f" {len(log)} sharded calls, flagged lanes {runs[(n, mode)]['flagged']} (re-seeded"
+                  f" on the host); launches {launches}; SAM records equal to the native mode's")
+    mh = two_process_run(prefix, r1, r2, want[: 2 * SHARD_MH_PAIRS])
+    print(f"phase 11 (c) two processes on cuda:0 (gloo group, TCP stat relay, map_shard, 2 shards"
+          f" each), {SHARD_MH_PAIRS} pairs: merged SAM records equal to a single process's;"
+          f" wall {mh['wall']:.3f} s; workers {mh['workers']}")
+    return dict(total=total, runs=runs, mh=mh)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2080,6 +2481,9 @@ def main(argv: list[str] | None = None) -> int:
             prefix, pb, os.path.join(DATA, "dev.sam") if want(6) else None)
     if want(10):
         phase_tools(gidx, prefix)
+    if want(11):
+        sharded = phase_sharded_kernels(gidx, fm["l2_ns"])
+        sharded_slice = phase_sharded_slice(prefix, gidx)
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
     if loaded:
@@ -2091,7 +2495,7 @@ def main(argv: list[str] | None = None) -> int:
     def entry(name, source, replaces, n_launches, r, library_ms=None):
         # shape, reseed_layout: what a record's times refer to, where phase lines alone do not say
         extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms", "chain_steps",
-                                   "design_chain_ms",
+                                   "design_chain_ms", "per_call_ms",
                                    "slab_paths", "int64", "resolve_pack_sampled_ms",
                                    "resolve_pack_int64_ms", "resolve_pack_full_ms",
                                    "fm_seed_scan_int64_ms", "fm_sensitive_scan_int64_ms")
@@ -2102,12 +2506,14 @@ def main(argv: list[str] | None = None) -> int:
                     library_ms=library_ms, **extra)
 
     fm["err"] = max(fm["err"], funnel["fm_err"])
-    # library_ms: table[rid] for the row gather; no one PyTorch call computes
+    # library_ms: table[rid] for the row gather and slab[rows] for the sharded
+    # gather; no one PyTorch call computes
     # an FM backward search (windowed or not), an NW traceback plane, the
     # funnel's rounds in either mode, the budgeted expansion into a packed
     # stream, the 2-bit unpack, an inverse-Psi walk, a clustering whose
     # breaks and threshold run in order along the seeds, or a mate choice
-    # that steals in order along the candidates
+    # that steals in order along the candidates, a masked occ4 of a slab, an
+    # FM step from counts, or an inverse-Psi step
     launches, launches_b = slice3["launches"], slice3["launches_b"]
     record = {"kernels": [
         entry("fm_seed_scan", "fm_seed_scan.cu", "kart_tpu/ops/fm_search.py:165",
@@ -2138,6 +2544,19 @@ def main(argv: list[str] | None = None) -> int:
               launches_b["cluster_illumina"], slice3["cluster"]),
         entry("pair_candidates", "pairing.cu", "kart_tpu/ops/pairing.py:22",
               launches_b["pair_candidates"], slice3["pair"]),
+        entry("sharded_occ4", "sharded_fm.cu",
+              "kart_tpu/parallel/sharded_index.py:115 and kart_tpu/parallel/sharded_index.py:138",
+              sharded_slice["total"]["sharded_occ4"], sharded["sharded_occ4"]),
+        entry("sharded_scan_step", "sharded_fm.cu",
+              "kart_tpu/parallel/sharded_index.py:230 (kart_tpu/ops/fm_search.py:165's step)",
+              sharded_slice["total"]["sharded_scan_step"], sharded["sharded_scan_step"]),
+        entry("sharded_inv_psi", "sharded_fm.cu",
+              "kart_tpu/parallel/sharded_index.py:159 and kart_tpu/parallel/sharded_index.py:189",
+              sharded_slice["total"]["sharded_inv_psi"], sharded["sharded_inv_psi"]),
+        entry("sharded_gather", "sharded_fm.cu",
+              "kart_tpu/parallel/sharded_index.py:148 and kart_tpu/parallel/sharded_index.py:218",
+              sharded_slice["total"]["sharded_gather"], sharded["sharded_gather"],
+              sharded["sharded_gather"]["library_ms"]),
     ]}
     print(smi)
     print(json.dumps(record))

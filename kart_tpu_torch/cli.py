@@ -3,7 +3,7 @@
   python -m kart_tpu_torch.cli index ref.fa prefix
   python -m kart_tpu_torch.cli -i prefix -f r1 [...] [-f2 r2 [...]]
          [-o out.sam | -bo out.bam] [-backend native|python] [-cpu]
-         [-pacbio] [-t N] [-g N] [-m] [-p] [-silent] [-d]
+         [-pacbio] [-idx-shards N] [-t N] [-g N] [-m] [-p] [-silent] [-d]
 
 The default native backend maps with the host C++ engine (native/kart_post.cpp); with
 KART_SEED_MODE=device it seeds, resolves and packs on the device through
@@ -12,8 +12,11 @@ device-pipelined mode).  `-backend python` runs the python pipeline around
 device seeding and device NW.  Device work runs on the CUDA device; `-cpu`
 selects the CPU and the kernels' plain versions instead, and without `-cpu`
 and without a CUDA device a mode that needs the device fails.  `-pacbio`
-maps PacBio reads in all three modes (SensitiveMode seeding); `-idx-shards`
-raises NotImplementedError.
+maps PacBio reads in all three modes (SensitiveMode seeding).  `-idx-shards
+N` (or KART_IDX_SHARDS) seeds through the FM index split over N devices
+(cuda:0 .. cuda:N-1, or N shards on the CPU with -cpu), as kart_tpu does:
+FastMode seeding in the native and python backends; the device-pipelined
+mode and PacBio seeding keep the replicated index.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ def usage(prog: str) -> None:
     print("         -pacbio       pacbio data")
     print("         -cpu          run on the CPU with the kernels' plain versions")
     print("         -backend B    native (C++ engine, default) or python")
-    print("         -idx-shards N shard the FM-index over N devices (not ported yet)")
+    print("         -idx-shards N shard the FM-index over N devices")
+    print("                       (for indexes too big for one card's memory)")
     print("         -v            version\n")
 
 
@@ -140,8 +144,6 @@ def main(argv: list[str] | None = None) -> int:
     if backend not in ("native", "python"):
         print(f"Error! Unknown backend: {backend} (the port has: native, python)")
         return 1
-    if idx_shards > 1:
-        raise NotImplementedError("-idx-shards is not ported yet (ROADMAP Queue 1 item 10)")
     if not files1:
         print("Error! Please specify a valid read input!")
         usage(prog)
@@ -161,7 +163,7 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     seed_mode = os.environ.get("KART_SEED_MODE", "native")
-    uses_device = backend == "python" or seed_mode == "device"
+    uses_device = backend == "python" or seed_mode == "device" or idx_shards > 1
     if uses_device and device == "cuda" and not torch.cuda.is_available():
         print(
             "Error! No CUDA device is available; pass -cpu to map on the CPU "
@@ -190,7 +192,7 @@ def main(argv: list[str] | None = None) -> int:
         threads = 1  # reference: debug mode forces one thread (Mapping.cpp:648)
     mapper = TorchKartMapper(
         gidx, device=device, pacbio=pacbio, max_gaps=max_gaps, multi_hit=multi_hit,
-        backend=backend, n_threads=threads, debug=debug,
+        backend=backend, n_threads=threads, debug=debug, idx_shards=idx_shards,
     )
 
     if out_format == 0:
@@ -269,7 +271,7 @@ def main(argv: list[str] | None = None) -> int:
                 f" on the host = {nw_stats['host'] - nw_before['host']},"
                 f" memo misses = {mapper.conquer.nw_memo_misses}"
             )
-        elif seed_mode == "device":
+        if mapper.group_log:  # the device-pipelined mode's groups, or the sharded index's calls
             log = mapper.group_log
             print(
                 f"\t# of device seeding groups on {device} = {len(log)},"

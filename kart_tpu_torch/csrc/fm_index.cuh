@@ -3,7 +3,8 @@
 // reference src/BWT_Index/bwt.c:101-123 and src/bwt_search.cpp:128-138):
 // inverse-Psi steps until the row is a multiple of 32, whose text position
 // the sampled SA holds, then that position plus the steps taken.
-// fm_seed_scan.cu reads the checkpoint rows; sa_walk.cu walks rows.  T is the
+// fm_seed_scan.cu reads the checkpoint rows; sa_walk.cu walks rows;
+// sharded_fm.cu takes inverse-Psi steps and occ4 on its shard's slab.  T is the
 // index type: int below 2**31 text bases, long long above; the int instance
 // of the walk does no 64-bit arithmetic but pointer offsets.
 //
@@ -74,14 +75,11 @@ __device__ __forceinline__ void load_l2(FmWalk<T>& fm, const T* __restrict__ L2)
   for (int c = 0; c < 4; ++c) fm.l2[c] = __ldg(L2 + c);
 }
 
-// bwt_invPsi(k): the row of the text position before row k's; row `primary`
-// maps to row 0.
+// bwt_invPsi(k) from the block `blk` of fm's arrays that holds kk, k less
+// the primary shift (csrc/sharded_fm.cu passes a block of its shard's slab);
+// row `primary` maps to row 0.
 template <typename T>
-__device__ __forceinline__ T inv_psi_row(const FmWalk<T>& fm, T k) {
-  // occ4 counts up to kk; bwt_char reads row x = k - (k > primary), which is
-  // kk wherever k != primary (and row primary maps to 0 whatever it reads)
-  const T kk = k - (k >= fm.primary ? 1 : 0);
-  const size_t blk = static_cast<size_t>(kk >> 7);
+__device__ __forceinline__ T inv_psi_at(const FmWalk<T>& fm, T k, T kk, size_t blk) {
   const typename CpRow<T>::type cp = load_cp(fm.occ_cp, blk);
   const uint4 a = __ldg(fm.bwt4 + 2 * blk), b = __ldg(fm.bwt4 + 2 * blk + 1);
   const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -106,6 +104,46 @@ __device__ __forceinline__ T inv_psi_row(const FmWalk<T>& fm, T k) {
   const T nk = pick4(c, fm.l2[0], fm.l2[1], fm.l2[2], fm.l2[3]) + pick4(c, cp.x, cp.y, cp.z, cp.w) +
                n;
   return k == fm.primary ? T(0) : nk;
+}
+
+// bwt_invPsi(k): the row of the text position before row k's; row `primary`
+// maps to row 0.
+template <typename T>
+__device__ __forceinline__ T inv_psi_row(const FmWalk<T>& fm, T k) {
+  // occ4 counts up to kk; bwt_char reads row x = k - (k > primary), which is
+  // kk wherever k != primary (and row primary maps to 0 whatever it reads)
+  const T kk = k - (k >= fm.primary ? 1 : 0);
+  return inv_psi_at(fm, k, kk, static_cast<size_t>(kk >> 7));
+}
+
+// occ4(kk) from the block's checkpoint row and its eight BWT words, all in
+// this thread (fm_seed_scan.cu's extension, sharded_fm.cu's occ4): the codes
+// of the bases up to kk (the bases past it masked off) counted with three
+// popcounts a pair of words per code; code 3's count is the rest.
+template <typename C, typename T>
+__device__ __forceinline__ C occ4_words(C cp, uint4 a, uint4 b, T kk) {
+  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int jk = static_cast<int>(kk & 0x7F) >> 4;
+  const unsigned part = ~((1u << ((~static_cast<int>(kk) & 0xF) << 1)) - 1u) & kM55;
+  int c0 = 0, c1 = 0, c2 = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    const unsigned m0 = j < jk ? kM55 : j == jk ? part : 0u;
+    const unsigned m1 = j + 1 < jk ? kM55 : j + 1 == jk ? part : 0u;
+    const unsigned lo0 = w[j], hi0 = w[j] >> 1, lo1 = w[j + 1], hi1 = w[j + 1] >> 1;
+    // one bit per base, at the low bit of its 2-bit group; the odd word's
+    // bits shifted into the high bits
+    c0 += __popc((~(lo0 | hi0) & m0) | ((~(lo1 | hi1) & m1) << 1));
+    c1 += __popc((lo0 & ~hi0 & m0) | ((lo1 & ~hi1 & m1) << 1));
+    c2 += __popc((hi0 & ~lo0 & m0) | ((hi1 & ~lo1 & m1) << 1));
+  }
+  const int n = static_cast<int>(kk & 0x7F) + 1;  // bases of the block up to kk
+  C r;
+  r.x = cp.x + c0;
+  r.y = cp.y + c1;
+  r.z = cp.z + c2;
+  r.w = cp.w + (n - c0 - c1 - c2);
+  return r;
 }
 
 // The walk of row k, cut after max_steps steps: steps + sa_samples[k >> 5]

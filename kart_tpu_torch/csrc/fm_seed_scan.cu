@@ -265,36 +265,6 @@ constexpr int kExtThreads = 128;
 constexpr int kChaseThreads = 128;
 constexpr int kChaseReads = kChaseThreads / 32;  // a warp a read
 
-// occ4(kk) from the block's checkpoint row and its eight BWT words, all in
-// this thread: the codes of the bases up to kk (the bases past it masked off)
-// counted with three popcounts a pair of words per code; code 3's count is
-// the rest.
-template <typename C, typename T>
-__device__ __forceinline__ C occ4_words(C cp, uint4 a, uint4 b, T kk) {
-  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  const int jk = static_cast<int>(kk & 0x7F) >> 4;
-  const unsigned part = ~((1u << ((~static_cast<int>(kk) & 0xF) << 1)) - 1u) & kM55;
-  int c0 = 0, c1 = 0, c2 = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j += 2) {
-    const unsigned m0 = j < jk ? kM55 : j == jk ? part : 0u;
-    const unsigned m1 = j + 1 < jk ? kM55 : j + 1 == jk ? part : 0u;
-    const unsigned lo0 = w[j], hi0 = w[j] >> 1, lo1 = w[j + 1], hi1 = w[j + 1] >> 1;
-    // one bit per base, at the low bit of its 2-bit group; the odd word's
-    // bits shifted into the high bits
-    c0 += __popc((~(lo0 | hi0) & m0) | ((~(lo1 | hi1) & m1) << 1));
-    c1 += __popc((lo0 & ~hi0 & m0) | ((lo1 & ~hi1 & m1) << 1));
-    c2 += __popc((hi0 & ~lo0 & m0) | ((hi1 & ~lo1 & m1) << 1));
-  }
-  const int n = static_cast<int>(kk & 0x7F) + 1;  // bases of the block up to kk
-  C r;
-  r.x = cp.x + c0;
-  r.y = cp.y + c1;
-  r.z = cp.z + c2;
-  r.w = cp.w + (n - c0 - c1 - c2);
-  return r;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kExtThreads)
 fm_extend_kernel(const typename CpRow<T>::type* __restrict__ occ_cp,

@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", f)
     for f in ("fm_seed_scan.cu", "nw.cu", "kmer_funnel.cu", "resolve_pack.cu", "row_gather.cu",
-              "sa_walk.cu", "cluster.cu", "pairing.cu")
+              "sa_walk.cu", "cluster.cu", "pairing.cu", "sharded_fm.cu")
 )
 # included by the sources
 HEADERS = tuple(os.path.join(_PKG, "csrc", f) for f in ("window.cuh", "fm_index.cuh"))
@@ -108,6 +108,18 @@ def _load():
             fn.restype = i
             fn = getattr(lib, "kart_sa_walk" + name)
             fn.argtypes = [p, p, p, p, prim, p, i, i, p, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_sharded_occ4" + name)
+            fn.argtypes = [p, p, prim, ll, ll, p, i, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_sharded_scan_step" + name)
+            fn.argtypes = [p, p, p, p, prim, i, i, i, i, i, p, p, p, p, p, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_sharded_inv_psi" + name)
+            fn.argtypes = [p, p, p, prim, ll, ll, p, i, p, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_sharded_gather" + name)
+            fn.argtypes = [p, ll, ll, p, i, i, p, p]
             fn.restype = i
         lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
         lib.kart_nw_planes.restype = i
@@ -434,6 +446,38 @@ def resolve_pack(sa_full, packed, *, max_seeds: int, has_ok: bool, occ_budget: i
     if pack16 and (wide or B % 2 or H % 2):
         raise ValueError(f"pack16 needs int32 seeds, an even batch and budget, got {pdt} B={B}"
                          f" H={H}")
+    if not wide and sa_full is not None:  # one call: totals, then emit with the gather
+        out = torch.empty(((B // 2 + H // 2 + H) if pack16 else (B + 2 * H),), dtype=torch.int32,
+                          device=dev)
+        read_end = torch.empty((B,), dtype=torch.int32, device=dev)
+        cnts = torch.empty((B,), dtype=torch.int32, device=dev)
+        lib = _load()
+        scan_state = torch.empty((lib.kart_resolve_scan_words(B),), dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.kart_resolve_pack(packed.data_ptr(), B, int(has_ok), max_seeds,
+                                       sa_full.data_ptr(), H, int(pack16), read_end.data_ptr(),
+                                       cnts.data_ptr(), scan_state.data_ptr(), out.data_ptr(),
+                                       _stream(dev))
+        _raise_on(rc, "resolve_pack")
+    else:
+        def walk(rows, gpos, done):
+            _walk(fm, rows, max_steps, gpos, done)
+
+        out = _resolve_by_rows(packed, has_ok, max_seeds, H, pack16, sa_full,
+                               walk if sa_full is None else None)
+    resolve_pack.launches += 1
+    return out
+
+
+def _resolve_by_rows(packed, has_ok: bool, max_seeds: int, H: int, pack16: bool, sa_full, fill):
+    """resolve_pack.cu's passes around an SA lookup: the memset, totals and
+    rows, then the positions (an int64 full SA's gather in the rows pass, or
+    fill(rows, gpos, done), which writes each slot's text position and
+    whether it resolved), then flag (with fill) and emit.  Returns the int32
+    stream, or for int64 seeds the (cnts, meta, gpos) tuple."""
+    dev = packed.device
+    B = packed.shape[0]
+    wide = packed.dtype == torch.int64
     n = (B // 2 + H // 2 + H) if pack16 else (B + H if wide else B + 2 * H)
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     read_end = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -441,39 +485,54 @@ def resolve_pack(sa_full, packed, *, max_seeds: int, has_ok: bool, occ_budget: i
     lib = _load()
     scan_state = torch.empty((lib.kart_resolve_scan_words(B),), dtype=torch.int64, device=dev)
     head = (packed.data_ptr(), B, int(has_ok), max_seeds)
+    # the positions: their own int64 array, or the int32 stream's last H words
+    gpos = torch.empty((H,), dtype=torch.int64, device=dev) if wide else out[n - H:]
+    slot_read = torch.empty((H,), dtype=torch.int32, device=dev)
+    rows = torch.empty((H,), dtype=packed.dtype, device=dev) if fill is not None else None
+    done = torch.empty((H,), dtype=torch.bool, device=dev) if fill is not None else None
+    sfx = "_i64" if wide else ""
     with torch.cuda.device(dev):
-        if not wide and sa_full is not None:  # one call: totals, then emit with the gather
-            rc = lib.kart_resolve_pack(*head, sa_full.data_ptr(), H, int(pack16),
-                                       read_end.data_ptr(), cnts.data_ptr(),
-                                       scan_state.data_ptr(), out.data_ptr(), _stream(dev))
-            _raise_on(rc, "resolve_pack")
+        rc = getattr(lib, "kart_resolve_rows" + sfx)(
+            *head, None if sa_full is None else sa_full.data_ptr(), H, read_end.data_ptr(),
+            cnts.data_ptr(), scan_state.data_ptr(), None if rows is None else rows.data_ptr(),
+            slot_read.data_ptr(), gpos.data_ptr(), _stream(dev))
+        _raise_on(rc, "resolve_pack")
+        if fill is not None and H:
+            fill(rows, gpos, done)
+        tail = (None if done is None else done.data_ptr(), gpos.data_ptr(), out.data_ptr(),
+                _stream(dev))
+        if wide:
+            rc = lib.kart_resolve_finish_i64(*head, H, read_end.data_ptr(), cnts.data_ptr(),
+                                             slot_read.data_ptr(), *tail)
         else:
-            # the positions: their own int64 array, or the int32 stream's last H words
-            gpos = torch.empty((H,), dtype=torch.int64, device=dev) if wide else out[n - H:]
-            slot_read = torch.empty((H,), dtype=torch.int32, device=dev)
-            rows = torch.empty((H,), dtype=pdt, device=dev) if sa_full is None else None
-            done = torch.empty((H,), dtype=torch.bool, device=dev) if sa_full is None else None
-            sfx = "_i64" if wide else ""
-            rc = getattr(lib, "kart_resolve_rows" + sfx)(
-                *head, None if sa_full is None else sa_full.data_ptr(), H, read_end.data_ptr(),
-                cnts.data_ptr(), scan_state.data_ptr(), None if rows is None else rows.data_ptr(),
-                slot_read.data_ptr(), gpos.data_ptr(), _stream(dev))
-            _raise_on(rc, "resolve_pack")
-            if rows is not None and H:
-                _walk(fm, rows, max_steps, gpos, done)
-            tail = (None if done is None else done.data_ptr(), gpos.data_ptr(), out.data_ptr(),
-                    _stream(dev))
-            if wide:
-                rc = lib.kart_resolve_finish_i64(*head, H, read_end.data_ptr(), cnts.data_ptr(),
-                                                 slot_read.data_ptr(), *tail)
-            else:
-                rc = lib.kart_resolve_finish(*head, H, int(pack16), read_end.data_ptr(),
-                                             cnts.data_ptr(), slot_read.data_ptr(), *tail)
-            _raise_on(rc, "resolve_pack")
-    resolve_pack.launches += 1
+            rc = lib.kart_resolve_finish(*head, H, int(pack16), read_end.data_ptr(),
+                                         cnts.data_ptr(), slot_read.data_ptr(), *tail)
+        _raise_on(rc, "resolve_pack")
     if wide:
         return out[:B], out[B:], gpos
     return out
+
+
+def resolve_stream(packed, fill, *, max_seeds: int, occ_budget: int):
+    """csrc/resolve_pack.cu through an SA lookup of the caller's (the
+    sharded index's, parallel/sharded_index.py): (cnts, meta, gpos) of a
+    packed FM-stepper seed array (B, 1 + 4*max_seeds) on the card in the
+    32-bit layout, gpos in the seeds' dtype.  fill(rows, gpos, done) gets
+    each stream slot's SA row (row 0 past the last read) and writes its text
+    position and whether it resolved; a slot not resolved flags its read.
+    Counted in resolve_pack.launches."""
+    dev = packed.device
+    B = packed.shape[0]
+    H = int(occ_budget)
+    pdt = packed.dtype
+    if pdt not in (torch.int32, torch.int64):
+        raise TypeError(f"packed: expected int32 or int64 seeds, got {pdt}")
+    _check("packed", packed, pdt, (B, 1 + 4 * max_seeds), dev)
+    out = _resolve_by_rows(packed, False, max_seeds, H, False, None, fill)
+    resolve_pack.launches += 1
+    if isinstance(out, tuple):
+        return out
+    return out[:B], out[B:B + H], out[B + H:]
 
 
 resolve_pack.launches = 0
@@ -605,3 +664,147 @@ def pair_candidates(score1, pd1, score2, pd2, est: int):
 
 
 pair_candidates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The sharded FM index (csrc/sharded_fm.cu): one shard's slab on its device
+# ---------------------------------------------------------------------------
+
+
+def _index_sfx(t: torch.Tensor) -> str:
+    if t.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"sharded index: expected an int32 or int64 index, got {t.dtype}")
+    return "" if t.dtype == torch.int32 else "_i64"
+
+
+def _count(fn) -> None:
+    """One launch of fn's kernel; a launch recorded into a CUDA graph is
+    counted by whoever replays the graph."""
+    if not torch.cuda.is_current_stream_capturing():
+        fn.launches += 1
+
+
+def sharded_occ4(occ_cp, bwt_words, primary: int, lo: int, nb_local: int, k):
+    """csrc/sharded_fm.cu (G1): (n, 4) occ4 counts of the rows k (n,) on the
+    card against one shard's slab of blocks [lo, lo + nb_local) (occ_cp
+    (nb_local*4,) of the index dtype, bwt_words (nb_local*8,) int32), zeros
+    for the rows whose block the shard does not hold."""
+    dev = k.device
+    n = k.shape[0]
+    sfx = _index_sfx(occ_cp)
+    idt = occ_cp.dtype
+    _check("occ_cp", occ_cp, idt, (4 * nb_local,), dev, align=16)
+    _check("bwt_words", bwt_words, torch.int32, (8 * nb_local,), dev, align=16)
+    _check("k", k, idt, (n,), dev)
+    out = torch.empty((n, 4), dtype=idt, device=dev)
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_sharded_occ4" + sfx)(
+            occ_cp.data_ptr(), bwt_words.data_ptr(), int(primary), int(lo), int(nb_local),
+            k.data_ptr(), n, out.data_ptr(), _stream(dev))
+    _raise_on(rc, "sharded_occ4")
+    _count(sharded_occ4)
+    return out
+
+
+sharded_occ4.launches = 0
+
+
+def sharded_scan_step(p: int, cnt, codes_t, rlens, L2, primary: int, min_seed_len: int,
+                      max_seeds: int, state, out):
+    """csrc/sharded_fm.cu (G2): one FastMode step of every lane on the card,
+    with ops/fm_search.py::seed_scan_step_plain's arguments and result: cnt
+    (2B, 4) the combined counts of the lanes' rows, codes_t (l_max, B) int32,
+    rlens (B,) int32, L2 (5,), state (ist (3, B) int32, tst (3, B)), out (B, 1
+    + 4*max_seeds) written in place.  Returns the new state and the next
+    step's rows (2B,)."""
+    ist, tst = state
+    dev = cnt.device
+    B = ist.shape[1]
+    l_max = codes_t.shape[0]
+    sfx = _index_sfx(L2)
+    idt = L2.dtype
+    _check("cnt", cnt, idt, (2 * B, 4), dev)
+    _check("codes_t", codes_t, torch.int32, (l_max, B), dev)
+    _check("rlens", rlens, torch.int32, (B,), dev)
+    _check("L2", L2, idt, (5,), dev)
+    _check("ist", ist, torch.int32, (3, B), dev)
+    _check("tst", tst, idt, (3, B), dev)
+    _check("out", out, idt, (B, 1 + 4 * max_seeds), dev)
+    ist_out, tst_out = torch.empty_like(ist), torch.empty_like(tst)
+    k_next = torch.empty((2 * B,), dtype=idt, device=dev)
+    if B == 0:
+        return (ist_out, tst_out), k_next
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_sharded_scan_step" + sfx)(
+            cnt.data_ptr(), codes_t.data_ptr(), rlens.data_ptr(), L2.data_ptr(), int(primary), B,
+            l_max, int(p), int(min_seed_len), int(max_seeds), ist.data_ptr(), tst.data_ptr(),
+            ist_out.data_ptr(), tst_out.data_ptr(), out.data_ptr(), k_next.data_ptr(),
+            _stream(dev))
+    _raise_on(rc, "sharded_scan_step")
+    _count(sharded_scan_step)
+    return (ist_out, tst_out), k_next
+
+
+sharded_scan_step.launches = 0
+
+
+def sharded_inv_psi(occ_cp, bwt_words, L2, primary: int, lo: int, nb_local: int, k, add=None):
+    """csrc/sharded_fm.cu (G3): one step of the sampled-SA walk of the rows k
+    (n,) on the card against one shard's slab (as sharded_occ4's): a row at
+    a sample stays, others take an inverse-Psi step; zeros for the rows the
+    shard does not own.  add (n,) int32, where given, gets one more step for
+    every row not at a sample."""
+    dev = k.device
+    n = k.shape[0]
+    sfx = _index_sfx(occ_cp)
+    idt = occ_cp.dtype
+    _check("occ_cp", occ_cp, idt, (4 * nb_local,), dev, align=16)
+    _check("bwt_words", bwt_words, torch.int32, (8 * nb_local,), dev, align=16)
+    _check("L2", L2, idt, (5,), dev)
+    _check("k", k, idt, (n,), dev)
+    if add is not None:
+        _check("add", add, torch.int32, (n,), dev)
+    out = torch.empty((n,), dtype=idt, device=dev)
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_sharded_inv_psi" + sfx)(
+            occ_cp.data_ptr(), bwt_words.data_ptr(), L2.data_ptr(), int(primary), int(lo),
+            int(nb_local), k.data_ptr(), n, out.data_ptr(),
+            None if add is None else add.data_ptr(), _stream(dev))
+    _raise_on(rc, "sharded_inv_psi")
+    _count(sharded_inv_psi)
+    return out
+
+
+sharded_inv_psi.launches = 0
+
+
+def sharded_gather(slab, lo: int, rows, shift: int = 0):
+    """csrc/sharded_fm.cu (G4): slab[(rows >> shift) - lo] (n,) for the rows
+    (n,) on the card that one shard's slab (rows [lo, lo + len(slab)) of the
+    full SA, shift 0, or of the sampled SA, shift 5) holds, else 0."""
+    dev = rows.device
+    n = rows.shape[0]
+    sfx = _index_sfx(slab)
+    _check("slab", slab, slab.dtype, (slab.shape[0],), dev)
+    _check("rows", rows, slab.dtype, (n,), dev)
+    out = torch.empty((n,), dtype=slab.dtype, device=dev)
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_sharded_gather" + sfx)(
+            slab.data_ptr(), int(lo), slab.shape[0], rows.data_ptr(), n, int(shift),
+            out.data_ptr(), _stream(dev))
+    _raise_on(rc, "sharded_gather")
+    _count(sharded_gather)
+    return out
+
+
+sharded_gather.launches = 0

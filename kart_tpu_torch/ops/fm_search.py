@@ -8,7 +8,10 @@ functions, in the index dtype; `sa_walk` resolves SA rows to text positions
 through the sampled SA.  On CPU tensors they run the plain PyTorch versions
 below; on CUDA tensors they launch the hand-written kernels of
 `csrc/fm_seed_scan.cu` (kernels.fm_seed_scan, kernels.fm_sensitive_scan)
-and `csrc/sa_walk.cu` (kernels.sa_walk).
+and `csrc/sa_walk.cu` (kernels.sa_walk).  The FastMode scan is a loop of
+`seed_scan_step_plain` over occ4 counts (`seed_scan_loop`), which the
+sharded index (parallel/sharded_index.py) drives with its own counts and
+its step kernel, the step's twin in `csrc/sharded_fm.cu`.
 
 The index dtype is int32 below 2**31 text bases and int64 at human scale
 (GenomeIndex.index_dtype): occ_cp, sa_samples, L2, the interval bounds and
@@ -129,16 +132,11 @@ def _count4_word(w: torch.Tensor) -> torch.Tensor:
     return _popcount32(m).to(torch.int32)
 
 
-def occ4(fm: FMIndexTensors, k: torch.Tensor) -> torch.Tensor:
-    """bwt_occ4 for each row in k (N,), 0 <= k <= seq_len: counts of each
-    code in bwt[0..k] -> (N, 4) in the dtype of occ_cp and k (int32, or int64
-    at human scale)."""
-    kk = k - (k >= fm.primary).to(k.dtype)
-    blk = (kk >> 7).long()
-    dev = k.device
-    words = fm.bwt_words[blk[:, None] * 8 + torch.arange(8, device=dev)]
-    words = words.long() & _M32  # (N, 8)
-    base = fm.occ_cp[blk[:, None] * 4 + torch.arange(4, device=dev)]  # (N, 4)
+def occ4_from(words: torch.Tensor, base: torch.Tensor, kk: torch.Tensor) -> torch.Tensor:
+    """occ4 of rows kk (N,), the primary shift taken off, from their blocks'
+    eight BWT words (N, 8) (int64 holding uint32 bit patterns) and
+    checkpoint rows (N, 4) -> (N, 4) in the dtype of the checkpoints."""
+    dev = kk.device
     jk = ((kk & 0x7F) >> 4).long()
     counts = _count4_word(words)  # (N, 8, 4)
     before = torch.arange(8, device=dev)[None, :] < jk[:, None]
@@ -151,64 +149,109 @@ def occ4(fm: FMIndexTensors, k: torch.Tensor) -> torch.Tensor:
     return cnt
 
 
-def seed_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max):
-    """The FastMode scan of kart_tpu's seed_scan_impl, vectorised over the
-    batch: l_max+1 uniform steps, one paired occ4 lookup per step.
-    reads (B, l_max) int32 codes (>3 ambiguous), rlens (B,) int32; the
-    interval bounds and the packed result are in the index dtype."""
+def occ4(fm: FMIndexTensors, k: torch.Tensor) -> torch.Tensor:
+    """bwt_occ4 for each row in k (N,), 0 <= k <= seq_len: counts of each
+    code in bwt[0..k] -> (N, 4) in the dtype of occ_cp and k (int32, or int64
+    at human scale)."""
+    kk = k - (k >= fm.primary).to(k.dtype)
+    blk = (kk >> 7).long()
+    dev = k.device
+    words = fm.bwt_words[blk[:, None] * 8 + torch.arange(8, device=dev)]
+    base = fm.occ_cp[blk[:, None] * 4 + torch.arange(4, device=dev)]  # (N, 4)
+    return occ4_from(words.long() & _M32, base, kk)
+
+
+def seed_scan_state(B: int, max_seeds: int, idt, dev):
+    """The FastMode scan before its first step: the state (ist (3, B) int32:
+    start, n_seeds, active; tst (3, B) of the index dtype: x0, x1, x2), the
+    packed seeds (B, 1 + 4*max_seeds), zeros, and the first step's rows
+    (2B,), row 0 for every lane (none is active)."""
+    return ((torch.zeros((3, B), dtype=torch.int32, device=dev),
+             torch.zeros((3, B), dtype=idt, device=dev)),
+            torch.zeros((B, 1 + 4 * max_seeds), dtype=idt, device=dev),
+            torch.zeros(2 * B, dtype=idt, device=dev))
+
+
+def seed_scan_step_plain(p: int, cnt, codes_t, rlens, L2, primary: int, min_seed_len: int,
+                         max_seeds: int, state, out):
+    """One step of kart_tpu's seed_scan_impl for every lane, at read position
+    p, from cnt (2B, 4): occ4 of the lanes' rows ka (the first B) and kb.
+    codes_t (l_max, B) int32 codes (>3 ambiguous; position l_max is an
+    ambiguous column that ends every extension), rlens (B,) int32, state as
+    seed_scan_state's.  A seed that ends at p is written into out (B, 1 +
+    4*max_seeds), dropped and counted past max_seeds.  Returns the state
+    after the step and the next step's rows (2B,): (x1 - 1, x1 - 1 + x2) of
+    the active lanes, row 0 of the others."""
+    ist, tst = state
+    B = ist.shape[1]
+    dev = ist.device
+    i32 = torch.int32
+    start, n_seeds, active = ist[0], ist[1], ist[2] != 0
+    x0, x1, x2 = tst[0], tst[1], tst[2]
+    c = codes_t[p] if p < codes_t.shape[0] else torch.full((B,), 4, dtype=i32, device=dev)
+    amb = c > 3
+    cs = c.clamp(max=3).long()
+    bidx = torch.arange(B, device=dev)
+
+    # the extension attempt
+    tk, tl = cnt[:B], cnt[B:]
+    ok_x1 = L2[None, :4] + 1 + tk
+    ok_x2 = tl - tk
+    s3 = x0 + ((x1 <= primary) & (x1 + x2 - 1 >= primary)).to(x0.dtype)
+    s2 = s3 + ok_x2[:, 3]
+    s1 = s2 + ok_x2[:, 2]
+    s0 = s1 + ok_x2[:, 1]
+    ok_x0 = torch.stack([s0, s1, s2, s3], dim=1)
+    i = 3 - cs
+    nx0, nx1, nx2 = ok_x0[bidx, i], ok_x1[bidx, i], ok_x2[bidx, i]
+    ext_fail = amb | (nx2 == 0)
+
+    # seed emission: an active extension ended at p
+    length = p - start
+    record = active & ext_fail & (length >= min_seed_len) & (x2 <= OCC_THR)
+    keep = torch.nonzero(record & (n_seeds < max_seeds)).flatten()
+    col = 1 + n_seeds[keep].long()
+    for f, v in enumerate((start, length, x0, x2)):
+        out[keep, col + f * max_seeds] = v[keep].to(out.dtype)
+    n_seeds = n_seeds + record.to(i32)
+
+    # state transition
+    can_start = ~active & ~amb & (p < rlens - min_seed_len)
+    cont = active & ~ext_fail
+    start = torch.where(can_start, p, start)
+    x0 = torch.where(cont, nx0, torch.where(can_start, L2[cs] + 1, x0))
+    x1 = torch.where(cont, nx1, torch.where(can_start, L2[3 - cs] + 1, x1))
+    x2 = torch.where(cont, nx2, torch.where(can_start, L2[cs + 1] - L2[cs], x2))
+    active = cont | can_start
+    out[:, 0] = n_seeds.to(out.dtype)
+    k_next = torch.cat([torch.where(active, x1 - 1, 0), torch.where(active, x1 - 1 + x2, 0)])
+    return (torch.stack([start, n_seeds, active.to(i32)]), torch.stack([x0, x1, x2])), k_next
+
+
+def seed_scan_loop(occ4_rows, step, L2, primary: int, reads, rlens, min_seed_len: int, *,
+                   max_seeds: int, l_max: int):
+    """The FastMode scan as l_max + 1 uniform steps (the last over the
+    ambiguous column that ends every extension): each step looks up occ4 of
+    both interval ends of every lane with occ4_rows((2B,) rows) -> (2B, 4),
+    then takes `step` (seed_scan_step_plain's signature)."""
     B = reads.shape[0]
     dev = reads.device
-    i32, idt = torch.int32, fm.index_dtype
-    # extra trailing ambiguous column: the last extension of every read
-    # ends (and emits) inside the fixed-trip loop
-    reads = torch.nn.functional.pad(reads.to(i32), (0, 1), value=4)
-    rlens = rlens.to(i32)
-    L2 = fm.L2
-    bidx = torch.arange(B, device=dev)
-    zero = torch.zeros(B, dtype=i32, device=dev)
-    active = torch.zeros(B, dtype=torch.bool, device=dev)
-    start, n_seeds = zero.clone(), zero.clone()
-    x0, x1, x2 = (torch.zeros(B, dtype=idt, device=dev) for _ in range(3))
-    # one dump column past max_seeds takes the dropped records; every field
-    # is held in the index dtype, as the packed result is
-    fields = torch.zeros((4, B, max_seeds + 1), dtype=idt, device=dev)
+    codes_t = reads[:, :l_max].to(torch.int32).t().contiguous()
+    rlens = rlens.to(device=dev, dtype=torch.int32)
+    state, out, k = seed_scan_state(B, max_seeds, L2.dtype, dev)
     for p in range(l_max + 1):
-        c = reads[:, p]
-        amb = c > 3
-        cs = c.clamp(max=3).long()
+        state, k = step(p, occ4_rows(k), codes_t, rlens, L2, primary, int(min_seed_len),
+                        max_seeds, state, out)
+    return out
 
-        # extension attempt; inactive lanes look up row 0 (results unused)
-        ka = torch.where(active, x1 - 1, zero)
-        kb = torch.where(active, x1 - 1 + x2, zero)
-        tk, tl = occ4(fm, ka), occ4(fm, kb)
-        ok_x1 = L2[None, :4] + 1 + tk
-        ok_x2 = tl - tk
-        s3 = x0 + ((x1 <= fm.primary) & (x1 + x2 - 1 >= fm.primary)).to(i32)
-        s2 = s3 + ok_x2[:, 3]
-        s1 = s2 + ok_x2[:, 2]
-        s0 = s1 + ok_x2[:, 1]
-        ok_x0 = torch.stack([s0, s1, s2, s3], dim=1)
-        i = 3 - cs
-        nx0, nx1, nx2 = ok_x0[bidx, i], ok_x1[bidx, i], ok_x2[bidx, i]
-        ext_fail = amb | (nx2 == 0)
 
-        # seed emission: an active extension ended at p
-        length = p - start
-        record = active & ext_fail & (length >= min_seed_len) & (x2 <= OCC_THR)
-        slot = torch.where(record, n_seeds.clamp(max=max_seeds), max_seeds).long()
-        fields[:, bidx, slot] = torch.stack([start.to(idt), length.to(idt), x0, x2])
-        n_seeds = n_seeds + record.to(i32)
-
-        # state transition
-        can_start = ~active & ~amb & (p < rlens - min_seed_len)
-        cont = active & ~ext_fail
-        start = torch.where(can_start, p, start)
-        x0 = torch.where(cont, nx0, torch.where(can_start, L2[cs] + 1, x0))
-        x1 = torch.where(cont, nx1, torch.where(can_start, L2[3 - cs] + 1, x1))
-        x2 = torch.where(cont, nx2, torch.where(can_start, L2[cs + 1] - L2[cs], x2))
-        active = cont | can_start
-    f = fields[:, :, :max_seeds]
-    return torch.cat([n_seeds[:, None].to(idt), f[0], f[1], f[2], f[3]], dim=1)
+def seed_scan_plain(fm, reads, rlens, min_seed_len, *, max_seeds, l_max):
+    """The FastMode scan of kart_tpu's seed_scan_impl, vectorised over the
+    batch: l_max+1 uniform steps, one occ4 lookup of both interval ends per
+    step.  reads (B, l_max) int32 codes (>3 ambiguous), rlens (B,) int32;
+    the interval bounds and the packed result are in the index dtype."""
+    return seed_scan_loop(lambda k: occ4(fm, k), seed_scan_step_plain, fm.L2, fm.primary, reads,
+                          rlens, min_seed_len, max_seeds=max_seeds, l_max=l_max)
 
 
 def seed_scan(fm: FMIndexTensors, reads, rlens, min_seed_len, *, max_seeds, l_max):

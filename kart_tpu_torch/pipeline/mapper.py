@@ -30,6 +30,15 @@ Illumina reads and, with `pacbio`, PacBio reads, in three modes:
   are mated there (`ops/pairing`), both read at every chunk as kart_tpu
   reads them; the other modes read neither switch.
 
+The sharded index (`idx_shards` N > 1, the CLI's -idx-shards): FastMode
+seeding and SA resolution go through the FM index split into N slabs
+(parallel/sharded_index.py), one a device of `shard_devices`, in the native
+backend (the python reader, four chunks seeded at a time, the C++ engine
+mapping each chunk) and in the python backend; lanes over the occurrence
+budget are re-seeded on the host.  As in kart_tpu, the funnel's tables are
+not used then, and the device-pipelined mode and PacBio seeding keep the
+replicated index.
+
 The SA mode (KART_SA_MODE, as kart_tpu reads it): "full" resolves
 occurrences through the full suffix array, "sampled" through the intv-32
 sampled SA that Kart itself walks (bwt.c:101-123), and never builds the
@@ -70,6 +79,12 @@ from ..ops.pack import (
 )
 from ..ops.pairing import pair_chunk_on_device
 from ..ops.resolve import decode_resolved_counts
+from ..parallel.sharded_index import (
+    ShardedFM,
+    build_sharded_fm,
+    default_shard_devices,
+    sharded_seed_scan_resolved,
+)
 from .candidates import (
     Seed,
     gen_candidates_illumina,
@@ -142,7 +157,10 @@ class TorchKartMapper:
     `device` "cuda" runs the CUDA kernels; "cpu" runs their plain versions.
     `backend` "native" maps with the C++ engine (seeding on the host,
     or on the device with KART_SEED_MODE=device); "python" runs the python
-    pipeline around device seeding and device NW."""
+    pipeline around device seeding and device NW.  `idx_shards` N > 1 seeds
+    through the index split over `shard_devices` (N torch devices; by
+    default default_shard_devices(N, device): cuda:0 .. cuda:N-1, or N times
+    the CPU)."""
 
     def __init__(
         self,
@@ -156,6 +174,8 @@ class TorchKartMapper:
         backend: str = "native",
         n_threads: int = 0,
         debug: bool = False,
+        idx_shards: int = 0,
+        shard_devices=None,
     ):
         if backend not in ("native", "python"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -182,6 +202,10 @@ class TorchKartMapper:
         self._tables_dev = None
         self._sa_dev = None
         self._stream = None
+        # the sharded index (0 or 1: the replicated one), made at first use
+        self.idx_shards = int(idx_shards or 0)
+        self.shard_devices = shard_devices
+        self._sharded = None
         self.native = None
         if backend == "native":
             from ..native.post import NativePostProcessor
@@ -212,12 +236,14 @@ class TorchKartMapper:
     def _get_kmer_tables(self):
         """kart_tpu's gate for the 13-mer funnel: genome at most
         KART_KMER_GATE bases, every 4-mer present (exact sub-13 restarts),
-        13-mer multiplicity at most 4096.  None when the gate refuses, and
-        in the sampled SA mode (the tables are built around the full SA)."""
+        13-mer multiplicity at most 4096.  None when the gate refuses, in
+        the sampled SA mode (the tables are built around the full SA), and
+        with the sharded index (the tables would be as oversized as the
+        index, and would bypass the sharded scan)."""
         if self._tables_tried:
             return self._tables
         self._tables_tried = True
-        if self.sa_mode != "full":
+        if self.sa_mode != "full" or self.idx_shards > 1:
             return None
         gate = int(os.environ.get("KART_KMER_GATE", "1200000000"))
         if self.gidx.seq_len > gate:
@@ -226,6 +252,17 @@ class TorchKartMapper:
         if tb.all_short_present and tb.max_mult <= 4096:
             self._tables = tb
         return self._tables
+
+    def _get_sharded(self) -> ShardedFM:
+        """The index split over the shard devices, made at first use."""
+        if self._sharded is None:
+            devices = self.shard_devices
+            if devices is None:
+                devices = default_shard_devices(self.idx_shards, self.device)
+            if len(devices) != self.idx_shards:
+                raise ValueError(f"idx_shards={self.idx_shards} but {len(devices)} shard devices")
+            self._sharded = build_sharded_fm(self.gidx, devices, sa_mode=self.sa_mode)
+        return self._sharded
 
     def _device_tables(self) -> KmerTablesTensors:
         if self._tables_dev is None:
@@ -271,6 +308,18 @@ class TorchKartMapper:
         for i, e in enumerate(enc_reads):
             reads[i, : len(e)] = e[:l_max]
         max_seeds = self._max_seeds(l_max)
+        if self.idx_shards > 1:
+            # expanded and resolved by the sharded index (the host's full SA
+            # is never read); a read over the budget is re-seeded on the host
+            cnts, meta, gpos = self._sharded_seed_resolved(reads, rlens, max_seeds, l_max)
+            ok, tot, offs = decode_resolved_counts(cnts)
+            bad = np.nonzero(~ok)[0]
+            self.group_log.append(dict(reads=n, flagged=len(bad), reseeded_device=0,
+                                       reseeded_host=len(bad)))
+            overrides = {int(i): self._reseed_host_flat(enc_reads[i]) for i in bad}
+            res = (tot, offs, (meta & 0xFFFF).astype(np.int32),
+                   ((meta >> 16) & 0xFFFF).astype(np.int32), gpos, overrides)
+            return self._chunk_flat(res, 0, n)
 
         def fm_seeds(rows):
             packed = seed_scan(
@@ -308,6 +357,18 @@ class TorchKartMapper:
             for k, a in fields.items():
                 a[bad] = again[k]
         return self._flatten_seeds(fields, max_seeds)
+
+    def _sharded_seed_resolved(self, reads: np.ndarray, rlens: np.ndarray, max_seeds: int,
+                               l_max: int):
+        """FastMode seeding of (B, l_max) reads against the sharded index,
+        the occurrences expanded and resolved there: the host (cnts, meta,
+        gpos) stream.  The budget is taken from the real reads (kart_tpu pads
+        the batch first, so it may flag other lanes, not other seeds)."""
+        stream = sharded_seed_scan_resolved(
+            self._get_sharded(), torch.from_numpy(reads), torch.from_numpy(rlens),
+            self.min_seed_len, max_seeds=max_seeds, l_max=l_max,
+            occ_budget=self._occ_budget(reads.shape[0], l_max))
+        return tuple(t.cpu().numpy() for t in stream)
 
     def _seed_sensitive_batch_flat(self, enc_reads: list[np.ndarray]):
         """SensitiveMode seeding for a batch of encoded reads on the device
@@ -451,9 +512,33 @@ class TorchKartMapper:
         self.conquer.nw_memo = dict(zip(pairs, nw_align_batch(pairs, device=self.device)))
 
     def map_chunk(self, chunk: list[RawRead], pair_end: bool, fastq: bool) -> list[str]:
-        n = len(chunk)
-        if n == 0:
+        """The SAM lines of one reader chunk: the C++ engine (native
+        backend) or the python pipeline."""
+        if not chunk:
             return []
+        if self.native is not None:
+            return self._map_chunk_native(chunk, pair_end, fastq)
+        return self._map_chunk_python(chunk, pair_end, fastq)
+
+    def _map_chunk_native(self, chunk: list[RawRead], pair_end: bool, fastq: bool) -> list[str]:
+        """One chunk through the C++ engine: seeded there where it has its
+        seeding index, else seeded here (the sharded index; PacBio through
+        the SensitiveMode stepper on the replicated index) and mapped
+        there."""
+        n = len(chunk)
+        if self._native_seeding_ready():
+            flat = (None,) * 4
+        elif self.pacbio:
+            flat = self._seed_sensitive_batch_flat([self._encode(r.seq) for r in chunk])
+        else:
+            flat = self._seed_batch_flat([self._encode(r.seq) for r in chunk])
+        use_pairs = pair_end and n % 2 == 0 and not self.pacbio
+        sam_text = self.native.process_chunk(chunk, use_pairs, fastq, *flat, self.stats)
+        self.stats["total"] += n
+        return sam_text.decode("ascii").splitlines()
+
+    def _map_chunk_python(self, chunk: list[RawRead], pair_end: bool, fastq: bool) -> list[str]:
+        n = len(chunk)
         sam: list[str] = []
         my = dict(unique=0, unmapped=0, paired=0, distance=0)
         states = [self._make_state(r) for r in chunk]
@@ -573,10 +658,30 @@ class TorchKartMapper:
 
     def map_chunks(self, chunks: list, pair_end: bool, fastq: bool) -> list[str]:
         """Map several 4000-read chunks in order (per-chunk pairing sees the
-        running insert-size stats in reference order)."""
-        out: list[str] = []
-        for c in chunks:
-            out.extend(self.map_chunk(c, pair_end, fastq))
+        running insert-size stats in reference order).  Where the native
+        backend seeds here (FastMode through the sharded index), every
+        chunk's reads are seeded in one call, then each chunk is mapped by
+        the C++ engine."""
+        chunks = [c for c in chunks if c]
+        if (self.native is None or self.pacbio or len(chunks) <= 1
+                or self._native_seeding_ready()):
+            out: list[str] = []
+            for c in chunks:
+                out.extend(self.map_chunk(c, pair_end, fastq))
+            return out
+        all_reads = [r for c in chunks for r in c]
+        cnts, rp, ln, gp = self._seed_batch_flat([self._encode(r.seq) for r in all_reads])
+        read_off = np.concatenate([[0], np.cumsum([len(c) for c in chunks])])
+        seed_off = np.concatenate([[0], np.cumsum(cnts)])
+        out = []
+        for ci, c in enumerate(chunks):
+            r0, r1 = read_off[ci], read_off[ci + 1]
+            s0, s1 = seed_off[r0], seed_off[r1]
+            sam_text = self.native.process_chunk(
+                c, pair_end and len(c) % 2 == 0, fastq, cnts[r0:r1], rp[s0:s1], ln[s0:s1],
+                gp[s0:s1], self.stats)
+            self.stats["total"] += len(c)
+            out.extend(sam_text.decode("ascii").splitlines())
         return out
 
     # ------------------------------------------------------------------
@@ -853,20 +958,27 @@ class TorchKartMapper:
     # Native (host C++) stream
     # ------------------------------------------------------------------
 
-    def _native_seeding_ready(self) -> None:
+    def _native_seeding_ready(self) -> bool:
         """Give the C++ engine its seeding index: the funnel's tables where
-        the gate passes, else the FM index."""
+        the gate passes, else the FM index; False (the engine does not seed)
+        with the sharded index, whose seeding it would bypass, and in the
+        python backend."""
+        if self.native is None:
+            return False
         tb = self._get_kmer_tables()
         if tb is not None:
             if not getattr(self.native, "has_seed_tables", False):
                 self.native.set_seed_tables(tb)
-        elif not getattr(self.native, "has_fm_index", False):
+            return True
+        if self.idx_shards > 1:
+            return False
+        if not getattr(self.native, "has_fm_index", False):
             self.native.set_fm_index(self.gidx)
+        return True
 
     def _map_stream_native(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
         from ..native.post import NativeReader
 
-        self._native_seeding_ready()
         reader = NativeReader(path1, path2, fastq, pair_end, self.pacbio)
         try:
             while True:
@@ -886,21 +998,27 @@ class TorchKartMapper:
         library, the funnel's tables, the FM index and the full SA on the
         device (neither of the last two in the sampled SA mode), and for the
         python backend the kernel library and, where the FastMode funnel
-        seeds, its tables on the device and the host packer of its reads.
-        map_stream makes whatever is missing itself."""
-        if self.backend == "python":
+        seeds, its tables on the device and the host packer of its reads;
+        with the sharded index, the kernel library and the index's slabs on
+        their devices (PacBio: the replicated FM index).  map_stream makes
+        whatever is missing itself."""
+        device_mode = os.environ.get("KART_SEED_MODE", "native") == "device"
+        if self.backend == "python" or not (device_mode or self._native_seeding_ready()):
+            # the chunks are seeded here (map_chunks)
             if self.device.type == "cuda":
                 from .. import kernels
 
                 kernels.build()
-                if not self.pacbio and self._get_kmer_tables() is not None:
+            if self.idx_shards > 1:
+                _ = self.fm if self.pacbio else self._get_sharded()
+            elif not self.pacbio and self._get_kmer_tables() is not None:
+                if self.device.type == "cuda":
                     from ..native.post import load_postlib
 
                     self._device_tables()
                     load_postlib()
             return
-        if os.environ.get("KART_SEED_MODE", "native") != "device":
-            self._native_seeding_ready()
+        if not device_mode:
             return
         if self.device.type == "cuda":
             from .. import kernels
@@ -915,16 +1033,21 @@ class TorchKartMapper:
                    fastq: bool, writer, progress=None) -> None:
         """Map one whole library (file or file pair), streaming SAM text to
         `writer`: device-pipelined with KART_SEED_MODE=device, else the
-        native engine; the python backend ignores KART_SEED_MODE, as
-        kart_tpu's does."""
+        native engine where it seeds, else (the sharded index) the python
+        reader; the python backend ignores KART_SEED_MODE, as kart_tpu's
+        does."""
         if self.backend == "python":
-            return self._map_stream_python(path1, path2, pair_end, fastq, writer, progress)
+            return self._map_stream_chunks(path1, path2, pair_end, fastq, writer, progress)
         if os.environ.get("KART_SEED_MODE", "native") == "device":
             return self._map_stream_device(path1, path2, pair_end, fastq, writer, progress)
-        return self._map_stream_native(path1, path2, pair_end, fastq, writer, progress)
+        if self._native_seeding_ready():
+            return self._map_stream_native(path1, path2, pair_end, fastq, writer, progress)
+        return self._map_stream_chunks(path1, path2, pair_end, fastq, writer, progress)
 
-    def _map_stream_python(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
-        """The python backend: four reader chunks at a time."""
+    def _map_stream_chunks(self, path1, path2, pair_end, fastq, writer, progress=None) -> None:
+        """The python reader, four chunks at a time through map_chunks: the
+        python backend, and the native backend where its engine does not
+        seed."""
         s1 = ReadStream(path1, fastq)
         s2 = ReadStream(path2, fastq) if path2 else None
         try:

@@ -1,8 +1,8 @@
 """The CUDA kernels run on the CPU: `csrc/kmer_funnel.cu` (FastMode and
 SensitiveMode), `csrc/resolve_pack.cu` (full and sampled SA, int32 and
 int64), `csrc/fm_seed_scan.cu` (both steppers, both index types),
-`csrc/sa_walk.cu`, `csrc/nw.cu`, `csrc/cluster.cu` and `csrc/pairing.cu`
-compiled as
+`csrc/sa_walk.cu`, `csrc/nw.cu`, `csrc/cluster.cu`, `csrc/pairing.cu` and
+`csrc/sharded_fm.cu` (the sharded index's four kernels) compiled as
 host C++ against `tests/host_shim/cuda_shim.h` (threads as std::threads, a
 warp's shuffles an exchange between its 32 threads, the
 blocks of a cluster at the same time, cluster.sync() a barrier over all of
@@ -45,7 +45,7 @@ def host_lib(tmp_path_factory):
     so = tmp_path_factory.mktemp("host_shim") / "libkarthost.so"
     translate.build(str(so), [os.path.join(CSRC, f) for f in (
         "kmer_funnel.cu", "resolve_pack.cu", "fm_seed_scan.cu", "nw.cu", "sa_walk.cu",
-        "cluster.cu", "pairing.cu")])
+        "cluster.cu", "pairing.cu", "sharded_fm.cu")])
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for sfx, prim in (("", i), ("_i64", ll)):
@@ -54,6 +54,12 @@ def host_lib(tmp_path_factory):
         getattr(lib, "kart_fm_sensitive_scan" + sfx).argtypes = [p, p, p, prim, p, p, i, i, i, i,
                                                                  i, p, ll, p, p]
         getattr(lib, "kart_resolve_rows" + sfx).argtypes = [p, i, i, i, p, i, p, p, p, p, p, p, p]
+        getattr(lib, "kart_sharded_occ4" + sfx).argtypes = [p, p, prim, ll, ll, p, i, p, p]
+        getattr(lib, "kart_sharded_scan_step" + sfx).argtypes = [p, p, p, p, prim, i, i, i, i, i,
+                                                                 p, p, p, p, p, p, p]
+        getattr(lib, "kart_sharded_inv_psi" + sfx).argtypes = [p, p, p, prim, ll, ll, p, i, p, p,
+                                                               p]
+        getattr(lib, "kart_sharded_gather" + sfx).argtypes = [p, ll, ll, p, i, i, p, p]
     lib.kart_resolve_finish.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.kart_resolve_finish_i64.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p]
     lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
@@ -918,3 +924,263 @@ def test_pair_kernel_on_host_matches_plain(host_lib, name):
         np.testing.assert_array_equal(g, w.numpy(), err_msg=what)
     if name == "past_shared_memory":
         assert want[2].all() and (want[0] >= 0).sum() > 50
+
+
+# ---------------------------------------------------------------------------
+# The sharded index (csrc/sharded_fm.cu): G1 occ4, G2 scan step, G3 walk
+# step, G4 gather, each shard's slab on the CPU
+# ---------------------------------------------------------------------------
+
+
+def sharded_index(gidx, dtype, n, sa_mode="full"):
+    """The index in n slabs on the CPU, in one index dtype."""
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    g = gidx if dtype == "int32" else tsi.index_int64(gidx)
+    return tsi.build_sharded_fm(g, ["cpu"] * n, sa_mode)
+
+
+def tnp(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.numpy())
+
+
+def host_occ4(lib, sfm, shard, k, sfx):
+    """G1 through the host shim on one shard; its output starts as garbage."""
+    kk = tnp(k)
+    out = np.full((len(kk), 4), -7, kk.dtype)
+    rc = getattr(lib, "kart_sharded_occ4" + sfx)(
+        ptr(tnp(shard.occ_cp)), ptr(tnp(shard.bwt_words)), sfm.primary,
+        shard.index * sfm.nb_local, sfm.nb_local, ptr(kk), len(kk), ptr(out), None)
+    assert rc == 0
+    return torch.from_numpy(out)
+
+
+def host_inv_psi(lib, sfm, shard, k, add, sfx):
+    kk = tnp(k)
+    out = np.full(len(kk), -7, kk.dtype)
+    rc = getattr(lib, "kart_sharded_inv_psi" + sfx)(
+        ptr(tnp(shard.occ_cp)), ptr(tnp(shard.bwt_words)), ptr(tnp(shard.L2)), sfm.primary,
+        shard.index * sfm.nb_local, sfm.nb_local, ptr(kk), len(kk), ptr(out),
+        None if add is None else ptr(add), None)
+    assert rc == 0
+    return torch.from_numpy(out)
+
+
+def host_gather(lib, slab, lo, rows, shift, sfx):
+    r = tnp(rows)
+    out = np.full(len(r), -7, r.dtype)
+    rc = getattr(lib, "kart_sharded_gather" + sfx)(ptr(tnp(slab)), lo, slab.shape[0], ptr(r),
+                                                  len(r), shift, ptr(out), None)
+    assert rc == 0
+    return torch.from_numpy(out)
+
+
+SHARD_CASES = [("int32", 1), ("int32", 3), ("int64", 3), ("int64", 8)]
+
+
+@pytest.mark.parametrize("dtype, n", SHARD_CASES)
+def test_sharded_occ4_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n):
+    """Each shard's masked occ4 of rows around `primary`, 0, seq_len and at
+    random, equal to the plain version, and their sum to the replicated
+    index's occ4."""
+    from test_torch_sampled import walk_rows
+
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    gidx, _ = shim_genome
+    sfm = sharded_index(gidx, dtype, n)
+    sfx = "" if dtype == "int32" else "_i64"
+    k = torch.from_numpy(np.concatenate([[0], walk_rows(gidx, 500)]).astype(
+        np.int32 if dtype == "int32" else np.int64))
+    parts = []
+    for shard in sfm.shards:
+        got = host_occ4(host_lib, sfm, shard, k, sfx)
+        assert torch.equal(got, tsi.shard_occ4_plain(sfm, shard, k))
+        parts.append(got)
+    assert torch.equal(tsi.combine(parts, sfm.device), tfm.occ4(fm_index(gidx, dtype), k))
+
+
+@pytest.mark.parametrize("dtype, n", SHARD_CASES)
+def test_sharded_scan_step_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n):
+    """The sharded scan through the host shim (G1 a shard, their sum, G2),
+    every step's state, rows and seed rows equal to the plain step's on the
+    same inputs, and the packed seeds to the replicated scan's: the
+    stepper's edge reads (pad, short and all-N lanes, Ns, the texts around
+    `primary`), seeds past max_seeds dropped."""
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    gidx, _ = shim_genome
+    sfm = sharded_index(gidx, dtype, n)
+    sfx = "" if dtype == "int32" else "_i64"
+    reads, rlens = sharded_scan_reads(gidx, 80)
+    B, L = reads.shape
+    ms = 1  # fewer slots than some reads' seeds
+    codes_t = reads.t().contiguous()
+    state, out, k = tfm.seed_scan_state(B, ms, sfm.index_dtype, "cpu")
+    for p in range(L + 1):
+        cnt = tsi.combine([host_occ4(host_lib, sfm, s, k, sfx) for s in sfm.shards], sfm.device)
+        want_out = out.clone()
+        want_state, want_k = tfm.seed_scan_step_plain(p, cnt, codes_t, rlens, sfm.L2, sfm.primary,
+                                                      MIN_SEED, ms, state, want_out)
+        ist, tst = (tnp(x) for x in state)
+        ist_out, tst_out = np.full_like(ist, -7), np.full_like(tst, -7)
+        k_next = np.full(2 * B, -7, tst.dtype)
+        o = out.numpy()
+        rc = getattr(host_lib, "kart_sharded_scan_step" + sfx)(
+            ptr(tnp(cnt)), ptr(tnp(codes_t)), ptr(tnp(rlens)), ptr(tnp(sfm.L2)), sfm.primary, B,
+            L, p, MIN_SEED, ms, ptr(ist), ptr(tst), ptr(ist_out), ptr(tst_out), ptr(o),
+            ptr(k_next), None)
+        assert rc == 0
+        np.testing.assert_array_equal(ist_out, want_state[0].numpy(), err_msg=f"ist at {p}")
+        np.testing.assert_array_equal(tst_out, want_state[1].numpy(), err_msg=f"tst at {p}")
+        np.testing.assert_array_equal(k_next, want_k.numpy(), err_msg=f"rows at {p}")
+        np.testing.assert_array_equal(o, want_out.numpy(), err_msg=f"seeds at {p}")
+        state, k = (torch.from_numpy(ist_out), torch.from_numpy(tst_out)), torch.from_numpy(k_next)
+    want = tfm.seed_scan_plain(fm_index(gidx, dtype), reads, rlens, MIN_SEED, max_seeds=ms,
+                               l_max=L)
+    assert torch.equal(out, want)
+    assert (want[:, 0] > ms).any() and (want[:, 0] == 0).any()
+
+
+def sharded_scan_reads(gidx, l_max):
+    """fm_edge_reads' reads (pads, short and all-N reads, Ns, the texts
+    around `primary`) and 40 reads of the genome, every third with a
+    mismatch."""
+    rng = np.random.default_rng(21)
+    starts = rng.integers(0, gidx.two_genome_size - l_max, 40)
+    reads = gidx.ref_codes[starts[:, None] + np.arange(l_max)].astype(np.int32)
+    reads[::3, 20] = (reads[::3, 20] + 1) % 4
+    edges, edge_lens = fm_edge_reads(gidx, l_max)
+    return (torch.from_numpy(np.concatenate([edges, reads])),
+            torch.from_numpy(np.concatenate([edge_lens, np.full(40, l_max, np.int32)])))
+
+
+@pytest.fixture(scope="module")
+def limit_genome(workdir):
+    """Random sequence with 50 copies of a 40-base element and 51 copies of
+    another, each copy between two As: a read of N, the element, then C
+    ends a seed of exactly 50 or 51 occurrences."""
+    d = workdir / "torch_host_shim_limit"
+    d.mkdir(exist_ok=True)
+    rng = np.random.default_rng(50)
+    elems = [_ACGT[rng.integers(0, 4, 40)] for _ in range(2)]
+    copies = [0] * 50 + [1] * 51
+    rng.shuffle(copies)
+    parts = [_ACGT[rng.integers(0, 4, 300)]]
+    for e in copies:
+        parts += [np.frombuffer(b"A", np.uint8), elems[e], np.frombuffer(b"A", np.uint8),
+                  _ACGT[rng.integers(0, 4, 200)]]
+    seq = np.concatenate(parts).tobytes().decode()
+    fa = d / "g.fa"
+    fa.write_text(">c1\n" + "\n".join(seq[j : j + 70] for j in range(0, len(seq), 70)) + "\n")
+    build_index(str(fa), str(d / "idx"), verbose=False)
+    return load_index(str(d / "idx")), elems
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sharded_scan_step_kernel_on_host_occurrence_limit(host_lib, limit_genome, dtype):
+    """Seeds of exactly 50 occurrences are recorded and of 51 are not: the
+    scan through the host shim (3 shards) equals the plain scan, which has
+    both kinds of seed."""
+    from kart_tpu_torch.index.format import NT4_TABLE
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    gidx, elems = limit_genome
+    sfm = sharded_index(gidx, dtype, 3)
+    sfx = "" if dtype == "int32" else "_i64"
+    L, ms = 64, 4
+    reads = np.full((6, L), 4, np.int32)
+    rng = np.random.default_rng(4)
+    for i in range(6):
+        reads[i, 1:41] = NT4_TABLE[elems[i % 2]]
+        reads[i, 41] = 1  # C: no copy is followed by it
+        reads[i, 42:] = rng.integers(0, 4, L - 42)
+    reads, rlens = torch.from_numpy(reads), torch.full((6,), L, dtype=torch.int32)
+
+    def occ4_rows(k):
+        return tsi.combine([host_occ4(host_lib, sfm, s, k, sfx) for s in sfm.shards], sfm.device)
+
+    def host_step(p, cnt, codes_t, rl, L2, primary, msl, m, state, out):
+        ist, tst = (tnp(x) for x in state)
+        ist_out, tst_out = np.full_like(ist, -7), np.full_like(tst, -7)
+        k_next = np.full(2 * ist.shape[1], -7, tst.dtype)
+        rc = getattr(host_lib, "kart_sharded_scan_step" + sfx)(
+            ptr(tnp(cnt)), ptr(tnp(codes_t)), ptr(tnp(rl)), ptr(tnp(L2)), primary, ist.shape[1],
+            codes_t.shape[0], p, msl, m, ptr(ist), ptr(tst), ptr(ist_out), ptr(tst_out),
+            ptr(out.numpy()), ptr(k_next), None)
+        assert rc == 0
+        return (torch.from_numpy(ist_out), torch.from_numpy(tst_out)), torch.from_numpy(k_next)
+
+    got = tfm.seed_scan_loop(occ4_rows, host_step, sfm.L2, sfm.primary, reads, rlens, MIN_SEED,
+                             max_seeds=ms, l_max=L)
+    want = tfm.seed_scan_plain(fm_index(gidx, dtype), reads, rlens, MIN_SEED, max_seeds=ms,
+                               l_max=L)
+    assert torch.equal(got, want)
+    o = tfm.unpack_seed_scan(want, ms)
+    first = o["freq"][:, 0].numpy()
+    assert (o["slen"][0::2, 0] == 40).all() and (first[0::2] == 50).all()
+    assert not (o["freq"][1::2] == 51).any()
+
+
+@pytest.mark.parametrize("max_steps", [4096, 8])
+@pytest.mark.parametrize("dtype, n", SHARD_CASES)
+def test_sharded_walk_kernels_on_host_match_plain(host_lib, shim_genome, dtype, n, max_steps):
+    """The sharded walk through the host shim: G3 steps (each shard's output
+    equal to the plain version's, the step counts in the first shard's
+    launch) until every row is at a sample or max_steps, then G4 on the
+    sampled SA's slabs; (pos, done) equal to the plain sharded walk's and
+    to the replicated sa_walk's, walks cut at 8 steps included."""
+    from test_torch_sampled import walk_rows
+
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    gidx, _ = shim_genome
+    sfm = sharded_index(gidx, dtype, n, "sampled")
+    sfx = "" if dtype == "int32" else "_i64"
+    k = torch.from_numpy(walk_rows(gidx, 300).astype(np.int32 if dtype == "int32" else np.int64))
+    rows = k.clone()
+    add = np.zeros(len(k), np.int32)
+    for _ in range(max_steps):
+        if not bool(((k & 31) != 0).any()):
+            break
+        want_add = torch.from_numpy(add.copy())
+        parts = []
+        for shard in sfm.shards:
+            got = host_inv_psi(host_lib, sfm, shard, k, add if shard.index == 0 else None, sfx)
+            want = tsi.shard_inv_psi_plain(sfm, shard, k, want_add if shard.index == 0 else None)
+            assert torch.equal(got, want)
+            parts.append(got)
+        np.testing.assert_array_equal(add, want_add.numpy())
+        k = tsi.combine(parts, sfm.device)
+    samp = tsi.combine([host_gather(host_lib, s.sa_samples, s.index * sfm.nsamp_local, k, 5, sfx)
+                        for s in sfm.shards], sfm.device)
+    pos, done = torch.from_numpy(add).to(k.dtype) + samp, (k & 31) == 0
+    for got, want in zip((pos, done), tsi.sharded_sa_walk(sfm, rows, max_steps=max_steps)):
+        assert torch.equal(got, want)
+    for got, want in zip((pos, done), tfm.sa_walk_plain(fm_index(gidx, dtype), rows,
+                                                        max_steps=max_steps)):
+        assert torch.equal(got, want)
+    assert bool(done.all()) == (max_steps == 4096)
+
+
+@pytest.mark.parametrize("dtype, n", SHARD_CASES)
+def test_sharded_gather_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n):
+    """G4 on the full SA's slabs (the last one padded): each shard's masked
+    gather equal to the plain version, and their sum to sa_full[rows]."""
+    from test_torch_sampled import walk_rows
+
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    gidx, _ = shim_genome
+    sfm = sharded_index(gidx, dtype, n)
+    sfx = "" if dtype == "int32" else "_i64"
+    rows = torch.from_numpy(np.concatenate([[0], walk_rows(gidx, 500)]).astype(
+        np.int32 if dtype == "int32" else np.int64))
+    parts = []
+    for s in sfm.shards:
+        lo = s.index * sfm.ns_local
+        got = host_gather(host_lib, s.sa_full, lo, rows, 0, sfx)
+        assert torch.equal(got, tsi.shard_gather_plain(s.sa_full, lo, rows))
+        parts.append(got)
+    np.testing.assert_array_equal(tsi.combine(parts, sfm.device).numpy(),
+                                  gidx.sa_full[rows.numpy()])

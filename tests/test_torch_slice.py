@@ -223,7 +223,8 @@ assert not os.path.exists(os.path.join(os.environ["HOME"], ".cache", "kart_tpu_j
 
 
 def test_port_sources_do_not_import_jax():
-    """No source of the port, and not chip_smoke.py, imports jax, the JAX
+    """No source of the port (its parallel/ package included), not
+    chip_smoke.py and not the multi-host test's worker imports jax, the JAX
     package kart_tpu (kart_tpu_torch is the port itself), bench.py or a
     module of the repository's tools/ (the port has its own copies)."""
     root_tools = "simulate_reads|evaluate_sam|make_huge_genome|profile_device|analyze_trace|bench_huge"
@@ -241,8 +242,11 @@ def test_port_sources_do_not_import_jax():
                  "from .simulate_reads import simulate", "from . import profile_device",
                  "from kart_tpu_torch.tools import bench_huge", "from .profile_device import x"):
         assert not pat.search(good), good
-    files = sorted((REPO / "kart_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "kart_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_mh_worker.py"]
     assert len(files) >= 30
+    assert {"sharded_index.py", "distributed.py", "stats_sync.py", "merge.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     assert [str(f) for f in files if pat.search(f.read_text())] == []
 
 
@@ -364,12 +368,81 @@ def test_cli_without_gpu_fails(slice_data):
     ],
 )
 def test_unported_paths_raise(slice_data, monkeypatch, extra, env, item):
+    """Once the refusal of ROADMAP Queue 1 `item` (-idx-shards): since that
+    item is ported, the same arguments with -cpu map the slice's pairs to
+    the SAM of the replicated run."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     d = slice_data
-    with pytest.raises(NotImplementedError, match=item):
-        torch_cli.main(["kart-tpu-torch", "-i", str(d / "idx"), "-f", str(d / "r1.fq"),
-                        "-o", str(d / "unported.sam"), "-cpu", *extra])
+    args = ["kart-tpu-torch", "-i", str(d / "idx"), "-f", str(d / "r1.fq"), "-f2",
+            str(d / "r2.fq"), "-silent", "-cpu", "-backend", "python"]
+    assert torch_cli.main([*args, "-o", str(d / "unported.sam"), *extra]) == 0
+    assert torch_cli.main([*args, "-o", str(d / "replicated.sam")]) == 0
+    got = (d / "unported.sam").read_bytes()
+    assert got == (d / "replicated.sam").read_bytes() and got.count(b"\n") > 400
+
+
+@pytest.fixture(scope="module")
+def flag_inputs(slice_data):
+    """Inputs of the flag cases, from the slice's pairs: two libraries of 20
+    pairs (reads 0-19 and 20-39), the first one gzipped, and interlaced."""
+    import gzip
+
+    d = slice_data / "flags"
+    d.mkdir(exist_ok=True)
+    recs = {k: (slice_data / f"r{k}.fq").read_bytes().split(b"\n") for k in (1, 2)}
+    for k in (1, 2):
+        for lib, lo in (("a", 0), ("b", 20)):
+            (d / f"{lib}{k}.fq").write_bytes(b"\n".join(recs[k][4 * lo: 4 * (lo + 20)]) + b"\n")
+        (d / f"a{k}.fq.gz").write_bytes(gzip.compress((d / f"a{k}.fq").read_bytes(), mtime=0))
+    inter = [b"\n".join(recs[k][4 * i: 4 * i + 4]) for i in range(20) for k in (1, 2)]
+    (d / "inter.fq").write_bytes(b"\n".join(inter) + b"\n")
+    return d
+
+
+# each case: its reads and flags, and whether the output is BAM
+FLAG_CASES = {
+    "bo": (["-f", "a1.fq", "-f2", "a2.fq"], [], True),
+    "m": (["-f", "a1.fq", "-f2", "a2.fq"], ["-m"], False),
+    "p": (["-f", "inter.fq"], ["-p"], False),
+    "fq_gz": (["-f", "a1.fq.gz", "-f2", "a2.fq.gz"], [], False),
+    "two_libraries": (["-f", "a1.fq", "b1.fq", "-f2", "a2.fq", "b2.fq"], [], False),
+    "g2": (["-f", "a1.fq", "-f2", "a2.fq"], ["-g", "2"], False),
+}
+_FLAG_JAX: dict = {}
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+@pytest.mark.parametrize("backend", ["native", "python"])
+@pytest.mark.parametrize("case", list(FLAG_CASES))
+def test_cli_flags_match_jax(flag_inputs, case, backend, shards, monkeypatch, capsys):
+    """-bo, -m, -p, .fq.gz input, two libraries and -g 2: the port's -cpu
+    output equals kart_tpu's in the native and python backends, also with
+    -idx-shards 2 (kart_tpu's own tests hold its sharded runs to its
+    replicated ones)."""
+    d = flag_inputs
+    reads, flags, bam = FLAG_CASES[case]
+    reads = [x if x.startswith("-") else str(d / x) for x in reads]
+    monkeypatch.setenv("KART_BATCH_NW", "1")
+    for k in ("KART_SEED_MODE", "KART_KMER_GATE", "KART_SA_MODE", *DEVICE_STAGES):
+        monkeypatch.delenv(k, raising=False)
+    args = ["-i", str(d.parent / "idx"), *reads, *flags, "-backend", backend, "-silent"]
+    ext = "bam" if bam else "sam"
+    want = d / f"jax_{case}_{backend}.{ext}"
+    if (case, backend) not in _FLAG_JAX:
+        assert jax_cli.main(["kart-tpu", *args, "-bo" if bam else "-o", str(want)]) == 0
+        _FLAG_JAX[case, backend] = want.read_bytes()
+    got = d / f"torch_{case}_{backend}_{shards}.{ext}"
+    extra = ["-idx-shards", str(shards)] if shards else []
+    capsys.readouterr()
+    assert torch_cli.main(["kart-tpu-torch", *args, "-cpu", *extra,
+                           "-bo" if bam else "-o", str(got)]) == 0
+    assert got.read_bytes() == _FLAG_JAX[case, backend]
+    if not bam:
+        n = 80 if case == "two_libraries" else 40
+        assert len([ln for ln in got.read_text().splitlines() if not ln.startswith("@")]) >= n
+    if shards:
+        assert "# of device seeding groups on cpu" in capsys.readouterr().out
 
 
 @pytest.fixture(scope="module")
