@@ -136,6 +136,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
      group of init_distributed, an all_gather, the TCP stat relay,
      map_shard with 2 shards each) over 16,000 pairs: merged records equal
      to a single process's.
+ 12. the multi-device front half (kart_tpu_torch/parallel/dp.py), every mesh
+     position on cuda:0: (a) F, the PosDiff sort (csrc/sorted_occ.cu),
+     byte-equal to its plain version on the resolved stream of phase 6's
+     first 32,000 reads (16,000 pairs, mate 2 reverse-complemented as the
+     reader loads it; budget 128,000, s_occ 16; int32 and
+     the int64 copy, equal to each other) and on tools/simdata's edge
+     streams (a flagged read's entries, slen 32768, reads past s_occ, past
+     H, ties, invalid slots), timed by slope with its bound counted from the
+     stream's own entries; (b) make_full_mapping_step on
+     those reads over five meshes (data 1 full SA, data 4, data 2 sampled,
+     data x idx 2 x 2 full and sampled): data 1 equal to the plain
+     composition of the same step on the card (which launches no kernel),
+     every other mesh's per-read streams, clusters and mates equal to data
+     1's; ms a step (event window), reads/s, flagged reads (those over the
+     budget, which must be a suffix of each block, and those of a cut walk)
+     and the launches of each kernel; (c) graft_entry's dry run on [cuda:0] * 4,
+     entry() equal to its CPU run, and bench_scaling's lines (one card: the
+     mesh positions share it, so they measure overhead, not scaling).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  Every kernel's record carries its launches
@@ -2386,6 +2404,266 @@ def phase_sharded_slice(prefix: str, gidx) -> dict:
     return dict(total=total, runs=runs, mh=mh)
 
 
+B_DP, S_OCC = 32000, 16  # phase 12: 16,000 pairs of phase 6's reads; slots a read of F
+DP_MESHES = (("data 1, replicated, full SA", 1, 1, "full"),
+             ("data 4 on cuda:0 x 4, full SA", 4, 1, "full"),
+             ("data 2, replicated, sampled SA", 2, 1, "sampled"),
+             ("data x idx 2 x 2, full SA", 2, 2, "full"),
+             ("data x idx 2 x 2, sampled SA", 2, 2, "sampled"))
+DP_KERNELS = ("fm_seed_scan", "resolve_pack", "sa_walk", "sharded_occ4", "sharded_scan_step",
+              "sharded_inv_psi", "sharded_gather", "sorted_occurrences", "cluster_illumina",
+              "pair_candidates")
+
+
+def sorted_occ_bound(stream, s_occ: int) -> dict:
+    """Bound of one F call on this run's stream: cnts read once; of each
+    read's first min(max(cnts, 0), s_occ) entries below H, meta read once and
+    gpos where the entry is valid; n_occ and the five (B, s_occ) outputs
+    written once.  Operations: a read of n valid slots ranks each against
+    the others, n * n compares of some 6 operations."""
+    import torch
+
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    cnts, meta, gpos = (x.cpu() for x in stream)
+    B, H, isz = cnts.numel(), meta.numel(), gpos.element_size()
+    tot = cnts.clamp(min=0).long()
+    offs = torch.cumsum(tot, 0) - tot
+    take = torch.minimum(tot.clamp(max=s_occ), (H - offs).clamp(min=0))
+    first = torch.cumsum(take, 0) - take
+    n_load = int(take.sum())
+    j = torch.repeat_interleave(offs - first, take) + torch.arange(n_load)
+    valid = ((meta[j] >> 16) & 0xFFFF) != 0xFFFF
+    n_valid = torch.zeros(B, dtype=torch.long).index_add_(
+        0, torch.repeat_interleave(torch.arange(B), take), valid.long())
+    n_bytes = 4 * B + 4 * n_load + isz * int(valid.sum()) + 4 * B + B * s_occ * (4 + 4 + isz + 4 + 1)
+    t_b, by = bound_ms(n_bytes, 6 * int((n_valid * n_valid).sum()))
+    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, entries=n_load)
+
+
+def dp_compare(ref, out, n_ref: int, n_out: int, what: str) -> int:
+    """Raise unless `out`, a step over n_out blocks, gives `ref`'s (n_ref
+    blocks) counts and entries for every read that neither flagged, its
+    cluster ids, acceptance and scores, and the mate links of every pair
+    whose mates neither flagged.  Returns the reads compared."""
+    from kart_tpu_torch.parallel.dp import per_read_entries
+
+    keep = (ref[0][0] >= 0) & (out[0][0] >= 0)
+    for a, b, nm in zip(per_read_entries(out[0], n_out, keep), per_read_entries(ref[0], n_ref, keep),
+                        ("cnts", "meta", "gpos")):
+        require_equal(a, b, f"{what}: each read's {nm}")
+    for a, b, nm in zip(out[1], ref[1], ("cluster_id", "accept", "scores")):
+        require_equal(a[keep], b[keep], f"{what}: {nm}")
+    pair_keep = keep[0::2] & keep[1::2]
+    for a, b, nm in zip(out[2], ref[2], ("paired1", "paired2", "pairing")):
+        require_equal(a[pair_keep], b[pair_keep], f"{what}: {nm}")
+    return int(keep.sum())
+
+
+def flagged_reads(stream, n_blocks: int) -> tuple[int, int]:
+    """(reads flagged over the budget, reads flagged otherwise) of a step's
+    stream over n_blocks blocks; raises unless every read from a block's
+    first overflow of its budget on is flagged (make_full_mapping_step's
+    contract: the budget check is a prefix sum, so these are a suffix of the
+    block).  A read flagged while it fits (a sampled walk cut at max_steps)
+    may stand anywhere."""
+    import torch
+
+    cnts, meta, _ = stream
+    tot = torch.where(cnts >= 0, cnts, -cnts - 1).long().view(n_blocks, -1)
+    over = torch.cumsum(tot, 1) > meta.numel() // n_blocks
+    flags = (cnts < 0).view(n_blocks, -1)
+    if (over & ~flags).any():
+        raise AssertionError("a read past its block's budget is not flagged")
+    return int(over.sum()), int((flags & ~over).sum())
+
+
+@contextlib.contextmanager
+def replaced(module, **attrs):
+    """module's attributes replaced inside the block, restored after."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def phase_dp(gidx) -> dict:
+    """Phase 12: the multi-device front half (kart_tpu_torch/parallel/dp.py)
+    with every mesh position on cuda:0.  (a) F (csrc/sorted_occ.cu) against
+    its plain version, byte-equal, on the resolved stream of phase 6's first
+    32,000 reads (mates in consecutive rows, mate 2 reverse-complemented as
+    the reader loads it; budget 4 x B, int32 and the int64 copy) and on edge
+    streams, timed by slope with its bound; (b) make_full_mapping_step over
+    five meshes, each equal to data 1, and data 1 equal to the plain
+    composition of the same step on the card; ms a step, reads/s, flagged
+    reads, launches; (c) graft_entry's dry run on [cuda:0] * 4 and entry()
+    (equal to its run on the CPU), and bench_scaling's lines."""
+    import torch
+
+    from kart_tpu_torch import graft_entry, kernels
+    from kart_tpu_torch.ops import cluster as tcl
+    from kart_tpu_torch.ops import fm_search as tfm
+    from kart_tpu_torch.ops import pairing as tpr
+    from kart_tpu_torch.ops import resolve as tres
+    from kart_tpu_torch.parallel import dp as tdp
+    from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
+    from kart_tpu_torch.tools import bench_scaling, simdata
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    msl = compute_min_seed_length(gidx.two_genome_size)
+    L, ms = L_MAX_GROUP, L_MAX_GROUP // (msl + 1) + 1
+    dev = torch.device("cuda", 0)
+    r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
+    if not os.path.exists(r2):
+        simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_DEV_PAIRS)
+    half = B_DP // 2
+    # mate 2 reverse-complemented, as the reader loads a pair (io/fastq.py)
+    mates = [np.where(s < 4, 3 - s, 4).astype(np.int8)[::-1] for s in fastq_codes(r2, half)]
+    seqs = [s for pair in zip(fastq_codes(r1, half), mates) for s in pair]
+    reads_i8, rl = pad_batch(seqs, B_DP, L)
+    reads = torch.from_numpy(reads_i8.astype(np.int32)).to(dev)
+    rlens = torch.from_numpy(rl).to(dev)
+    lines = []
+
+    # (a) F at the step's width, int32 and int64, then on the edges
+    H = 4 * B_DP
+    fm32 = tfm.FMIndexTensors.from_genome_index(gidx, dev)
+    sa32 = fm32.sa_full.to(dev)
+    streams, got32 = {}, None
+    for dtype, fm, sa in (("int32", fm32, sa32), ("int64", fm_int64(fm32), sa32.long())):
+        seeds = kernels.fm_seed_scan(fm, reads, rlens, msl, max_seeds=ms, l_max=L)
+        out = kernels.resolve_pack(sa, seeds, max_seeds=ms, has_ok=False, occ_budget=H,
+                                   pack16=False)
+        stream = out if isinstance(out, tuple) else (out[:B_DP], out[B_DP:B_DP + H], out[B_DP + H:])
+        streams[dtype] = stream
+        got = kernels.sorted_occurrences(*stream, B_DP, S_OCC)
+        for g, w, nm in zip(got, tdp.sorted_occurrences_plain(*stream, B_DP, S_OCC),
+                            ("n_occ", "rp", "ln", "gp", "pd", "present")):
+            require_equal(g, w, f"F {nm} ({dtype}, B {B_DP}, H {H})")
+        if got32 is None:
+            got32 = got
+        else:  # pd's fill narrows to -1 from int64, so pd is held where present
+            for g, w, nm in zip(got, got32, ("n_occ", "rp", "ln", "gp", "pd", "present")):
+                if nm == "pd":
+                    g, w = g[got32[5]], w[got32[5]]
+                require_equal(g.to(w.dtype), w, f"F {nm}: int64 against int32")
+    cnts = streams["int32"][0]
+    lines.append(f"(a) F on the resolved stream of {B_DP} reads (l_max {L}, max_seeds {ms}, budget"
+                 f" {H}: {int(cnts.clamp(min=0).sum())} entries, {int((cnts < 0).sum())} reads"
+                 f" flagged), s_occ {S_OCC}: equal to its plain version, int32 and int64, and"
+                 f" int64 equal to int32 ({int(got32[0].sum())} occurrences sorted)")
+    for name in simdata.OCC_STREAMS:
+        for dtype in ("int32", "int64"):
+            c, m, g, B, s_occ = simdata.occurrence_stream(name, dtype)
+            args = (torch.from_numpy(c).to(dev), torch.from_numpy(m).to(dev),
+                    torch.from_numpy(g).to(dev), B, s_occ)
+            for a, b, nm in zip(kernels.sorted_occurrences(*args),
+                                tdp.sorted_occurrences_plain(*args),
+                                ("n_occ", "rp", "ln", "gp", "pd", "present")):
+                require_equal(a, b, f"F {nm} on the edge stream {name!r} ({dtype})")
+    lines.append(f"(a) F equal to its plain version on the edge streams of tools/simdata"
+                 f" ({', '.join(simdata.OCC_STREAMS)}: a flagged read's entries, slen 32768, past"
+                 f" s_occ at 12 and 32 slots, ties, invalid slots, past H; B 5,000 at 16 and 32"
+                 f" slots), int32 and int64")
+    rec = {}
+    for dtype in ("int32", "int64"):
+        st = streams[dtype]
+        t = time_both(lambda st=st: kernels.sorted_occurrences(*st, B_DP, S_OCC))
+        plain = cuda_ms(lambda st=st: tdp.sorted_occurrences_plain(*st, B_DP, S_OCC), 3)
+        b = sorted_occ_bound(st, S_OCC)
+        rec[dtype] = dict(ms=1e3 * t[0], per_call_ms=1e3 * t[1], plain_ms=plain, err=0,
+                          bound_ms=b["bound_ms"], bound_by=b["bound_by"], bytes=b["bytes"])
+        lines.append(f"(a) sorted_occurrences {dtype} (B {B_DP}, H {H}, s_occ {S_OCC}): slope"
+                     f" {1e3 * t[0]:.4f} ms, per call {1e3 * t[1]:.4f} ms, plain {plain:.4f} ms;"
+                     f" {b['bytes']} bytes ({b['entries']} stream entries read): bound"
+                     f" {b['bound_ms']:.4f} ms ({b['bound_by']})")
+
+    # (b) the whole front half over five meshes
+    kw = dict(min_seed_len=msl, max_seeds=ms, l_max=L, s_occ=S_OCC)
+    total = {k: 0 for k in DP_KERNELS}
+    ref = None
+    runs = {}
+    for name, n_data, n_idx, sa_mode in DP_MESHES:
+        mesh = tdp.make_data_mesh(n_data, n_idx, devices=[dev] * (n_data * n_idx))
+        step, place = tdp.make_full_mapping_step(mesh, gidx, idx_axis="idx" if n_idx > 1 else None,
+                                                 sa_mode=sa_mode, **kw)
+        r, rl_ = place(reads, rlens)
+        step(r, rl_)  # warm
+        torch.cuda.synchronize()
+        for k in DP_KERNELS:
+            getattr(kernels, k).launches = 0
+        out = step(r, rl_)
+        torch.cuda.synchronize()
+        launches = {k: getattr(kernels, k).launches for k in DP_KERNELS}
+        for k in DP_KERNELS:
+            total[k] += launches[k]
+        need = ["resolve_pack", "sorted_occurrences", "cluster_illumina", "pair_candidates"]
+        need += ["fm_seed_scan"] if n_idx == 1 else ["sharded_occ4", "sharded_scan_step",
+                                                     "sharded_gather"]
+        need += ["sa_walk"] if (n_idx, sa_mode) == (1, "sampled") else []
+        need += ["sharded_inv_psi"] if (n_idx, sa_mode) == (2, "sampled") else []
+        if any(launches[k] == 0 for k in need):
+            raise AssertionError(f"(b) {name}: a kernel of the step never launched: {launches}")
+        step_ms = cuda_ms(lambda: step(r, rl_), 3)
+        flagged = flagged_reads(out[0], n_data)
+        if ref is None:
+            ref = out
+            for k in DP_KERNELS:
+                getattr(kernels, k).launches = 0
+            with replaced(tdp, seed_scan=tfm.seed_scan_plain, resolve_pack=tres.resolve_pack_plain,
+                          _sorted_occurrences=tdp.sorted_occurrences_plain,
+                          cluster_illumina=tcl.cluster_illumina_plain,
+                          pair_candidates=tpr.pair_candidates_plain):
+                plain_out = step(r, rl_)
+            torch.cuda.synchronize()
+            plain_launches = {k: getattr(kernels, k).launches for k in DP_KERNELS}
+            if any(plain_launches.values()):
+                raise AssertionError(f"(b) {name}: the plain composition launched a kernel:"
+                                     f" {plain_launches}")
+            for g, w, nm in zip([x for grp in out for x in grp],
+                                [x for grp in plain_out for x in grp],
+                                ("cnts", "meta", "gpos", "cluster_id", "accept", "scores",
+                                 "paired1", "paired2", "pairing")):
+                require_equal(g, w, f"(b) {name}: {nm} against the plain composition")
+            cmp = f"every array equal to the plain composition on the card; {int(out[2][2].sum())}" \
+                  f" of {B_DP // 2} pairs mated"
+        else:
+            kept = dp_compare(ref, out, 1, n_data, f"(b) {name}")
+            cmp = f"equal to data 1 on the {kept} reads neither flagged"
+        runs[name] = dict(step_ms=step_ms, reads_s=B_DP / step_ms * 1e3, flagged=flagged,
+                          launches=launches)
+        lines.append(f"(b) {name}: {step_ms:.4f} ms a step (event window), {B_DP / step_ms * 1e3:.1f}"
+                     f" reads/s, flagged reads {flagged[0]} over the budget (a suffix of each"
+                     f" block) and {flagged[1]} by a cut walk; {cmp};"
+                     f" launches {launches}")
+
+    # (c) the entry points and the scaling tool, every position on cuda:0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        graft_entry.dryrun_multichip(4, devices=[dev] * 4)
+    lines.append("(c) " + buf.getvalue().strip() + " (every position on cuda:0)")
+    fn, args = graft_entry.entry()
+    fn_cpu, args_cpu = graft_entry.entry("cpu")
+    for g, w, nm in zip(fn(*args), fn_cpu(*args_cpu), ("packed", "locs")):
+        require_equal(g.cpu(), w, f"(c) entry() {nm} on the card against the CPU")
+    lines.append(f"(c) entry(): seed scan + full-SA gather of {args[0].shape[0]} reads on the card"
+                 f" equal to its run on the CPU")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_scaling.main([])
+    lines += [f"(c) bench_scaling (one card: every mesh position shares cuda:0): {ln}"
+              for ln in buf.getvalue().strip().splitlines()]
+    for ln in lines:
+        print("phase 12 " + ln)
+    return dict(sorted_occ=dict(rec["int32"], int64=rec["int64"], per_call_ms=rec["int32"]["per_call_ms"],
+                                shape=f"B {B_DP}, H {H}, s_occ {S_OCC}, int32"),
+                launches=total, runs=runs)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2484,6 +2762,8 @@ def main(argv: list[str] | None = None) -> int:
     if want(11):
         sharded = phase_sharded_kernels(gidx, fm["l2_ns"])
         sharded_slice = phase_sharded_slice(prefix, gidx)
+    if want(12):
+        dp = phase_dp(gidx)
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
     if loaded:
@@ -2557,6 +2837,8 @@ def main(argv: list[str] | None = None) -> int:
               "kart_tpu/parallel/sharded_index.py:148 and kart_tpu/parallel/sharded_index.py:218",
               sharded_slice["total"]["sharded_gather"], sharded["sharded_gather"],
               sharded["sharded_gather"]["library_ms"]),
+        entry("sorted_occurrences", "sorted_occ.cu", "kart_tpu/parallel/dp.py:115",
+              dp["launches"]["sorted_occurrences"], dp["sorted_occ"]),
     ]}
     print(smi)
     print(json.dumps(record))

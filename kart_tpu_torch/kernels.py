@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", f)
     for f in ("fm_seed_scan.cu", "nw.cu", "kmer_funnel.cu", "resolve_pack.cu", "row_gather.cu",
-              "sa_walk.cu", "cluster.cu", "pairing.cu", "sharded_fm.cu")
+              "sa_walk.cu", "cluster.cu", "pairing.cu", "sharded_fm.cu", "sorted_occ.cu")
 )
 # included by the sources
 HEADERS = tuple(os.path.join(_PKG, "csrc", f) for f in ("window.cuh", "fm_index.cuh"))
@@ -120,6 +120,9 @@ def _load():
             fn.restype = i
             fn = getattr(lib, "kart_sharded_gather" + name)
             fn.argtypes = [p, ll, ll, p, i, i, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_sorted_occurrences" + name)
+            fn.argtypes = [p, i, p, p, ll, i, p, p, p, p, p, p, p, p]
             fn.restype = i
         lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
         lib.kart_nw_planes.restype = i
@@ -808,3 +811,50 @@ def sharded_gather(slab, lo: int, rows, shift: int = 0):
 
 
 sharded_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The PosDiff sort of the multi-device front half (csrc/sorted_occ.cu)
+# ---------------------------------------------------------------------------
+
+SORTED_OCC_MAX = 32  # slots a read: a lane a slot, a warp a read at most
+
+
+def sorted_occurrences(cnts, meta, gpos, B: int, s_occ: int):
+    """csrc/sorted_occ.cu: the resolved stream (cnts (B,) int32, meta (H,)
+    int32, gpos (H,) int32 or int64) on the card scattered to (B, s_occ)
+    slots a read and sorted by (posdiff, rpos), as
+    parallel/dp.py::sorted_occurrences_plain: (n_occ (B,) int32, rp, ln
+    (B, s_occ) int32, gp (B, s_occ) of gpos's dtype, pd (B, s_occ) int32,
+    present (B, s_occ) bool).  1 <= s_occ <= SORTED_OCC_MAX."""
+    dev = meta.device
+    H = meta.shape[0]
+    if not 1 <= s_occ <= SORTED_OCC_MAX:
+        raise ValueError(f"sorted_occurrences: s_occ {s_occ}, the kernel takes 1 to"
+                         f" {SORTED_OCC_MAX}")
+    if gpos.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"gpos: expected int32 or int64 positions, got {gpos.dtype}")
+    sfx = "" if gpos.dtype == torch.int32 else "_i64"
+    _check("cnts", cnts, torch.int32, (B,), dev)
+    _check("meta", meta, torch.int32, (H,), dev)
+    _check("gpos", gpos, gpos.dtype, (H,), dev)
+    i32 = torch.int32
+    n_occ = torch.empty((B,), dtype=i32, device=dev)
+    rp, ln, pd = (torch.empty((B, s_occ), dtype=i32, device=dev) for _ in range(3))
+    gp = torch.empty((B, s_occ), dtype=gpos.dtype, device=dev)
+    present = torch.empty((B, s_occ), dtype=torch.bool, device=dev)
+    if B == 0:
+        return n_occ, rp, ln, gp, pd, present
+    offs = torch.empty((B,), dtype=i32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_sorted_occurrences" + sfx)(
+            cnts.data_ptr(), B, meta.data_ptr(), gpos.data_ptr(), H, s_occ, offs.data_ptr(),
+            n_occ.data_ptr(), rp.data_ptr(), ln.data_ptr(), gp.data_ptr(), pd.data_ptr(),
+            present.data_ptr(), _stream(dev))
+    _raise_on(rc, "sorted_occurrences")
+    _count(sorted_occurrences)
+    return n_occ, rp, ln, gp, pd, present
+
+
+sorted_occurrences.launches = 0

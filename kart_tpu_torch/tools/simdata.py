@@ -177,3 +177,65 @@ def simulate_pacbio_reads(genome: np.ndarray, out: str, n_reads: int = PB_N_READ
             p = int(rng.integers(0, L - 2 * rl))
             seq = noisy_copy(rng, genome[p : p + int(rl * 1.3)], rl)
             f.write(b"@pb%d:Pos=%d\n%s\n+\n%s\n" % (i, p + 1, seq, b"I" * len(seq)))
+
+
+# Resolved occurrence streams on the edges of the PosDiff sort (F,
+# parallel/dp.py::_sorted_occurrences): the tests hold the plain version to
+# kart_tpu's and the kernel (through the host shim) to the plain version on
+# them, chip_smoke.py the kernel on the card.
+OCC_STREAMS = ("flagged_keeps_entries", "sign_bit", "past_s_occ", "ties", "invalid_slots",
+               "past_H", "random", "wide", "past_s_occ_warp", "mixed", "mixed_warp")
+
+
+def meta_of(rp, slen) -> np.ndarray:
+    """rpos | slen << 16 as int32 bits (a slen of 32768 sets the sign bit)."""
+    m = (np.asarray(rp, np.int64) & 0xFFFF) | (np.asarray(slen, np.int64) << 16)
+    return ((m + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def occurrence_stream(name: str, dtype: str):
+    """(cnts, meta, gpos, B, s_occ) of the resolved stream `name` of
+    OCC_STREAMS, gpos int32 or int64 (`dtype`): a flagged read whose entries
+    stay in the stream (the reads after it take them), meta's sign bit (slen
+    32768), reads past s_occ (at 12 slots, and at 32, a warp a read), equal
+    (pd, rp), invalid slots, entries past H, and random batches of 70, 40 and
+    5,000 reads (the last at 16 and 32 slots, with ties).  In int64 half the
+    positions lie past 2**32, so pd narrows to its low 32 bits."""
+    rng = np.random.default_rng(OCC_STREAMS.index(name) + 17)
+    idt = np.int32 if dtype == "int32" else np.int64
+    s_occ = {"past_s_occ": 12, "wide": 32, "past_s_occ_warp": 32, "mixed_warp": 32}.get(name, 16)
+    if name == "flagged_keeps_entries":
+        # read 1 is flagged (tot 3 counts 0) but its three entries stay: read 2
+        # takes them, and read 3 starts where read 2's count ends
+        cnts = np.array([3, -4, 2, 5, 0, 4], np.int32)
+        H = 3 + 3 + 2 + 5 + 4 + 3  # 17 entries, then the fill
+    elif name == "past_H":
+        cnts = np.array([5, 7, 9, 6], np.int32)
+        H = 15  # read 2 is cut at the end of the stream, read 3 has nothing
+    elif name in ("past_s_occ", "past_s_occ_warp"):
+        cnts = np.array([40, 3, 12, 13] if name == "past_s_occ" else [40, 3, 12, 33, 17], np.int32)
+        H = int(cnts.sum())
+    else:
+        B = {"random": 70, "wide": 40, "mixed": 5000, "mixed_warp": 5000}.get(name, 9)
+        cnts = rng.integers(-6, 40 if name.startswith("mixed") else 30, B).astype(np.int32)
+        cnts[rng.random(B) < 0.2] = 0
+        H = int(np.maximum(cnts, 0).sum()) + int(rng.integers(0, 12))
+    B = len(cnts)
+    rp = rng.integers(0, 150, H)
+    slen = rng.integers(13, 60, H)
+    gpos = rng.integers(0, 5000, H).astype(np.int64)
+    if name in ("ties", "mixed", "mixed_warp"):  # equal (pd, rp) and equal pd with another rp
+        rp = rng.integers(0, 3, H)
+        gpos = rp + rng.integers(100, 103, H)
+    if name in ("sign_bit", "random", "wide", "mixed", "mixed_warp"):
+        slen[rng.random(H) < 0.3] = 32768
+    if name in ("invalid_slots", "random", "wide", "past_H", "mixed", "mixed_warp"):
+        bad = rng.random(H) < 0.25
+        slen[bad] = 0xFFFF
+        rp[bad] = 0xFFFF
+    meta = meta_of(rp, slen)
+    n_entries = 17 if name == "flagged_keeps_entries" else int(np.maximum(cnts, 0).sum())
+    meta[n_entries:] = -1  # the stream's fill past the last entry
+    if dtype == "int64":
+        gpos[rng.random(H) < 0.5] += 2**32 + 7  # pd narrows to its low 32 bits
+    return cnts, meta, gpos.astype(idt), B, s_occ

@@ -225,28 +225,36 @@ assert not os.path.exists(os.path.join(os.environ["HOME"], ".cache", "kart_tpu_j
 def test_port_sources_do_not_import_jax():
     """No source of the port (its parallel/ package included), not
     chip_smoke.py and not the multi-host test's worker imports jax, the JAX
-    package kart_tpu (kart_tpu_torch is the port itself), bench.py or a
-    module of the repository's tools/ (the port has its own copies)."""
-    root_tools = "simulate_reads|evaluate_sam|make_huge_genome|profile_device|analyze_trace|bench_huge"
-    pat = re.compile(r"^\s*(import|from)\s+(jax|kart_tpu|bench|tools|" + root_tools
+    package kart_tpu (kart_tpu_torch is the port itself), bench.py, the root
+    __graft_entry__.py (the port has graft_entry.py) or a module of the
+    repository's tools/ (the port has its own copies)."""
+    root_tools = ("simulate_reads|evaluate_sam|make_huge_genome|profile_device|analyze_trace"
+                  "|bench_huge|bench_scaling|scaling_curve")
+    pat = re.compile(r"^\s*(import|from)\s+(jax|kart_tpu|bench|tools|__graft_entry__|" + root_tools
                      + r")(\.[\w.]*)?(\s|$)", re.M)
     for bad in ("import jax", "from jax.numpy import x", "  import kart_tpu", "from kart_tpu.io import y",
                 "import bench", "from bench import z", "import kart_tpu.index as i",
                 "from simulate_reads import simulate", "import evaluate_sam",
                 "    from make_huge_genome import write_genome", "import profile_device",
                 "from analyze_trace import analyze", "import bench_huge",
-                "from tools.simulate_reads import simulate", "from tools import evaluate_sam"):
+                "from tools.simulate_reads import simulate", "from tools import evaluate_sam",
+                "import __graft_entry__", "    import __graft_entry__ as g",
+                "from __graft_entry__ import _tiny_index", "import bench_scaling",
+                "from scaling_curve import build_workload", "from tools import scaling_curve"):
         assert pat.search(bad), bad
     for good in ("import kart_tpu_torch.cli", "from kart_tpu_torch import cli",
                  "from kart_tpu_torch.tools import bench_gather", "from .tools import bench_gather",
                  "from .simulate_reads import simulate", "from . import profile_device",
-                 "from kart_tpu_torch.tools import bench_huge", "from .profile_device import x"):
+                 "from kart_tpu_torch.tools import bench_huge", "from .profile_device import x",
+                 "from kart_tpu_torch import graft_entry", "from ..graft_entry import _tiny_index",
+                 "from .bench_scaling import CONFIGS", "from kart_tpu_torch.tools import scaling_curve"):
         assert not pat.search(good), good
     files = sorted((REPO / "kart_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "torch_mh_worker.py"]
     assert len(files) >= 30
-    assert {"sharded_index.py", "distributed.py", "stats_sync.py", "merge.py"} <= {
+    assert {"sharded_index.py", "distributed.py", "stats_sync.py", "merge.py", "dp.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
+    assert {"graft_entry.py", "bench_scaling.py", "scaling_curve.py"} <= {f.name for f in files}
     assert [str(f) for f in files if pat.search(f.read_text())] == []
 
 
