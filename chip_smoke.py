@@ -3,9 +3,10 @@
     python3 chip_smoke.py        # from the repository root
     python3 chip_smoke.py --phases 9      # phase 0, the set-up and phase 9 only (exit 4)
     python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
-                                          # funnel, resolve_pack and SensitiveMode kernels
-                                          # (another commit's, unpacked with git archive
-                                          # into a directory of this checkout)
+                                          # funnel, resolve_pack, SensitiveMode kernels, walk
+                                          # and cross-device sharded scan and walk (another
+                                          # commit's, unpacked with git archive into a
+                                          # directory of this checkout)
 
 Phases (each prints one line; any failure raises and exits non-zero):
   0. the device, and nvidia-smi's name and power limit; nvcc builds the
@@ -119,23 +120,33 @@ Phases (each prints one line; any failure raises and exits non-zero):
      pairs of 125 bp on the bench genome (err 0.015, mut 0.002, seed 99, as
      tests/test_accuracy.py) mapped with KART_SEED_MODE=device on the card and
      with -cpu: evaluate_sam's two score dicts must be equal.
- 11. the sharded index (-idx-shards; kart_tpu_torch/parallel/, the four
-     kernels of csrc/sharded_fm.cu), all shards on cuda:0: (a) G1 (masked
-     occ4) and G2 (the scan step) at step 40 of the sharded scan of 16,000 of
-     phase 6's reads (l_max 160), G3 (the walk step) and G4 (the masked
-     gathers) at phase 4's 96,000 stream rows, each byte-equal to its plain
-     version, int32 and int64, at 1, 2 and 4 shards; the sharded scan equal
-     to its plain version and to fm_seed_scan, the sharded walk to sa_walk
-     and sa_walk_plain (also cut at 8 steps), the resolved stream (full and
-     sampled) to resolve_pack's; each kernel timed by slope (shard 0 of 2)
-     with its bound and chain, beside the whole scan and walk per call;
-     (b) the mapper (native backend, the python reader) with 2 and 4 shards
-     on cuda:0 over phase 6's 200,000 reads, full SA and
-     KART_SA_MODE=sampled: SAM records equal to the native mode's; reads/s,
-     set-up, launches, flagged lanes; (c) two processes on cuda:0 (the gloo
-     group of init_distributed, an all_gather, the TCP stat relay,
-     map_shard with 2 shards each) over 16,000 pairs: merged records equal
-     to a single process's.
+ 11. the sharded index (-idx-shards; kart_tpu_torch/parallel/), all shards
+     on cuda:0, int32 and int64, at 1, 2 and 4 shards, every kernel
+     byte-equal to its plain version: (a) the resident scan (the whole
+     FastMode scan in one launch through the shard table) of 16,000 of phase
+     6's reads (l_max 160), also equal to fm_seed_scan and to the
+     cross-device loop with the shards split into two groups, in which G1
+     (the table occ4, whole-device and each group) and G2 (the scan step) are
+     held at step 40; the resident walk of phase 4's 96,000 stream rows, also
+     equal to sa_walk and sa_walk_plain, whole and cut at 8 steps, and to the
+     cross-device walk; G3 (the table inverse-Psi step, whole-device and each
+     group) at the rows and after 10 steps; G4 (the masked gathers); the
+     resolved stream (full and sampled) equal to resolve_pack's; each kernel
+     timed by slope at 2 shards with its bound (bytes by distinct 32-byte
+     sector) and chain, beside the whole scan and walk per call at 1, 2 and 4
+     shards, resident and cross-device (with --compare, the cross-device
+     scan and walk at 2 shards in two groups in turns with the other
+     commit's sharded scan and walk at 2 shards); (b) the CLI (native
+     backend, the python reader) with -idx-shards 2 and 4, the shards where
+     default_shard_devices puts them (all on cuda:0 of one card), over phase
+     6's 200,000 reads, full SA and KART_SA_MODE=sampled: one resident scan a sharded
+     call (and one resident walk in the sampled runs), no G1, G2 or G3
+     launch; then 2 shards split into two groups, sampled (the cross-device
+     path: G1, G2, G3, G4 and no resident launch); SAM records equal to the
+     native mode's; reads/s, set-up, launches, flagged lanes; (c) two
+     processes on cuda:0 (the gloo group of init_distributed, an all_gather,
+     the TCP stat relay, map_shard with 2 shards each) over 16,000 pairs:
+     merged records equal to a single process's.
  12. the multi-device front half (kart_tpu_torch/parallel/dp.py), every mesh
      position on cuda:0: (a) F, the PosDiff sort (csrc/sorted_occ.cu),
      byte-equal to its plain version on the resolved stream of phase 6's
@@ -2025,8 +2036,9 @@ SHARD_B = 16000  # a sharded call of the mapper: four reader chunks
 SHARD_SNAP = 40  # the scan step whose G1 and G2 launches are held against their plain versions
 SHARD_TIMED = 2  # the shard count whose kernels are timed
 SHARD_MH_PAIRS = 16000  # (c): eight reader chunks, past the 1,000-pair threshold
-SHARDED_KERNELS = ("sharded_occ4", "sharded_scan_step", "sharded_inv_psi", "sharded_gather",
-                   "resolve_pack")
+RESIDENT_KERNELS = ("sharded_seed_scan", "sharded_sa_walk")
+STEP_KERNELS = ("sharded_occ4", "sharded_scan_step", "sharded_inv_psi")
+SHARDED_KERNELS = RESIDENT_KERNELS + STEP_KERNELS + ("sharded_gather", "resolve_pack")
 
 
 def sectors(offsets) -> int:
@@ -2037,15 +2049,17 @@ def sectors(offsets) -> int:
 
 
 def sharded_bounds(sfm, kind: str, rows, touched: int, l2_load_ns: float) -> dict:
-    """Bound of one shard's launch (G1, G3, G4) or of one step (G2): the
-    rows in and the results out once, and `touched`, the index bytes the
-    launch reads: each distinct 32-byte sector of the BWT words, checkpoint
-    rows (G1, G3) or slab rows (G4) it loads, once (`touched_bytes`); G3
-    also reads and writes the step count of each row not at a sample; G2
-    its state in and out, the counts, the codes of one column and the seed
-    counts.  Some 60 operations a row (G1, G3: the popcounts), 40 a lane
-    (G2), 4 a row (G4).  `chain_ms`: the dependent loads of one row: k, then
-    the block (G1, G3: two), the slab row (G4: two), the counts (G2: one)."""
+    """Bound of one whole-device launch of G1 or G3, of shard 0's G4, or of
+    one step (G2): the rows in and the results out once, and `touched`, the
+    index bytes the launch reads: each distinct 32-byte sector of the BWT
+    words, checkpoint rows (G1, G3) or slab rows (G4) it loads, once
+    (`touched_bytes`); G3 also reads and writes the step count of each row
+    not at a sample; G2 its state in and out, the counts, the codes of one
+    column and the seed counts.  Some 60 operations a row (G1, G3: the
+    popcounts), 40 a lane (G2), 4 a row (G4).  `chain_ms`: the dependent
+    loads of one row: k, then the block (G1, G3: two, the table read in
+    shared memory beside them), the slab row (G4: two), the counts (G2:
+    one)."""
     from kart_tpu_torch.tools.bench_kernels import bound_ms
 
     isz = sfm.L2.element_size()
@@ -2066,32 +2080,95 @@ def sharded_bounds(sfm, kind: str, rows, touched: int, l2_load_ns: float) -> dic
 
 
 def touched_bytes(sfm, kind: str, rows) -> int:
-    """The index bytes that shard 0's launch of G1 (kind occ4), G3 (inv_psi)
-    or G4 (gather, full SA) reads for `rows`: 32 bytes for each distinct
-    sector of the owned rows' blocks (eight BWT words, a sector each) and
-    checkpoint rows (16 or 32 bytes), or of their slab rows.  G3 loads
-    nothing for a row at a sample."""
+    """The index bytes that a whole-device launch of G1 (kind occ4) or G3
+    (inv_psi), or shard 0's G4 (gather, full SA), reads for `rows`: 32 bytes
+    for each distinct sector of the rows' blocks (eight BWT words, a sector
+    each) and checkpoint rows (16 or 32 bytes), or of shard 0's slab rows.
+    G3 loads nothing for a row at a sample."""
     isz = sfm.L2.element_size()
     if kind == "gather":
         own = rows[rows < sfm.ns_local].long()
         return 32 * sectors(isz * own)
     if kind == "inv_psi":
         rows = rows[(rows & 31) != 0]
-    blk = (rows - (rows >= sfm.primary).to(rows.dtype)) >> 7
-    blk = blk[(blk >= 0) & (blk < sfm.nb_local)].long()
+    blk = ((rows - (rows >= sfm.primary).to(rows.dtype)) >> 7).long()
     return 32 * (sectors(32 * blk) + sectors(4 * isz * blk))
 
 
-def phase_sharded_kernels(gidx, l2_load_ns: float) -> dict:
-    """Phase 11 (a): G1 to G4 against their plain versions on cuda:0, byte
-    for byte, int32 and int64, at 1, 2 and 4 shards: G1 and G2 at step
-    SHARD_SNAP of the sharded scan of a 16,000-read group of phase 6's reads
-    (l_max 160), whose packed seeds must equal its plain version's and
-    kernels.fm_seed_scan's; G3 and G4 at phase 4's stream rows (a step at
-    the rows and after 10 steps, the whole walk against sa_walk and
-    sa_walk_plain whole and cut at 8 steps, the sample and full-SA gathers);
-    the resolved stream, full and sampled, against resolve_pack's.  Each
-    kernel timed by slope at SHARD_TIMED shards (int32) with its bound."""
+def block_sector_bytes(blocks, isz: int) -> int:
+    """32 bytes for each distinct 32-byte sector of the index that a list of
+    block-number tensors touches: a block's eight BWT words (a sector) and
+    its checkpoint row (4 * isz bytes)."""
+    import torch
+
+    blk = torch.unique(torch.cat(blocks)).long()
+    return 32 * (blk.numel() + sectors(4 * isz * blk))
+
+
+def resident_bounds(fm, kind: str, n_bytes_io: int, blocks, samples, n_steps: int,
+                    longest: int, l2_load_ns: float) -> dict:
+    """Bound of one resident scan (kind "scan") or walk ("walk"): the
+    inputs and outputs once (n_bytes_io), and the index sectors the run
+    touches once (`block_sector_bytes` of every step's blocks; the walk also
+    its end rows' samples, by distinct sector); some 160 operations a scan
+    step (two occ4s), 60 a walk step.  `chain_ms`, beside it: the longest
+    read's steps (scan) or walk's steps and its sample (walk), each a
+    dependent load that hits L2."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    isz = fm.occ_cp.element_size()
+    n_bytes = n_bytes_io + block_sector_bytes(blocks, isz)
+    if samples is not None:
+        n_bytes += 32 * sectors(isz * samples.long())
+    t_b, by = bound_ms(n_bytes, (160 if kind == "scan" else 60) * n_steps)
+    chain = (longest + (kind == "walk")) * l2_load_ns / 1e6
+    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, chain_ms=chain)
+
+
+def walk_trace(fm, rows):
+    """The blocks each step of the walk of `rows` reads (a list, one tensor a
+    step), the sample rows read at the walks' ends, the steps taken in all,
+    and the longest walk's steps: the plain walk, step by step."""
+    import torch
+
+    from kart_tpu_torch.ops import fm_search as tfm
+
+    k = rows.clone()
+    blocks, n_steps, longest = [], 0, 0
+    for it in range(tfm.SA_WALK_MAX_STEPS):
+        walking = torch.nonzero((k & 31) != 0).flatten()
+        if not walking.numel():
+            break
+        kw = k[walking]
+        blocks.append((kw - (kw >= fm.primary).to(kw.dtype)) >> 7)
+        k[walking] = tfm.inv_psi(fm, kw)
+        n_steps, longest = n_steps + walking.numel(), it + 1
+    return blocks, k >> 5, n_steps, longest
+
+
+def two_groups(sfm) -> list:
+    """The shards split into two groups on their one device (the first half,
+    with shard 0, and the rest): the cross-device formulation."""
+    half = (len(sfm.shards) + 1) // 2
+    return [g for g in (sfm.shards[:half], sfm.shards[half:]) if g]
+
+
+def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) -> dict:
+    """Phase 11 (a): the sharded index's kernels against their plain versions
+    on cuda:0, byte for byte, int32 and int64, at 1, 2 and 4 shards: the
+    resident scan of a 16,000-read group of phase 6's reads (l_max 160),
+    also against fm_seed_scan and the cross-device loop over two groups, whose
+    G1 (whole-device and each group) and G2 are held at step SHARD_SNAP; the
+    resident walk of phase 4's stream rows against sa_walk, sa_walk_plain and
+    the cross-device walk, whole and cut at 8 steps; G3 at the rows and
+    after 10 steps (whole-device and each group); G4, the sample and full-SA
+    gathers; the resolved stream, full and sampled, against resolve_pack's.
+    Each kernel timed by slope at SHARD_TIMED shards (int32) with its bound,
+    beside the replicated fm_seed_scan and sa_walk on the same inputs; with
+    `other` (another build's kernels module), its sa_walk in turns with this
+    build's; with `other_si` (another build's parallel/sharded_index.py), its
+    sharded scan and walk at 2 shards in turns with this build's
+    cross-device loop in two groups."""
     import torch
 
     from kart_tpu_torch import kernels
@@ -2125,18 +2202,34 @@ def phase_sharded_kernels(gidx, l2_load_ns: float) -> dict:
         fm = fm32 if dtype == "int32" else fm_int64(fm32)
         rows = rows32 if dtype == "int32" else rows32.long()
         want_seeds = kernels.fm_seed_scan(fm, reads, rlens, msl, max_seeds=ms, l_max=L)
+        want_walk = {steps: (kernels.sa_walk(fm, rows, max_steps=steps),
+                             tfm.sa_walk_plain(fm, rows, max_steps=steps))
+                     for steps in (4096, 8)}
         for n in SHARD_COUNTS:
             what = f"{n} shards {dtype}"
             sfm = tsi.build_sharded_fm(g, [dev] * n, "full")
+            groups = two_groups(sfm)
             snap: dict = {}
             calls = [0]
 
-            def occ4_rows(k, sfm=sfm, snap=snap, calls=calls):
-                parts = [tsi.shard_occ4(sfm, s, k) for s in sfm.shards]
+            # the resident scan, against fm_seed_scan and its plain version
+            got = tsi.sharded_seed_scan(sfm, reads, rlens, msl, max_seeds=ms, l_max=L)
+            require_equal(got, want_seeds, f"resident scan against fm_seed_scan ({what})")
+            require_equal(got, tsi.resident_seed_scan_plain(sfm, reads, rlens, msl, max_seeds=ms,
+                                                            l_max=L),
+                          f"resident scan against its plain version ({what})")
+
+            # the cross-device loop over two groups, G1 and G2 held at step SHARD_SNAP
+            def occ4_rows(k, sfm=sfm, groups=groups, snap=snap, calls=calls):
+                parts = [tsi.table_occ4(sfm, grp, k) for grp in groups]
+                # the blocks the step reads (an idle lane's row 0 among them)
+                snap.setdefault("blocks", []).append(
+                    torch.unique((k - (k >= sfm.primary).to(k.dtype)) >> 7))
                 if calls[0] == SHARD_SNAP:
-                    for s, part in zip(sfm.shards, parts):
-                        require_equal(part, tsi.shard_occ4_plain(sfm, s, k), f"G1 ({what}, shard"
-                                      f" {s.index})")
+                    for grp, part in zip(groups + [sfm.shards], parts + [
+                            tsi.table_occ4(sfm, sfm.shards, k)]):
+                        require_equal(part, tsi.table_occ4_plain(sfm, grp, k),
+                                      f"G1 ({what}, shards {[s.index for s in grp]})")
                     snap["k"] = k.clone()
                 calls[0] += 1
                 return tsi.combine(parts, dev)
@@ -2146,49 +2239,51 @@ def phase_sharded_kernels(gidx, l2_load_ns: float) -> dict:
                     want_out = out.clone()
                     want = tfm.seed_scan_step_plain(p, cnt, codes_t, rl_, L2, primary, m, s_,
                                                     state, want_out)
-                    got = kernels.sharded_scan_step(p, cnt, codes_t, rl_, L2, primary, m, s_,
-                                                    state, out)
-                    for a, b, nm in ((got[0][0], want[0][0], "ist"), (got[0][1], want[0][1], "tst"),
-                                     (got[1], want[1], "rows"), (out, want_out, "seeds")):
+                    got_ = kernels.sharded_scan_step(p, cnt, codes_t, rl_, L2, primary, m, s_,
+                                                     state, out)
+                    for a, b, nm in ((got_[0][0], want[0][0], "ist"),
+                                     (got_[0][1], want[0][1], "tst"),
+                                     (got_[1], want[1], "rows"), (out, want_out, "seeds")):
                         require_equal(a, b, f"G2 {nm} ({what}, step {p})")
                     snap.update(step=(p, cnt.clone(), codes_t, rl_, L2, primary, m, s_,
                                       tuple(x.clone() for x in state), out.clone()))
-                    return got
+                    return got_
                 return kernels.sharded_scan_step(p, cnt, codes_t, rl_, L2, primary, m, s_, state,
                                                  out)
 
-            got = tfm.seed_scan_loop(occ4_rows, step, sfm.L2, sfm.primary, reads, rlens, msl,
-                                     max_seeds=ms, l_max=L)
-            require_equal(got, want_seeds, f"sharded scan against fm_seed_scan ({what})")
-            require_equal(tsi.sharded_seed_scan(sfm, reads, rlens, msl, max_seeds=ms, l_max=L),
-                          got, f"sharded_seed_scan ({what})")
-            plain = tfm.seed_scan_loop(
-                lambda k, sfm=sfm: tsi.combine([tsi.shard_occ4_plain(sfm, s, k)
-                                                for s in sfm.shards], dev),
-                tfm.seed_scan_step_plain, sfm.L2, sfm.primary, reads, rlens, msl, max_seeds=ms,
-                l_max=L)
-            require_equal(got, plain, f"sharded scan against its plain version ({what})")
+            stepwise = tfm.seed_scan_loop(occ4_rows, step, sfm.L2, sfm.primary, reads, rlens, msl,
+                                          max_seeds=ms, l_max=L)
+            require_equal(stepwise, got, f"cross-device scan (two groups) against the resident"
+                                         f" scan ({what})")
 
-            # G3 and G4 at the stream rows: a step at the rows and after 10 steps
+            # G3 at the stream rows: a step at the rows and after 10 steps
             k = rows
             for it in range(11):
                 if it in (0, 10):
-                    for s in sfm.shards:
+                    for grp in groups + [sfm.shards]:
                         add_k = torch.zeros(k.numel(), dtype=torch.int32, device=dev)
                         add_p = add_k.clone()
-                        require_equal(tsi.shard_inv_psi(sfm, s, k, add_k),
-                                      tsi.shard_inv_psi_plain(sfm, s, k, add_p),
-                                      f"G3 ({what}, shard {s.index}, step {it})")
+                        require_equal(tsi.table_inv_psi(sfm, grp, k, add_k),
+                                      tsi.table_inv_psi_plain(sfm, grp, k, add_p),
+                                      f"G3 ({what}, shards {[s.index for s in grp]}, step {it})")
                         require_equal(add_k, add_p, f"G3 steps ({what}, step {it})")
-                k = tsi.sharded_inv_psi_batch(sfm, k)
+                k = tsi.sharded_inv_psi_batch(sfm, k, groups=groups)
+            # the resident walk, whole and cut
             for steps in (4096, 8):
                 w = tsi.sharded_sa_walk(sfm, rows, max_steps=steps)
-                for a, b, r in zip(w, kernels.sa_walk(fm, rows, max_steps=steps),
-                                   tfm.sa_walk_plain(fm, rows, max_steps=steps)):
-                    require_equal(a, b, f"sharded walk against sa_walk ({what}, {steps} steps)")
-                    require_equal(a, r, f"sharded walk against sa_walk_plain ({what}, {steps})")
+                kern, plain = want_walk[steps]
+                for a, b, r, c, d in zip(w, kern, plain,
+                                         tsi.resident_sa_walk_plain(sfm, rows, max_steps=steps),
+                                         tsi._stepwise_sa_walk(sfm, rows, max_steps=steps,
+                                                               groups=groups)):
+                    require_equal(a, b, f"resident walk against sa_walk ({what}, {steps} steps)")
+                    require_equal(a, r, f"resident walk against sa_walk_plain ({what}, {steps})")
+                    require_equal(a, c, f"resident walk against its plain version ({what},"
+                                        f" {steps})")
+                    require_equal(a, d, f"resident walk against the cross-device walk ({what},"
+                                        f" {steps})")
                 if bool(w[1].all()) != (steps == 4096):
-                    raise AssertionError(f"sharded walk ({what}): max_steps {steps} cut"
+                    raise AssertionError(f"resident walk ({what}): max_steps {steps} cut"
                                          f" {int((~w[1]).sum())} walks")
             for s in sfm.shards:
                 for slab, lo, shift, nm in ((s.sa_full, s.index * sfm.ns_local, 0, "full SA"),
@@ -2212,13 +2307,16 @@ def phase_sharded_kernels(gidx, l2_load_ns: float) -> dict:
                                                      occ_budget=H)
                 for a, b, nm in zip(res, full, ("cnts", "meta", "gpos")):
                     require_equal(a, b, f"sharded resolved {nm} ({what}, {mode})")
-            lines.append(f"{what}: G1 and G2 at step {SHARD_SNAP}, the scan ({int(got[:, 0].sum())}"
-                         f" seeds), G3 at steps 0 and 10, the walk (4096 and 8 steps), G4 (full SA,"
-                         f" samples) of {rows.numel()} rows, the resolved stream (full, sampled)"
-                         f" equal")
+            lines.append(f"{what}: the resident scan ({int(got[:, 0].sum())} seeds) equal to"
+                         f" fm_seed_scan, its plain version and the cross-device loop (G1 whole"
+                         f" and in {len(groups)} groups, G2, at step {SHARD_SNAP}); the resident"
+                         f" walk of {rows.numel()} rows (4096 and 8 steps) equal to sa_walk,"
+                         f" sa_walk_plain, its plain version and the cross-device walk; G3 at"
+                         f" steps 0 and 10, G4 (full SA, samples), the resolved stream (full,"
+                         f" sampled) equal")
             if n == SHARD_TIMED and dtype == "int32":
-                timed = dict(sfm=sfm, snap=snap, rows=rows, fm=fm)
-    # times at SHARD_TIMED shards, int32: shard 0's launch of each kernel
+                timed = dict(sfm=sfm, snap=snap, rows=rows, want_seeds=want_seeds)
+    # times at SHARD_TIMED shards, int32: each kernel's launch on the device
     sfm, snap, rows = timed["sfm"], timed["snap"], timed["rows"]
     s0 = sfm.shards[0]
     k2 = snap["k"]
@@ -2226,51 +2324,107 @@ def phase_sharded_kernels(gidx, l2_load_ns: float) -> dict:
     add = torch.zeros(rows.numel(), dtype=torch.int32, device=dev)
     lo_sa = 0
     cases = {
-        "sharded_occ4": ("occ4", k2, lambda: tsi.shard_occ4(sfm, s0, k2),
-                         lambda: tsi.shard_occ4_plain(sfm, s0, k2), None),
+        "sharded_seed_scan": ("scan", None, lambda: tsi.sharded_seed_scan(
+            sfm, reads, rlens, msl, max_seeds=ms, l_max=L),
+            lambda: tsi.resident_seed_scan_plain(sfm, reads, rlens, msl, max_seeds=ms, l_max=L)),
+        "sharded_sa_walk": ("walk", None, lambda: tsi.sharded_sa_walk(sfm, rows),
+                            lambda: tsi.resident_sa_walk_plain(sfm, rows)),
+        "sharded_occ4": ("occ4", k2, lambda: tsi.table_occ4(sfm, sfm.shards, k2),
+                         lambda: tsi.table_occ4_plain(sfm, sfm.shards, k2)),
         "sharded_scan_step": ("step", k2, lambda: kernels.sharded_scan_step(
             p, cnt, codes_t, rl_, L2, primary, m, s_, state, out),
             lambda: tfm.seed_scan_step_plain(p, cnt, codes_t, rl_, L2, primary, m, s_, state,
-                                             out.clone()), None),
-        "sharded_inv_psi": ("inv_psi", rows, lambda: tsi.shard_inv_psi(sfm, s0, rows, add),
-                            lambda: tsi.shard_inv_psi_plain(sfm, s0, rows, add.clone()), None),
+                                             out.clone())),
+        "sharded_inv_psi": ("inv_psi", rows, lambda: tsi.table_inv_psi(sfm, sfm.shards, rows, add),
+                            lambda: tsi.table_inv_psi_plain(sfm, sfm.shards, rows, add.clone())),
         "sharded_gather": ("gather", rows, lambda: tsi.shard_gather(s0.sa_full, lo_sa, rows),
-                           lambda: tsi.shard_gather_plain(s0.sa_full, lo_sa, rows),
-                           lambda: s0.sa_full[(rows - lo_sa).clamp(0, sfm.ns_local - 1).long()]),
+                           lambda: tsi.shard_gather_plain(s0.sa_full, lo_sa, rows)),
     }
+    library = {"sharded_gather": lambda: s0.sa_full[(rows - lo_sa).clamp(0, sfm.ns_local - 1)
+                                                    .long()]}
     rec = {}
-    for name, (kind, r, fn, plain_fn, lib_fn) in cases.items():
+    for name, (kind, r, fn, plain_fn) in cases.items():
         t = time_both(fn)
-        plain = cuda_ms(plain_fn, 3)
-        lib = None if lib_fn is None else time_both(lib_fn)[0] * 1e3
-        b = sharded_bounds(sfm, kind, r, 0 if kind == "step" else touched_bytes(sfm, kind, r),
-                           l2_load_ns)
+        plain = cuda_ms(plain_fn, 1 if kind in ("scan", "walk") else 3)
+        lib = None if name not in library else time_both(library[name])[0] * 1e3
+        if kind == "scan":
+            out_s = timed["want_seeds"]
+            b = resident_bounds(fm32, "scan", reads.nbytes + rlens.nbytes + out_s.nbytes,
+                                snap["blocks"], None, int(rlens.sum()), int(rlens.max()),
+                                l2_load_ns)
+            shape = f"{SHARD_B} reads, l_max {L}, {SHARD_TIMED} shards on one card, int32"
+        elif kind == "walk":
+            blocks, samples, n_steps, longest = walk_trace(fm32, rows)
+            b = resident_bounds(fm32, "walk", rows.numel() * (2 * rows.element_size() + 1),
+                                blocks, samples, n_steps, longest, l2_load_ns)
+            shape = f"{rows.numel()} stream rows, {SHARD_TIMED} shards on one card, int32"
+        else:
+            b = sharded_bounds(sfm, kind, r, 0 if kind == "step" else touched_bytes(sfm, kind, r),
+                               l2_load_ns)
+            shape = (f"{r.numel() // 2} lanes, int32" if kind == "step" else
+                     f"shard 0 of {SHARD_TIMED}, {r.numel()} rows, int32" if kind == "gather" else
+                     f"one launch for the {SHARD_TIMED} shards of one card, {r.numel()} rows,"
+                     f" int32")
         rec[name] = dict(ms=1e3 * t[0], per_call_ms=1e3 * t[1], plain_ms=plain, err=0,
                          bound_ms=b["bound_ms"], bound_by=b["bound_by"], chain_ms=b["chain_ms"],
-                         library_ms=lib,
-                         shape=f"shard 0 of {SHARD_TIMED} on one card, {r.numel()} rows, int32"
-                               if kind != "step" else f"{r.numel() // 2} lanes, int32")
-        what = f"{r.numel() // 2} lanes" if kind == "step" else f"{r.numel()} rows"
-        lines.append(f"{name} (shard 0 of {SHARD_TIMED}, {what}, int32): slope"
-                     f" {1e3 * t[0]:.4f} ms, per call {1e3 * t[1]:.4f} ms, plain {plain:.4f} ms"
+                         library_ms=lib, shape=shape)
+        lines.append(f"{name} ({shape}): slope {1e3 * t[0]:.4f} ms, per call {1e3 * t[1]:.4f} ms,"
+                     f" plain {plain:.4f} ms"
                      + ("" if lib is None else f", library call {lib:.4f} ms")
                      + f"; {b['bytes']} bytes: bound {b['bound_ms']:.4f} ms ({b['bound_by']}),"
                      f" chain {b['chain_ms']:.4f} ms")
     for n in SHARD_COUNTS:
         sf = tsi.build_sharded_fm(gidx, [dev] * n, "full")
+        grp = two_groups(sf)
         scan_ms = cuda_ms(lambda: tsi.sharded_seed_scan(sf, reads, rlens, msl, max_seeds=ms,
                                                         l_max=L), 3)
         walk_ms = cuda_ms(lambda: tsi.sharded_sa_walk(sf, rows), 3)
-        lines.append(f"{n} shards int32, per call (event window): the sharded scan of"
-                     f" {SHARD_B} reads {scan_ms:.4f} ms ({L + 1} steps of {n} G1 + the sum + G2),"
-                     f" the walk of {rows.numel()} rows {walk_ms:.4f} ms")
+        step_scan_ms = cuda_ms(lambda: tsi._stepwise_seed_scan(sf, reads, rlens, msl, max_seeds=ms,
+                                                               l_max=L, groups=grp), 3)
+        step_walk_ms = cuda_ms(lambda: tsi._stepwise_sa_walk(sf, rows, max_steps=4096,
+                                                             groups=grp), 3)
+        lines.append(f"{n} shards int32, per call (event window): the resident scan of"
+                     f" {SHARD_B} reads {scan_ms:.4f} ms, the resident walk of {rows.numel()}"
+                     f" rows {walk_ms:.4f} ms; cross-device in {len(grp)} groups: the scan"
+                     f" {step_scan_ms:.4f} ms ({L + 1} steps of {len(grp)} G1 + the sum + G2),"
+                     f" the walk {step_walk_ms:.4f} ms")
         rec[f"scan_{n}_ms"], rec[f"walk_{n}_ms"] = scan_ms, walk_ms
-    rec["fm_seed_scan_ms"] = cuda_ms(lambda: kernels.fm_seed_scan(fm32, reads, rlens, msl,
-                                                                  max_seeds=ms, l_max=L), 3)
-    lines.append(f"replicated fm_seed_scan of the same {SHARD_B} reads, per call:"
-                 f" {rec['fm_seed_scan_ms']:.4f} ms")
+        rec[f"stepwise_scan_{n}_ms"], rec[f"stepwise_walk_{n}_ms"] = step_scan_ms, step_walk_ms
+    t_scan = time_both(lambda: kernels.fm_seed_scan(fm32, reads, rlens, msl, max_seeds=ms,
+                                                    l_max=L))
+    t_walk = time_both(lambda: kernels.sa_walk(fm32, rows))
+    rec["fm_seed_scan_ms"], rec["sa_walk_ms"] = 1e3 * t_scan[0], 1e3 * t_walk[0]
+    lines.append(f"replicated, on the same inputs: fm_seed_scan of the {SHARD_B} reads slope"
+                 f" {1e3 * t_scan[0]:.4f} ms (per call {1e3 * t_scan[1]:.4f}), sa_walk of the rows"
+                 f" slope {1e3 * t_walk[0]:.4f} ms (per call {1e3 * t_walk[1]:.4f})")
     for ln in lines:
         print("phase 11 " + ln)
+    if other_si is not None:
+        # the other commit's sharded scan and walk at 2 shards on cuda:0 beside this one's
+        # cross-device loop over the same 2 shards in two groups: both step from the host
+        theirs = other_si.build_sharded_fm(gidx, [dev] * 2, "full")
+        ours = tsi.build_sharded_fm(gidx, [dev] * 2, "full")
+        grp = two_groups(ours)
+        t_scan = (lambda: other_si.sharded_seed_scan(theirs, reads, rlens, msl, max_seeds=ms,
+                                                     l_max=L),
+                  lambda: tsi._stepwise_seed_scan(ours, reads, rlens, msl, max_seeds=ms, l_max=L,
+                                                  groups=grp))
+        t_walk = (lambda: other_si.sharded_sa_walk(theirs, rows),
+                  lambda: tsi._stepwise_sa_walk(ours, rows, max_steps=4096, groups=grp))
+        for nm, (a, b) in (("scan", t_scan), ("walk", t_walk)):
+            for x, y in zip(a() if nm == "walk" else (a(),), b() if nm == "walk" else (b(),)):
+                require_equal(y, x, f"cross-device {nm} against the compared build's")
+            t = [cuda_ms(a, 3), cuda_ms(b, 3), cuda_ms(b, 3), cuda_ms(a, 3)]
+            rec[f"compare_stepwise_{nm}_ms"] = t
+            print(f"compare the sharded {nm} at 2 shards on cuda:0, stepped from the host (other:"
+                  f" its sharded_{'seed_scan' if nm == 'scan' else 'sa_walk'}; this: the"
+                  f" cross-device loop in two groups): other, this, this, other: ms a call"
+                  f" (event window) " + ", ".join(f"{x:.4f}" for x in t))
+    if other is not None:
+        require_equal(other.sa_walk(fm32, rows)[0], kernels.sa_walk(fm32, rows)[0],
+                      "sa_walk of the compared build")
+        compare_turns(f"sa_walk ({rows.numel()} stream rows)", lambda: other.sa_walk(fm32, rows),
+                      lambda: kernels.sa_walk(fm32, rows))
     return rec
 
 
@@ -2339,16 +2493,20 @@ def two_process_run(prefix: str, r1: str, r2: str, want: list[bytes]) -> dict:
     return dict(wall=wall, workers=logs)
 
 
-def phase_sharded_slice(prefix: str, gidx) -> dict:
-    """Phase 11 (b) and (c): the mapper's sharded path end to end on cuda:0
-    at 2 and 4 shards over phase 6's reads, full SA and KART_SA_MODE=sampled,
-    each SAM equal to the native mode's (phase 6's); then the two-process
-    run."""
+def phase_sharded_slice(prefix: str) -> dict:
+    """Phase 11 (b) and (c): the mapper's sharded path end to end through the
+    CLI (-idx-shards N, the shards where default_shard_devices puts them:
+    every one on cuda:0 of a one-card machine) at 2 and 4 shards over phase
+    6's reads, full SA and KART_SA_MODE=sampled (the resident path: one
+    resident scan a sharded call, one resident walk a call in the sampled
+    runs, no step kernel), then 2 shards split into two groups, sampled (the
+    cross-device path: the step kernels, no resident launch); each SAM equal
+    to the native mode's; then the two-process run."""
     import torch
 
     from kart_tpu_torch import kernels
+    from kart_tpu_torch.parallel import sharded_index as tsi
     from kart_tpu_torch.pipeline.mapper import TorchKartMapper
-    from kart_tpu_torch.pipeline.sam import sam_header
 
     r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
     if not os.path.exists(r2):
@@ -2357,46 +2515,55 @@ def phase_sharded_slice(prefix: str, gidx) -> dict:
     if not os.path.exists(sam_nat):
         run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", sam_nat, "-silent"])
     want = sam_records(sam_nat)
-    dev = torch.device("cuda", 0)
     total, runs = {k: 0 for k in SHARDED_KERNELS}, {}
-    for mode in ("full", "sampled"):
-        for n in SHARD_COUNTS[1:]:
-            out = os.path.join(DATA, f"sharded_{n}_{mode}.sam")
-            with environ(KART_SA_MODE=mode, KART_SEED_MODE=None):
-                t0 = time.perf_counter()
-                mapper = TorchKartMapper(gidx, device=dev, idx_shards=n, shard_devices=[dev] * n)
-                mapper.prepare()
-                torch.cuda.synchronize()
-                setup = time.perf_counter() - t0
-                for k in SHARDED_KERNELS:
-                    getattr(kernels, k).launches = 0
-                t0 = time.perf_counter()
-                with open(out, "wb") as f:
-                    def writer(s, f=f):
-                        f.write(s if isinstance(s, bytes) else s.encode("ascii"))
-
-                    writer(sam_header(gidx, "2.5.6"))
-                    mapper.map_stream(r1, r2, True, True, writer)
-                torch.cuda.synchronize()
-                map_s = time.perf_counter() - t0
-                launches = {k: getattr(kernels, k).launches for k in SHARDED_KERNELS}
-            need = [k for k in SHARDED_KERNELS if k != "sharded_inv_psi" or mode == "sampled"]
-            if any(launches[k] == 0 for k in need):
-                raise AssertionError(f"(b) {n} shards {mode}: a kernel of the path never"
-                                     f" launched: {launches}")
-            if sam_records(out) != want:
-                raise AssertionError(f"(b) {n} shards {mode}: the SAM differs from the native"
-                                     f" mode's")
-            log = mapper.group_log
-            runs[(n, mode)] = dict(reads_s=len(want) / map_s, map_s=map_s, setup_s=setup,
-                                   launches=launches, calls=len(log),
-                                   flagged=sum(x["flagged"] for x in log))
-            for k in SHARDED_KERNELS:
-                total[k] += launches[k]
-            print(f"phase 11 (b) {n} shards on cuda:0, {mode} SA: {len(want)} reads,"
-                  f" {len(want) / map_s:.1f} reads/s (mapping {map_s:.3f} s), set-up {setup:.3f} s;"
-                  f" {len(log)} sharded calls, flagged lanes {runs[(n, mode)]['flagged']} (re-seeded"
-                  f" on the host); launches {launches}; SAM records equal to the native mode's")
+    plans = [(n, mode, "resident") for mode in ("full", "sampled") for n in SHARD_COUNTS[1:]]
+    plans.append((2, "sampled", "two groups"))
+    for n, mode, path in plans:
+        out = os.path.join(DATA, f"sharded_{n}_{mode}_{path.replace(' ', '_')}.sam")
+        grouping = replaced(tsi, shard_groups=two_groups) if path == "two groups" else \
+            contextlib.nullcontext()
+        for k in SHARDED_KERNELS:
+            getattr(kernels, k).launches = 0
+        with environ(KART_SA_MODE=mode, KART_SEED_MODE=None), grouping, \
+                Spy(TorchKartMapper, "_sharded_seed_resolved", keep=lambda a: a[0]) as spy:
+            log = run_cli(["-i", prefix, "-f", r1, "-f2", r2, "-o", out, "-idx-shards", str(n),
+                           "-silent"])
+            torch.cuda.synchronize()
+            launches = {k: getattr(kernels, k).launches for k in SHARDED_KERNELS}
+        layout = [str(s.device) for s in spy.first._get_sharded().shards]
+        if layout != [str(d) for d in tsi.default_shard_devices(n, "cuda")]:
+            raise AssertionError(f"(b) {n} shards: laid out on {layout}, not by"
+                                 f" default_shard_devices")
+        setup, map_s = cli_seconds(log)
+        m = re.search(r"# of device seeding groups on \S+ = (\d+), flagged lanes = (\d+)", log)
+        calls, flagged = int(m.group(1)), int(m.group(2))
+        if path == "resident":
+            need = {"sharded_seed_scan": calls, "sharded_sa_walk": calls if mode == "sampled" else 0,
+                    "sharded_occ4": 0, "sharded_scan_step": 0, "sharded_inv_psi": 0}
+            bad = {k: launches[k] for k, v in need.items() if launches[k] != v}
+            if bad or launches["resolve_pack"] == 0 or (mode == "full") != (
+                    launches["sharded_gather"] > 0):
+                raise AssertionError(f"(b) {n} shards {mode}: the resident path launched"
+                                     f" {launches} in {calls} sharded calls, expected {need}, a"
+                                     f" resolve_pack and the full-SA gather in the full runs only")
+        else:
+            need = STEP_KERNELS + ("sharded_gather", "resolve_pack")
+            if any(launches[k] == 0 for k in need) or any(launches[k] for k in RESIDENT_KERNELS):
+                raise AssertionError(f"(b) {n} shards {mode} in two groups: a kernel of the"
+                                     f" cross-device path never launched, or a resident one did:"
+                                     f" {launches}")
+        if sam_records(out) != want:
+            raise AssertionError(f"(b) {n} shards {mode} ({path}): the SAM differs from the native"
+                                 f" mode's")
+        runs[(n, mode, path)] = dict(reads_s=len(want) / map_s, map_s=map_s, setup_s=setup,
+                                     launches=launches, calls=calls, flagged=flagged)
+        for k in SHARDED_KERNELS:
+            total[k] += launches[k]
+        print(f"phase 11 (b) kart-tpu-torch -idx-shards {n}, shards on {sorted(set(layout))},"
+              f" {mode} SA, {path}: {len(want)} reads, {len(want) / map_s:.1f} reads/s (mapping"
+              f" {map_s:.3f} s), set-up {setup:.3f} s; {calls} sharded calls, flagged lanes"
+              f" {flagged} (re-seeded on the host); launches {launches}; SAM records equal to the"
+              f" native mode's")
     mh = two_process_run(prefix, r1, r2, want[: 2 * SHARD_MH_PAIRS])
     print(f"phase 11 (c) two processes on cuda:0 (gloo group, TCP stat relay, map_shard, 2 shards"
           f" each), {SHARD_MH_PAIRS} pairs: merged SAM records equal to a single process's;"
@@ -2410,9 +2577,9 @@ DP_MESHES = (("data 1, replicated, full SA", 1, 1, "full"),
              ("data 2, replicated, sampled SA", 2, 1, "sampled"),
              ("data x idx 2 x 2, full SA", 2, 2, "full"),
              ("data x idx 2 x 2, sampled SA", 2, 2, "sampled"))
-DP_KERNELS = ("fm_seed_scan", "resolve_pack", "sa_walk", "sharded_occ4", "sharded_scan_step",
-              "sharded_inv_psi", "sharded_gather", "sorted_occurrences", "cluster_illumina",
-              "pair_candidates")
+DP_KERNELS = ("fm_seed_scan", "resolve_pack", "sa_walk", "sharded_seed_scan", "sharded_sa_walk",
+              "sharded_occ4", "sharded_scan_step", "sharded_inv_psi", "sharded_gather",
+              "sorted_occurrences", "cluster_illumina", "pair_candidates")
 
 
 def sorted_occ_bound(stream, s_occ: int) -> dict:
@@ -2602,12 +2769,13 @@ def phase_dp(gidx) -> dict:
         for k in DP_KERNELS:
             total[k] += launches[k]
         need = ["resolve_pack", "sorted_occurrences", "cluster_illumina", "pair_candidates"]
-        need += ["fm_seed_scan"] if n_idx == 1 else ["sharded_occ4", "sharded_scan_step",
-                                                     "sharded_gather"]
+        need += ["fm_seed_scan"] if n_idx == 1 else ["sharded_seed_scan"]
         need += ["sa_walk"] if (n_idx, sa_mode) == (1, "sampled") else []
-        need += ["sharded_inv_psi"] if (n_idx, sa_mode) == (2, "sampled") else []
-        if any(launches[k] == 0 for k in need):
-            raise AssertionError(f"(b) {name}: a kernel of the step never launched: {launches}")
+        need += ["sharded_sa_walk"] if (n_idx, sa_mode) == (2, "sampled") else []
+        need += ["sharded_gather"] if (n_idx, sa_mode) == (2, "full") else []
+        if any(launches[k] == 0 for k in need) or any(launches[k] for k in STEP_KERNELS):
+            raise AssertionError(f"(b) {name}: a kernel of the step never launched, or a step"
+                                 f" kernel of the cross-device path did: {launches}")
         step_ms = cuda_ms(lambda: step(r, rl_), 3)
         flagged = flagged_reads(out[0], n_data)
         if ref is None:
@@ -2664,6 +2832,24 @@ def phase_dp(gidx) -> dict:
                 launches=total, runs=runs)
 
 
+def load_compared_package(root: str, module: str):
+    """root/kart_tpu_torch loaded as a package of its own name, and its
+    `module`: its relative imports resolve inside it, so it launches the
+    kernels that root's kernels.py builds beside it."""
+    import importlib
+    import importlib.util
+
+    name = "kart_tpu_torch_compared"
+    if name not in sys.modules:
+        pkg = os.path.join(root, "kart_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.{module}")
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2672,8 +2858,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", metavar="DIR", default=None,
                     help="a checkout of another commit whose NW, FM stepper, funnel and"
-                         " resolve_pack phases 1, 2 and 4, and whose SensitiveMode funnel and FM"
-                         " stepper phase 7, time beside this one's")
+                         " resolve_pack phases 1, 2 and 4, whose SensitiveMode funnel and FM"
+                         " stepper phase 7, and whose walk phase 11, time beside this one's")
     ap.add_argument("--phases", metavar="LIST", default=None,
                     help="run only these phases beside phase 0 and the set-up, e.g. 7,8 (a partial"
                          " run prints no kernels record and no result line, and exits 4)")
@@ -2710,13 +2896,14 @@ def main(argv: list[str] | None = None) -> int:
         f" kernels built in {time.perf_counter() - t0:.1f} s; ptxas: {ptxas or 'up to date'}"
     )
 
-    other = None
+    other = other_si = None
     if args.compare is not None:
         from kart_tpu_torch.tools.bench_kernels import load_kernels_module
 
         other = load_kernels_module(os.path.join(args.compare, "kart_tpu_torch", "kernels.py"),
                                     "kart_tpu_torch_compared_kernels")
         other.build()
+        other_si = load_compared_package(args.compare, "parallel.sharded_index")
     if want(1):
         nw = phase_nw(np.random.default_rng(2024), other)
     t0 = time.perf_counter()
@@ -2760,8 +2947,8 @@ def main(argv: list[str] | None = None) -> int:
     if want(10):
         phase_tools(gidx, prefix)
     if want(11):
-        sharded = phase_sharded_kernels(gidx, fm["l2_ns"])
-        sharded_slice = phase_sharded_slice(prefix, gidx)
+        sharded = phase_sharded_kernels(gidx, fm["l2_ns"], other, other_si)
+        sharded_slice = phase_sharded_slice(prefix)
     if want(12):
         dp = phase_dp(gidx)
     loaded = sorted(m for m, v in sys.modules.items()
@@ -2824,6 +3011,12 @@ def main(argv: list[str] | None = None) -> int:
               launches_b["cluster_illumina"], slice3["cluster"]),
         entry("pair_candidates", "pairing.cu", "kart_tpu/ops/pairing.py:22",
               launches_b["pair_candidates"], slice3["pair"]),
+        entry("sharded_seed_scan", "fm_seed_scan.cu",
+              "kart_tpu/parallel/sharded_index.py:230 with kart_tpu/parallel/sharded_index.py:138",
+              sharded_slice["total"]["sharded_seed_scan"], sharded["sharded_seed_scan"]),
+        entry("sharded_sa_walk", "sa_walk.cu",
+              "kart_tpu/parallel/sharded_index.py:189 with kart_tpu/parallel/sharded_index.py:159",
+              sharded_slice["total"]["sharded_sa_walk"], sharded["sharded_sa_walk"]),
         entry("sharded_occ4", "sharded_fm.cu",
               "kart_tpu/parallel/sharded_index.py:115 and kart_tpu/parallel/sharded_index.py:138",
               sharded_slice["total"]["sharded_occ4"], sharded["sharded_occ4"]),

@@ -4,9 +4,17 @@
 // inverse-Psi steps until the row is a multiple of 32, whose text position
 // the sampled SA holds, then that position plus the steps taken.
 // fm_seed_scan.cu reads the checkpoint rows; sa_walk.cu walks rows;
-// sharded_fm.cu takes inverse-Psi steps and occ4 on its shard's slab.  T is the
-// index type: int below 2**31 text bases, long long above; the int instance
-// of the walk does no 64-bit arithmetic but pointer offsets.
+// sharded_fm.cu takes inverse-Psi steps and occ4 through the shard table.  T
+// is the index type: int below 2**31 text bases, long long above; the int
+// instance of the walk does no 64-bit arithmetic but pointer offsets.
+//
+// Where a block lies is an accessor's business (template parameter Ix):
+// FlatIndex, the replicated index (one array of checkpoint rows, one of BWT
+// words, one of samples), or ShardedIndex, the block-sharded index of
+// parallel/sharded_index.py through its shard table (a row a shard: the
+// pointers of the shard's slabs, null for a shard on another device).  The
+// scan and the walk are one template each over the accessor, so the
+// replicated and the sharded index run the same loop.
 //
 // One step of the walk is one round of independent loads: the row's
 // 128-base BWT block (eight words, one 32-byte sector) and its checkpoint
@@ -14,7 +22,8 @@
 // bwt_char(row); occ(row, c) is the checkpoint's count of c plus the c's
 // among the block's bases up to the row, counted with one popcount a word.
 // So a walk of n steps is a chain of n dependent loads, which hit L2 at the
-// sizes the port maps.
+// sizes the port maps.  Through the shard table a step first picks the
+// owner (an integer division and a read of the table in shared memory).
 
 #pragma once
 
@@ -58,30 +67,107 @@ __device__ __forceinline__ T pick4(int i, T a, T b, T c, T d) {
   return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
 }
 
-// The FM index as the walk reads it, in index type T; l2 holds L2[0..3] of
-// the index (a kernel loads them once with load_l2).
+// Where the block that holds a row lies: its checkpoint row and its eight
+// BWT words (two 16-byte halves).
 template <typename T>
-struct FmWalk {
+struct BlockRef {
+  const typename CpRow<T>::type* cp;
+  const uint4* bwt4;
+};
+
+// The replicated index: block b at offset b of each array.
+template <typename T>
+struct FlatIndex {
   const typename CpRow<T>::type* occ_cp;  // (n_blocks,) checkpoint rows
-  const uint4* bwt4;     // (n_blocks * 2,): a block's eight BWT words
-  const T* sa_samples;   // every 32nd row's text position
+  const uint4* bwt4;                      // (n_blocks * 2,): a block's eight BWT words
+  const T* sa_samples;                    // every 32nd row's text position
+
+  static __host__ __device__ size_t smem_bytes(int) { return 0; }
+  __device__ __forceinline__ int* stage(int* smem) { return smem; }
+  __device__ __forceinline__ BlockRef<T> block(T kk) const {
+    const size_t b = static_cast<size_t>(kk >> 7);
+    return {occ_cp + b, bwt4 + 2 * b};
+  }
+  __device__ __forceinline__ T sample(T k) const {
+    return __ldg(sa_samples + static_cast<size_t>(k >> kSaIntvLog2));
+  }
+};
+
+// A row of the shard table: one shard's slabs on the launching device, or
+// null pointers where the shard lies on another device.
+template <typename T>
+struct ShardSlabs {
+  const typename CpRow<T>::type* occ_cp;  // blocks [s * nb_local, (s + 1) * nb_local)
+  const uint4* bwt4;
+  const T* sa_samples;                    // sampled rows [s * nsamp_local, ...)
+};
+
+// The block-sharded index through its shard table: block b lies in shard
+// b / nb_local, at b % nb_local of its slab; the sample of row k in shard
+// (k >> 5) / nsamp_local.  Block numbers and sample rows are taken as 32-bit
+// (the wrappers refuse an index of 2**37 text bases or more).  A kernel
+// first copies the table into shared memory (stage, which every thread of
+// the block calls before any returns), so the owner's pointers are one
+// shared-memory read away.
+template <typename T>
+struct ShardedIndex {
+  const ShardSlabs<T>* table;  // (n_shards,): device memory, then shared memory
+  int n_shards;
+  unsigned nb_local, nsamp_local;
+
+  static __host__ __device__ size_t smem_bytes(int n) {
+    return (sizeof(ShardSlabs<T>) * n + 15) / 16 * 16;
+  }
+  __device__ __forceinline__ int* stage(int* smem) {
+    ShardSlabs<T>* s = reinterpret_cast<ShardSlabs<T>*>(smem);
+    for (int i = threadIdx.x; i < n_shards; i += blockDim.x) s[i] = table[i];
+    __syncthreads();
+    table = s;
+    return smem + smem_bytes(n_shards) / sizeof(int);
+  }
+  __device__ __forceinline__ unsigned owner(T kk) const {
+    return static_cast<unsigned>(kk >> 7) / nb_local;
+  }
+  __device__ __forceinline__ BlockRef<T> block(T kk) const {
+    const unsigned b = static_cast<unsigned>(kk >> 7);
+    const unsigned s = b / nb_local;
+    const size_t local = b - s * nb_local;
+    return {table[s].occ_cp + local, table[s].bwt4 + 2 * local};
+  }
+  // whether the table holds the slab of kk's block (the step kernels, which
+  // answer zeros for the rows of another device's shards)
+  __device__ __forceinline__ bool holds(T kk) const {
+    const unsigned s = owner(kk);
+    return s < static_cast<unsigned>(n_shards) && table[s].occ_cp != nullptr;
+  }
+  __device__ __forceinline__ T sample(T k) const {
+    const unsigned r = static_cast<unsigned>(k >> kSaIntvLog2);
+    const unsigned s = r / nsamp_local;
+    return __ldg(table[s].sa_samples + (r - s * nsamp_local));
+  }
+};
+
+// The FM index as the walk reads it, in index type T through accessor Ix;
+// l2 holds L2[0..3] of the index (a kernel loads them once with load_l2).
+template <typename T, typename Ix>
+struct FmWalk {
+  Ix ix;
   T primary;
   T l2[4];
 };
 
-template <typename T>
-__device__ __forceinline__ void load_l2(FmWalk<T>& fm, const T* __restrict__ L2) {
+template <typename T, typename Ix>
+__device__ __forceinline__ void load_l2(FmWalk<T, Ix>& fm, const T* __restrict__ L2) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) fm.l2[c] = __ldg(L2 + c);
 }
 
-// bwt_invPsi(k) from the block `blk` of fm's arrays that holds kk, k less
-// the primary shift (csrc/sharded_fm.cu passes a block of its shard's slab);
+// bwt_invPsi(k) from the block b that holds kk, k less the primary shift;
 // row `primary` maps to row 0.
-template <typename T>
-__device__ __forceinline__ T inv_psi_at(const FmWalk<T>& fm, T k, T kk, size_t blk) {
-  const typename CpRow<T>::type cp = load_cp(fm.occ_cp, blk);
-  const uint4 a = __ldg(fm.bwt4 + 2 * blk), b = __ldg(fm.bwt4 + 2 * blk + 1);
+template <typename T, typename Ix>
+__device__ __forceinline__ T inv_psi_at(const FmWalk<T, Ix>& fm, T k, T kk, BlockRef<T> blk) {
+  const typename CpRow<T>::type cp = load_cp(blk.cp, 0);
+  const uint4 a = __ldg(blk.bwt4), b = __ldg(blk.bwt4 + 1);
   const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
   const int low = static_cast<int>(kk & 0x7F);
   const int jk = low >> 4;
@@ -108,12 +194,12 @@ __device__ __forceinline__ T inv_psi_at(const FmWalk<T>& fm, T k, T kk, size_t b
 
 // bwt_invPsi(k): the row of the text position before row k's; row `primary`
 // maps to row 0.
-template <typename T>
-__device__ __forceinline__ T inv_psi_row(const FmWalk<T>& fm, T k) {
+template <typename T, typename Ix>
+__device__ __forceinline__ T inv_psi_row(const FmWalk<T, Ix>& fm, T k) {
   // occ4 counts up to kk; bwt_char reads row x = k - (k > primary), which is
   // kk wherever k != primary (and row primary maps to 0 whatever it reads)
   const T kk = k - (k >= fm.primary ? 1 : 0);
-  return inv_psi_at(fm, k, kk, static_cast<size_t>(kk >> 7));
+  return inv_psi_at(fm, k, kk, fm.ix.block(kk));
 }
 
 // occ4(kk) from the block's checkpoint row and its eight BWT words, all in
@@ -146,17 +232,18 @@ __device__ __forceinline__ C occ4_words(C cp, uint4 a, uint4 b, T kk) {
   return r;
 }
 
-// The walk of row k, cut after max_steps steps: steps + sa_samples[k >> 5]
-// of the row it stopped at, and `done` whether that row is a sample.
-template <typename T>
-__device__ __forceinline__ T sa_walk_row(const FmWalk<T>& fm, T k, int max_steps, bool& done) {
+// The walk of row k, cut after max_steps steps: steps + the sample of the
+// row it stopped at (sa_samples[k >> 5]), and `done` whether that row is a
+// sample.
+template <typename T, typename Ix>
+__device__ __forceinline__ T sa_walk_row(const FmWalk<T, Ix>& fm, T k, int max_steps, bool& done) {
   int steps = 0;
   while ((k & 31) != 0 && steps < max_steps) {
     k = inv_psi_row(fm, k);
     ++steps;
   }
   done = (k & 31) == 0;
-  return static_cast<T>(steps) + __ldg(fm.sa_samples + static_cast<size_t>(k >> kSaIntvLog2));
+  return static_cast<T>(steps) + fm.ix.sample(k);
 }
 
 }  // namespace

@@ -10,6 +10,16 @@
 // packed (B, 1 + 4*max_seeds) row per read in the index type:
 //   [n_seeds | rpos[max_seeds] | slen[max_seeds] | k0[max_seeds] | freq[max_seeds]]
 //
+// The FastMode kernel is also a template on the index accessor
+// (fm_index.cuh): FlatIndex for the replicated index, and ShardedIndex for
+// the block-sharded one where one device holds every shard
+// (kart_sharded_seed_scan), which replaces kart_tpu/parallel/
+// sharded_index.py::sharded_seed_scan with its sharded_occ4_pair lookups: the
+// same loop, each step's blocks resolved through the shard table, so the
+// whole scan is one launch where the host stepped it (l_max + 1 steps of a
+// lookup a shard, a sum and a step).  Its plain version is
+// parallel/sharded_index.py::resident_seed_scan_plain.
+//
 // Every kernel here is a template on the index type T: int below 2**31 text
 // bases, long long above (human scale), where the checkpoint counts, the
 // interval bounds and the packed rows are 64-bit and the BWT words stay
@@ -81,13 +91,14 @@ __device__ __forceinline__ unsigned count4_packed(unsigned w) {
 }
 
 // One lane's share of occ4(k) (kk is k less the primary shift): the counts of
-// word wj of k's block, bases past k masked out (they read as code 0 and are
-// taken off again), nothing for the words past k.
+// word wj of k's block (its eight words at `words`), bases past k masked out
+// (they read as code 0 and are taken off again), nothing for the words past
+// k.
 template <typename T>
-__device__ __forceinline__ unsigned word_counts(const unsigned* __restrict__ bwt, T kk, int wj) {
+__device__ __forceinline__ unsigned word_counts(const unsigned* __restrict__ words, T kk, int wj) {
   const int jk = static_cast<int>(kk & 0x7F) >> 4;
   if (wj > jk) return 0;
-  unsigned w = __ldg(bwt + (static_cast<size_t>(kk >> 7) << 3) + wj);
+  unsigned w = __ldg(words + wj);
   if (wj == jk) w &= ~((1u << ((~static_cast<int>(kk) & 0xF) << 1)) - 1u);
   unsigned cnt = count4_packed(w);
   if (wj == jk) cnt -= ~static_cast<int>(kk) & 0xF;
@@ -99,24 +110,26 @@ __device__ __forceinline__ unsigned word_counts(const unsigned* __restrict__ bwt
 // the byte-wide sums cannot carry.  Every lane of the warp calls this; `on`
 // says whether the lane's read takes a step.
 template <typename T>
-__device__ __forceinline__ unsigned block_counts(const unsigned* __restrict__ bwt, bool on, T kk,
+__device__ __forceinline__ unsigned block_counts(const unsigned* __restrict__ words, bool on, T kk,
                                                  int wj) {
-  unsigned v = on ? word_counts(bwt, kk, wj) : 0;
+  unsigned v = on ? word_counts(words, kk, wj) : 0;
 #pragma unroll
   for (int m = 1; m < 8; m <<= 1) v += __shfl_xor_sync(kFull, v, m);
   return v;
 }
 
-// Shared memory of a block, per read: the seed row (row_len T), then the
-// read's codes as bytes (code_words ints, even for a long long row).
-template <typename T>
+// Shared memory of a block: what the accessor stages (the shard table of a
+// sharded index, nothing for the replicated one), then per read the seed row
+// (row_len T) and the read's codes as bytes (code_words ints, even for a
+// long long row).
+template <typename T, typename Ix>
 __global__ void __launch_bounds__(kThreads)
-seed_scan_kernel(const typename CpRow<T>::type* __restrict__ occ_cp,
-                 const unsigned* __restrict__ bwt, const T* __restrict__ L2, T primary,
+seed_scan_kernel(Ix ix, const T* __restrict__ L2, T primary,
                  const int* __restrict__ reads, const int* __restrict__ rlens,
                  int B, int l_max, int min_seed_len, int max_seeds, int code_words,
                  T* __restrict__ out) {
   extern __shared__ int smem[];
+  int* const reads_smem = ix.stage(smem);
   constexpr int kWords = sizeof(T) / sizeof(int);  // ints a row entry
   const int row_len = 1 + 4 * max_seeds;
   const int g = threadIdx.x / kGroup;  // the read of this block
@@ -125,7 +138,7 @@ seed_scan_kernel(const typename CpRow<T>::type* __restrict__ occ_cp,
   const int wj = j % 8;                // the lane's word of a BWT block
   const int b = blockIdx.x * kPerBlock + g;
   const bool valid = b < B;
-  T* row = reinterpret_cast<T*>(smem + g * (row_len * kWords + code_words));
+  T* row = reinterpret_cast<T*>(reads_smem + g * (row_len * kWords + code_words));
   unsigned char* codes = reinterpret_cast<unsigned char*>(row + row_len);
 
   const T l2_0 = __ldg(L2), l2_1 = __ldg(L2 + 1), l2_2 = __ldg(L2 + 2), l2_3 = __ldg(L2 + 3),
@@ -159,14 +172,17 @@ seed_scan_kernel(const typename CpRow<T>::type* __restrict__ occ_cp,
     // words' counts, which a lane sums at its end before the ends swap
     T kka = 0, kkb = 0;
     typename CpRow<T>::type cpk{}, cpl{};
+    const unsigned* words = nullptr;  // the eight words of this lane's end's block
     if (extend) {
       const T ka = x1 - 1, kb = ka + x2;
       kka = ka - (ka >= primary);
       kkb = kb - (kb >= primary);
-      cpk = load_cp(occ_cp, kka >> 7);
-      cpl = load_cp(occ_cp, kkb >> 7);
+      const BlockRef<T> bk = ix.block(kka), bl = ix.block(kkb);
+      cpk = load_cp(bk.cp, 0);
+      cpl = load_cp(bl.cp, 0);
+      words = reinterpret_cast<const unsigned*>(end ? bl.bwt4 : bk.bwt4);
     }
-    const unsigned mine = block_counts(bwt, extend, end ? kkb : kka, wj);
+    const unsigned mine = block_counts(words, extend, end ? kkb : kka, wj);
     const unsigned other = __shfl_xor_sync(kFull, mine, 8);
     const unsigned ck = end ? other : mine, cl = end ? mine : other;
 
@@ -380,29 +396,53 @@ fm_chase_kernel(const typename ExtOf<T>::type* __restrict__ ext, const int* __re
   if (j == 0) row[0] = n;
 }
 
-template <typename T>
-int launch_seed_scan(const void* occ_cp, const void* bwt_words, const void* L2, T primary,
-                     const void* reads, const void* rlens, int B, int l_max, int min_seed_len,
-                     int max_seeds, void* out, void* stream) {
+template <typename T, typename Ix>
+int launch_seed_scan(const Ix& ix, int n_shards, const void* L2, T primary, const void* reads,
+                     const void* rlens, int B, int l_max, int min_seed_len, int max_seeds,
+                     void* out, void* stream) {
   if (B <= 0) return 0;
   // a long long row starts on 8 bytes: an even count of code words
   constexpr int kWords = sizeof(T) / sizeof(int);
   const int code_words = (l_max / 4 + kWords) / kWords * kWords;
-  const size_t smem =
+  const size_t smem = Ix::smem_bytes(n_shards) +
       sizeof(int) * kPerBlock * ((1 + 4 * static_cast<size_t>(max_seeds)) * kWords + code_words);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        seed_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        seed_scan_kernel<T, Ix>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  seed_scan_kernel<T><<<(B + kPerBlock - 1) / kPerBlock, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const typename CpRow<T>::type*>(occ_cp), static_cast<const unsigned*>(bwt_words),
-      static_cast<const T*>(L2), primary, static_cast<const int*>(reads),
+  seed_scan_kernel<T, Ix><<<(B + kPerBlock - 1) / kPerBlock, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      ix, static_cast<const T*>(L2), primary, static_cast<const int*>(reads),
       static_cast<const int*>(rlens), B, l_max, min_seed_len, max_seeds, code_words,
       static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int flat_seed_scan(const void* occ_cp, const void* bwt_words, const void* L2, T primary,
+                   const void* reads, const void* rlens, int B, int l_max, int min_seed_len,
+                   int max_seeds, void* out, void* stream) {
+  FlatIndex<T> ix;
+  ix.occ_cp = static_cast<const typename CpRow<T>::type*>(occ_cp);
+  ix.bwt4 = static_cast<const uint4*>(bwt_words);
+  ix.sa_samples = nullptr;
+  return launch_seed_scan<T>(ix, 0, L2, primary, reads, rlens, B, l_max, min_seed_len, max_seeds,
+                             out, stream);
+}
+
+template <typename T>
+int sharded_seed_scan(const void* table, int n_shards, long long nb_local, const void* L2,
+                      T primary, const void* reads, const void* rlens, int B, int l_max,
+                      int min_seed_len, int max_seeds, void* out, void* stream) {
+  ShardedIndex<T> ix;
+  ix.table = static_cast<const ShardSlabs<T>*>(table);
+  ix.n_shards = n_shards;
+  ix.nb_local = static_cast<unsigned>(nb_local);
+  ix.nsamp_local = 1;  // the scan reads no sample
+  return launch_seed_scan<T>(ix, n_shards, L2, primary, reads, rlens, B, l_max, min_seed_len,
+                             max_seeds, out, stream);
 }
 
 template <typename T>
@@ -450,8 +490,8 @@ extern "C" int kart_fm_seed_scan(const void* occ_cp, const void* bwt_words,
                                  const void* rlens, int B, int l_max,
                                  int min_seed_len, int max_seeds, void* out,
                                  void* stream) {
-  return launch_seed_scan<int>(occ_cp, bwt_words, L2, primary, reads, rlens, B, l_max,
-                               min_seed_len, max_seeds, out, stream);
+  return flat_seed_scan<int>(occ_cp, bwt_words, L2, primary, reads, rlens, B, l_max,
+                             min_seed_len, max_seeds, out, stream);
 }
 
 extern "C" int kart_fm_seed_scan_i64(const void* occ_cp, const void* bwt_words,
@@ -459,8 +499,30 @@ extern "C" int kart_fm_seed_scan_i64(const void* occ_cp, const void* bwt_words,
                                      const void* rlens, int B, int l_max,
                                      int min_seed_len, int max_seeds, void* out,
                                      void* stream) {
-  return launch_seed_scan<long long>(occ_cp, bwt_words, L2, primary, reads, rlens, B, l_max,
-                                     min_seed_len, max_seeds, out, stream);
+  return flat_seed_scan<long long>(occ_cp, bwt_words, L2, primary, reads, rlens, B, l_max,
+                                   min_seed_len, max_seeds, out, stream);
+}
+
+// The FastMode scan on the block-sharded index, every shard on this device
+// (the resident scan of parallel/sharded_index.py): table (n_shards, 3)
+// 64-bit words, shard s's occ_cp, bwt_words and sa_samples slab pointers
+// (occ_cp and bwt_words 16-byte aligned, none null), nb_local blocks a slab;
+// the rest as kart_fm_seed_scan's.  The table goes into the block's shared
+// memory before the reads.
+extern "C" int kart_sharded_seed_scan(const void* table, int n_shards, long long nb_local,
+                                      const void* L2, int primary, const void* reads,
+                                      const void* rlens, int B, int l_max, int min_seed_len,
+                                      int max_seeds, void* out, void* stream) {
+  return sharded_seed_scan<int>(table, n_shards, nb_local, L2, primary, reads, rlens, B, l_max,
+                                min_seed_len, max_seeds, out, stream);
+}
+
+extern "C" int kart_sharded_seed_scan_i64(const void* table, int n_shards, long long nb_local,
+                                          const void* L2, long long primary, const void* reads,
+                                          const void* rlens, int B, int l_max, int min_seed_len,
+                                          int max_seeds, void* out, void* stream) {
+  return sharded_seed_scan<long long>(table, n_shards, nb_local, L2, primary, reads, rlens, B,
+                                      l_max, min_seed_len, max_seeds, out, stream);
 }
 
 // SensitiveMode scan.  reads: (B, width) int32 codes; out: (B, 1 +

@@ -1,26 +1,34 @@
-// The block-sharded FM index (-idx-shards) for Hopper (sm_90a): the four
-// kernels of kart_tpu_torch/parallel/sharded_index.py.
+// The block-sharded FM index (-idx-shards) for Hopper (sm_90a): the step
+// kernels of kart_tpu_torch/parallel/sharded_index.py's cross-device path.
 //
 // Replaces kart_tpu/parallel/sharded_index.py: sharded_occ4_batch and
 // sharded_occ4_pair (G1), the step of sharded_seed_scan, seed_scan_impl's
 // body over the combined counts (G2), sharded_inv_psi_batch, the step of
 // sharded_sa_walk (G3), and sharded_sa_gather with the walk's sample gather
 // (G4).  kart_tpu ran each as a masked local lookup on every member of an
-// `idx` mesh axis followed by a psum; here each shard's slab is a tensor on
-// the shard's device, a kernel answers the queries its slab owns (zeros
-// elsewhere), and the host sums the shards' results on the first shard's
-// device.  Exactly one shard owns each query, so the sum is exact.  The plain
-// PyTorch versions are sharded_index.py's *_plain functions and
-// ops/fm_search.py::seed_scan_step_plain.
+// `idx` mesh axis followed by a psum.  Here the shards' slabs are tensors on
+// their devices.  Where one device holds every shard, the whole scan and the
+// whole walk are one launch each (fm_seed_scan.cu's and sa_walk.cu's loops
+// through the shard table); the kernels here serve shards spread over
+// several devices, where the host steps: one G1 launch a device a step, the
+// sum of the devices' counts on the first device, one G2 launch; the walk
+// likewise with G3.  Exactly one shard owns each query, so the sum is exact.
+// The plain PyTorch versions are sharded_index.py's table_occ4_plain,
+// table_inv_psi_plain, shard_gather_plain and ops/fm_search.py::
+// seed_scan_step_plain.
 //
-// A shard's slab is blocks [lo, lo + nb_local) of the index (occ_cp four
-// counts a block, bwt_words eight 32-bit words a block), or rows [lo, lo +
-// n_local) of the full SA or of the sampled SA.  The last shard's slab is
-// padded with zero blocks past the index, which own no query: a query's
+// The shard table (fm_index.cuh's ShardedIndex) has a row for every shard
+// of the index: the pointers of its slabs where it lies on the launching
+// device, nulls elsewhere.  Block b belongs to shard b / nb_local; a row
+// picks its owner first and loads that slab's checkpoint row and block only
+// (one pair of loads a row, where a launch a shard asked every shard about
+// every row), and answers zeros where the owner lies elsewhere.  A slab is
+// blocks [s * nb_local, (s + 1) * nb_local) of the index; the last shard's
+// is padded with zero blocks past the index, which own no query: a query's
 // block is that of kk = k - (k >= primary), at most (seq_len - 1) >> 7.
 //
-//   sharded_occ4_kernel     a thread a row k: occ4(k) from the slab's block
-//                           if the shard owns it, else zeros; a scan step
+//   sharded_occ4_kernel     a thread a row k: occ4(k) from its owner's block
+//                           if the table holds it, else zeros; a scan step
 //                           asks for both interval ends of every lane in one
 //                           launch of 2B rows.
 //   sharded_scan_step_kernel a thread a lane: one FastMode step from the
@@ -33,19 +41,20 @@
 //   sharded_inv_psi_kernel  a thread a row k: a row at a sample (k % 32 ==
 //                           0) stays, else bwt_invPsi(k), from the owner's
 //                           block (the BWT char at x = k - (k > primary) lies
-//                           in kk's block for every k != primary), zeros on
-//                           the other shards; the first shard's launch also
-//                           counts the step of every row not at a sample.
+//                           in kk's block for every k != primary), zeros
+//                           where the table does not hold the owner; the
+//                           first device's launch also counts the step of
+//                           every row not at a sample.
 //   sharded_gather_kernel   a thread a row: slab[(row >> shift) - lo] if the
 //                           shard owns it, else 0 (shift 0 for the full SA,
-//                           5 for the sample at a walk's end).
+//                           5 for the sample at a cross-device walk's end).
 //
-// What bounds them on this card: dependent loads, not bytes.  A scan step is
-// l_max + 1 rounds of (N occ4 launches, the sum, the step), each round's rows
-// depending on the round before; an occ4 row is two independent loads (a
-// 16- or 32-byte checkpoint row and a 32-byte block), so a round costs the
-// latency of a few launches and one load that hits L2.  The walk is the same
-// with one inverse-Psi launch a shard a step.
+// What bounds them on this card: dependent loads, not bytes.  A cross-device
+// scan is l_max + 1 rounds of (a G1 launch a device, the sum, G2), each
+// round's rows depending on the round before; a G1 row is the table read,
+// then two independent loads (a 16- or 32-byte checkpoint row and a 32-byte
+// block), so a round costs the latency of a few launches and one load that
+// hits L2.  The walk is the same with one G3 launch a device a step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,26 +68,21 @@ constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long long n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
-// The slab block that holds kk, or -1 where the shard does not own it.
-template <typename T>
-__device__ __forceinline__ long long owned_block(T kk, long long lo, long long nb_local) {
-  const long long row = static_cast<long long>(kk >> 7) - lo;
-  return row >= 0 && row < nb_local ? row : -1;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sharded_occ4_kernel(const typename CpRow<T>::type* __restrict__ occ_cp,
-                    const uint4* __restrict__ bwt4, T primary, long long lo, long long nb_local,
-                    const T* __restrict__ k, int n, T* __restrict__ out) {
+sharded_occ4_kernel(ShardedIndex<T> ix, T primary, const T* __restrict__ k, int n,
+                    T* __restrict__ out) {
+  extern __shared__ int smem[];
+  ix.stage(smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const T kq = __ldg(k + i);
   const T kk = kq - (kq >= primary ? 1 : 0);
-  const long long blk = owned_block(kk, lo, nb_local);
   typename CpRow<T>::type r = {0, 0, 0, 0};
-  if (blk >= 0)
-    r = occ4_words(load_cp(occ_cp, blk), __ldg(bwt4 + 2 * blk), __ldg(bwt4 + 2 * blk + 1), kk);
+  if (ix.holds(kk)) {
+    const BlockRef<T> b = ix.block(kk);
+    r = occ4_words(load_cp(b.cp, 0), __ldg(b.bwt4), __ldg(b.bwt4 + 1), kk);
+  }
   T* o = out + 4 * static_cast<size_t>(i);
   o[0] = r.x;
   o[1] = r.y;
@@ -161,23 +165,24 @@ sharded_scan_step_kernel(const T* __restrict__ cnt, const int* __restrict__ code
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sharded_inv_psi_kernel(FmWalk<T> fm, const T* __restrict__ L2, long long lo, long long nb_local,
+sharded_inv_psi_kernel(FmWalk<T, ShardedIndex<T>> fm, const T* __restrict__ L2,
                        const T* __restrict__ k, int n, T* __restrict__ out, int* __restrict__ add) {
+  extern __shared__ int smem[];
+  FmWalk<T, ShardedIndex<T>> f = fm;
+  f.ix.stage(smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const T kq = __ldg(k + i);
   const bool at_sample = (kq & ((T(1) << kSaIntvLog2) - 1)) == 0;
   if (add && !at_sample) ++add[i];
-  const T kk = kq - (kq >= fm.primary ? 1 : 0);
-  const long long blk = owned_block(kk, lo, nb_local);
+  const T kk = kq - (kq >= f.primary ? 1 : 0);
   T v = 0;
-  if (blk >= 0) {
+  if (f.ix.holds(kk)) {
     if (at_sample) {
       v = kq;
     } else {
-      FmWalk<T> f = fm;
       load_l2(f, L2);
-      v = inv_psi_at(f, kq, kk, static_cast<size_t>(blk));
+      v = inv_psi_at(f, kq, kk, f.ix.block(kk));
     }
   }
   out[i] = v;
@@ -194,12 +199,24 @@ sharded_gather_kernel(const T* __restrict__ slab, long long lo, long long n_loca
 }
 
 template <typename T>
-int launch_occ4(const void* occ_cp, const void* bwt_words, long long primary, long long lo,
-                long long nb_local, const void* k, int n, void* out, void* stream) {
+ShardedIndex<T> table_index(const void* table, int n_shards, long long nb_local) {
+  ShardedIndex<T> ix;
+  ix.table = static_cast<const ShardSlabs<T>*>(table);
+  ix.n_shards = n_shards;
+  ix.nb_local = static_cast<unsigned>(nb_local);
+  ix.nsamp_local = 1;  // the step kernels read no sample
+  return ix;
+}
+
+template <typename T>
+int launch_occ4(const void* table, int n_shards, long long nb_local, long long primary,
+                const void* k, int n, void* out, void* stream) {
   if (n <= 0) return 0;
-  sharded_occ4_kernel<T><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const typename CpRow<T>::type*>(occ_cp), static_cast<const uint4*>(bwt_words),
-      static_cast<T>(primary), lo, nb_local, static_cast<const T*>(k), n, static_cast<T*>(out));
+  const size_t smem = ShardedIndex<T>::smem_bytes(n_shards);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  sharded_occ4_kernel<T><<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      table_index<T>(table, n_shards, nb_local), static_cast<T>(primary),
+      static_cast<const T*>(k), n, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -219,18 +236,17 @@ int launch_scan_step(const void* cnt, const void* codes_t, const void* rlens, co
 }
 
 template <typename T>
-int launch_inv_psi(const void* occ_cp, const void* bwt_words, const void* L2, long long primary,
-                   long long lo, long long nb_local, const void* k, int n, void* out, void* add,
-                   void* stream) {
+int launch_inv_psi(const void* table, int n_shards, long long nb_local, const void* L2,
+                   long long primary, const void* k, int n, void* out, void* add, void* stream) {
   if (n <= 0) return 0;
-  FmWalk<T> fm;
-  fm.occ_cp = static_cast<const typename CpRow<T>::type*>(occ_cp);
-  fm.bwt4 = static_cast<const uint4*>(bwt_words);
-  fm.sa_samples = nullptr;
+  const size_t smem = ShardedIndex<T>::smem_bytes(n_shards);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  FmWalk<T, ShardedIndex<T>> fm;
+  fm.ix = table_index<T>(table, n_shards, nb_local);
   fm.primary = static_cast<T>(primary);
-  sharded_inv_psi_kernel<T><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fm, static_cast<const T*>(L2), lo, nb_local, static_cast<const T*>(k), n,
-      static_cast<T*>(out), static_cast<int*>(add));
+  sharded_inv_psi_kernel<T><<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      fm, static_cast<const T*>(L2), static_cast<const T*>(k), n, static_cast<T*>(out),
+      static_cast<int*>(add));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -247,20 +263,22 @@ int launch_gather(const void* slab, long long lo, long long n_local, const void*
 }  // namespace
 
 // Plain C entries for ctypes, one an index type (T int, or long long for the
-// _i64 entries).  Pointers are device pointers of one shard's device.
-//   occ_cp (nb_local*4,) T and bwt_words (nb_local*8,) 32-bit words, both
-//   16-byte aligned: the shard's slab of blocks [lo, lo + nb_local);
-//   k (n,) T rows; out (n, 4) T counts.
-extern "C" int kart_sharded_occ4(const void* occ_cp, const void* bwt_words, int primary,
-                                 long long lo, long long nb_local, const void* k, int n, void* out,
-                                 void* stream) {
-  return launch_occ4<int>(occ_cp, bwt_words, primary, lo, nb_local, k, n, out, stream);
+// _i64 entries).  Pointers are device pointers of the launching device.
+//   table (n_shards, 3) 64-bit words: shard s's occ_cp (nb_local*4,) T and
+//   bwt_words (nb_local*8,) 32-bit words, both 16-byte aligned, and its
+//   sa_samples slab, or three nulls where shard s lies on another device;
+//   k (n,) T rows; out (n, 4) T counts, zeros for a row whose owner the
+//   table does not hold.  cudaErrorInvalidValue where the table exceeds 48 KB
+//   of shared memory (some 2,000 shards).
+extern "C" int kart_sharded_occ4(const void* table, int n_shards, long long nb_local, int primary,
+                                 const void* k, int n, void* out, void* stream) {
+  return launch_occ4<int>(table, n_shards, nb_local, primary, k, n, out, stream);
 }
 
-extern "C" int kart_sharded_occ4_i64(const void* occ_cp, const void* bwt_words, long long primary,
-                                     long long lo, long long nb_local, const void* k, int n,
-                                     void* out, void* stream) {
-  return launch_occ4<long long>(occ_cp, bwt_words, primary, lo, nb_local, k, n, out, stream);
+extern "C" int kart_sharded_occ4_i64(const void* table, int n_shards, long long nb_local,
+                                     long long primary, const void* k, int n, void* out,
+                                     void* stream) {
+  return launch_occ4<long long>(table, n_shards, nb_local, primary, k, n, out, stream);
 }
 
 //   cnt (2B, 4) T: the combined counts of the rows ka (lanes 0..B-1) and kb;
@@ -286,20 +304,19 @@ extern "C" int kart_sharded_scan_step_i64(const void* cnt, const void* codes_t, 
                                      max_seeds, ist, tst, ist_out, tst_out, out, k_next, stream);
 }
 
-//   occ_cp, bwt_words as kart_sharded_occ4's, L2 (5,) T; k, out (n,) T;
-//   add (n,) int32 step counts, incremented where a row is not at a sample,
-//   or null (every shard but the first).
-extern "C" int kart_sharded_inv_psi(const void* occ_cp, const void* bwt_words, const void* L2,
-                                    int primary, long long lo, long long nb_local, const void* k,
-                                    int n, void* out, void* add, void* stream) {
-  return launch_inv_psi<int>(occ_cp, bwt_words, L2, primary, lo, nb_local, k, n, out, add,
-                             stream);
+//   table as kart_sharded_occ4's, L2 (5,) T; k, out (n,) T; add (n,) int32
+//   step counts, incremented where a row is not at a sample, or null (every
+//   device but the first).
+extern "C" int kart_sharded_inv_psi(const void* table, int n_shards, long long nb_local,
+                                    const void* L2, int primary, const void* k, int n, void* out,
+                                    void* add, void* stream) {
+  return launch_inv_psi<int>(table, n_shards, nb_local, L2, primary, k, n, out, add, stream);
 }
 
-extern "C" int kart_sharded_inv_psi_i64(const void* occ_cp, const void* bwt_words, const void* L2,
-                                        long long primary, long long lo, long long nb_local,
-                                        const void* k, int n, void* out, void* add, void* stream) {
-  return launch_inv_psi<long long>(occ_cp, bwt_words, L2, primary, lo, nb_local, k, n, out, add,
+extern "C" int kart_sharded_inv_psi_i64(const void* table, int n_shards, long long nb_local,
+                                        const void* L2, long long primary, const void* k, int n,
+                                        void* out, void* add, void* stream) {
+  return launch_inv_psi<long long>(table, n_shards, nb_local, L2, primary, k, n, out, add,
                                    stream);
 }
 

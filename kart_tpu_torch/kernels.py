@@ -109,14 +109,20 @@ def _load():
             fn = getattr(lib, "kart_sa_walk" + name)
             fn.argtypes = [p, p, p, p, prim, p, i, i, p, p, p]
             fn.restype = i
+            fn = getattr(lib, "kart_sharded_seed_scan" + name)
+            fn.argtypes = [p, i, ll, p, prim, p, p, i, i, i, i, p, p]
+            fn.restype = i
+            fn = getattr(lib, "kart_sharded_sa_walk" + name)
+            fn.argtypes = [p, i, ll, ll, p, prim, p, i, i, p, p, p]
+            fn.restype = i
             fn = getattr(lib, "kart_sharded_occ4" + name)
-            fn.argtypes = [p, p, prim, ll, ll, p, i, p, p]
+            fn.argtypes = [p, i, ll, prim, p, i, p, p]
             fn.restype = i
             fn = getattr(lib, "kart_sharded_scan_step" + name)
             fn.argtypes = [p, p, p, p, prim, i, i, i, i, i, p, p, p, p, p, p, p]
             fn.restype = i
             fn = getattr(lib, "kart_sharded_inv_psi" + name)
-            fn.argtypes = [p, p, p, prim, ll, ll, p, i, p, p, p]
+            fn.argtypes = [p, i, ll, p, prim, p, i, p, p, p]
             fn.restype = i
             fn = getattr(lib, "kart_sharded_gather" + name)
             fn.argtypes = [p, ll, ll, p, i, i, p, p]
@@ -670,8 +676,13 @@ pair_candidates.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The sharded FM index (csrc/sharded_fm.cu): one shard's slab on its device
+# The sharded FM index through its shard table (parallel/sharded_index.py):
+# the resident scan and walk (csrc/fm_seed_scan.cu, csrc/sa_walk.cu), the
+# cross-device step kernels (csrc/sharded_fm.cu)
 # ---------------------------------------------------------------------------
+
+# block numbers and sample rows are 32-bit in the table kernels (fm_index.cuh)
+SHARDED_MAX_TEXT = 1 << 37
 
 
 def _index_sfx(t: torch.Tensor) -> str:
@@ -687,17 +698,95 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
-def sharded_occ4(occ_cp, bwt_words, primary: int, lo: int, nb_local: int, k):
+def _check_table(table, L2, seq_len: int, dev, every_shard: bool = False
+                 ) -> tuple[torch.dtype, str]:
+    """Check a shard table (N, 3) int64 of slab pointers and the index's L2
+    on dev, with every shard's row filled where `every_shard` (a resident
+    kernel reads each row without a look at it; sharded_index.shard_table
+    records whether a table is whole); returns the index dtype and the C
+    entries' suffix."""
+    if every_shard and not getattr(table, "every_shard", False):
+        raise ValueError("shard table: a resident kernel needs a table of every shard"
+                         " (sharded_index.shard_table of all the shards)")
+    sfx = _index_sfx(L2)
+    _check("table", table, torch.int64, (table.shape[0], 3), dev, align=16)
+    _check("L2", L2, L2.dtype, (5,), dev)
+    if table.shape[0] < 1:
+        raise ValueError("shard table: no shards")
+    if seq_len >= SHARDED_MAX_TEXT:
+        raise ValueError(f"sharded index: {seq_len} text rows, the table kernels take fewer than"
+                         f" 2**37")
+    return L2.dtype, sfx
+
+
+def sharded_seed_scan(table, nb_local: int, L2, primary: int, seq_len: int, reads, rlens,
+                      min_seed_len: int, *, max_seeds: int, l_max: int):
+    """csrc/fm_seed_scan.cu through the shard table (the resident scan):
+    packed FastMode seeds (B, 1 + 4*max_seeds) in the index dtype, as
+    fm_seed_scan's, for reads (B, l_max) int32 and rlens (B,) int32, with
+    every shard's slabs on the reads' device: table (N, 3) int64, each row a
+    shard's occ_cp, bwt_words and sa_samples pointers there (a table with a
+    null row raises); nb_local blocks a slab.  One launch for the whole
+    scan."""
+    dev = reads.device
+    B = reads.shape[0]
+    idt, sfx = _check_table(table, L2, seq_len, dev, every_shard=True)
+    _check("reads", reads, torch.int32, (B, l_max), dev)
+    _check("rlens", rlens, torch.int32, (B,), dev)
+    out = torch.empty((B, 1 + 4 * max_seeds), dtype=idt, device=dev)
+    if B == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_sharded_seed_scan" + sfx)(
+            table.data_ptr(), table.shape[0], int(nb_local), L2.data_ptr(), int(primary),
+            reads.data_ptr(), rlens.data_ptr(), B, l_max, int(min_seed_len), int(max_seeds),
+            out.data_ptr(), _stream(dev))
+    _raise_on(rc, "sharded_seed_scan")
+    _count(sharded_seed_scan)
+    return out
+
+
+sharded_seed_scan.launches = 0
+
+
+def sharded_sa_walk(table, nb_local: int, nsamp_local: int, L2, primary: int, seq_len: int, rows,
+                    *, max_steps: int = 4096):
+    """csrc/sa_walk.cu through the shard table (the resident walk): (pos,
+    done) of the sampled-SA walk of rows (n,) of the index dtype, as
+    sa_walk's, every shard's slabs on the rows' device (table as
+    sharded_seed_scan's; nsamp_local sampled rows a slab), the sample at a
+    walk's end read from its owner's slab.  One launch."""
+    dev = rows.device
+    n = rows.shape[0]
+    idt, sfx = _check_table(table, L2, seq_len, dev, every_shard=True)
+    _check("rows", rows, idt, (n,), dev)
+    pos = torch.empty((n,), dtype=idt, device=dev)
+    done = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return pos, done
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_sharded_sa_walk" + sfx)(
+            table.data_ptr(), table.shape[0], int(nb_local), int(nsamp_local), L2.data_ptr(),
+            int(primary), rows.data_ptr(), n, int(max_steps), pos.data_ptr(), done.data_ptr(),
+            _stream(dev))
+    _raise_on(rc, "sharded_sa_walk")
+    _count(sharded_sa_walk)
+    return pos, done
+
+
+sharded_sa_walk.launches = 0
+
+
+def sharded_occ4(table, nb_local: int, L2, primary: int, seq_len: int, k):
     """csrc/sharded_fm.cu (G1): (n, 4) occ4 counts of the rows k (n,) on the
-    card against one shard's slab of blocks [lo, lo + nb_local) (occ_cp
-    (nb_local*4,) of the index dtype, bwt_words (nb_local*8,) int32), zeros
-    for the rows whose block the shard does not hold."""
+    card from the owners' blocks that the shard table (as sharded_seed_scan's,
+    null rows for the shards on other devices) holds, zeros for the other
+    rows.  One launch answers for every shard of the device."""
     dev = k.device
     n = k.shape[0]
-    sfx = _index_sfx(occ_cp)
-    idt = occ_cp.dtype
-    _check("occ_cp", occ_cp, idt, (4 * nb_local,), dev, align=16)
-    _check("bwt_words", bwt_words, torch.int32, (8 * nb_local,), dev, align=16)
+    idt, sfx = _check_table(table, L2, seq_len, dev)
     _check("k", k, idt, (n,), dev)
     out = torch.empty((n, 4), dtype=idt, device=dev)
     if n == 0:
@@ -705,8 +794,8 @@ def sharded_occ4(occ_cp, bwt_words, primary: int, lo: int, nb_local: int, k):
     lib = _load()
     with torch.cuda.device(dev):
         rc = getattr(lib, "kart_sharded_occ4" + sfx)(
-            occ_cp.data_ptr(), bwt_words.data_ptr(), int(primary), int(lo), int(nb_local),
-            k.data_ptr(), n, out.data_ptr(), _stream(dev))
+            table.data_ptr(), table.shape[0], int(nb_local), int(primary), k.data_ptr(), n,
+            out.data_ptr(), _stream(dev))
     _raise_on(rc, "sharded_occ4")
     _count(sharded_occ4)
     return out
@@ -755,19 +844,15 @@ def sharded_scan_step(p: int, cnt, codes_t, rlens, L2, primary: int, min_seed_le
 sharded_scan_step.launches = 0
 
 
-def sharded_inv_psi(occ_cp, bwt_words, L2, primary: int, lo: int, nb_local: int, k, add=None):
+def sharded_inv_psi(table, nb_local: int, L2, primary: int, seq_len: int, k, add=None):
     """csrc/sharded_fm.cu (G3): one step of the sampled-SA walk of the rows k
-    (n,) on the card against one shard's slab (as sharded_occ4's): a row at
-    a sample stays, others take an inverse-Psi step; zeros for the rows the
-    shard does not own.  add (n,) int32, where given, gets one more step for
-    every row not at a sample."""
+    (n,) on the card through the shard table (as sharded_occ4's): a row at a
+    sample stays, others take an inverse-Psi step; zeros for the rows whose
+    owner the table does not hold.  add (n,) int32, where given, gets one
+    more step for every row not at a sample."""
     dev = k.device
     n = k.shape[0]
-    sfx = _index_sfx(occ_cp)
-    idt = occ_cp.dtype
-    _check("occ_cp", occ_cp, idt, (4 * nb_local,), dev, align=16)
-    _check("bwt_words", bwt_words, torch.int32, (8 * nb_local,), dev, align=16)
-    _check("L2", L2, idt, (5,), dev)
+    idt, sfx = _check_table(table, L2, seq_len, dev)
     _check("k", k, idt, (n,), dev)
     if add is not None:
         _check("add", add, torch.int32, (n,), dev)
@@ -777,9 +862,9 @@ def sharded_inv_psi(occ_cp, bwt_words, L2, primary: int, lo: int, nb_local: int,
     lib = _load()
     with torch.cuda.device(dev):
         rc = getattr(lib, "kart_sharded_inv_psi" + sfx)(
-            occ_cp.data_ptr(), bwt_words.data_ptr(), L2.data_ptr(), int(primary), int(lo),
-            int(nb_local), k.data_ptr(), n, out.data_ptr(),
-            None if add is None else add.data_ptr(), _stream(dev))
+            table.data_ptr(), table.shape[0], int(nb_local), L2.data_ptr(), int(primary),
+            k.data_ptr(), n, out.data_ptr(), None if add is None else add.data_ptr(),
+            _stream(dev))
     _raise_on(rc, "sharded_inv_psi")
     _count(sharded_inv_psi)
     return out

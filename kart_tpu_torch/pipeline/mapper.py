@@ -32,7 +32,7 @@ Illumina reads and, with `pacbio`, PacBio reads, in three modes:
 
 The sharded index (`idx_shards` N > 1, the CLI's -idx-shards): FastMode
 seeding and SA resolution go through the FM index split into N slabs
-(parallel/sharded_index.py), one a device of `shard_devices`, in the native
+(parallel/sharded_index.py), slab s on `shard_devices[s]`, in the native
 backend (the python reader, four chunks seeded at a time, the C++ engine
 mapping each chunk) and in the python backend; lanes over the occurrence
 budget are re-seeded on the host.  As in kart_tpu, the funnel's tables are
@@ -159,7 +159,8 @@ class TorchKartMapper:
     or on the device with KART_SEED_MODE=device); "python" runs the python
     pipeline around device seeding and device NW.  `idx_shards` N > 1 seeds
     through the index split over `shard_devices` (N torch devices; by
-    default default_shard_devices(N, device): cuda:0 .. cuda:N-1, or N times
+    default default_shard_devices(N, device): one a card, contiguous runs of
+    shards on each card where there are more shards than cards, or N times
     the CPU)."""
 
     def __init__(

@@ -2,7 +2,8 @@
 SensitiveMode), `csrc/resolve_pack.cu` (full and sampled SA, int32 and
 int64), `csrc/fm_seed_scan.cu` (both steppers, both index types),
 `csrc/sa_walk.cu`, `csrc/nw.cu`, `csrc/cluster.cu`, `csrc/pairing.cu` and
-`csrc/sharded_fm.cu` (the sharded index's four kernels) compiled as
+`csrc/sharded_fm.cu` (the sharded index's step kernels; its resident scan
+and walk are fm_seed_scan.cu's and sa_walk.cu's) compiled as
 host C++ against `tests/host_shim/cuda_shim.h` (threads as std::threads, a
 warp's shuffles an exchange between its 32 threads, the
 blocks of a cluster at the same time, cluster.sync() a barrier over all of
@@ -54,11 +55,14 @@ def host_lib(tmp_path_factory):
         getattr(lib, "kart_fm_sensitive_scan" + sfx).argtypes = [p, p, p, prim, p, p, i, i, i, i,
                                                                  i, p, ll, p, p]
         getattr(lib, "kart_resolve_rows" + sfx).argtypes = [p, i, i, i, p, i, p, p, p, p, p, p, p]
-        getattr(lib, "kart_sharded_occ4" + sfx).argtypes = [p, p, prim, ll, ll, p, i, p, p]
+        getattr(lib, "kart_sharded_seed_scan" + sfx).argtypes = [p, i, ll, p, prim, p, p, i, i, i,
+                                                                 i, p, p]
+        getattr(lib, "kart_sharded_sa_walk" + sfx).argtypes = [p, i, ll, ll, p, prim, p, i, i, p,
+                                                               p, p]
+        getattr(lib, "kart_sharded_occ4" + sfx).argtypes = [p, i, ll, prim, p, i, p, p]
         getattr(lib, "kart_sharded_scan_step" + sfx).argtypes = [p, p, p, p, prim, i, i, i, i, i,
                                                                  p, p, p, p, p, p, p]
-        getattr(lib, "kart_sharded_inv_psi" + sfx).argtypes = [p, p, p, prim, ll, ll, p, i, p, p,
-                                                               p]
+        getattr(lib, "kart_sharded_inv_psi" + sfx).argtypes = [p, i, ll, p, prim, p, i, p, p, p]
         getattr(lib, "kart_sharded_gather" + sfx).argtypes = [p, ll, ll, p, i, i, p, p]
     lib.kart_resolve_finish.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.kart_resolve_finish_i64.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p]
@@ -927,8 +931,9 @@ def test_pair_kernel_on_host_matches_plain(host_lib, name):
 
 
 # ---------------------------------------------------------------------------
-# The sharded index (csrc/sharded_fm.cu): G1 occ4, G2 scan step, G3 walk
-# step, G4 gather, each shard's slab on the CPU
+# The sharded index through its shard table: the resident scan and walk
+# (csrc/fm_seed_scan.cu, csrc/sa_walk.cu), and csrc/sharded_fm.cu's G1 occ4,
+# G2 scan step, G3 walk step and G4 gather; each shard's slab on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -944,24 +949,42 @@ def tnp(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.numpy())
 
 
-def host_occ4(lib, sfm, shard, k, sfx):
-    """G1 through the host shim on one shard; its output starts as garbage."""
+def shard_splits(sfm):
+    """The ways of grouping the shards that the table kernels are run with:
+    every shard alone, the shards in two groups (the first half, with shard
+    0, and the rest), and all of them in one table."""
+    sh = sfm.shards
+    half = (len(sh) + 1) // 2
+    out = [[[s] for s in sh], [sh]]
+    if len(sh) > 1:
+        out.insert(1, [sh[:half], sh[half:]])
+    return out
+
+
+def host_occ4(lib, sfm, shards, k, sfx):
+    """G1 through the host shim with the table of `shards`; its output
+    starts as garbage."""
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
     kk = tnp(k)
     out = np.full((len(kk), 4), -7, kk.dtype)
+    table = tsi.shard_table(sfm, shards)
     rc = getattr(lib, "kart_sharded_occ4" + sfx)(
-        ptr(tnp(shard.occ_cp)), ptr(tnp(shard.bwt_words)), sfm.primary,
-        shard.index * sfm.nb_local, sfm.nb_local, ptr(kk), len(kk), ptr(out), None)
+        table.data_ptr(), table.shape[0], sfm.nb_local, sfm.primary, ptr(kk), len(kk), ptr(out),
+        None)
     assert rc == 0
     return torch.from_numpy(out)
 
 
-def host_inv_psi(lib, sfm, shard, k, add, sfx):
+def host_inv_psi(lib, sfm, shards, k, add, sfx):
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
     kk = tnp(k)
     out = np.full(len(kk), -7, kk.dtype)
+    table = tsi.shard_table(sfm, shards)
     rc = getattr(lib, "kart_sharded_inv_psi" + sfx)(
-        ptr(tnp(shard.occ_cp)), ptr(tnp(shard.bwt_words)), ptr(tnp(shard.L2)), sfm.primary,
-        shard.index * sfm.nb_local, sfm.nb_local, ptr(kk), len(kk), ptr(out),
-        None if add is None else ptr(add), None)
+        table.data_ptr(), table.shape[0], sfm.nb_local, ptr(tnp(sfm.L2)), sfm.primary, ptr(kk),
+        len(kk), ptr(out), None if add is None else ptr(add), None)
     assert rc == 0
     return torch.from_numpy(out)
 
@@ -980,9 +1003,10 @@ SHARD_CASES = [("int32", 1), ("int32", 3), ("int64", 3), ("int64", 8)]
 
 @pytest.mark.parametrize("dtype, n", SHARD_CASES)
 def test_sharded_occ4_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n):
-    """Each shard's masked occ4 of rows around `primary`, 0, seq_len and at
-    random, equal to the plain version, and their sum to the replicated
-    index's occ4."""
+    """G1 through the shard table, of rows around `primary`, 0, seq_len and
+    at random: each shard alone, the shards in two groups and all in one
+    table, every launch equal to the owner-select plain version of its
+    shards, and each grouping's sum to the replicated index's occ4."""
     from test_torch_sampled import walk_rows
 
     from kart_tpu_torch.parallel import sharded_index as tsi
@@ -992,33 +1016,36 @@ def test_sharded_occ4_kernel_on_host_matches_plain(host_lib, shim_genome, dtype,
     sfx = "" if dtype == "int32" else "_i64"
     k = torch.from_numpy(np.concatenate([[0], walk_rows(gidx, 500)]).astype(
         np.int32 if dtype == "int32" else np.int64))
-    parts = []
-    for shard in sfm.shards:
-        got = host_occ4(host_lib, sfm, shard, k, sfx)
-        assert torch.equal(got, tsi.shard_occ4_plain(sfm, shard, k))
-        parts.append(got)
-    assert torch.equal(tsi.combine(parts, sfm.device), tfm.occ4(fm_index(gidx, dtype), k))
+    want = tfm.occ4(fm_index(gidx, dtype), k)
+    for groups in shard_splits(sfm):
+        parts = []
+        for shards in groups:
+            got = host_occ4(host_lib, sfm, shards, k, sfx)
+            assert torch.equal(got, tsi.table_occ4_plain(sfm, shards, k))
+            parts.append(got)
+        assert torch.equal(tsi.combine(parts, sfm.device), want)
 
 
 @pytest.mark.parametrize("dtype, n", SHARD_CASES)
 def test_sharded_scan_step_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n):
-    """The sharded scan through the host shim (G1 a shard, their sum, G2),
-    every step's state, rows and seed rows equal to the plain step's on the
-    same inputs, and the packed seeds to the replicated scan's: the
-    stepper's edge reads (pad, short and all-N lanes, Ns, the texts around
-    `primary`), seeds past max_seeds dropped."""
+    """The cross-device scan through the host shim (G1 a group of shards, in
+    two groups, their sum, G2), every step's state, rows and seed rows equal
+    to the plain step's on the same inputs, and the packed seeds to the
+    replicated scan's: the stepper's edge reads (pad, short and all-N lanes,
+    Ns, the texts around `primary`), seeds past max_seeds dropped."""
     from kart_tpu_torch.parallel import sharded_index as tsi
 
     gidx, _ = shim_genome
     sfm = sharded_index(gidx, dtype, n)
     sfx = "" if dtype == "int32" else "_i64"
+    groups = shard_splits(sfm)[-2]
     reads, rlens = sharded_scan_reads(gidx, 80)
     B, L = reads.shape
     ms = 1  # fewer slots than some reads' seeds
     codes_t = reads.t().contiguous()
     state, out, k = tfm.seed_scan_state(B, ms, sfm.index_dtype, "cpu")
     for p in range(L + 1):
-        cnt = tsi.combine([host_occ4(host_lib, sfm, s, k, sfx) for s in sfm.shards], sfm.device)
+        cnt = tsi.combine([host_occ4(host_lib, sfm, g, k, sfx) for g in groups], sfm.device)
         want_out = out.clone()
         want_state, want_k = tfm.seed_scan_step_plain(p, cnt, codes_t, rlens, sfm.L2, sfm.primary,
                                                       MIN_SEED, ms, state, want_out)
@@ -1040,6 +1067,45 @@ def test_sharded_scan_step_kernel_on_host_matches_plain(host_lib, shim_genome, d
                                l_max=L)
     assert torch.equal(out, want)
     assert (want[:, 0] > ms).any() and (want[:, 0] == 0).any()
+
+
+def host_resident_scan(lib, sfm, reads, rlens, *, ms, sfx):
+    """The resident scan (kart_sharded_seed_scan) through the host shim,
+    every shard in the table; its output starts as garbage."""
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    B, L = reads.shape
+    out = np.full((B, 1 + 4 * ms), -7, tnp(sfm.L2).dtype)
+    table = tsi.shard_table(sfm, sfm.shards)
+    rc = getattr(lib, "kart_sharded_seed_scan" + sfx)(
+        table.data_ptr(), table.shape[0], sfm.nb_local, ptr(tnp(sfm.L2)), sfm.primary,
+        ptr(tnp(reads)), ptr(tnp(rlens)), B, L, MIN_SEED, ms, ptr(out), None)
+    assert rc == 0
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("ms", [1, 6])
+@pytest.mark.parametrize("dtype, n", SHARD_CASES)
+def test_sharded_seed_scan_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n, ms):
+    """The resident scan, fm_seed_scan.cu's loop through the shard table, on
+    the stepper's edge reads and 40 reads of the genome: equal to its plain
+    version (the owner-select occ4 loop), to the cross-device scan over two
+    groups and to the replicated scan; seeds past max_seeds dropped (1
+    slot)."""
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    gidx, _ = shim_genome
+    sfm = sharded_index(gidx, dtype, n)
+    sfx = "" if dtype == "int32" else "_i64"
+    reads, rlens = sharded_scan_reads(gidx, 80)
+    kw = dict(max_seeds=ms, l_max=reads.shape[1])
+    got = host_resident_scan(host_lib, sfm, reads, rlens, ms=ms, sfx=sfx)
+    assert torch.equal(got, tsi.resident_seed_scan_plain(sfm, reads, rlens, MIN_SEED, **kw))
+    assert torch.equal(got, tsi._stepwise_seed_scan(sfm, reads, rlens, MIN_SEED, **kw,
+                                                    groups=shard_splits(sfm)[-2]))
+    assert torch.equal(got, tfm.seed_scan_plain(fm_index(gidx, dtype), reads, rlens, MIN_SEED,
+                                                **kw))
+    assert (got[:, 0] > 0).sum() > 30
 
 
 def sharded_scan_reads(gidx, l_max):
@@ -1080,8 +1146,9 @@ def limit_genome(workdir):
 @pytest.mark.parametrize("dtype", ["int32", "int64"])
 def test_sharded_scan_step_kernel_on_host_occurrence_limit(host_lib, limit_genome, dtype):
     """Seeds of exactly 50 occurrences are recorded and of 51 are not: the
-    scan through the host shim (3 shards) equals the plain scan, which has
-    both kinds of seed."""
+    cross-device scan (3 shards in two groups) and the resident scan
+    through the host shim equal the plain scan, which has both kinds of
+    seed."""
     from kart_tpu_torch.index.format import NT4_TABLE
     from kart_tpu_torch.parallel import sharded_index as tsi
 
@@ -1098,7 +1165,8 @@ def test_sharded_scan_step_kernel_on_host_occurrence_limit(host_lib, limit_genom
     reads, rlens = torch.from_numpy(reads), torch.full((6,), L, dtype=torch.int32)
 
     def occ4_rows(k):
-        return tsi.combine([host_occ4(host_lib, sfm, s, k, sfx) for s in sfm.shards], sfm.device)
+        return tsi.combine([host_occ4(host_lib, sfm, g, k, sfx) for g in shard_splits(sfm)[1]],
+                           sfm.device)
 
     def host_step(p, cnt, codes_t, rl, L2, primary, msl, m, state, out):
         ist, tst = (tnp(x) for x in state)
@@ -1116,6 +1184,7 @@ def test_sharded_scan_step_kernel_on_host_occurrence_limit(host_lib, limit_genom
     want = tfm.seed_scan_plain(fm_index(gidx, dtype), reads, rlens, MIN_SEED, max_seeds=ms,
                                l_max=L)
     assert torch.equal(got, want)
+    assert torch.equal(host_resident_scan(host_lib, sfm, reads, rlens, ms=ms, sfx=sfx), want)
     o = tfm.unpack_seed_scan(want, ms)
     first = o["freq"][:, 0].numpy()
     assert (o["slen"][0::2, 0] == 40).all() and (first[0::2] == 50).all()
@@ -1125,11 +1194,12 @@ def test_sharded_scan_step_kernel_on_host_occurrence_limit(host_lib, limit_genom
 @pytest.mark.parametrize("max_steps", [4096, 8])
 @pytest.mark.parametrize("dtype, n", SHARD_CASES)
 def test_sharded_walk_kernels_on_host_match_plain(host_lib, shim_genome, dtype, n, max_steps):
-    """The sharded walk through the host shim: G3 steps (each shard's output
-    equal to the plain version's, the step counts in the first shard's
-    launch) until every row is at a sample or max_steps, then G4 on the
-    sampled SA's slabs; (pos, done) equal to the plain sharded walk's and
-    to the replicated sa_walk's, walks cut at 8 steps included."""
+    """The cross-device walk through the host shim, the shards in two
+    groups: G3 steps (each group's output equal to the plain version's, the
+    step counts in the first group's launch) until every row is at a sample
+    or max_steps, then G4 on the sampled SA's slabs; (pos, done) equal to the
+    plain sharded walk's and to the replicated sa_walk's, walks cut at 8
+    steps included."""
     from test_torch_sampled import walk_rows
 
     from kart_tpu_torch.parallel import sharded_index as tsi
@@ -1137,6 +1207,7 @@ def test_sharded_walk_kernels_on_host_match_plain(host_lib, shim_genome, dtype, 
     gidx, _ = shim_genome
     sfm = sharded_index(gidx, dtype, n, "sampled")
     sfx = "" if dtype == "int32" else "_i64"
+    groups = shard_splits(sfm)[-2]
     k = torch.from_numpy(walk_rows(gidx, 300).astype(np.int32 if dtype == "int32" else np.int64))
     rows = k.clone()
     add = np.zeros(len(k), np.int32)
@@ -1145,9 +1216,9 @@ def test_sharded_walk_kernels_on_host_match_plain(host_lib, shim_genome, dtype, 
             break
         want_add = torch.from_numpy(add.copy())
         parts = []
-        for shard in sfm.shards:
-            got = host_inv_psi(host_lib, sfm, shard, k, add if shard.index == 0 else None, sfx)
-            want = tsi.shard_inv_psi_plain(sfm, shard, k, want_add if shard.index == 0 else None)
+        for i, g in enumerate(groups):
+            got = host_inv_psi(host_lib, sfm, g, k, add if i == 0 else None, sfx)
+            want = tsi.table_inv_psi_plain(sfm, g, k, want_add if i == 0 else None)
             assert torch.equal(got, want)
             parts.append(got)
         np.testing.assert_array_equal(add, want_add.numpy())
@@ -1155,12 +1226,45 @@ def test_sharded_walk_kernels_on_host_match_plain(host_lib, shim_genome, dtype, 
     samp = tsi.combine([host_gather(host_lib, s.sa_samples, s.index * sfm.nsamp_local, k, 5, sfx)
                         for s in sfm.shards], sfm.device)
     pos, done = torch.from_numpy(add).to(k.dtype) + samp, (k & 31) == 0
-    for got, want in zip((pos, done), tsi.sharded_sa_walk(sfm, rows, max_steps=max_steps)):
-        assert torch.equal(got, want)
-    for got, want in zip((pos, done), tfm.sa_walk_plain(fm_index(gidx, dtype), rows,
-                                                        max_steps=max_steps)):
-        assert torch.equal(got, want)
+    for want in (tsi.sharded_sa_walk(sfm, rows, max_steps=max_steps),
+                 tsi._stepwise_sa_walk(sfm, rows, max_steps=max_steps, groups=groups),
+                 tfm.sa_walk_plain(fm_index(gidx, dtype), rows, max_steps=max_steps)):
+        for a, b in zip((pos, done), want):
+            assert torch.equal(a, b)
     assert bool(done.all()) == (max_steps == 4096)
+
+
+@pytest.mark.parametrize("max_steps", [4096, 8])
+@pytest.mark.parametrize("dtype, n", SHARD_CASES)
+def test_sharded_sa_walk_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n, max_steps):
+    """The resident walk, sa_walk.cu's loop through the shard table with the
+    sample read from its owner's slab: (pos, done) of rows at and around
+    samples, 0 and `primary`, equal to its plain version's and to the
+    replicated sa_walk's, whole and cut at 8 steps."""
+    from test_torch_sampled import walk_rows
+
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    gidx, _ = shim_genome
+    sfm = sharded_index(gidx, dtype, n, "sampled")
+    sfx = "" if dtype == "int32" else "_i64"
+    p = int(gidx.primary)
+    rows = np.concatenate([[0, 32, p - 1, p, p + 1, int(gidx.seq_len)], walk_rows(gidx, 300)])
+    rows = torch.from_numpy(rows.astype(np.int32 if dtype == "int32" else np.int64))
+    pos = np.full(len(rows), -7, tnp(rows).dtype)
+    done = np.full(len(rows), 7, np.uint8)
+    table = tsi.shard_table(sfm, sfm.shards)
+    rc = getattr(host_lib, "kart_sharded_sa_walk" + sfx)(
+        table.data_ptr(), table.shape[0], sfm.nb_local, sfm.nsamp_local, ptr(tnp(sfm.L2)),
+        sfm.primary, ptr(tnp(rows)), len(rows), max_steps, ptr(pos), ptr(done), None)
+    assert rc == 0
+    got = (torch.from_numpy(pos), torch.from_numpy(done.astype(bool)))
+    assert set(np.unique(done)) <= {0, 1}
+    for want in (tsi.resident_sa_walk_plain(sfm, rows, max_steps=max_steps),
+                 tfm.sa_walk_plain(fm_index(gidx, dtype), rows, max_steps=max_steps)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert bool(got[1].all()) == (max_steps == 4096)
 
 
 @pytest.mark.parametrize("dtype, n", SHARD_CASES)

@@ -217,11 +217,18 @@ def test_sampled_build_never_reads_the_full_sa(index):
         tsi.sharded_sa_gather(sfm, torch.zeros(1, dtype=torch.int32))
 
 
-def test_default_shard_devices():
+def test_default_shard_devices(monkeypatch):
+    """All N on the CPU; on CUDA one shard a card, or with more shards than
+    cards contiguous runs of shards on each card (kart_tpu refuses more
+    shards than devices); no card raises."""
     assert tsi.default_shard_devices(3, "cpu") == [torch.device("cpu")] * 3
-    if torch.cuda.device_count() < 5:
-        with pytest.raises(RuntimeError, match="idx_shards=5"):
-            tsi.default_shard_devices(5, "cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="idx_shards=5"):
+        tsi.default_shard_devices(5, "cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tsi.default_shard_devices(3, "cuda") == [torch.device("cuda", i) for i in range(3)]
+    assert tsi.default_shard_devices(5, "cuda") == [torch.device("cuda", i)
+                                                     for i in (0, 0, 1, 2, 3)]
 
 
 # ---------------------------------------------------------------------------
