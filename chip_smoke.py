@@ -3,8 +3,8 @@
     python3 chip_smoke.py        # from the repository root
     python3 chip_smoke.py --phases 9      # phase 0, the set-up and phase 9 only (exit 4)
     python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
-                                          # funnel, resolve_pack, SensitiveMode kernels, walk
-                                          # and cross-device sharded scan and walk (another
+                                          # funnel, resolve_pack, SensitiveMode kernels, walk,
+                                          # cross-device scan and resident walk (another
                                           # commit's, unpacked with git archive into a
                                           # directory of this checkout)
 
@@ -99,7 +99,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      int64 at B 4,000 and on the re-seed layout, and the SensitiveMode
      stepper at int64 on phase 7's group, each equal to its plain version
      and to the int32 result widened; each timed by slope and per call, the
-     walk with its bound and chain.  Then the sampled slice through the CLI
+     walk with its bound, its chain and its ns a step beside the L2 load
+     (with --compare, the other commit's walk in turns on the group's and
+     the re-seed layout's rows, int32 and int64).  Then the sampled slice
+     through the CLI
      with KART_SA_MODE=sampled: (a) phase 6's 100,000 pairs device-pipelined
      on the card, (b) the native mode, (c) the first 10,000 pairs on an
      index forced to int64, (d) the first 1,000 pairs with -cpu, (e) the
@@ -126,8 +129,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      FastMode scan in one launch through the shard table) of 16,000 of phase
      6's reads (l_max 160), also equal to fm_seed_scan and to the
      cross-device loop with the shards split into two groups, in which G1
-     (the table occ4, whole-device and each group) and G2 (the scan step) are
-     held at step 40; the resident walk of phase 4's 96,000 stream rows, also
+     (the table occ4, whole-device and each group) and the fused step (the
+     stepping group's occ4, the other group's part, the scan step: G2) are
+     held at step 40, the fused step byte-equal to its plain composition, and
+     whose launches a step are counted (one G1 a group past the first and the
+     fused step: 2 in two groups); the resident walk of phase 4's 96,000 stream rows, also
      equal to sa_walk and sa_walk_plain, whole and cut at 8 steps, and to the
      cross-device walk; G3 (the table inverse-Psi step, whole-device and each
      group) at the rows and after 10 steps; G4 (the masked gathers); the
@@ -135,14 +141,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      timed by slope at 2 shards with its bound (bytes by distinct 32-byte
      sector) and chain, beside the whole scan and walk per call at 1, 2 and 4
      shards, resident and cross-device (with --compare, the cross-device
-     scan and walk at 2 shards in two groups in turns with the other
-     commit's sharded scan and walk at 2 shards); (b) the CLI (native
+     scan at 2 shards in two groups and the resident walk at 2 shards in
+     turns with the other commit's); (b) the CLI (native
      backend, the python reader) with -idx-shards 2 and 4, the shards where
      default_shard_devices puts them (all on cuda:0 of one card), over phase
      6's 200,000 reads, full SA and KART_SA_MODE=sampled: one resident scan a sharded
      call (and one resident walk in the sampled runs), no G1, G2 or G3
      launch; then 2 shards split into two groups, sampled (the cross-device
-     path: G1, G2, G3, G4 and no resident launch); SAM records equal to the
+     path: G1, the fused step as many times as G1, G3, G4 and no resident
+     launch); SAM records equal to the
      native mode's; reads/s, set-up, launches, flagged lanes; (c) two
      processes on cuda:0 (the gloo group of init_distributed, an all_gather,
      the TCP stat relay, map_shard with 2 shards each) over 16,000 pairs:
@@ -1625,9 +1632,11 @@ def walk_bound(fm, rows, steps, l2_load_ns: float) -> dict:
                 longest=longest, mean=float(steps.float().mean()), bytes=n_bytes)
 
 
-def phase_sampled_kernels(gidx, pb: str, l2_load_ns: float) -> dict:
+def phase_sampled_kernels(gidx, pb: str, l2_load_ns: float, other=None) -> dict:
     """Phase 9's kernels against their plain versions on the card, byte-equal,
-    timed by slope and per call with their bounds."""
+    timed by slope and per call with their bounds, the walk also in ns a
+    step; with `other` (another build's kernels module), its walk in turns
+    with this build's."""
     import torch
 
     from kart_tpu_torch import kernels
@@ -1708,11 +1717,19 @@ def phase_sampled_kernels(gidx, pb: str, l2_load_ns: float) -> dict:
         plain = cuda_ms(lambda: sa_walk_plain(f, k), 1)
         b = walk_bound(f, k, wk["steps"], l2_load_ns)
         wk.update(t=t, plain=plain, b=b)
+        wk["ns_a_step"] = 1e9 * t[0] / (b["longest"] + 1)
         lines.append(f"sa_walk {name} {dt}: {k.numel()} rows, (pos, done) equal at max_steps 4096"
                      f" and 8; steps mean {b['mean']:.2f}, longest {b['longest']}; slope"
                      f" {1e3 * t[0]:.4f} ms, per call {1e3 * t[1]:.4f} ms, plain {plain:.4f} ms;"
-                     f" {b['bytes']} bytes: bound {b['bound_ms']:.4f} ms ({b['bound_by']}); chain"
-                     f" {b['longest'] + 1} loads x {l2_load_ns:.1f} ns = {b['chain_ms']:.4f} ms")
+                     f" {wk['ns_a_step']:.1f} ns a step beside a dependent load that hits L2 of"
+                     f" {l2_load_ns:.1f} ns; {b['bytes']} bytes: bound {b['bound_ms']:.4f} ms"
+                     f" ({b['bound_by']}); chain {b['longest'] + 1} loads x {l2_load_ns:.1f} ns ="
+                     f" {b['chain_ms']:.4f} ms")
+        if other is not None:
+            require_equal(other.sa_walk(f, k)[0], kernels.sa_walk(f, k)[0],
+                          f"sa_walk of the compared build ({name}, {dt})")
+            compare_turns(f"sa_walk {name} {dt} ({k.numel()} rows)", lambda: other.sa_walk(f, k),
+                          lambda: kernels.sa_walk(f, k))
     rec["walks"], rec["walk_err"] = walks, walk_err
 
     # resolve_pack through the sampled SA: the group's pack16 stream (walks
@@ -1790,7 +1807,7 @@ def walk_record(rec: dict) -> dict:
     w = rec["walks"][("group", "int32")]
     r = rec["resolve"]
     return dict(ms=1e3 * w["t"][0], plain_ms=w["plain"], err=rec["walk_err"], bound_ms=w["b"]["bound_ms"],
-                bound_by=w["b"]["bound_by"], chain_ms=w["b"]["chain_ms"],
+                bound_by=w["b"]["bound_by"], chain_ms=w["b"]["chain_ms"], ns_a_step=w["ns_a_step"],
                 shape=f"the stream rows of a {B_GROUP}-read group, H {3 * B_GROUP}, int32",
                 int64=dict(ms=1e3 * rec["walks"][("group", "int64")]["t"][0],
                            bound_ms=rec["walks"][("group", "int64")]["b"]["bound_ms"]),
@@ -2037,7 +2054,7 @@ SHARD_SNAP = 40  # the scan step whose G1 and G2 launches are held against their
 SHARD_TIMED = 2  # the shard count whose kernels are timed
 SHARD_MH_PAIRS = 16000  # (c): eight reader chunks, past the 1,000-pair threshold
 RESIDENT_KERNELS = ("sharded_seed_scan", "sharded_sa_walk")
-STEP_KERNELS = ("sharded_occ4", "sharded_scan_step", "sharded_inv_psi")
+STEP_KERNELS = ("sharded_occ4", "sharded_fused_step", "sharded_inv_psi")
 SHARDED_KERNELS = RESIDENT_KERNELS + STEP_KERNELS + ("sharded_gather", "resolve_pack")
 
 
@@ -2049,34 +2066,51 @@ def sectors(offsets) -> int:
 
 
 def sharded_bounds(sfm, kind: str, rows, touched: int, l2_load_ns: float) -> dict:
-    """Bound of one whole-device launch of G1 or G3, of shard 0's G4, or of
-    one step (G2): the rows in and the results out once, and `touched`, the
-    index bytes the launch reads: each distinct 32-byte sector of the BWT
-    words, checkpoint rows (G1, G3) or slab rows (G4) it loads, once
+    """Bound of one whole-device launch of G1 or G3, or of shard 0's G4:
+    the rows in and the results out once, and `touched`, the index bytes
+    the launch reads: each distinct 32-byte sector of the BWT words,
+    checkpoint rows (G1, G3) or slab rows (G4) it loads, once
     (`touched_bytes`); G3 also reads and writes the step count of each row
-    not at a sample; G2 its state in and out, the counts, the codes of one
-    column and the seed counts.  Some 60 operations a row (G1, G3: the
-    popcounts), 40 a lane (G2), 4 a row (G4).  `chain_ms`: the dependent
-    loads of one row: k, then the block (G1, G3: two, the table read in
-    shared memory beside them), the slab row (G4: two), the counts (G2:
-    one)."""
+    not at a sample.  Some 60 operations a row (G1, G3: the popcounts), 4 a
+    row (G4).  `chain_ms`: the dependent loads of one row: k, then the block
+    (G1, G3: two, the table read in shared memory beside them), the slab row
+    (G4: two)."""
     from kart_tpu_torch.tools.bench_kernels import bound_ms
 
     isz = sfm.L2.element_size()
     n = rows.numel()
     if kind == "occ4":
-        n_bytes, ops, chain = n * isz + 4 * n * isz + touched, 60 * n, 2
+        n_bytes, ops = n * isz + 4 * n * isz + touched, 60 * n
     elif kind == "inv_psi":
         n_steps = int(((rows & 31) != 0).sum())
-        n_bytes, ops, chain = 2 * n * isz + 8 * n_steps + touched, 60 * n, 2
-    elif kind == "gather":
-        n_bytes, ops, chain = 2 * n * isz + touched, 4 * n, 2
-    else:  # the step: B lanes, rows (2B,) the next rows
-        B = n // 2
-        n_bytes = 2 * B * 4 * isz + B * 8 + 2 * (3 * B * 4 + 3 * B * isz) + 2 * B * isz + B * isz
-        ops, chain = 40 * B, 1
+        n_bytes, ops = 2 * n * isz + 8 * n_steps + touched, 60 * n
+    else:  # the gather
+        n_bytes, ops = 2 * n * isz + touched, 4 * n
     t_b, by = bound_ms(n_bytes, ops)
-    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, chain_ms=chain * l2_load_ns / 1e6)
+    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, chain_ms=2 * l2_load_ns / 1e6)
+
+
+def fused_step_bound(sfm, own, k, n_parts: int, l2_load_ns: float) -> dict:
+    """Bound of one fused step of B lanes (k, (2B,) rows): the rows in, the
+    stepping group's index sectors that its rows' blocks touch, once
+    (`touched_bytes` of the rows it owns), the n_parts parts ((2B, 4) each),
+    one column of codes and the read lengths, the state in and out, the next
+    rows and the seed counts out; some 60 operations a row (occ4's
+    popcounts) and 40 a lane (the step).  `chain_ms`: k, then the block (two
+    dependent loads; the parts load beside the block)."""
+    import torch
+
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    isz = sfm.L2.element_size()
+    B = k.numel() // 2
+    kk = k - (k >= sfm.primary).to(k.dtype)
+    mine = torch.isin((kk >> 7) // sfm.nb_local,
+                      torch.tensor([s.index for s in own], dtype=k.dtype, device=k.device))
+    n_bytes = (2 * B * isz + touched_bytes(sfm, "occ4", k[mine]) + n_parts * 2 * B * 4 * isz
+               + 2 * B * 4 + 2 * (3 * B * 4 + 3 * B * isz) + 2 * B * isz + B * isz)
+    t_b, by = bound_ms(n_bytes, 60 * 2 * B + 40 * B)
+    return dict(bound_ms=t_b, bound_by=by, bytes=n_bytes, chain_ms=2 * l2_load_ns / 1e6)
 
 
 def touched_bytes(sfm, kind: str, rows) -> int:
@@ -2153,7 +2187,7 @@ def two_groups(sfm) -> list:
     return [g for g in (sfm.shards[:half], sfm.shards[half:]) if g]
 
 
-def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) -> dict:
+def phase_sharded_kernels(gidx, l2_load_ns: float, other_si=None) -> dict:
     """Phase 11 (a): the sharded index's kernels against their plain versions
     on cuda:0, byte for byte, int32 and int64, at 1, 2 and 4 shards: the
     resident scan of a 16,000-read group of phase 6's reads (l_max 160),
@@ -2164,11 +2198,11 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
     after 10 steps (whole-device and each group); G4, the sample and full-SA
     gathers; the resolved stream, full and sampled, against resolve_pack's.
     Each kernel timed by slope at SHARD_TIMED shards (int32) with its bound,
-    beside the replicated fm_seed_scan and sa_walk on the same inputs; with
-    `other` (another build's kernels module), its sa_walk in turns with this
-    build's; with `other_si` (another build's parallel/sharded_index.py), its
-    sharded scan and walk at 2 shards in turns with this build's
-    cross-device loop in two groups."""
+    beside the replicated fm_seed_scan and sa_walk on the same inputs, and
+    the cross-device scan's launches a step; with `other_si` (another
+    build's parallel/sharded_index.py), its cross-device scan in the same
+    two groups and its resident walk at 2 shards in turns with this
+    build's."""
     import torch
 
     from kart_tpu_torch import kernels
@@ -2219,42 +2253,42 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
                                                             l_max=L),
                           f"resident scan against its plain version ({what})")
 
-            # the cross-device loop over two groups, G1 and G2 held at step SHARD_SNAP
-            def occ4_rows(k, sfm=sfm, groups=groups, snap=snap, calls=calls):
-                parts = [tsi.table_occ4(sfm, grp, k) for grp in groups]
+            # the cross-device loop over two groups: G1 (each group and the
+            # whole device) and the fused step held at step SHARD_SNAP
+            fused_kernel = kernels.sharded_fused_step
+
+            def fused_held(table, nb, L2, primary, seq_len, k, parts, ptrs, p, codes_t, rl_, m, s_,
+                           state, state_out, out, k_next, sfm=sfm, groups=groups, snap=snap):
                 # the blocks the step reads (an idle lane's row 0 among them)
                 snap.setdefault("blocks", []).append(
                     torch.unique((k - (k >= sfm.primary).to(k.dtype)) >> 7))
-                if calls[0] == SHARD_SNAP:
-                    for grp, part in zip(groups + [sfm.shards], parts + [
-                            tsi.table_occ4(sfm, sfm.shards, k)]):
-                        require_equal(part, tsi.table_occ4_plain(sfm, grp, k),
-                                      f"G1 ({what}, shards {[s.index for s in grp]})")
-                    snap["k"] = k.clone()
-                calls[0] += 1
-                return tsi.combine(parts, dev)
+                args = (table, nb, L2, primary, seq_len, k, parts, ptrs, p, codes_t, rl_, m, s_,
+                        state, state_out, out, k_next)
+                if p != SHARD_SNAP:
+                    return fused_kernel(*args)
+                for grp in groups + [sfm.shards]:
+                    require_equal(tsi.table_occ4(sfm, grp, k), tsi.table_occ4_plain(sfm, grp, k),
+                                  f"G1 ({what}, shards {[s.index for s in grp]})")
+                snap.update(k=k.clone(), step=(p, codes_t, rl_, m, s_, tuple(x.clone() for x in state),
+                                               out.clone(), [x.clone() for x in parts]))
+                want_out = out.clone()
+                want_state, want_k = tsi.fused_step_plain(sfm, groups[0], k, parts, p, codes_t,
+                                                          rl_, m, s_, state, want_out)
+                fused_kernel(*args)
+                for a, b, nm in ((state_out[0], want_state[0], "ist"),
+                                 (state_out[1], want_state[1], "tst"), (k_next, want_k, "rows"),
+                                 (out, want_out, "seeds")):
+                    require_equal(a, b, f"fused step {nm} against its plain composition ({what},"
+                                        f" step {p})")
 
-            def step(p, cnt, codes_t, rl_, L2, primary, m, s_, state, out, snap=snap):
-                if p == SHARD_SNAP:
-                    want_out = out.clone()
-                    want = tfm.seed_scan_step_plain(p, cnt, codes_t, rl_, L2, primary, m, s_,
-                                                    state, want_out)
-                    got_ = kernels.sharded_scan_step(p, cnt, codes_t, rl_, L2, primary, m, s_,
-                                                     state, out)
-                    for a, b, nm in ((got_[0][0], want[0][0], "ist"),
-                                     (got_[0][1], want[0][1], "tst"),
-                                     (got_[1], want[1], "rows"), (out, want_out, "seeds")):
-                        require_equal(a, b, f"G2 {nm} ({what}, step {p})")
-                    snap.update(step=(p, cnt.clone(), codes_t, rl_, L2, primary, m, s_,
-                                      tuple(x.clone() for x in state), out.clone()))
-                    return got_
-                return kernels.sharded_scan_step(p, cnt, codes_t, rl_, L2, primary, m, s_, state,
-                                                 out)
-
-            stepwise = tfm.seed_scan_loop(occ4_rows, step, sfm.L2, sfm.primary, reads, rlens, msl,
-                                          max_seeds=ms, l_max=L)
+            fused_held.launches = 0
+            with replaced(kernels, sharded_fused_step=fused_held):
+                stepwise = tsi._stepwise_seed_scan(sfm, reads, rlens, msl, max_seeds=ms, l_max=L,
+                                                   groups=groups)
             require_equal(stepwise, got, f"cross-device scan (two groups) against the resident"
                                          f" scan ({what})")
+            require_equal(stepwise, want_seeds, f"cross-device scan (two groups) against"
+                                                f" fm_seed_scan ({what})")
 
             # G3 at the stream rows: a step at the rows and after 10 steps
             k = rows
@@ -2308,8 +2342,9 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
                 for a, b, nm in zip(res, full, ("cnts", "meta", "gpos")):
                     require_equal(a, b, f"sharded resolved {nm} ({what}, {mode})")
             lines.append(f"{what}: the resident scan ({int(got[:, 0].sum())} seeds) equal to"
-                         f" fm_seed_scan, its plain version and the cross-device loop (G1 whole"
-                         f" and in {len(groups)} groups, G2, at step {SHARD_SNAP}); the resident"
+                         f" fm_seed_scan, its plain version and the cross-device loop in"
+                         f" {len(groups)} groups (G1 whole and in each group, the fused step byte-"
+                         f"equal to its plain composition, at step {SHARD_SNAP}); the resident"
                          f" walk of {rows.numel()} rows (4096 and 8 steps) equal to sa_walk,"
                          f" sa_walk_plain, its plain version and the cross-device walk; G3 at"
                          f" steps 0 and 10, G4 (full SA, samples), the resolved stream (full,"
@@ -2320,7 +2355,10 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
     sfm, snap, rows = timed["sfm"], timed["snap"], timed["rows"]
     s0 = sfm.shards[0]
     k2 = snap["k"]
-    p, cnt, codes_t, rl_, L2, primary, m, s_, state, out = snap["step"]
+    p, codes_t, rl_, m, s_, state, out, parts = snap["step"]
+    own = two_groups(sfm)[0]
+    own_table, ptrs = tsi.shard_table(sfm, own), kernels.part_pointers(parts)
+    state_out, k_next = tuple(torch.empty_like(x) for x in state), torch.empty_like(k2)
     add = torch.zeros(rows.numel(), dtype=torch.int32, device=dev)
     lo_sa = 0
     cases = {
@@ -2331,10 +2369,11 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
                             lambda: tsi.resident_sa_walk_plain(sfm, rows)),
         "sharded_occ4": ("occ4", k2, lambda: tsi.table_occ4(sfm, sfm.shards, k2),
                          lambda: tsi.table_occ4_plain(sfm, sfm.shards, k2)),
-        "sharded_scan_step": ("step", k2, lambda: kernels.sharded_scan_step(
-            p, cnt, codes_t, rl_, L2, primary, m, s_, state, out),
-            lambda: tfm.seed_scan_step_plain(p, cnt, codes_t, rl_, L2, primary, m, s_, state,
-                                             out.clone())),
+        "sharded_fused_step": ("step", k2, lambda: kernels.sharded_fused_step(
+            own_table, sfm.nb_local, sfm.L2, sfm.primary, sfm.seq_len, k2, parts, ptrs, p, codes_t,
+            rl_, m, s_, state, state_out, out, k_next),
+            lambda: tsi.fused_step_plain(sfm, own, k2, parts, p, codes_t, rl_, m, s_, state,
+                                         out.clone())),
         "sharded_inv_psi": ("inv_psi", rows, lambda: tsi.table_inv_psi(sfm, sfm.shards, rows, add),
                             lambda: tsi.table_inv_psi_plain(sfm, sfm.shards, rows, add.clone())),
         "sharded_gather": ("gather", rows, lambda: tsi.shard_gather(s0.sa_full, lo_sa, rows),
@@ -2358,11 +2397,13 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
             b = resident_bounds(fm32, "walk", rows.numel() * (2 * rows.element_size() + 1),
                                 blocks, samples, n_steps, longest, l2_load_ns)
             shape = f"{rows.numel()} stream rows, {SHARD_TIMED} shards on one card, int32"
+        elif kind == "step":
+            b = fused_step_bound(sfm, own, r, len(parts), l2_load_ns)
+            shape = (f"{r.numel() // 2} lanes, step {p}, own shards {[x.index for x in own]} of"
+                     f" {SHARD_TIMED} and {len(parts)} part, int32")
         else:
-            b = sharded_bounds(sfm, kind, r, 0 if kind == "step" else touched_bytes(sfm, kind, r),
-                               l2_load_ns)
-            shape = (f"{r.numel() // 2} lanes, int32" if kind == "step" else
-                     f"shard 0 of {SHARD_TIMED}, {r.numel()} rows, int32" if kind == "gather" else
+            b = sharded_bounds(sfm, kind, r, touched_bytes(sfm, kind, r), l2_load_ns)
+            shape = (f"shard 0 of {SHARD_TIMED}, {r.numel()} rows, int32" if kind == "gather" else
                      f"one launch for the {SHARD_TIMED} shards of one card, {r.numel()} rows,"
                      f" int32")
         rec[name] = dict(ms=1e3 * t[0], per_call_ms=1e3 * t[1], plain_ms=plain, err=0,
@@ -2383,11 +2424,20 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
                                                                l_max=L, groups=grp), 3)
         step_walk_ms = cuda_ms(lambda: tsi._stepwise_sa_walk(sf, rows, max_steps=4096,
                                                              groups=grp), 3)
+        for k in ("sharded_occ4", "sharded_fused_step"):
+            getattr(kernels, k).launches = 0
+        tsi._stepwise_seed_scan(sf, reads, rlens, msl, max_seeds=ms, l_max=L, groups=grp)
+        torch.cuda.synchronize()
+        per_step = (kernels.sharded_occ4.launches + kernels.sharded_fused_step.launches) / (L + 1)
+        if per_step != len(grp) or kernels.sharded_fused_step.launches != L + 1:
+            raise AssertionError(f"cross-device scan at {n} shards in {len(grp)} groups:"
+                                 f" {per_step} launches a step, expected {len(grp)}")
         lines.append(f"{n} shards int32, per call (event window): the resident scan of"
                      f" {SHARD_B} reads {scan_ms:.4f} ms, the resident walk of {rows.numel()}"
                      f" rows {walk_ms:.4f} ms; cross-device in {len(grp)} groups: the scan"
-                     f" {step_scan_ms:.4f} ms ({L + 1} steps of {len(grp)} G1 + the sum + G2),"
-                     f" the walk {step_walk_ms:.4f} ms")
+                     f" {step_scan_ms:.4f} ms ({L + 1} steps, launches a step {per_step:g}:"
+                     f" {len(grp) - 1} G1 + the fused step), the walk {step_walk_ms:.4f} ms")
+        rec[f"launches_a_step_{n}"] = per_step
         rec[f"scan_{n}_ms"], rec[f"walk_{n}_ms"] = scan_ms, walk_ms
         rec[f"stepwise_scan_{n}_ms"], rec[f"stepwise_walk_{n}_ms"] = step_scan_ms, step_walk_ms
     t_scan = time_both(lambda: kernels.fm_seed_scan(fm32, reads, rlens, msl, max_seeds=ms,
@@ -2400,31 +2450,25 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other=None, other_si=None) ->
     for ln in lines:
         print("phase 11 " + ln)
     if other_si is not None:
-        # the other commit's sharded scan and walk at 2 shards on cuda:0 beside this one's
-        # cross-device loop over the same 2 shards in two groups: both step from the host
+        # the other commit's cross-device scan (the same two groups) and
+        # resident walk at 2 shards on cuda:0 beside this one's
         theirs = other_si.build_sharded_fm(gidx, [dev] * 2, "full")
         ours = tsi.build_sharded_fm(gidx, [dev] * 2, "full")
-        grp = two_groups(ours)
-        t_scan = (lambda: other_si.sharded_seed_scan(theirs, reads, rlens, msl, max_seeds=ms,
-                                                     l_max=L),
-                  lambda: tsi._stepwise_seed_scan(ours, reads, rlens, msl, max_seeds=ms, l_max=L,
-                                                  groups=grp))
-        t_walk = (lambda: other_si.sharded_sa_walk(theirs, rows),
-                  lambda: tsi._stepwise_sa_walk(ours, rows, max_steps=4096, groups=grp))
-        for nm, (a, b) in (("scan", t_scan), ("walk", t_walk)):
-            for x, y in zip(a() if nm == "walk" else (a(),), b() if nm == "walk" else (b(),)):
-                require_equal(y, x, f"cross-device {nm} against the compared build's")
-            t = [cuda_ms(a, 3), cuda_ms(b, 3), cuda_ms(b, 3), cuda_ms(a, 3)]
-            rec[f"compare_stepwise_{nm}_ms"] = t
-            print(f"compare the sharded {nm} at 2 shards on cuda:0, stepped from the host (other:"
-                  f" its sharded_{'seed_scan' if nm == 'scan' else 'sa_walk'}; this: the"
-                  f" cross-device loop in two groups): other, this, this, other: ms a call"
-                  f" (event window) " + ", ".join(f"{x:.4f}" for x in t))
-    if other is not None:
-        require_equal(other.sa_walk(fm32, rows)[0], kernels.sa_walk(fm32, rows)[0],
-                      "sa_walk of the compared build")
-        compare_turns(f"sa_walk ({rows.numel()} stream rows)", lambda: other.sa_walk(fm32, rows),
-                      lambda: kernels.sa_walk(fm32, rows))
+        scan = (lambda: other_si._stepwise_seed_scan(theirs, reads, rlens, msl, max_seeds=ms,
+                                                     l_max=L, groups=two_groups(theirs)),
+                lambda: tsi._stepwise_seed_scan(ours, reads, rlens, msl, max_seeds=ms, l_max=L,
+                                                groups=two_groups(ours)))
+        require_equal(scan[1](), scan[0](), "cross-device scan against the compared build's")
+        t = [cuda_ms(scan[0], 3), cuda_ms(scan[1], 3), cuda_ms(scan[1], 3), cuda_ms(scan[0], 3)]
+        rec["compare_stepwise_scan_ms"] = t
+        print("compare the cross-device scan at 2 shards in two groups on cuda:0 (other: its"
+              " _stepwise_seed_scan; this: the fused step): other, this, this, other: ms a call"
+              " (event window) " + ", ".join(f"{x:.4f}" for x in t))
+        for a, b in zip(other_si.resident_sa_walk(theirs, rows), tsi.resident_sa_walk(ours, rows)):
+            require_equal(b, a, "resident walk against the compared build's")
+        compare_turns(f"resident_sa_walk at 2 shards ({rows.numel()} stream rows)",
+                      lambda: other_si.resident_sa_walk(theirs, rows),
+                      lambda: tsi.resident_sa_walk(ours, rows))
     return rec
 
 
@@ -2539,7 +2583,7 @@ def phase_sharded_slice(prefix: str) -> dict:
         calls, flagged = int(m.group(1)), int(m.group(2))
         if path == "resident":
             need = {"sharded_seed_scan": calls, "sharded_sa_walk": calls if mode == "sampled" else 0,
-                    "sharded_occ4": 0, "sharded_scan_step": 0, "sharded_inv_psi": 0}
+                    "sharded_occ4": 0, "sharded_fused_step": 0, "sharded_inv_psi": 0}
             bad = {k: launches[k] for k, v in need.items() if launches[k] != v}
             if bad or launches["resolve_pack"] == 0 or (mode == "full") != (
                     launches["sharded_gather"] > 0):
@@ -2548,9 +2592,11 @@ def phase_sharded_slice(prefix: str) -> dict:
                                      f" resolve_pack and the full-SA gather in the full runs only")
         else:
             need = STEP_KERNELS + ("sharded_gather", "resolve_pack")
-            if any(launches[k] == 0 for k in need) or any(launches[k] for k in RESIDENT_KERNELS):
+            if any(launches[k] == 0 for k in need) or any(launches[k] for k in RESIDENT_KERNELS) \
+                    or launches["sharded_occ4"] != launches["sharded_fused_step"]:
                 raise AssertionError(f"(b) {n} shards {mode} in two groups: a kernel of the"
-                                     f" cross-device path never launched, or a resident one did:"
+                                     f" cross-device path never launched, a resident one did, or"
+                                     f" a scan step was not one G1 and one fused step:"
                                      f" {launches}")
         if sam_records(out) != want:
             raise AssertionError(f"(b) {n} shards {mode} ({path}): the SAM differs from the native"
@@ -2578,7 +2624,7 @@ DP_MESHES = (("data 1, replicated, full SA", 1, 1, "full"),
              ("data x idx 2 x 2, full SA", 2, 2, "full"),
              ("data x idx 2 x 2, sampled SA", 2, 2, "sampled"))
 DP_KERNELS = ("fm_seed_scan", "resolve_pack", "sa_walk", "sharded_seed_scan", "sharded_sa_walk",
-              "sharded_occ4", "sharded_scan_step", "sharded_inv_psi", "sharded_gather",
+              "sharded_occ4", "sharded_fused_step", "sharded_inv_psi", "sharded_gather",
               "sorted_occurrences", "cluster_illumina", "pair_candidates")
 
 
@@ -2859,7 +2905,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--compare", metavar="DIR", default=None,
                     help="a checkout of another commit whose NW, FM stepper, funnel and"
                          " resolve_pack phases 1, 2 and 4, whose SensitiveMode funnel and FM"
-                         " stepper phase 7, and whose walk phase 11, time beside this one's")
+                         " stepper phase 7, whose walk phase 9, and whose cross-device scan and"
+                         " resident walk phase 11, time beside this one's")
     ap.add_argument("--phases", metavar="LIST", default=None,
                     help="run only these phases beside phase 0 and the set-up, e.g. 7,8 (a partial"
                          " run prints no kernels record and no result line, and exits 4)")
@@ -2941,13 +2988,13 @@ def main(argv: list[str] | None = None) -> int:
     if want(8):
         pb_launches = phase_pacbio_slice(prefix, pb)
     if want(9):
-        sampled = phase_sampled_kernels(gidx, pb, fm["l2_ns"])
+        sampled = phase_sampled_kernels(gidx, pb, fm["l2_ns"], other)
         sampled_launches = phase_sampled_slice(
             prefix, pb, os.path.join(DATA, "dev.sam") if want(6) else None)
     if want(10):
         phase_tools(gidx, prefix)
     if want(11):
-        sharded = phase_sharded_kernels(gidx, fm["l2_ns"], other, other_si)
+        sharded = phase_sharded_kernels(gidx, fm["l2_ns"], other_si)
         sharded_slice = phase_sharded_slice(prefix)
     if want(12):
         dp = phase_dp(gidx)
@@ -2961,7 +3008,7 @@ def main(argv: list[str] | None = None) -> int:
 
     def entry(name, source, replaces, n_launches, r, library_ms=None):
         # shape, reseed_layout: what a record's times refer to, where phase lines alone do not say
-        extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms", "chain_steps",
+        extra = {k: r[k] for k in ("shape", "reseed_layout", "chain_ms", "chain_steps", "ns_a_step",
                                    "design_chain_ms", "per_call_ms",
                                    "slab_paths", "int64", "resolve_pack_sampled_ms",
                                    "resolve_pack_int64_ms", "resolve_pack_full_ms",
@@ -3020,9 +3067,10 @@ def main(argv: list[str] | None = None) -> int:
         entry("sharded_occ4", "sharded_fm.cu",
               "kart_tpu/parallel/sharded_index.py:115 and kart_tpu/parallel/sharded_index.py:138",
               sharded_slice["total"]["sharded_occ4"], sharded["sharded_occ4"]),
-        entry("sharded_scan_step", "sharded_fm.cu",
-              "kart_tpu/parallel/sharded_index.py:230 (kart_tpu/ops/fm_search.py:165's step)",
-              sharded_slice["total"]["sharded_scan_step"], sharded["sharded_scan_step"]),
+        entry("sharded_fused_step", "sharded_fm.cu",
+              "kart_tpu/parallel/sharded_index.py:230 (kart_tpu/ops/fm_search.py:165's step) with"
+              " kart_tpu/parallel/sharded_index.py:138",
+              sharded_slice["total"]["sharded_fused_step"], sharded["sharded_fused_step"]),
         entry("sharded_inv_psi", "sharded_fm.cu",
               "kart_tpu/parallel/sharded_index.py:159 and kart_tpu/parallel/sharded_index.py:189",
               sharded_slice["total"]["sharded_inv_psi"], sharded["sharded_inv_psi"]),

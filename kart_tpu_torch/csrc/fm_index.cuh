@@ -5,8 +5,8 @@
 // the sampled SA holds, then that position plus the steps taken.
 // fm_seed_scan.cu reads the checkpoint rows; sa_walk.cu walks rows;
 // sharded_fm.cu takes inverse-Psi steps and occ4 through the shard table.  T
-// is the index type: int below 2**31 text bases, long long above; the int
-// instance of the walk does no 64-bit arithmetic but pointer offsets.
+// is the index type: int below 2**31 text bases, long long above; block
+// numbers are 32-bit in both accessors.
 //
 // Where a block lies is an accessor's business (template parameter Ix):
 // FlatIndex, the replicated index (one array of checkpoint rows, one of BWT
@@ -18,12 +18,24 @@
 //
 // One step of the walk is one round of independent loads: the row's
 // 128-base BWT block (eight words, one 32-byte sector) and its checkpoint
-// row of four counts.  The block's word at the row gives the base c =
-// bwt_char(row); occ(row, c) is the checkpoint's count of c plus the c's
-// among the block's bases up to the row, counted with one popcount a word.
-// So a walk of n steps is a chain of n dependent loads, which hit L2 at the
-// sizes the port maps.  Through the shard table a step first picks the
-// owner (an integer division and a read of the table in shared memory).
+// row of four counts, then the next row: c = bwt_char(row) from the block's
+// word at the row, and occ(row, c), the checkpoint's count of c plus the
+// c's among the block's bases up to the row.  A walk of n steps is a chain
+// of n such rounds, which hit L2 at the sizes the port maps, and a long
+// walk's tail is one thread whose warp issues in order: what a step costs
+// beyond its load is the instructions from the loads' first use to the next
+// row's address.  clock64 stamps (tools/stamp_walk.py, csrc/stamp_walk.cu)
+// set the step's design (inv_psi_at): no branch on the loaded values, since
+// the compiler had sunk the checkpoint's load into the branch of k !=
+// primary (two round trips a step); c from a tree of three selects; the
+// words muxed a pair at a time into their bases' low and high bits beside
+// it; c's bases two LOP3s and one popcount a pair.  That took fewer
+// instructions after the loads than the first design's chain of seven
+// selects and eight popcounts that wait for c, than c first with one
+// popcount a pair of words and a mask a word, and than counting all four
+// codes beside c (occ4_words' twelve popcounts).  Through the shard table a
+// step first picks the owner (a multiply by a reciprocal and a read of the
+// table in shared memory).
 
 #pragma once
 
@@ -75,7 +87,8 @@ struct BlockRef {
   const uint4* bwt4;
 };
 
-// The replicated index: block b at offset b of each array.
+// The replicated index: block b at offset b of each array.  Block numbers
+// are 32-bit (kernels.py refuses an index of 2**39 text rows or more).
 template <typename T>
 struct FlatIndex {
   const typename CpRow<T>::type* occ_cp;  // (n_blocks,) checkpoint rows
@@ -85,8 +98,8 @@ struct FlatIndex {
   static __host__ __device__ size_t smem_bytes(int) { return 0; }
   __device__ __forceinline__ int* stage(int* smem) { return smem; }
   __device__ __forceinline__ BlockRef<T> block(T kk) const {
-    const size_t b = static_cast<size_t>(kk >> 7);
-    return {occ_cp + b, bwt4 + 2 * b};
+    const unsigned b = static_cast<unsigned>(kk >> 7);
+    return {occ_cp + b, bwt4 + 2 * static_cast<size_t>(b)};
   }
   __device__ __forceinline__ T sample(T k) const {
     return __ldg(sa_samples + static_cast<size_t>(k >> kSaIntvLog2));
@@ -105,15 +118,24 @@ struct ShardSlabs {
 // The block-sharded index through its shard table: block b lies in shard
 // b / nb_local, at b % nb_local of its slab; the sample of row k in shard
 // (k >> 5) / nsamp_local.  Block numbers and sample rows are taken as 32-bit
-// (the wrappers refuse an index of 2**37 text bases or more).  A kernel
-// first copies the table into shared memory (stage, which every thread of
-// the block calls before any returns), so the owner's pointers are one
-// shared-memory read away.
+// (the wrappers refuse an index of 2**37 text bases or more).  The block's
+// owner, on every step's dependent path, is a multiply by a reciprocal
+// (set_blocks) rather than a division: for a 32-bit b and d >= 2, b * ceil(
+// 2**64 / d) >> 64 is b / d exactly (the error term b * (ceil(2**64 / d) *
+// d - 2**64) stays below 2**64).  A kernel first copies the table into
+// shared memory (stage, which every thread of the block calls before any
+// returns), so the owner's pointers are one shared-memory read away.
 template <typename T>
 struct ShardedIndex {
   const ShardSlabs<T>* table;  // (n_shards,): device memory, then shared memory
   int n_shards;
   unsigned nb_local, nsamp_local;
+  unsigned long long nb_recip;  // ceil(2**64 / nb_local), 0 where nb_local is 1
+
+  __host__ void set_blocks(unsigned nb) {
+    nb_local = nb;
+    nb_recip = nb > 1 ? ~0ull / nb + 1 : 0;
+  }
 
   static __host__ __device__ size_t smem_bytes(int n) {
     return (sizeof(ShardSlabs<T>) * n + 15) / 16 * 16;
@@ -125,12 +147,15 @@ struct ShardedIndex {
     table = s;
     return smem + smem_bytes(n_shards) / sizeof(int);
   }
+  __device__ __forceinline__ unsigned shard_of(unsigned b) const {
+    return nb_recip ? static_cast<unsigned>(__umul64hi(b, nb_recip)) : b;
+  }
   __device__ __forceinline__ unsigned owner(T kk) const {
-    return static_cast<unsigned>(kk >> 7) / nb_local;
+    return shard_of(static_cast<unsigned>(kk >> 7));
   }
   __device__ __forceinline__ BlockRef<T> block(T kk) const {
     const unsigned b = static_cast<unsigned>(kk >> 7);
-    const unsigned s = b / nb_local;
+    const unsigned s = shard_of(b);
     const size_t local = b - s * nb_local;
     return {table[s].occ_cp + local, table[s].bwt4 + 2 * local};
   }
@@ -162,34 +187,64 @@ __device__ __forceinline__ void load_l2(FmWalk<T, Ix>& fm, const T* __restrict__
   for (int c = 0; c < 4; ++c) fm.l2[c] = __ldg(L2 + c);
 }
 
-// bwt_invPsi(k) from the block b that holds kk, k less the primary shift;
-// row `primary` maps to row 0.
+// A block as one step reads it: its checkpoint row and its eight BWT words.
+template <typename T>
+struct Block {
+  typename CpRow<T>::type cp;
+  uint4 a, b;
+};
+
+template <typename T>
+__device__ __forceinline__ Block<T> load_block(BlockRef<T> r) {
+  return {load_cp(r.cp, 0), __ldg(r.bwt4), __ldg(r.bwt4 + 1)};
+}
+
+// The word that holds bases jk * 16.. of a block's eight: a tree of selects.
+__device__ __forceinline__ unsigned word_at(const unsigned (&w)[8], int jk) {
+  const unsigned u01 = (jk & 1) ? w[1] : w[0], u23 = (jk & 1) ? w[3] : w[2];
+  const unsigned u45 = (jk & 1) ? w[5] : w[4], u67 = (jk & 1) ? w[7] : w[6];
+  const unsigned u03 = (jk & 2) ? u23 : u01, u47 = (jk & 2) ? u67 : u45;
+  return (jk & 4) ? u47 : u03;
+}
+
+// The masks of a block's bases up to the one at `low` (0..127), a pair of
+// words a mask: word 2p's bases at the even bits, word 2p+1's at the odd.
+__device__ __forceinline__ void pair_masks(int low, unsigned (&mp)[4]) {
+  const int jk = low >> 4, jp = jk >> 1;
+  const unsigned part = ~((1u << ((~low & 0xF) << 1)) - 1u) & kM55;
+  const unsigned pm = (jk & 1) ? (kM55 | (part << 1)) : part;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) mp[p] = p < jp ? ~0u : p == jp ? pm : 0u;
+}
+
+// bwt_invPsi(k) from the loaded block d that holds kk, k less the primary
+// shift; row `primary` maps to row 0.  Each pair of words is muxed into
+// its bases' low bits and high bits (independent of c, so beside c's
+// select); then c's bases of a pair are two LOP3s and a popcount under the
+// pair's mask.  Row `primary` is cleared by an AND, not a branch, so every
+// load of the step is needed on every path.
 template <typename T, typename Ix>
-__device__ __forceinline__ T inv_psi_at(const FmWalk<T, Ix>& fm, T k, T kk, BlockRef<T> blk) {
-  const typename CpRow<T>::type cp = load_cp(blk.cp, 0);
-  const uint4 a = __ldg(blk.bwt4), b = __ldg(blk.bwt4 + 1);
-  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+__device__ __forceinline__ T inv_psi_at(const FmWalk<T, Ix>& fm, T k, T kk, const Block<T>& d) {
+  const unsigned w[8] = {d.a.x, d.a.y, d.a.z, d.a.w, d.b.x, d.b.y, d.b.z, d.b.w};
   const int low = static_cast<int>(kk & 0x7F);
   const int jk = low >> 4;
-  const int shift = (~low & 0xF) << 1;
-  unsigned wk = w[0];
+  unsigned mp[4];
+  pair_masks(low, mp);
+  const T b0 = fm.l2[0] + d.cp.x, b1 = fm.l2[1] + d.cp.y, b2 = fm.l2[2] + d.cp.z,
+          b3 = fm.l2[3] + d.cp.w;
+  unsigned lo[4], hi[4];
 #pragma unroll
-  for (int j = 1; j < 8; ++j) wk = j == jk ? w[j] : wk;
-  const int c = (wk >> shift) & 3;
-  // the block's bases up to kk that are c: one bit a base at the low bit of
-  // its pair, the bases past kk masked off
-  const unsigned part = ~((1u << shift) - 1u) & kM55;
+  for (int q = 0; q < 4; ++q) {
+    lo[q] = (w[2 * q] & kM55) | ((w[2 * q + 1] << 1) & ~kM55);
+    hi[q] = ((w[2 * q] >> 1) & kM55) | (w[2 * q + 1] & ~kM55);
+  }
+  const int c = (word_at(w, jk) >> ((~low & 0xF) << 1)) & 3;
+  // all ones where c's low (high) bit is 0: the bases whose bit differs
+  const unsigned x0 = (c & 1) - 1u, x1 = ((c >> 1) & 1) - 1u;
   int n = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const unsigned m = j < jk ? kM55 : j == jk ? part : 0u;
-    const unsigned lo = (c & 1) ? w[j] : ~w[j];
-    const unsigned hi = (c & 2) ? w[j] >> 1 : ~(w[j] >> 1);
-    n += __popc(lo & hi & m);
-  }
-  const T nk = pick4(c, fm.l2[0], fm.l2[1], fm.l2[2], fm.l2[3]) + pick4(c, cp.x, cp.y, cp.z, cp.w) +
-               n;
-  return k == fm.primary ? T(0) : nk;
+  for (int q = 0; q < 4; ++q) n += __popc((lo[q] ^ x0) & (hi[q] ^ x1) & mp[q]);
+  return (pick4(c, b0, b1, b2, b3) + n) & -static_cast<T>(k != fm.primary);
 }
 
 // bwt_invPsi(k): the row of the text position before row k's; row `primary`
@@ -199,7 +254,7 @@ __device__ __forceinline__ T inv_psi_row(const FmWalk<T, Ix>& fm, T k) {
   // occ4 counts up to kk; bwt_char reads row x = k - (k > primary), which is
   // kk wherever k != primary (and row primary maps to 0 whatever it reads)
   const T kk = k - (k >= fm.primary ? 1 : 0);
-  return inv_psi_at(fm, k, kk, fm.ix.block(kk));
+  return inv_psi_at(fm, k, kk, load_block(fm.ix.block(kk)));
 }
 
 // occ4(kk) from the block's checkpoint row and its eight BWT words, all in

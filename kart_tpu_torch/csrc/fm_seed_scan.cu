@@ -439,7 +439,7 @@ int sharded_seed_scan(const void* table, int n_shards, long long nb_local, const
   ShardedIndex<T> ix;
   ix.table = static_cast<const ShardSlabs<T>*>(table);
   ix.n_shards = n_shards;
-  ix.nb_local = static_cast<unsigned>(nb_local);
+  ix.set_blocks(static_cast<unsigned>(nb_local));
   ix.nsamp_local = 1;  // the scan reads no sample
   return launch_seed_scan<T>(ix, n_shards, L2, primary, reads, rlens, B, l_max, min_seed_len,
                              max_seeds, out, stream);

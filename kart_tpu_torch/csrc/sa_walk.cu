@@ -18,11 +18,12 @@
 // One thread a row walks it alone (fm_index.cuh); no row waits for another.
 // What bounds it on this card: a chain of dependent loads, not bytes.  A
 // walk's length is geometric with mean 32, so the slowest of H rows takes
-// about 32 ln H steps (some 370 at H = 96,000), each a load that hits L2;
-// the launch puts every row in flight at once (a 96,000-row list is 750
-// blocks of 128, under six an SM), so the time is about the longest walk's.
-// Through the shard table a step adds the owner's division and a read of
-// shared memory to the chain.
+// about 32 ln H steps (some 370 at H = 96,000), each a load that hits L2
+// and the step's instructions after it (fm_index.cuh's inv_psi_at); the
+// launch puts every row in flight at once (a 96,000-row list is 750 blocks
+// of 128, under six an SM), so the time is about the longest walk's, its
+// first steps slowed by every other row's loads.  Through the shard table
+// a step adds the owner's reciprocal multiply and a read of shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,7 +83,7 @@ int sharded_walk(const void* table, int n_shards, long long nb_local, long long 
   ShardedIndex<T> ix;
   ix.table = static_cast<const ShardSlabs<T>*>(table);
   ix.n_shards = n_shards;
-  ix.nb_local = static_cast<unsigned>(nb_local);
+  ix.set_blocks(static_cast<unsigned>(nb_local));
   ix.nsamp_local = static_cast<unsigned>(nsamp_local);
   return launch_sa_walk<T>(ix, n_shards, L2, primary, rows, n, max_steps, pos, done, stream);
 }

@@ -3,19 +3,22 @@
 //
 // Replaces kart_tpu/parallel/sharded_index.py: sharded_occ4_batch and
 // sharded_occ4_pair (G1), the step of sharded_seed_scan, seed_scan_impl's
-// body over the combined counts (G2), sharded_inv_psi_batch, the step of
-// sharded_sa_walk (G3), and sharded_sa_gather with the walk's sample gather
-// (G4).  kart_tpu ran each as a masked local lookup on every member of an
-// `idx` mesh axis followed by a psum.  Here the shards' slabs are tensors on
-// their devices.  Where one device holds every shard, the whole scan and the
-// whole walk are one launch each (fm_seed_scan.cu's and sa_walk.cu's loops
-// through the shard table); the kernels here serve shards spread over
-// several devices, where the host steps: one G1 launch a device a step, the
-// sum of the devices' counts on the first device, one G2 launch; the walk
-// likewise with G3.  Exactly one shard owns each query, so the sum is exact.
-// The plain PyTorch versions are sharded_index.py's table_occ4_plain,
-// table_inv_psi_plain, shard_gather_plain and ops/fm_search.py::
-// seed_scan_step_plain.
+// body over the combined counts (G2, fused with the stepping device's G1),
+// sharded_inv_psi_batch, the step of sharded_sa_walk (G3), and
+// sharded_sa_gather with the walk's sample gather (G4).  kart_tpu ran each
+// as a masked local lookup on every member of an `idx` mesh axis followed
+// by a psum.  Here the shards' slabs are tensors on their devices.  Where
+// one device holds every shard, the whole scan and the whole walk are one
+// launch each (fm_seed_scan.cu's and sa_walk.cu's loops through the shard
+// table); the kernels here serve shards spread over
+// several devices, where the host steps: a scan step is one G1 launch on
+// every other device and one fused step on the first (its own shards'
+// counts, the others' parts, the step); the walk one G3 launch a device a
+// step, summed on the first.  Exactly one shard owns each query, so the sum
+// is exact.  The plain PyTorch versions are sharded_index.py's
+// table_occ4_plain, fused_step_plain (table_occ4_plain, the parts' sum and
+// ops/fm_search.py::seed_scan_step_plain), table_inv_psi_plain and
+// shard_gather_plain.
 //
 // The shard table (fm_index.cuh's ShardedIndex) has a row for every shard
 // of the index: the pointers of its slabs where it lies on the launching
@@ -31,13 +34,17 @@
 //                           if the table holds it, else zeros; a scan step
 //                           asks for both interval ends of every lane in one
 //                           launch of 2B rows.
-//   sharded_scan_step_kernel a thread a lane: one FastMode step from the
-//                           combined counts (the branch-for-branch twin of
-//                           seed_scan_step_plain): records a seed that ended,
-//                           starts or extends the interval, and writes the
-//                           next step's pair of rows.  The state goes from
-//                           one buffer to another, so a launch on the same
-//                           inputs writes the same outputs.
+//   sharded_fused_step_kernel a thread a lane: occ4 of both of its rows
+//                           from the launching device's shards (G1's body),
+//                           plus the other devices' parts, read through a
+//                           device array of pointers, then one FastMode step
+//                           from the summed counts (the branch-for-branch
+//                           twin of seed_scan_step_plain): records a seed
+//                           that ended, starts or extends the interval, and
+//                           writes the next step's pair of rows.  The state
+//                           goes from one buffer to another (the caller
+//                           swaps two), so a launch on the same inputs
+//                           writes the same outputs.
 //   sharded_inv_psi_kernel  a thread a row k: a row at a sample (k % 32 ==
 //                           0) stays, else bwt_invPsi(k), from the owner's
 //                           block (the BWT char at x = k - (k > primary) lies
@@ -49,12 +56,13 @@
 //                           shard owns it, else 0 (shift 0 for the full SA,
 //                           5 for the sample at a cross-device walk's end).
 //
-// What bounds them on this card: dependent loads, not bytes.  A cross-device
-// scan is l_max + 1 rounds of (a G1 launch a device, the sum, G2), each
-// round's rows depending on the round before; a G1 row is the table read,
-// then two independent loads (a 16- or 32-byte checkpoint row and a 32-byte
-// block), so a round costs the latency of a few launches and one load that
-// hits L2.  The walk is the same with one G3 launch a device a step.
+// What bounds them on this card: dependent loads, not bytes, and above all
+// the host's launches.  A cross-device scan is l_max + 1 rounds of (a G1
+// launch on each other device, the fused step), each round's rows depending
+// on the round before; a lane's occ4 is the table read, then two
+// independent loads (a 16- or 32-byte checkpoint row and a 32-byte block),
+// so a round costs the latency of N launches for N devices and one load
+// that hits L2.  The walk is one G3 launch a device a step and the sum.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,6 +76,20 @@ constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long long n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
+// occ4 of row kq from its owner's block where the table holds the owner,
+// else zeros (G1's body).
+template <typename T>
+__device__ __forceinline__ typename CpRow<T>::type table_occ4(const ShardedIndex<T>& ix, T primary,
+                                                             T kq) {
+  const T kk = kq - (kq >= primary ? 1 : 0);
+  typename CpRow<T>::type r = {0, 0, 0, 0};
+  if (ix.holds(kk)) {
+    const BlockRef<T> b = ix.block(kk);
+    r = occ4_words(load_cp(b.cp, 0), __ldg(b.bwt4), __ldg(b.bwt4 + 1), kk);
+  }
+  return r;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sharded_occ4_kernel(ShardedIndex<T> ix, T primary, const T* __restrict__ k, int n,
@@ -76,13 +98,7 @@ sharded_occ4_kernel(ShardedIndex<T> ix, T primary, const T* __restrict__ k, int 
   ix.stage(smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const T kq = __ldg(k + i);
-  const T kk = kq - (kq >= primary ? 1 : 0);
-  typename CpRow<T>::type r = {0, 0, 0, 0};
-  if (ix.holds(kk)) {
-    const BlockRef<T> b = ix.block(kk);
-    r = occ4_words(load_cp(b.cp, 0), __ldg(b.bwt4), __ldg(b.bwt4 + 1), kk);
-  }
+  const typename CpRow<T>::type r = table_occ4(ix, primary, __ldg(k + i));
   T* o = out + 4 * static_cast<size_t>(i);
   o[0] = r.x;
   o[1] = r.y;
@@ -94,14 +110,29 @@ sharded_occ4_kernel(ShardedIndex<T> ix, T primary, const T* __restrict__ k, int 
 // active; tst (3, B) of the index type = x0, x1, x2.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sharded_scan_step_kernel(const T* __restrict__ cnt, const int* __restrict__ codes_t,
-                         const int* __restrict__ rlens, const T* __restrict__ L2, T primary, int B,
-                         int l_max, int p, int min_seed_len, int max_seeds,
-                         const int* __restrict__ ist, const T* __restrict__ tst,
-                         int* __restrict__ ist_out, T* __restrict__ tst_out, T* __restrict__ out,
-                         T* __restrict__ k_next) {
+sharded_fused_step_kernel(ShardedIndex<T> ix, const T* const* __restrict__ parts, int n_parts,
+                          const T* __restrict__ k, const int* __restrict__ codes_t,
+                          const int* __restrict__ rlens, const T* __restrict__ L2, T primary,
+                          int B, int l_max, int p, int min_seed_len, int max_seeds,
+                          const int* __restrict__ ist, const T* __restrict__ tst,
+                          int* __restrict__ ist_out, T* __restrict__ tst_out, T* __restrict__ out,
+                          T* __restrict__ k_next) {
+  using C = typename CpRow<T>::type;
+  extern __shared__ int smem[];
+  ix.stage(smem);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  // the counts at both ends of the lane's interval: this device's shards,
+  // then each other device's part
+  C tk = table_occ4(ix, primary, __ldg(k + b));
+  C tl = table_occ4(ix, primary, __ldg(k + B + b));
+  for (int j = 0; j < n_parts; ++j) {
+    const C* part = reinterpret_cast<const C*>(parts[j]);
+    const C pk = load_cp(part, b), pl = load_cp(part, B + b);
+    tk.x += pk.x, tk.y += pk.y, tk.z += pk.z, tk.w += pk.w;
+    tl.x += pl.x, tl.y += pl.y, tl.z += pl.z, tl.w += pl.w;
+  }
+
   int start = ist[b], n_seeds = ist[B + b];
   bool active = ist[2 * B + b] != 0;
   T x0 = tst[b], x1 = tst[B + b], x2 = tst[2 * B + b];
@@ -112,16 +143,14 @@ sharded_scan_step_kernel(const T* __restrict__ cnt, const int* __restrict__ code
   const int cs = amb ? 3 : c;
 
   // the extension by the complement base i from the counts at both ends
-  const T* tk = cnt + 4 * static_cast<size_t>(b);
-  const T* tl = cnt + 4 * (static_cast<size_t>(B) + b);
   const int i = 3 - cs;
   const T s3 = x0 + ((x1 <= primary) && (x1 + x2 - 1 >= primary) ? 1 : 0);
-  const T s2 = s3 + (tl[3] - tk[3]);
-  const T s1 = s2 + (tl[2] - tk[2]);
-  const T s0 = s1 + (tl[1] - tk[1]);
+  const T s2 = s3 + (tl.w - tk.w);
+  const T s1 = s2 + (tl.z - tk.z);
+  const T s0 = s1 + (tl.y - tk.y);
   const T nx0 = pick4(i, s0, s1, s2, s3);
-  const T nx1 = l2[i] + 1 + tk[i];
-  const T nx2 = tl[i] - tk[i];
+  const T nx1 = pick4(i, l2[0], l2[1], l2[2], l2[3]) + 1 + pick4(i, tk.x, tk.y, tk.z, tk.w);
+  const T nx2 = pick4(i, tl.x, tl.y, tl.z, tl.w) - pick4(i, tk.x, tk.y, tk.z, tk.w);
   const bool ext_fail = amb || nx2 == 0;
 
   // a seed ends at p: recorded at slot n_seeds, dropped (and counted) past
@@ -182,7 +211,7 @@ sharded_inv_psi_kernel(FmWalk<T, ShardedIndex<T>> fm, const T* __restrict__ L2,
       v = kq;
     } else {
       load_l2(f, L2);
-      v = inv_psi_at(f, kq, kk, f.ix.block(kk));
+      v = inv_psi_at(f, kq, kk, load_block(f.ix.block(kk)));
     }
   }
   out[i] = v;
@@ -203,7 +232,7 @@ ShardedIndex<T> table_index(const void* table, int n_shards, long long nb_local)
   ShardedIndex<T> ix;
   ix.table = static_cast<const ShardSlabs<T>*>(table);
   ix.n_shards = n_shards;
-  ix.nb_local = static_cast<unsigned>(nb_local);
+  ix.set_blocks(static_cast<unsigned>(nb_local));
   ix.nsamp_local = 1;  // the step kernels read no sample
   return ix;
 }
@@ -221,17 +250,20 @@ int launch_occ4(const void* table, int n_shards, long long nb_local, long long p
 }
 
 template <typename T>
-int launch_scan_step(const void* cnt, const void* codes_t, const void* rlens, const void* L2,
-                     long long primary, int B, int l_max, int p, int min_seed_len, int max_seeds,
-                     const void* ist, const void* tst, void* ist_out, void* tst_out, void* out,
-                     void* k_next, void* stream) {
+int launch_fused_step(const void* table, int n_shards, long long nb_local, const void* parts,
+                      int n_parts, const void* k, const void* codes_t, const void* rlens,
+                      const void* L2, long long primary, int B, int l_max, int p,
+                      int min_seed_len, int max_seeds, const void* ist, const void* tst,
+                      void* ist_out, void* tst_out, void* out, void* k_next, void* stream) {
   if (B <= 0) return 0;
-  sharded_scan_step_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(cnt), static_cast<const int*>(codes_t),
-      static_cast<const int*>(rlens), static_cast<const T*>(L2), static_cast<T>(primary), B,
-      l_max, p, min_seed_len, max_seeds, static_cast<const int*>(ist),
-      static_cast<const T*>(tst), static_cast<int*>(ist_out), static_cast<T*>(tst_out),
-      static_cast<T*>(out), static_cast<T*>(k_next));
+  const size_t smem = ShardedIndex<T>::smem_bytes(n_shards);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  sharded_fused_step_kernel<T><<<blocks_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      table_index<T>(table, n_shards, nb_local), static_cast<const T* const*>(parts), n_parts,
+      static_cast<const T*>(k), static_cast<const int*>(codes_t), static_cast<const int*>(rlens),
+      static_cast<const T*>(L2), static_cast<T>(primary), B, l_max, p, min_seed_len, max_seeds,
+      static_cast<const int*>(ist), static_cast<const T*>(tst), static_cast<int*>(ist_out),
+      static_cast<T*>(tst_out), static_cast<T*>(out), static_cast<T*>(k_next));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -281,27 +313,36 @@ extern "C" int kart_sharded_occ4_i64(const void* table, int n_shards, long long 
   return launch_occ4<long long>(table, n_shards, nb_local, primary, k, n, out, stream);
 }
 
-//   cnt (2B, 4) T: the combined counts of the rows ka (lanes 0..B-1) and kb;
-//   codes_t (l_max, B) int32 read codes (>3 ambiguous), rlens (B,) int32, L2
-//   (5,) T; ist, ist_out (3, B) int32 and tst, tst_out (3, B) T the state
-//   before and after step p; out (B, 1 + 4*max_seeds) T the packed seeds,
-//   zero before step 0; k_next (2B,) T the next step's rows.
-extern "C" int kart_sharded_scan_step(const void* cnt, const void* codes_t, const void* rlens,
-                                      const void* L2, int primary, int B, int l_max, int p,
-                                      int min_seed_len, int max_seeds, const void* ist,
-                                      const void* tst, void* ist_out, void* tst_out, void* out,
-                                      void* k_next, void* stream) {
-  return launch_scan_step<int>(cnt, codes_t, rlens, L2, primary, B, l_max, p, min_seed_len,
-                               max_seeds, ist, tst, ist_out, tst_out, out, k_next, stream);
+//   table as kart_sharded_occ4's (this device's shards); parts (n_parts,)
+//   device pointers, each (2B, 4) T: another device's occ4 of the rows k,
+//   on this device (null where n_parts is 0); k (2B,) T the rows ka (lanes
+//   0..B-1) and kb of step p; codes_t (l_max, B) int32 read codes (>3
+//   ambiguous), rlens (B,) int32, L2 (5,) T; ist, ist_out (3, B) int32 and
+//   tst, tst_out (3, B) T the state before and after step p; out (B, 1 +
+//   4*max_seeds) T the packed seeds, zero before step 0; k_next (2B,) T the
+//   next step's rows.
+extern "C" int kart_sharded_fused_step(const void* table, int n_shards, long long nb_local,
+                                       const void* parts, int n_parts, const void* k,
+                                       const void* codes_t, const void* rlens, const void* L2,
+                                       int primary, int B, int l_max, int p, int min_seed_len,
+                                       int max_seeds, const void* ist, const void* tst,
+                                       void* ist_out, void* tst_out, void* out, void* k_next,
+                                       void* stream) {
+  return launch_fused_step<int>(table, n_shards, nb_local, parts, n_parts, k, codes_t, rlens, L2,
+                                primary, B, l_max, p, min_seed_len, max_seeds, ist, tst, ist_out,
+                                tst_out, out, k_next, stream);
 }
 
-extern "C" int kart_sharded_scan_step_i64(const void* cnt, const void* codes_t, const void* rlens,
-                                          const void* L2, long long primary, int B, int l_max,
-                                          int p, int min_seed_len, int max_seeds, const void* ist,
-                                          const void* tst, void* ist_out, void* tst_out,
-                                          void* out, void* k_next, void* stream) {
-  return launch_scan_step<long long>(cnt, codes_t, rlens, L2, primary, B, l_max, p, min_seed_len,
-                                     max_seeds, ist, tst, ist_out, tst_out, out, k_next, stream);
+extern "C" int kart_sharded_fused_step_i64(const void* table, int n_shards, long long nb_local,
+                                           const void* parts, int n_parts, const void* k,
+                                           const void* codes_t, const void* rlens, const void* L2,
+                                           long long primary, int B, int l_max, int p,
+                                           int min_seed_len, int max_seeds, const void* ist,
+                                           const void* tst, void* ist_out, void* tst_out,
+                                           void* out, void* k_next, void* stream) {
+  return launch_fused_step<long long>(table, n_shards, nb_local, parts, n_parts, k, codes_t,
+                                      rlens, L2, primary, B, l_max, p, min_seed_len, max_seeds,
+                                      ist, tst, ist_out, tst_out, out, k_next, stream);
 }
 
 //   table as kart_sharded_occ4's, L2 (5,) T; k, out (n,) T; add (n,) int32

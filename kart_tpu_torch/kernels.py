@@ -118,8 +118,8 @@ def _load():
             fn = getattr(lib, "kart_sharded_occ4" + name)
             fn.argtypes = [p, i, ll, prim, p, i, p, p]
             fn.restype = i
-            fn = getattr(lib, "kart_sharded_scan_step" + name)
-            fn.argtypes = [p, p, p, p, prim, i, i, i, i, i, p, p, p, p, p, p, p]
+            fn = getattr(lib, "kart_sharded_fused_step" + name)
+            fn.argtypes = [p, i, ll, p, i, p, p, p, p, prim, i, i, i, i, i, p, p, p, p, p, p, p]
             fn.restype = i
             fn = getattr(lib, "kart_sharded_inv_psi" + name)
             fn.argtypes = [p, i, ll, p, prim, p, i, p, p, p]
@@ -179,12 +179,18 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
+# block numbers are 32-bit in fm_index.cuh's FlatIndex
+FLAT_MAX_TEXT = 1 << 39
+
+
 def _check_fm(fm, dev) -> tuple[torch.dtype, str]:
     """Check an FMIndexTensors on the card; returns its index dtype and the
     suffix of the C entries of that type ("" for int32, "_i64")."""
     idt = fm.index_dtype
     if idt not in (torch.int32, torch.int64):
         raise TypeError(f"FM index: expected an int32 or int64 index, got {idt}")
+    if fm.seq_len >= FLAT_MAX_TEXT:
+        raise ValueError(f"FM index: {fm.seq_len} text rows, the kernels take fewer than 2**39")
     n_blocks = fm.occ_cp.numel() // 4
     _check("occ_cp", fm.occ_cp, idt, (4 * n_blocks,), dev, align=16)
     _check("bwt_words", fm.bwt_words, torch.int32, (8 * n_blocks,), dev, align=16)
@@ -779,16 +785,19 @@ def sharded_sa_walk(table, nb_local: int, nsamp_local: int, L2, primary: int, se
 sharded_sa_walk.launches = 0
 
 
-def sharded_occ4(table, nb_local: int, L2, primary: int, seq_len: int, k):
+def sharded_occ4(table, nb_local: int, L2, primary: int, seq_len: int, k, out=None):
     """csrc/sharded_fm.cu (G1): (n, 4) occ4 counts of the rows k (n,) on the
     card from the owners' blocks that the shard table (as sharded_seed_scan's,
     null rows for the shards on other devices) holds, zeros for the other
-    rows.  One launch answers for every shard of the device."""
+    rows, into `out` where given.  One launch answers for every shard of the
+    device."""
     dev = k.device
     n = k.shape[0]
     idt, sfx = _check_table(table, L2, seq_len, dev)
     _check("k", k, idt, (n,), dev)
-    out = torch.empty((n, 4), dtype=idt, device=dev)
+    if out is None:
+        out = torch.empty((n, 4), dtype=idt, device=dev)
+    _check("out", out, idt, (n, 4), dev)
     if n == 0:
         return out
     lib = _load()
@@ -804,44 +813,65 @@ def sharded_occ4(table, nb_local: int, L2, primary: int, seq_len: int, k):
 sharded_occ4.launches = 0
 
 
-def sharded_scan_step(p: int, cnt, codes_t, rlens, L2, primary: int, min_seed_len: int,
-                      max_seeds: int, state, out):
-    """csrc/sharded_fm.cu (G2): one FastMode step of every lane on the card,
-    with ops/fm_search.py::seed_scan_step_plain's arguments and result: cnt
-    (2B, 4) the combined counts of the lanes' rows, codes_t (l_max, B) int32,
-    rlens (B,) int32, L2 (5,), state (ist (3, B) int32, tst (3, B)), out (B, 1
-    + 4*max_seeds) written in place.  Returns the new state and the next
-    step's rows (2B,)."""
+def part_pointers(parts) -> torch.Tensor | None:
+    """The device array of the parts' data pointers that sharded_fused_step
+    reads them through: (len(parts),) int64 on their device, its `ptrs` the
+    pointers it holds (the wrapper checks them against the parts it is
+    given).  Made once for buffers that a loop reuses."""
+    if not parts:
+        return None
+    ptrs = tuple(t.data_ptr() for t in parts)
+    arr = torch.tensor(ptrs, dtype=torch.int64).to(parts[0].device)
+    arr.ptrs = ptrs
+    return arr
+
+
+def sharded_fused_step(table, nb_local: int, L2, primary: int, seq_len: int, k, parts, part_ptrs,
+                       p: int, codes_t, rlens, min_seed_len: int, max_seeds: int, state,
+                       state_out, out, k_next) -> None:
+    """csrc/sharded_fm.cu (G2 fused with this device's G1): one FastMode step
+    of every lane on the card: occ4 of the rows k (2B,) through the shard
+    table of this device's shards (as sharded_occ4's), plus `parts`, the
+    other devices' occ4 of k moved here ((2B, 4) each, read through
+    part_ptrs, `part_pointers` of them, or None where there are none), then
+    ops/fm_search.py::seed_scan_step_plain's step on the sums: codes_t
+    (l_max, B) int32, rlens (B,) int32, state (ist (3, B) int32, tst (3,
+    B)) in, state_out the same out (another pair of buffers), out (B, 1 +
+    4*max_seeds) written in place, k_next (2B,) the next step's rows."""
     ist, tst = state
-    dev = cnt.device
+    dev = k.device
     B = ist.shape[1]
     l_max = codes_t.shape[0]
-    sfx = _index_sfx(L2)
-    idt = L2.dtype
-    _check("cnt", cnt, idt, (2 * B, 4), dev)
+    idt, sfx = _check_table(table, L2, seq_len, dev)
+    _check("k", k, idt, (2 * B,), dev)
+    for j, part in enumerate(parts):
+        _check(f"parts[{j}]", part, idt, (2 * B, 4), dev, align=16)
+    if parts and getattr(part_ptrs, "ptrs", None) != tuple(t.data_ptr() for t in parts):
+        raise ValueError("sharded_fused_step: part_ptrs is not part_pointers(parts)")
     _check("codes_t", codes_t, torch.int32, (l_max, B), dev)
     _check("rlens", rlens, torch.int32, (B,), dev)
-    _check("L2", L2, idt, (5,), dev)
     _check("ist", ist, torch.int32, (3, B), dev)
     _check("tst", tst, idt, (3, B), dev)
+    _check("ist_out", state_out[0], torch.int32, (3, B), dev)
+    _check("tst_out", state_out[1], idt, (3, B), dev)
     _check("out", out, idt, (B, 1 + 4 * max_seeds), dev)
-    ist_out, tst_out = torch.empty_like(ist), torch.empty_like(tst)
-    k_next = torch.empty((2 * B,), dtype=idt, device=dev)
+    _check("k_next", k_next, idt, (2 * B,), dev)
     if B == 0:
-        return (ist_out, tst_out), k_next
+        return
     lib = _load()
     with torch.cuda.device(dev):
-        rc = getattr(lib, "kart_sharded_scan_step" + sfx)(
-            cnt.data_ptr(), codes_t.data_ptr(), rlens.data_ptr(), L2.data_ptr(), int(primary), B,
-            l_max, int(p), int(min_seed_len), int(max_seeds), ist.data_ptr(), tst.data_ptr(),
-            ist_out.data_ptr(), tst_out.data_ptr(), out.data_ptr(), k_next.data_ptr(),
+        rc = getattr(lib, "kart_sharded_fused_step" + sfx)(
+            table.data_ptr(), table.shape[0], int(nb_local),
+            part_ptrs.data_ptr() if parts else None, len(parts), k.data_ptr(),
+            codes_t.data_ptr(), rlens.data_ptr(), L2.data_ptr(), int(primary), B, l_max, int(p),
+            int(min_seed_len), int(max_seeds), ist.data_ptr(), tst.data_ptr(),
+            state_out[0].data_ptr(), state_out[1].data_ptr(), out.data_ptr(), k_next.data_ptr(),
             _stream(dev))
-    _raise_on(rc, "sharded_scan_step")
-    _count(sharded_scan_step)
-    return (ist_out, tst_out), k_next
+    _raise_on(rc, "sharded_fused_step")
+    _count(sharded_fused_step)
 
 
-sharded_scan_step.launches = 0
+sharded_fused_step.launches = 0
 
 
 def sharded_inv_psi(table, nb_local: int, L2, primary: int, seq_len: int, k, add=None):

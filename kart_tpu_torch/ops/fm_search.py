@@ -9,9 +9,9 @@ through the sampled SA.  On CPU tensors they run the plain PyTorch versions
 below; on CUDA tensors they launch the hand-written kernels of
 `csrc/fm_seed_scan.cu` (kernels.fm_seed_scan, kernels.fm_sensitive_scan)
 and `csrc/sa_walk.cu` (kernels.sa_walk).  The FastMode scan is a loop of
-`seed_scan_step_plain` over occ4 counts (`seed_scan_loop`), which the
-sharded index (parallel/sharded_index.py) drives with its own counts and
-its step kernel, the step's twin in `csrc/sharded_fm.cu`.
+`seed_scan_step_plain` over occ4 counts (`seed_scan_loop`); the sharded
+index's cross-device scan (parallel/sharded_index.py) takes the same step
+on its summed counts, fused with its lookup in `csrc/sharded_fm.cu`.
 
 The index dtype is int32 below 2**31 text bases and int64 at human scale
 (GenomeIndex.index_dtype): occ_cp, sa_samples, L2, the interval bounds and

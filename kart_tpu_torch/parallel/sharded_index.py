@@ -24,20 +24,23 @@ Where one device holds every shard (the resident path):
                       loop through the table, the sample at a walk's end from
                       its owner's slab (kernels.sharded_sa_walk)
 Where the shards span several devices, the host steps (the cross-device
-path), one launch a device a step and the devices' results summed on the
-first shard's device (a sum in one process, not a torch.distributed
-collective):
-  G1 sharded_occ4     occ4 of (2B,) rows: both interval ends of a scan step
-  G2 scan step        one FastMode step of every lane from the summed counts
-                      (ops/fm_search.py::seed_scan_step_plain)
-  G3 sharded_inv_psi  one step of the sampled-SA walk
+path), one launch a device a step, the devices' results gathered on the
+first shard's device (in one process, not a torch.distributed collective):
+  G1 sharded_occ4     occ4 of (2B,) rows: both interval ends of a scan step,
+                      on every device but the stepping one (the first
+                      shard's), into a part there
+  G2 fused step       on the stepping device, one launch: its own shards'
+                      occ4 of the rows, plus the parts, then one FastMode
+                      step of every lane (ops/fm_search.py::
+                      seed_scan_step_plain); N launches a step for N devices
+  G3 sharded_inv_psi  one step of the sampled-SA walk, summed
   G4 shard_gather     masked gather from a slab of the full or the sampled SA
                       (also the full-SA gather of the resident path)
 
 Each kernel has its plain version here (CPU tensors): table_occ4_plain,
-table_inv_psi_plain, shard_gather_plain, and resident_seed_scan_plain and
-resident_sa_walk_plain, the cross-device loops over them with every shard
-in one group.  Occurrences are
+fused_step_plain, table_inv_psi_plain, shard_gather_plain, and
+resident_seed_scan_plain and resident_sa_walk_plain, the cross-device loops
+over them with every shard in one group.  Occurrences are
 expanded and resolved by ops/resolve.py's plain version, or on the card by
 csrc/resolve_pack.cu's passes around the sharded lookup
 (kernels.resolve_stream).  Nothing falls back to another path, to the
@@ -59,7 +62,7 @@ from ..ops.fm_search import (
     SA_WALK_MAX_STEPS,
     _M32,
     occ4_from,
-    seed_scan_loop,
+    seed_scan_state,
     seed_scan_step_plain,
     unpack_seed_scan,
 )
@@ -256,6 +259,19 @@ def _inv_psi_rows(sfm: ShardedFM, shard: FMShard, k, kk, local):
     return torch.where(k == sfm.primary, 0, nk).to(k.dtype)
 
 
+def fused_step_plain(sfm: ShardedFM, shards: list[FMShard], k: torch.Tensor, parts, p: int,
+                     codes_t, rlens, min_seed_len: int, max_seeds: int, state, out):
+    """The fused step's plain version: occ4 of the rows k (2B,) from
+    `shards` (table_occ4_plain), plus the other groups' parts ((2B, 4) each,
+    on k's device), then seed_scan_step_plain on the sums.  Returns its
+    (state, next rows)."""
+    cnt = table_occ4_plain(sfm, shards, k)
+    for part in parts:
+        cnt = cnt + part
+    return seed_scan_step_plain(p, cnt, codes_t, rlens, sfm.L2, sfm.primary, min_seed_len,
+                                max_seeds, state, out)
+
+
 def table_inv_psi_plain(sfm: ShardedFM, shards: list[FMShard], k: torch.Tensor, add=None):
     """G3's plain version: one walk step of the rows k (n,) whose owner is
     one of `shards` (a row at a sample stays, others take bwt_invPsi), zeros
@@ -333,15 +349,20 @@ def _group_tables(sfm: ShardedFM, groups, plain: bool = False) -> list:
             for g in groups]
 
 
-def _occ4_of(sfm: ShardedFM, shards: list[FMShard], table, k: torch.Tensor) -> torch.Tensor:
+def _occ4_of(sfm: ShardedFM, shards: list[FMShard], table, k: torch.Tensor, out=None):
     """G1 on the device of `shards`: the kernel through `table`, or the
-    plain version where table is None."""
+    plain version where table is None; into `out` where given (the kernel
+    writes it directly where it lies on that device)."""
     k = k.to(shards[0].device)
     if table is None:
-        return table_occ4_plain(sfm, shards, k)
-    from .. import kernels
+        got = table_occ4_plain(sfm, shards, k)
+    else:
+        from .. import kernels
 
-    return kernels.sharded_occ4(table, sfm.nb_local, shards[0].L2, sfm.primary, sfm.seq_len, k)
+        here = out is not None and out.device == k.device
+        got = kernels.sharded_occ4(table, sfm.nb_local, shards[0].L2, sfm.primary, sfm.seq_len, k,
+                                   out=out if here else None)
+    return got if out is None or got is out else out.copy_(got)
 
 
 def _inv_psi_of(sfm: ShardedFM, shards: list[FMShard], table, k: torch.Tensor, add=None):
@@ -376,18 +397,6 @@ def shard_gather(slab: torch.Tensor, lo: int, rows: torch.Tensor, shift: int = 0
 
         return kernels.sharded_gather(slab, lo, rows, shift)
     return shard_gather_plain(slab, lo, rows, shift)
-
-
-def scan_step(p, cnt, codes_t, rlens, L2, primary, min_seed_len, max_seeds, state, out):
-    """G2 (seed_scan_step_plain's arguments and result): the kernel on CUDA
-    tensors, else the plain version."""
-    if _on(cnt.device) == "cuda":
-        from .. import kernels
-
-        return kernels.sharded_scan_step(p, cnt, codes_t, rlens, L2, primary, min_seed_len,
-                                         max_seeds, state, out)
-    return seed_scan_step_plain(p, cnt, codes_t, rlens, L2, primary, min_seed_len, max_seeds,
-                                state, out)
 
 
 def combine(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -519,18 +528,51 @@ def sharded_sa_walk(sfm: ShardedFM, rows: torch.Tensor, *, max_steps: int = SA_W
     return _stepwise_sa_walk(sfm, rows, max_steps=max_steps, groups=groups)
 
 
+def _stepping_group(sfm: ShardedFM, tables):
+    """((group, table) that steps the scan: the first on sfm.device, the
+    others' (group, table) pairs)."""
+    for i, (g, t) in enumerate(tables):
+        if g[0].device == sfm.device:
+            return tables[i], tables[:i] + tables[i + 1:]
+    raise ValueError(f"sharded scan: no group of shards on {sfm.device}, where the scan steps")
+
+
 def _stepwise_seed_scan(sfm: ShardedFM, reads, rlens, min_seed_len, *, max_seeds: int, l_max: int,
                         groups, plain: bool = False):
-    """The cross-device scan: each of the l_max + 1 steps is one G1 lookup a
-    group of shards of both interval ends of every lane, their sum, and one
-    G2 step, on sfm.device.  `plain`: the plain versions on whatever device
-    the shards lie."""
+    """The cross-device scan, stepped on sfm.device: each of the l_max + 1
+    steps is one G1 lookup on every other group of both interval ends of
+    every lane, into a part there, and the fused step (the stepping group's
+    own lookup, the parts' sum, the step).  The parts and two sets of state
+    and rows are made once for the whole scan; the step writes one set from
+    the other.  `plain`: the plain versions on whatever device the shards
+    lie."""
     dev = sfm.device
-    tables = _group_tables(sfm, groups, plain)
-    return seed_scan_loop(lambda k: _occ4_sum(sfm, tables, k),
-                          seed_scan_step_plain if plain else scan_step, sfm.L2, sfm.primary,
-                          reads.to(dev), rlens.to(dev), min_seed_len, max_seeds=max_seeds,
-                          l_max=l_max)
+    (own, table), others = _stepping_group(sfm, _group_tables(sfm, groups, plain))
+    B = reads.shape[0]
+    codes_t = reads.to(dev)[:, :l_max].to(torch.int32).t().contiguous()
+    rlens = rlens.to(device=dev, dtype=torch.int32)
+    msl = int(min_seed_len)
+    state, out, k = seed_scan_state(B, max_seeds, sfm.index_dtype, dev)
+    parts = [torch.empty((2 * B, 4), dtype=sfm.index_dtype, device=dev) for _ in others]
+    if table is None:
+        for p in range(l_max + 1):
+            for part, (g, t) in zip(parts, others):
+                _occ4_of(sfm, g, t, k, out=part)
+            state, k = fused_step_plain(sfm, own, k, parts, p, codes_t, rlens, msl, max_seeds,
+                                        state, out)
+        return out
+    from .. import kernels
+
+    ptrs = kernels.part_pointers(parts)
+    nxt = (tuple(torch.empty_like(x) for x in state), torch.empty_like(k))
+    for p in range(l_max + 1):
+        for part, (g, t) in zip(parts, others):
+            _occ4_of(sfm, g, t, k, out=part)
+        kernels.sharded_fused_step(table, sfm.nb_local, sfm.L2, sfm.primary, sfm.seq_len, k,
+                                   parts, ptrs, p, codes_t, rlens, msl, max_seeds, state, nxt[0],
+                                   out, nxt[1])
+        (state, k), nxt = nxt, (state, k)
+    return out
 
 
 def sharded_seed_scan(sfm: ShardedFM, reads, rlens, min_seed_len, *, max_seeds: int, l_max: int):

@@ -373,6 +373,9 @@ inline unsigned __brev(unsigned x) {
   for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
   return r;
 }
+inline unsigned long long __umul64hi(unsigned long long a, unsigned long long b) {
+  return static_cast<unsigned long long>((static_cast<unsigned __int128>(a) * b) >> 64);
+}
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   return (unsigned)(((((unsigned long long)hi) << 32) | lo) >> (sh & 31));
 }

@@ -60,8 +60,9 @@ def host_lib(tmp_path_factory):
         getattr(lib, "kart_sharded_sa_walk" + sfx).argtypes = [p, i, ll, ll, p, prim, p, i, i, p,
                                                                p, p]
         getattr(lib, "kart_sharded_occ4" + sfx).argtypes = [p, i, ll, prim, p, i, p, p]
-        getattr(lib, "kart_sharded_scan_step" + sfx).argtypes = [p, p, p, p, prim, i, i, i, i, i,
-                                                                 p, p, p, p, p, p, p]
+        getattr(lib, "kart_sharded_fused_step" + sfx).argtypes = [p, i, ll, p, i, p, p, p, p, prim,
+                                                                  i, i, i, i, i, p, p, p, p, p, p,
+                                                                  p]
         getattr(lib, "kart_sharded_inv_psi" + sfx).argtypes = [p, i, ll, p, prim, p, i, p, p, p]
         getattr(lib, "kart_sharded_gather" + sfx).argtypes = [p, ll, ll, p, i, i, p, p]
     lib.kart_resolve_finish.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p]
@@ -976,6 +977,29 @@ def host_occ4(lib, sfm, shards, k, sfx):
     return torch.from_numpy(out)
 
 
+def host_fused_step(lib, sfm, shards, parts, k, p, codes_t, rlens, ms, state, out, sfx):
+    """The fused step through the host shim: occ4 of the rows k from the
+    table of `shards`, plus `parts` (read through an array of their
+    pointers), then the step; its outputs start as garbage.  Returns the
+    state and the next rows; out is written in place."""
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
+    ist, tst = (tnp(x) for x in state)
+    B = ist.shape[1]
+    ist_out, tst_out = np.full_like(ist, -7), np.full_like(tst, -7)
+    k_next = np.full(2 * B, -7, tst.dtype)
+    part_arrays = [tnp(x) for x in parts]
+    ptrs = np.array([ptr(a) for a in part_arrays], np.uint64)
+    table = tsi.shard_table(sfm, shards)
+    rc = getattr(lib, "kart_sharded_fused_step" + sfx)(
+        table.data_ptr(), table.shape[0], sfm.nb_local, ptr(ptrs) if len(ptrs) else None,
+        len(ptrs), ptr(tnp(k)), ptr(tnp(codes_t)), ptr(tnp(rlens)), ptr(tnp(sfm.L2)), sfm.primary,
+        B, codes_t.shape[0], p, MIN_SEED, ms, ptr(ist), ptr(tst), ptr(ist_out), ptr(tst_out),
+        ptr(out.numpy()), ptr(k_next), None)
+    assert rc == 0
+    return (torch.from_numpy(ist_out), torch.from_numpy(tst_out)), torch.from_numpy(k_next)
+
+
 def host_inv_psi(lib, sfm, shards, k, add, sfx):
     from kart_tpu_torch.parallel import sharded_index as tsi
 
@@ -1028,11 +1052,14 @@ def test_sharded_occ4_kernel_on_host_matches_plain(host_lib, shim_genome, dtype,
 
 @pytest.mark.parametrize("dtype, n", SHARD_CASES)
 def test_sharded_scan_step_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n):
-    """The cross-device scan through the host shim (G1 a group of shards, in
-    two groups, their sum, G2), every step's state, rows and seed rows equal
-    to the plain step's on the same inputs, and the packed seeds to the
-    replicated scan's: the stepper's edge reads (pad, short and all-N lanes,
-    Ns, the texts around `primary`), seeds past max_seeds dropped."""
+    """The cross-device scan through the host shim, the shards in two groups
+    (one where there is one shard): each step a G1 launch of the second
+    group into a part, and the fused step on the first (its own lookup, the
+    part, the step), every step's state, rows and seed rows equal to the
+    plain fused step's and to seed_scan_step_plain's on the summed counts,
+    and the packed seeds to the replicated scan's: the stepper's edge reads
+    (pad, short and all-N lanes, Ns, the texts around `primary`), seeds past
+    max_seeds dropped."""
     from kart_tpu_torch.parallel import sharded_index as tsi
 
     gidx, _ = shim_genome
@@ -1045,24 +1072,22 @@ def test_sharded_scan_step_kernel_on_host_matches_plain(host_lib, shim_genome, d
     codes_t = reads.t().contiguous()
     state, out, k = tfm.seed_scan_state(B, ms, sfm.index_dtype, "cpu")
     for p in range(L + 1):
-        cnt = tsi.combine([host_occ4(host_lib, sfm, g, k, sfx) for g in groups], sfm.device)
-        want_out = out.clone()
+        parts = [host_occ4(host_lib, sfm, g, k, sfx) for g in groups[1:]]
+        cnt = tsi.combine([tsi.table_occ4_plain(sfm, groups[0], k)] + parts, sfm.device)
+        want_out, fused_out = out.clone(), out.clone()
         want_state, want_k = tfm.seed_scan_step_plain(p, cnt, codes_t, rlens, sfm.L2, sfm.primary,
                                                       MIN_SEED, ms, state, want_out)
-        ist, tst = (tnp(x) for x in state)
-        ist_out, tst_out = np.full_like(ist, -7), np.full_like(tst, -7)
-        k_next = np.full(2 * B, -7, tst.dtype)
-        o = out.numpy()
-        rc = getattr(host_lib, "kart_sharded_scan_step" + sfx)(
-            ptr(tnp(cnt)), ptr(tnp(codes_t)), ptr(tnp(rlens)), ptr(tnp(sfm.L2)), sfm.primary, B,
-            L, p, MIN_SEED, ms, ptr(ist), ptr(tst), ptr(ist_out), ptr(tst_out), ptr(o),
-            ptr(k_next), None)
-        assert rc == 0
-        np.testing.assert_array_equal(ist_out, want_state[0].numpy(), err_msg=f"ist at {p}")
-        np.testing.assert_array_equal(tst_out, want_state[1].numpy(), err_msg=f"tst at {p}")
-        np.testing.assert_array_equal(k_next, want_k.numpy(), err_msg=f"rows at {p}")
-        np.testing.assert_array_equal(o, want_out.numpy(), err_msg=f"seeds at {p}")
-        state, k = (torch.from_numpy(ist_out), torch.from_numpy(tst_out)), torch.from_numpy(k_next)
+        fused_state, fused_k = tsi.fused_step_plain(sfm, groups[0], k, parts, p, codes_t, rlens,
+                                                    MIN_SEED, ms, state, fused_out)
+        got_state, got_k = host_fused_step(host_lib, sfm, groups[0], parts, k, p, codes_t, rlens,
+                                           ms, state, out, sfx)
+        for got, want, fused, nm in ((got_state[0], want_state[0], fused_state[0], "ist"),
+                                     (got_state[1], want_state[1], fused_state[1], "tst"),
+                                     (got_k, want_k, fused_k, "rows"),
+                                     (out, want_out, fused_out, "seeds")):
+            np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=f"{nm} at {p}")
+            np.testing.assert_array_equal(fused.numpy(), want.numpy(), err_msg=f"{nm} at {p}")
+        state, k = got_state, got_k
     want = tfm.seed_scan_plain(fm_index(gidx, dtype), reads, rlens, MIN_SEED, max_seeds=ms,
                                l_max=L)
     assert torch.equal(out, want)
@@ -1164,23 +1189,13 @@ def test_sharded_scan_step_kernel_on_host_occurrence_limit(host_lib, limit_genom
         reads[i, 42:] = rng.integers(0, 4, L - 42)
     reads, rlens = torch.from_numpy(reads), torch.full((6,), L, dtype=torch.int32)
 
-    def occ4_rows(k):
-        return tsi.combine([host_occ4(host_lib, sfm, g, k, sfx) for g in shard_splits(sfm)[1]],
-                           sfm.device)
-
-    def host_step(p, cnt, codes_t, rl, L2, primary, msl, m, state, out):
-        ist, tst = (tnp(x) for x in state)
-        ist_out, tst_out = np.full_like(ist, -7), np.full_like(tst, -7)
-        k_next = np.full(2 * ist.shape[1], -7, tst.dtype)
-        rc = getattr(host_lib, "kart_sharded_scan_step" + sfx)(
-            ptr(tnp(cnt)), ptr(tnp(codes_t)), ptr(tnp(rl)), ptr(tnp(L2)), primary, ist.shape[1],
-            codes_t.shape[0], p, msl, m, ptr(ist), ptr(tst), ptr(ist_out), ptr(tst_out),
-            ptr(out.numpy()), ptr(k_next), None)
-        assert rc == 0
-        return (torch.from_numpy(ist_out), torch.from_numpy(tst_out)), torch.from_numpy(k_next)
-
-    got = tfm.seed_scan_loop(occ4_rows, host_step, sfm.L2, sfm.primary, reads, rlens, MIN_SEED,
-                             max_seeds=ms, l_max=L)
+    groups = shard_splits(sfm)[1]
+    codes_t = reads.t().contiguous()
+    state, got, k = tfm.seed_scan_state(reads.shape[0], ms, sfm.index_dtype, "cpu")
+    for p in range(L + 1):
+        parts = [host_occ4(host_lib, sfm, g, k, sfx) for g in groups[1:]]
+        state, k = host_fused_step(host_lib, sfm, groups[0], parts, k, p, codes_t, rlens, ms,
+                                   state, got, sfx)
     want = tfm.seed_scan_plain(fm_index(gidx, dtype), reads, rlens, MIN_SEED, max_seeds=ms,
                                l_max=L)
     assert torch.equal(got, want)
