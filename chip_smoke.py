@@ -4,7 +4,8 @@
     python3 chip_smoke.py --phases 9      # phase 0, the set-up and phase 9 only (exit 4)
     python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
                                           # funnel, resolve_pack, SensitiveMode kernels, walk,
-                                          # cross-device scan and resident walk (another
+                                          # cross-device scan, resident walk and resolve, and
+                                          # F (another
                                           # commit's, unpacked with git archive into a
                                           # directory of this checkout)
 
@@ -136,17 +137,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      fused step: 2 in two groups); the resident walk of phase 4's 96,000 stream rows, also
      equal to sa_walk and sa_walk_plain, whole and cut at 8 steps, and to the
      cross-device walk; G3 (the table inverse-Psi step, whole-device and each
-     group) at the rows and after 10 steps; G4 (the masked gathers); the
-     resolved stream (full and sampled) equal to resolve_pack's; each kernel
-     timed by slope at 2 shards with its bound (bytes by distinct 32-byte
-     sector) and chain, beside the whole scan and walk per call at 1, 2 and 4
-     shards, resident and cross-device (with --compare, the cross-device
-     scan at 2 shards in two groups and the resident walk at 2 shards in
-     turns with the other commit's); (b) the CLI (native
+     group) at the rows and after 10 steps; G4 (the table gather, whole-
+     device and each group, full SA and samples); the resolved stream (full:
+     resident through the table, with no G4 launch, and in two groups;
+     sampled) equal to resolve_pack's; each kernel timed by slope at 2
+     shards with its bound (bytes by distinct 32-byte sector) and chain,
+     beside the whole scan and walk per call at 1, 2 and 4 shards, resident
+     and cross-device; G4 at 4 shards, and int64 with its owner by the
+     two-step reciprocal against a 64-bit division; the resident full-SA
+     resolve at 2 and 4 shards against resolve_pack on the flat full SA
+     (with --compare, the cross-device scan at 2 shards in two groups, the
+     resident walk at 2 shards, and the resolve, sharded_seed_scan_resolved
+     less the resident scan, in turns with the other commit's); (b) the CLI (native
      backend, the python reader) with -idx-shards 2 and 4, the shards where
      default_shard_devices puts them (all on cuda:0 of one card), over phase
      6's 200,000 reads, full SA and KART_SA_MODE=sampled: one resident scan a sharded
-     call (and one resident walk in the sampled runs), no G1, G2 or G3
+     call (and one resident walk in the sampled runs), no G1, G2, G3 or G4
      launch; then 2 shards split into two groups, sampled (the cross-device
      path: G1, the fused step as many times as G1, G3, G4 and no resident
      launch); SAM records equal to the
@@ -162,7 +168,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the int64 copy, equal to each other) and on tools/simdata's edge
      streams (a flagged read's entries, slen 32768, reads past s_occ, past
      H, ties, invalid slots), timed by slope with its bound counted from the
-     stream's own entries; (b) make_full_mapping_step on
+     stream's own entries, its launches a call by torch.profiler (one kernel,
+     no memset); with --compare, the other commit's F in turns and, where it
+     is the two-launch design, each of its launches alone by slope; (b)
+     make_full_mapping_step on
      those reads over five meshes (data 1 full SA, data 4, data 2 sampled,
      data x idx 2 x 2 full and sampled): data 1 equal to the plain
      composition of the same step on the card (which launches no kernel),
@@ -2066,7 +2075,7 @@ def sectors(offsets) -> int:
 
 
 def sharded_bounds(sfm, kind: str, rows, touched: int, l2_load_ns: float) -> dict:
-    """Bound of one whole-device launch of G1 or G3, or of shard 0's G4:
+    """Bound of one whole-device launch of G1, G3 or G4:
     the rows in and the results out once, and `touched`, the index bytes
     the launch reads: each distinct 32-byte sector of the BWT words,
     checkpoint rows (G1, G3) or slab rows (G4) it loads, once
@@ -2114,15 +2123,16 @@ def fused_step_bound(sfm, own, k, n_parts: int, l2_load_ns: float) -> dict:
 
 
 def touched_bytes(sfm, kind: str, rows) -> int:
-    """The index bytes that a whole-device launch of G1 (kind occ4) or G3
-    (inv_psi), or shard 0's G4 (gather, full SA), reads for `rows`: 32 bytes
-    for each distinct sector of the rows' blocks (eight BWT words, a sector
-    each) and checkpoint rows (16 or 32 bytes), or of shard 0's slab rows.
-    G3 loads nothing for a row at a sample."""
+    """The index bytes that a whole-device launch of G1 (kind occ4), G3
+    (inv_psi) or G4 (gather, full SA) reads for `rows`: 32 bytes for each
+    distinct sector of the rows' blocks (eight BWT words, a sector each) and
+    checkpoint rows (16 or 32 bytes), or of each slab's rows.  G3 loads
+    nothing for a row at a sample."""
     isz = sfm.L2.element_size()
-    if kind == "gather":
-        own = rows[rows < sfm.ns_local].long()
-        return 32 * sectors(isz * own)
+    if kind == "gather":  # each slab's rows, by distinct sector of the slab
+        own = (rows // sfm.ns_local).long()
+        local = (rows - own * sfm.ns_local).long()
+        return sum(32 * sectors(isz * local[own == s.index]) for s in sfm.shards)
     if kind == "inv_psi":
         rows = rows[(rows & 31) != 0]
     blk = ((rows - (rows >= sfm.primary).to(rows.dtype)) >> 7).long()
@@ -2319,15 +2329,15 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other_si=None) -> dict:
                 if bool(w[1].all()) != (steps == 4096):
                     raise AssertionError(f"resident walk ({what}): max_steps {steps} cut"
                                          f" {int((~w[1]).sum())} walks")
-            for s in sfm.shards:
-                for slab, lo, shift, nm in ((s.sa_full, s.index * sfm.ns_local, 0, "full SA"),
-                                            (s.sa_samples, s.index * sfm.nsamp_local, 5,
-                                             "samples")):
-                    require_equal(tsi.shard_gather(slab, lo, rows, shift),
-                                  tsi.shard_gather_plain(slab, lo, rows, shift),
-                                  f"G4 {nm} ({what}, shard {s.index})")
+            for grp in groups + [sfm.shards]:
+                for shift, nm in ((0, "full SA"), (5, "samples")):
+                    require_equal(tsi.table_gather(sfm, grp, rows, shift),
+                                  tsi.table_gather_plain(sfm, grp, rows, shift),
+                                  f"G4 {nm} ({what}, shards {[s.index for s in grp]})")
             require_equal(tsi.sharded_sa_gather(sfm, rows), sa32[rows.long()].to(rows.dtype),
                           f"sharded full-SA gather ({what})")
+            require_equal(tsi.resident_sa_gather_plain(sfm, rows), sa32[rows.long()].to(rows.dtype),
+                          f"the resident gather's plain version ({what})")
 
             # the resolved stream, full and sampled, against resolve_pack
             H = 3 * SHARD_B
@@ -2337,30 +2347,39 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other_si=None) -> dict:
                                                          full[SHARD_B + H:])
             for mode in ("full", "sampled"):
                 sf = sfm if mode == "full" else tsi.build_sharded_fm(g, [dev] * n, "sampled")
+                kernels.sharded_gather.launches = 0
                 res = tsi.sharded_seed_scan_resolved(sf, reads, rlens, msl, max_seeds=ms, l_max=L,
                                                      occ_budget=H)
+                torch.cuda.synchronize()
+                if kernels.sharded_gather.launches:
+                    raise AssertionError(f"the resident resolve ({what}, {mode}) launched G4")
                 for a, b, nm in zip(res, full, ("cnts", "meta", "gpos")):
                     require_equal(a, b, f"sharded resolved {nm} ({what}, {mode})")
+            # the cross-device full-SA resolve (two groups on the one card)
+            with replaced(tsi, shard_groups=two_groups):
+                res = tsi.sharded_seed_scan_resolved(sfm, reads, rlens, msl, max_seeds=ms, l_max=L,
+                                                     occ_budget=H)
+            for a, b, nm in zip(res, full, ("cnts", "meta", "gpos")):
+                require_equal(a, b, f"sharded resolved {nm} ({what}, full, two groups)")
             lines.append(f"{what}: the resident scan ({int(got[:, 0].sum())} seeds) equal to"
                          f" fm_seed_scan, its plain version and the cross-device loop in"
                          f" {len(groups)} groups (G1 whole and in each group, the fused step byte-"
                          f"equal to its plain composition, at step {SHARD_SNAP}); the resident"
                          f" walk of {rows.numel()} rows (4096 and 8 steps) equal to sa_walk,"
                          f" sa_walk_plain, its plain version and the cross-device walk; G3 at"
-                         f" steps 0 and 10, G4 (full SA, samples), the resolved stream (full,"
-                         f" sampled) equal")
+                         f" steps 0 and 10, G4 (full SA, samples; whole and in each group),"
+                         f" the resolved stream (full: resident through the table with no G4"
+                         f" launch, and in two groups; sampled) equal")
             if n == SHARD_TIMED and dtype == "int32":
                 timed = dict(sfm=sfm, snap=snap, rows=rows, want_seeds=want_seeds)
     # times at SHARD_TIMED shards, int32: each kernel's launch on the device
     sfm, snap, rows = timed["sfm"], timed["snap"], timed["rows"]
-    s0 = sfm.shards[0]
     k2 = snap["k"]
     p, codes_t, rl_, m, s_, state, out, parts = snap["step"]
     own = two_groups(sfm)[0]
     own_table, ptrs = tsi.shard_table(sfm, own), kernels.part_pointers(parts)
     state_out, k_next = tuple(torch.empty_like(x) for x in state), torch.empty_like(k2)
     add = torch.zeros(rows.numel(), dtype=torch.int32, device=dev)
-    lo_sa = 0
     cases = {
         "sharded_seed_scan": ("scan", None, lambda: tsi.sharded_seed_scan(
             sfm, reads, rlens, msl, max_seeds=ms, l_max=L),
@@ -2376,11 +2395,11 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other_si=None) -> dict:
                                          out.clone())),
         "sharded_inv_psi": ("inv_psi", rows, lambda: tsi.table_inv_psi(sfm, sfm.shards, rows, add),
                             lambda: tsi.table_inv_psi_plain(sfm, sfm.shards, rows, add.clone())),
-        "sharded_gather": ("gather", rows, lambda: tsi.shard_gather(s0.sa_full, lo_sa, rows),
-                           lambda: tsi.shard_gather_plain(s0.sa_full, lo_sa, rows)),
+        "sharded_gather": ("gather", rows, lambda: tsi.table_gather(sfm, sfm.shards, rows),
+                           lambda: tsi.table_gather_plain(sfm, sfm.shards, rows)),
     }
-    library = {"sharded_gather": lambda: s0.sa_full[(rows - lo_sa).clamp(0, sfm.ns_local - 1)
-                                                    .long()]}
+    # G4's yardstick: one gather of the same rows from the flat full SA
+    library = {"sharded_gather": lambda: sa32[rows.long()]}
     rec = {}
     for name, (kind, r, fn, plain_fn) in cases.items():
         t = time_both(fn)
@@ -2403,9 +2422,8 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other_si=None) -> dict:
                      f" {SHARD_TIMED} and {len(parts)} part, int32")
         else:
             b = sharded_bounds(sfm, kind, r, touched_bytes(sfm, kind, r), l2_load_ns)
-            shape = (f"shard 0 of {SHARD_TIMED}, {r.numel()} rows, int32" if kind == "gather" else
-                     f"one launch for the {SHARD_TIMED} shards of one card, {r.numel()} rows,"
-                     f" int32")
+            shape = (f"one launch for the {SHARD_TIMED} shards of one card, {r.numel()} rows,"
+                     f" int32" + (", the full SA" if kind == "gather" else ""))
         rec[name] = dict(ms=1e3 * t[0], per_call_ms=1e3 * t[1], plain_ms=plain, err=0,
                          bound_ms=b["bound_ms"], bound_by=b["bound_by"], chain_ms=b["chain_ms"],
                          library_ms=lib, shape=shape)
@@ -2444,6 +2462,8 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other_si=None) -> dict:
                                                     l_max=L))
     t_walk = time_both(lambda: kernels.sa_walk(fm32, rows))
     rec["fm_seed_scan_ms"], rec["sa_walk_ms"] = 1e3 * t_scan[0], 1e3 * t_walk[0]
+    lines += resident_resolve_times(gidx, reads, rlens, msl, ms, L, timed["want_seeds"], rows,
+                                    sa32, rec, other_si)
     lines.append(f"replicated, on the same inputs: fm_seed_scan of the {SHARD_B} reads slope"
                  f" {1e3 * t_scan[0]:.4f} ms (per call {1e3 * t_scan[1]:.4f}), sa_walk of the rows"
                  f" slope {1e3 * t_walk[0]:.4f} ms (per call {1e3 * t_walk[1]:.4f})")
@@ -2470,6 +2490,163 @@ def phase_sharded_kernels(gidx, l2_load_ns: float, other_si=None) -> dict:
                       lambda: other_si.resident_sa_walk(theirs, rows),
                       lambda: tsi.resident_sa_walk(ours, rows))
     return rec
+
+
+def probe_library(name: str, text: str):
+    """A library of its own, kart_tpu_torch/_build/lib<name>.so, built by
+    kernels.build from `text`: a CUDA source that includes a source of this
+    checkout or of a compared one (its anonymous namespace is then the
+    probe's own), to launch pieces of it alone."""
+    import ctypes
+
+    from kart_tpu_torch import kernels
+
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    src = os.path.join(kernels.BUILD_DIR, name + ".cu")
+    with open(src, "w") as f:
+        f.write(text)
+    lib = os.path.join(kernels.BUILD_DIR, f"lib{name}.so")
+    kernels.build(lib, [src])
+    return ctypes.CDLL(lib)
+
+
+# G4's owner by a 64-bit division, beside the two-step reciprocal that
+# fm_index.cuh's ShardedSa takes: the same kernel, another accessor
+DIVIDE_PROBE = """#include "%s"
+namespace {
+struct DivSa : ShardedSa<long long> {
+  __device__ __forceinline__ long long at(long long q) const {
+    const unsigned long long r = static_cast<unsigned long long>(q), s = r / n_local;
+    const long long* p = slab(s);
+    return p ? __ldg(p + (r - s * n_local)) : 0;
+  }
+};
+}  // namespace
+extern "C" int kart_probe_gather_div_i64(const void* table, int n_shards, long long n_local,
+                                         const void* rows, int n, void* out, void* stream) {
+  DivSa sa;
+  static_cast<ShardedSa<long long>&>(sa) = table_sa<long long>(table, n_shards, n_local, 0);
+  return launch_gather<long long>(sa, rows, n, 0, out, stream);
+}
+"""
+
+
+def divide_times(gidx, rows, sa32, rec) -> list[str]:
+    """G4 int64 at 2 shards on rows' device, the owner by ShardedSa's
+    two-step reciprocal and by a 64-bit division (DIVIDE_PROBE), byte-equal,
+    in turns by slope."""
+    import ctypes
+
+    import torch
+
+    from kart_tpu_torch.parallel import sharded_index as tsi
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    dev = rows.device
+    lines = []
+    sf64 = tsi.build_sharded_fm(tsi.index_int64(gidx), [dev] * 2, "full")
+    r64 = rows.long()
+    probe = probe_library("probe_divide", DIVIDE_PROBE % os.path.join(
+        ROOT, "kart_tpu_torch", "csrc", "sharded_fm.cu"))
+    p_, i_, ll_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    probe.kart_probe_gather_div_i64.argtypes = [p_, i_, ll_, p_, i_, p_, p_]
+    tab64 = tsi.shard_table(sf64, sf64.shards)
+    out64 = torch.empty_like(r64)
+
+    def divided():
+        rc = probe.kart_probe_gather_div_i64(tab64.data_ptr(), 2, sf64.ns_local, r64.data_ptr(),
+                                             r64.numel(), out64.data_ptr(),
+                                             torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"divide probe: cudaError {rc}")
+        return out64
+
+    require_equal(divided(), sa32[rows.long()].long(), "G4 int64 with a 64-bit division")
+    require_equal(tsi.table_gather(sf64, sf64.shards, r64), sa32[rows.long()].long(),
+                  "G4 int64 (two-step reciprocal)")
+    t_two = [time_both(lambda: tsi.table_gather(sf64, sf64.shards, r64))[0],
+             time_both(divided)[0]]
+    t_two += [time_both(divided)[0], time_both(lambda: tsi.table_gather(sf64, sf64.shards,
+                                                                       r64))[0]]
+    rec["sharded_gather"]["int64_two_step_vs_divide_ms"] = [1e3 * x for x in t_two]
+    lines.append("sharded_gather int64 at 2 shards, the owner by the two-step reciprocal and by"
+                 " a 64-bit division (two-step, division, division, two-step): slope ms "
+                 + ", ".join(f"{1e3 * x:.4f}" for x in t_two))
+    return lines
+
+
+def resident_resolve_times(gidx, reads, rlens, msl: int, ms: int, L: int, seeds, rows, sa32, rec,
+                           other_si=None) -> list[str]:
+    """Phase 11 (a)'s times of the G4 redesign, int32 on cuda:0 unless
+    named: the table gather at 4 shards against its plain composition; the
+    resident full-SA resolve (resolve_pack.cu through the table, `seeds` the
+    resident scan's) at 2 and 4 shards against resolve_pack on the flat full
+    SA, and sharded_seed_scan_resolved less sharded_seed_scan by slope; with
+    `other_si` (another build's sharded_index), that difference of the other
+    build's in turns with this one's, and G4 at 2 shards int64 with its
+    owner by the two-step reciprocal against a 64-bit division
+    (DIVIDE_PROBE)."""
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.parallel import sharded_index as tsi
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    dev = rows.device
+    H = 3 * SHARD_B
+    lines = []
+    sf4 = tsi.build_sharded_fm(gidx, [dev] * 4, "full")
+    t4 = time_both(lambda: tsi.table_gather(sf4, sf4.shards, rows))
+    p4 = cuda_ms(lambda: tsi.table_gather_plain(sf4, sf4.shards, rows), 3)
+    rec["sharded_gather"]["ms_4_shards"] = 1e3 * t4[0]
+    lines.append(f"sharded_gather at 4 shards (one launch, {rows.numel()} rows, int32): slope"
+                 f" {1e3 * t4[0]:.4f} ms, per call {1e3 * t4[1]:.4f} ms, plain composition"
+                 f" {p4:.4f} ms")
+    kw = dict(max_seeds=ms, occ_budget=H)
+    t_flat = time_both(lambda: kernels.resolve_pack(sa32, seeds, has_ok=False, pack16=False,
+                                                    **kw))
+    rec["resolve_flat_ms"] = 1e3 * t_flat[0]
+    lines.append(f"resolve_pack on the flat full SA ({SHARD_B} reads, H {H}): slope"
+                 f" {1e3 * t_flat[0]:.4f} ms, per call {1e3 * t_flat[1]:.4f} ms")
+    for n in (2, 4):
+        sf = tsi.build_sharded_fm(gidx, [dev] * n, "full")
+        table = tsi.shard_table(sf, sf.shards)
+        t_res = time_both(lambda: kernels.resolve_stream_table(table, sf.ns_local, seeds, **kw))
+        whole = time_both(lambda: tsi.sharded_seed_scan_resolved(sf, reads, rlens, msl,
+                                                                 max_seeds=ms, l_max=L,
+                                                                 occ_budget=H))
+        scan = time_both(lambda: tsi.sharded_seed_scan(sf, reads, rlens, msl, max_seeds=ms,
+                                                       l_max=L))
+        rec[f"resolve_table_{n}_ms"] = 1e3 * t_res[0]
+        rec[f"resolved_less_scan_{n}_ms"] = 1e3 * (whole[0] - scan[0])
+        lines.append(f"the resident full-SA resolve at {n} shards: resolve_stream_table slope"
+                     f" {1e3 * t_res[0]:.4f} ms (per call {1e3 * t_res[1]:.4f}),"
+                     f" {t_res[0] / t_flat[0]:.3f}x the flat resolve_pack;"
+                     f" sharded_seed_scan_resolved {1e3 * whole[0]:.4f} ms less the resident scan"
+                     f" {1e3 * scan[0]:.4f} ms = {1e3 * (whole[0] - scan[0]):.4f} ms")
+        if other_si is None:
+            continue
+        theirs = other_si.build_sharded_fm(gidx, [dev] * n, "full")
+        for a, b in zip(other_si.sharded_seed_scan_resolved(theirs, reads, rlens, msl, max_seeds=ms,
+                                                            l_max=L, occ_budget=H),
+                        tsi.sharded_seed_scan_resolved(sf, reads, rlens, msl, max_seeds=ms,
+                                                       l_max=L, occ_budget=H)):
+            require_equal(b, a, f"the resolved stream against the compared build's ({n} shards)")
+        builds = {"other": (other_si, theirs), "this": (tsi, sf)}
+        diffs = []
+        for who in ("other", "this", "this", "other"):
+            mod, x = builds[who]
+            w = time_both(lambda: mod.sharded_seed_scan_resolved(x, reads, rlens, msl, max_seeds=ms,
+                                                                 l_max=L, occ_budget=H))[0]
+            sc = time_both(lambda: mod.sharded_seed_scan(x, reads, rlens, msl, max_seeds=ms,
+                                                         l_max=L))[0]
+            diffs.append(1e3 * (w - sc))
+        rec[f"compare_resolved_less_scan_{n}_ms"] = diffs
+        lines.append(f"compare the resident full-SA resolve at {n} shards (sharded_seed_scan_"
+                     f"resolved less sharded_seed_scan, by slope; other: G4 a shard, the sum, the"
+                     f" copies): other, this, this, other: ms "
+                     + ", ".join(f"{x:.4f}" for x in diffs))
+    if other_si is not None:
+        lines += divide_times(gidx, rows, sa32, rec)
+    return lines
 
 
 MH_WORKER = os.path.join(ROOT, "tests", "torch_mh_worker.py")
@@ -2583,13 +2760,13 @@ def phase_sharded_slice(prefix: str) -> dict:
         calls, flagged = int(m.group(1)), int(m.group(2))
         if path == "resident":
             need = {"sharded_seed_scan": calls, "sharded_sa_walk": calls if mode == "sampled" else 0,
-                    "sharded_occ4": 0, "sharded_fused_step": 0, "sharded_inv_psi": 0}
+                    "sharded_occ4": 0, "sharded_fused_step": 0, "sharded_inv_psi": 0,
+                    "sharded_gather": 0}
             bad = {k: launches[k] for k, v in need.items() if launches[k] != v}
-            if bad or launches["resolve_pack"] == 0 or (mode == "full") != (
-                    launches["sharded_gather"] > 0):
+            if bad or launches["resolve_pack"] == 0:
                 raise AssertionError(f"(b) {n} shards {mode}: the resident path launched"
-                                     f" {launches} in {calls} sharded calls, expected {need}, a"
-                                     f" resolve_pack and the full-SA gather in the full runs only")
+                                     f" {launches} in {calls} sharded calls, expected {need} and"
+                                     f" a resolve_pack (the full SA read through the table)")
         else:
             need = STEP_KERNELS + ("sharded_gather", "resolve_pack")
             if any(launches[k] == 0 for k in need) or any(launches[k] for k in RESIDENT_KERNELS) \
@@ -2704,17 +2881,21 @@ def replaced(module, **attrs):
             setattr(module, k, v)
 
 
-def phase_dp(gidx) -> dict:
+def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
     """Phase 12: the multi-device front half (kart_tpu_torch/parallel/dp.py)
     with every mesh position on cuda:0.  (a) F (csrc/sorted_occ.cu) against
     its plain version, byte-equal, on the resolved stream of phase 6's first
     32,000 reads (mates in consecutive rows, mate 2 reverse-complemented as
     the reader loads it; budget 4 x B, int32 and the int64 copy) and on edge
-    streams, timed by slope with its bound; (b) make_full_mapping_step over
-    five meshes, each equal to data 1, and data 1 equal to the plain
-    composition of the same step on the card; ms a step, reads/s, flagged
-    reads, launches; (c) graft_entry's dry run on [cuda:0] * 4 and entry()
-    (equal to its run on the CPU), and bench_scaling's lines."""
+    streams, timed by slope with its bound, its launches a call listed by
+    torch.profiler (with `other`, the other build's kernels module, and its
+    checkout `other_root`: the other build's F in turns with this one's,
+    and each launch of a two-launch design there timed alone,
+    `two_launch_split`); (b) make_full_mapping_step over five meshes, each
+    equal to data 1, and data 1 equal to the plain composition of the same
+    step on the card; ms a step, reads/s, flagged reads, launches; (c)
+    graft_entry's dry run on [cuda:0] * 4 and entry() (equal to its run on
+    the CPU), and bench_scaling's lines."""
     import torch
 
     from kart_tpu_torch import graft_entry, kernels
@@ -2725,7 +2906,7 @@ def phase_dp(gidx) -> dict:
     from kart_tpu_torch.parallel import dp as tdp
     from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
     from kart_tpu_torch.tools import bench_scaling, simdata
-    from kart_tpu_torch.tools.bench_kernels import time_both
+    from kart_tpu_torch.tools.bench_kernels import device_us_by_kernel, time_both
 
     msl = compute_min_seed_length(gidx.two_genome_size)
     L, ms = L_MAX_GROUP, L_MAX_GROUP // (msl + 1) + 1
@@ -2794,6 +2975,33 @@ def phase_dp(gidx) -> dict:
                      f" {1e3 * t[0]:.4f} ms, per call {1e3 * t[1]:.4f} ms, plain {plain:.4f} ms;"
                      f" {b['bytes']} bytes ({b['entries']} stream entries read): bound"
                      f" {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    parts = device_us_by_kernel(lambda: kernels.sorted_occurrences(*streams["int32"], B_DP, S_OCC))
+    rec["int32"]["device_launches"] = {short(k): v for k, v in parts.items()}
+    lines.append("(a) sorted_occurrences int32, device us a call by launch (torch.profiler): "
+                 + ", ".join(f"{short(k)} {v:.2f}" for k, v in sorted(parts.items())))
+    if other is not None:
+        st = streams["int32"]
+        for a, b_, nm in zip(other.sorted_occurrences(*st, B_DP, S_OCC),
+                             kernels.sorted_occurrences(*st, B_DP, S_OCC),
+                             ("n_occ", "rp", "ln", "gp", "pd", "present")):
+            require_equal(b_, a, f"F {nm} against the compared build's")
+        t = [time_both(lambda: other.sorted_occurrences(*st, B_DP, S_OCC))[0],
+             time_both(lambda: kernels.sorted_occurrences(*st, B_DP, S_OCC))[0],
+             time_both(lambda: kernels.sorted_occurrences(*st, B_DP, S_OCC))[0],
+             time_both(lambda: other.sorted_occurrences(*st, B_DP, S_OCC))[0]]
+        rec["int32"]["compare_ms"] = [1e3 * x for x in t]
+        lines.append("compare F int32 (other, this, this, other): slope ms "
+                     + ", ".join(f"{1e3 * x:.4f}" for x in t))
+        split = two_launch_split(other_root, st, B_DP, S_OCC)
+        if split is not None:
+            rec["int32"]["other_split_ms"] = split
+            lines.append(f"(a) the other build's two launches of F, each alone by slope: the"
+                         f" one-block scan {split[0]:.4f} ms, the sort {split[1]:.4f} ms")
+        tiles = tile_times(st, B_DP, S_OCC)
+        rec["int32"]["tile_ms"] = tiles
+        lines.append("(a) F int32 by its tile of reads (this build's kernel, other tiles through"
+                     " TILE_PROBE), slope ms: " + ", ".join(f"{k} reads {v:.4f}"
+                                                            for k, v in tiles.items()))
 
     # (b) the whole front half over five meshes
     kw = dict(min_seed_len=msl, max_seeds=ms, l_max=L, s_occ=S_OCC)
@@ -2818,10 +3026,10 @@ def phase_dp(gidx) -> dict:
         need += ["fm_seed_scan"] if n_idx == 1 else ["sharded_seed_scan"]
         need += ["sa_walk"] if (n_idx, sa_mode) == (1, "sampled") else []
         need += ["sharded_sa_walk"] if (n_idx, sa_mode) == (2, "sampled") else []
-        need += ["sharded_gather"] if (n_idx, sa_mode) == (2, "full") else []
-        if any(launches[k] == 0 for k in need) or any(launches[k] for k in STEP_KERNELS):
-            raise AssertionError(f"(b) {name}: a kernel of the step never launched, or a step"
-                                 f" kernel of the cross-device path did: {launches}")
+        if any(launches[k] == 0 for k in need) or any(launches[k] for k in STEP_KERNELS) \
+                or launches["sharded_gather"]:
+            raise AssertionError(f"(b) {name}: a kernel of the step never launched, or G4 or a"
+                                 f" step kernel of the cross-device path did: {launches}")
         step_ms = cuda_ms(lambda: step(r, rl_), 3)
         flagged = flagged_reads(out[0], n_data)
         if ref is None:
@@ -2878,6 +3086,130 @@ def phase_dp(gidx) -> dict:
                 launches=total, runs=runs)
 
 
+# A two-launch design of F (offsets_kernel, a one-block scan, then
+# launch_sort), its launches exported alone
+SPLIT_PROBE = """#include "%s"
+extern "C" int kart_split_offsets(const void* cnts, int B, void* offs, void* stream) {
+  offsets_kernel<<<1, kScanThreads, kTile * sizeof(unsigned), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cnts), B, static_cast<int*>(offs));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int kart_split_sort(const void* cnts, const void* offs, int B, const void* meta,
+                               const void* gpos, long long H, int S, void* n_occ, void* rp,
+                               void* ln, void* gp, void* pd, void* present, void* stream) {
+  launch_sort<int, 16>(cnts, offs, B, meta, gpos, H, S, kBig32, n_occ, rp, ln, gp, pd, present,
+                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+# This build's F at other tiles of reads a block (int32, s_occ 16 at most)
+TILE_PROBE = """#include "%s"
+extern "C" int kart_probe_tile(int tile, const void* cnts, int B, const void* meta,
+                               const void* gpos, long long H, int S, void* state, void* n_occ,
+                               void* rp, void* ln, void* gp, void* pd, void* present,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile == 64)
+    launch_sort<int, 16, 64>(cnts, B, meta, gpos, H, S, kBig32, state, n_occ, rp, ln, gp, pd,
+                             present, st);
+  else if (tile == 256)
+    launch_sort<int, 16, 256>(cnts, B, meta, gpos, H, S, kBig32, state, n_occ, rp, ln, gp, pd,
+                              present, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def tile_times(stream, B: int, s_occ: int) -> dict:
+    """F's slope (int32) at this build's tile (128 reads at 16 slots) and,
+    through TILE_PROBE, at tiles of 64 and 256 reads, each byte-equal to the
+    plain version."""
+    import ctypes
+
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.parallel import dp as tdp
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    lib = probe_library("probe_tile", TILE_PROBE % os.path.join(
+        ROOT, "kart_tpu_torch", "csrc", "sorted_occ.cu"))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kart_probe_tile.argtypes = [i, p, i, p, p, ll, i, p, p, p, p, p, p, p, p]
+    cnts, meta, gpos = stream
+    dev = cnts.device
+    want = tdp.sorted_occurrences_plain(cnts, meta, gpos, B, s_occ)
+    out = {128: 1e3 * time_both(lambda: kernels.sorted_occurrences(cnts, meta, gpos, B,
+                                                                   s_occ))[0]}
+    for tile in (64, 256):
+        state = torch.zeros((2 + -(-B // tile),), dtype=torch.int64, device=dev)
+        outs = [torch.empty((B,), dtype=torch.int32, device=dev)] + [
+            torch.empty((B, s_occ), dtype=dt, device=dev)
+            for dt in (torch.int32, torch.int32, torch.int32, torch.int32, torch.bool)]
+
+        def run(tile=tile, state=state, outs=outs):
+            if lib.kart_probe_tile(tile, cnts.data_ptr(), B, meta.data_ptr(), gpos.data_ptr(),
+                                   meta.numel(), s_occ, state.data_ptr(),
+                                   *(o.data_ptr() for o in outs),
+                                   torch.cuda.current_stream(dev).cuda_stream):
+                raise RuntimeError(f"the tile probe at {tile} reads failed to launch")
+
+        run()
+        for g, w in zip(outs, want):
+            require_equal(g, w, f"F at a tile of {tile} reads")
+        out[tile] = 1e3 * time_both(run)[0]
+    return out
+
+
+def two_launch_split(root: str, stream, B: int, s_occ: int):
+    """[ms of the scan launch, ms of the sort launch], each alone by slope,
+    of the F at root/kart_tpu_torch/csrc/sorted_occ.cu where it is the
+    two-launch design (SPLIT_PROBE); None where it is not."""
+    import ctypes
+
+    import torch
+
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    src = os.path.join(os.path.abspath(root), "kart_tpu_torch", "csrc", "sorted_occ.cu")
+    with open(src) as f:
+        if "offsets_kernel" not in f.read():
+            return None
+    lib = probe_library("probe_split", SPLIT_PROBE % src)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kart_split_offsets.argtypes = [p, i, p, p]
+    lib.kart_split_sort.argtypes = [p, p, i, p, p, ll, i, p, p, p, p, p, p, p]
+    cnts, meta, gpos = stream
+    dev = cnts.device
+    offs = torch.empty((B,), dtype=torch.int32, device=dev)
+    outs = [torch.empty((B,), dtype=torch.int32, device=dev)] + [
+        torch.empty((B, s_occ), dtype=dt, device=dev)
+        for dt in (torch.int32, torch.int32, torch.int32, torch.int32, torch.bool)]
+
+    def st():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def scan():
+        if lib.kart_split_offsets(cnts.data_ptr(), B, offs.data_ptr(), st()):
+            raise RuntimeError("the split probe's scan failed to launch")
+
+    def sort():
+        if lib.kart_split_sort(cnts.data_ptr(), offs.data_ptr(), B, meta.data_ptr(),
+                               gpos.data_ptr(), meta.numel(), s_occ,
+                               *(o.data_ptr() for o in outs), st()):
+            raise RuntimeError("the split probe's sort failed to launch")
+
+    scan()
+    sort()
+    torch.cuda.synchronize()
+    return [1e3 * time_both(scan)[0], 1e3 * time_both(sort)[0]]
+
+
 def load_compared_package(root: str, module: str):
     """root/kart_tpu_torch loaded as a package of its own name, and its
     `module`: its relative imports resolve inside it, so it launches the
@@ -2905,8 +3237,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--compare", metavar="DIR", default=None,
                     help="a checkout of another commit whose NW, FM stepper, funnel and"
                          " resolve_pack phases 1, 2 and 4, whose SensitiveMode funnel and FM"
-                         " stepper phase 7, whose walk phase 9, and whose cross-device scan and"
-                         " resident walk phase 11, time beside this one's")
+                         " stepper phase 7, whose walk phase 9, whose cross-device scan,"
+                         " resident walk and resident full-SA resolve phase 11, and whose F"
+                         " phase 12, time beside this one's")
     ap.add_argument("--phases", metavar="LIST", default=None,
                     help="run only these phases beside phase 0 and the set-up, e.g. 7,8 (a partial"
                          " run prints no kernels record and no result line, and exits 4)")
@@ -2997,7 +3330,7 @@ def main(argv: list[str] | None = None) -> int:
         sharded = phase_sharded_kernels(gidx, fm["l2_ns"], other_si)
         sharded_slice = phase_sharded_slice(prefix)
     if want(12):
-        dp = phase_dp(gidx)
+        dp = phase_dp(gidx, other, args.compare)
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
     if loaded:

@@ -4,7 +4,9 @@
 // inverse-Psi steps until the row is a multiple of 32, whose text position
 // the sampled SA holds, then that position plus the steps taken.
 // fm_seed_scan.cu reads the checkpoint rows; sa_walk.cu walks rows;
-// sharded_fm.cu takes inverse-Psi steps and occ4 through the shard table.  T
+// sharded_fm.cu takes inverse-Psi steps and occ4 through the shard table,
+// and it and resolve_pack.cu read the split full or sampled SA through it
+// (ShardedSa).  T
 // is the index type: int below 2**31 text bases, long long above; block
 // numbers are 32-bit in both accessors.
 //
@@ -107,13 +109,38 @@ struct FlatIndex {
 };
 
 // A row of the shard table: one shard's slabs on the launching device, or
-// null pointers where the shard lies on another device.
+// null pointers where the shard lies on another device (sa_full also in the
+// sampled SA mode, where no shard holds the full SA).
 template <typename T>
 struct ShardSlabs {
   const typename CpRow<T>::type* occ_cp;  // blocks [s * nb_local, (s + 1) * nb_local)
   const uint4* bwt4;
   const T* sa_samples;                    // sampled rows [s * nsamp_local, ...)
+  const T* sa_full;                       // full-SA rows [s * ns_local, ...)
 };
+
+// A kernel's copy of the shard table in shared memory: every thread of the
+// block calls this before any returns.  Returns the copy.
+template <typename T>
+__device__ __forceinline__ const ShardSlabs<T>* stage_table(const ShardSlabs<T>* table, int n,
+                                                            int* smem) {
+  ShardSlabs<T>* s = reinterpret_cast<ShardSlabs<T>*>(smem);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = table[i];
+  __syncthreads();
+  return s;
+}
+
+template <typename T>
+__host__ __device__ inline size_t table_smem_bytes(int n) {
+  return (sizeof(ShardSlabs<T>) * n + 15) / 16 * 16;
+}
+
+// ceil(2**64 / d), or 0 where d is 1: q * recip >> 64 is q / d exactly for
+// q and d below 2**32 (the error term q * (recip * d - 2**64) stays below
+// 2**64), and q / d or one more for any q below 2**64.
+__host__ __device__ inline unsigned long long reciprocal(unsigned long long d) {
+  return d > 1 ? ~0ull / d + 1 : 0;
+}
 
 // The block-sharded index through its shard table: block b lies in shard
 // b / nb_local, at b % nb_local of its slab; the sample of row k in shard
@@ -134,17 +161,12 @@ struct ShardedIndex {
 
   __host__ void set_blocks(unsigned nb) {
     nb_local = nb;
-    nb_recip = nb > 1 ? ~0ull / nb + 1 : 0;
+    nb_recip = reciprocal(nb);
   }
 
-  static __host__ __device__ size_t smem_bytes(int n) {
-    return (sizeof(ShardSlabs<T>) * n + 15) / 16 * 16;
-  }
+  static __host__ __device__ size_t smem_bytes(int n) { return table_smem_bytes<T>(n); }
   __device__ __forceinline__ int* stage(int* smem) {
-    ShardSlabs<T>* s = reinterpret_cast<ShardSlabs<T>*>(smem);
-    for (int i = threadIdx.x; i < n_shards; i += blockDim.x) s[i] = table[i];
-    __syncthreads();
-    table = s;
+    table = stage_table(table, n_shards, smem);
     return smem + smem_bytes(n_shards) / sizeof(int);
   }
   __device__ __forceinline__ unsigned shard_of(unsigned b) const {
@@ -169,6 +191,47 @@ struct ShardedIndex {
     const unsigned r = static_cast<unsigned>(k >> kSaIntvLog2);
     const unsigned s = r / nsamp_local;
     return __ldg(table[s].sa_samples + (r - s * nsamp_local));
+  }
+};
+
+// One column of the shard table as a split array: the full SA (ns_local
+// rows a slab) or the sampled SA (nsamp_local).  Row q lies in shard q /
+// n_local, at q % n_local of its slab.  The owner is a multiply by the
+// reciprocal, exact for 32-bit rows (T int); an int64 index's rows reach
+// 2**37, where the product is q / n_local or one more and a multiply and a
+// compare take the one back (two steps; a 64-bit division is a long
+// software sequence on this card).  Like ShardedIndex it stages the table in
+// shared memory.
+template <typename T>
+struct ShardedSa {
+  const ShardSlabs<T>* table;  // device memory, then shared memory
+  int n_shards;
+  bool samples;                // the sa_samples column, else sa_full
+  unsigned long long n_local, recip;
+
+  __host__ void set_rows(unsigned long long n) {
+    n_local = n;
+    recip = reciprocal(n);
+  }
+  static __host__ __device__ size_t smem_bytes(int n) { return table_smem_bytes<T>(n); }
+  __device__ __forceinline__ void stage(int* smem) { table = stage_table(table, n_shards, smem); }
+  __device__ __forceinline__ unsigned long long owner(unsigned long long q) const {
+    if (!recip) return q;
+    unsigned long long s = __umul64hi(q, recip);
+    if (sizeof(T) > 4 && s * n_local > q) --s;
+    return s;
+  }
+  // the slab of shard s, null where the table does not hold it
+  __device__ __forceinline__ const T* slab(unsigned long long s) const {
+    return s < static_cast<unsigned long long>(n_shards)
+               ? (samples ? table[s].sa_samples : table[s].sa_full)
+               : nullptr;
+  }
+  // row q of the array where the table holds its owner, else 0
+  __device__ __forceinline__ T at(T q) const {
+    const unsigned long long r = static_cast<unsigned long long>(q), s = owner(r);
+    const T* p = slab(s);
+    return p ? __ldg(p + (r - s * n_local)) : T(0);
   }
 };
 

@@ -504,9 +504,10 @@ extern "C" int kart_fm_seed_scan_i64(const void* occ_cp, const void* bwt_words,
 }
 
 // The FastMode scan on the block-sharded index, every shard on this device
-// (the resident scan of parallel/sharded_index.py): table (n_shards, 3)
-// 64-bit words, shard s's occ_cp, bwt_words and sa_samples slab pointers
-// (occ_cp and bwt_words 16-byte aligned, none null), nb_local blocks a slab;
+// (the resident scan of parallel/sharded_index.py): table (n_shards, 4)
+// 64-bit words, shard s's occ_cp, bwt_words, sa_samples and sa_full slab
+// pointers (occ_cp and bwt_words 16-byte aligned, none of the first three
+// null; the scan reads neither SA), nb_local blocks a slab;
 // the rest as kart_fm_seed_scan's.  The table goes into the block's shared
 // memory before the reads.
 extern "C" int kart_sharded_seed_scan(const void* table, int n_shards, long long nb_local,

@@ -36,6 +36,14 @@
 //           seed whose running freq sum passes j; gpos = sa_full[k0 + off].
 //           Slots past the last fitting read hold -1 (pack16 turns a -1 meta
 //           into 0xFEFF and wraps counts to 16 bits, as kart_tpu does).
+// Through the full SA split over the shards of one device (the resident
+// full-SA resolve of parallel/sharded_index.py), the same passes read each
+// position from its owner's slab through the shard table (fm_index.cuh's
+// ShardedSa: the owner a multiply by a reciprocal, the slab pointer from the
+// table staged in shared memory): int32 totals and emit
+// (kart_resolve_pack_table), int64 totals, rows and emit
+// (kart_resolve_rows_table_i64, kart_resolve_finish_i64).  No gather of the
+// split SA is made beside them, no part summed and no position copied.
 // Reading the slots back from the prefix sums, rather than scattering each
 // read's occurrences, lets a thread own a whole output word, so the pack16
 // pairs need no atomics.
@@ -76,6 +84,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fm_index.cuh"
+
 namespace {
 
 constexpr int kScanBlock = 256;  // reads (and threads) per block of the totals pass
@@ -100,6 +110,19 @@ template <typename P>
 __device__ __forceinline__ P seed_field(const Seeds<P>& s, int b, int field, int k) {
   return s.packed[(size_t)b * s.cols + s.c_rpos + field * s.S + k];
 }
+
+// The full SA as one array on this device; the other accessor is
+// fm_index.cuh's ShardedSa (the full SA through the shard table of every
+// shard).  The passes stage an accessor before any thread returns.
+template <typename P>
+struct FlatSa {
+  const P* sa;
+  int n_shards = 0;
+
+  static __host__ __device__ size_t smem_bytes(int) { return 0; }
+  __device__ __forceinline__ void stage(int*) {}
+  __device__ __forceinline__ P at(P row) const { return __ldg(sa + row); }
+};
 
 __device__ __forceinline__ int warp_sum(int v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
@@ -224,16 +247,17 @@ __device__ bool find_slot(const Seeds<P>& s, const int* __restrict__ read_end, i
   return false;  // not reached for non-negative freqs
 }
 
-// Slot j of the stream: meta, or gpos through the full SA; -1 for both past
-// the last fitting read.  want_gpos selects which one is computed.
-template <typename P>
-__device__ int slot_value(const Seeds<P>& s, const int* __restrict__ read_end,
-                          const int* __restrict__ sa_full, int H, int j, bool want_gpos) {
+// Slot j of the stream: meta, or gpos through the full SA (an int32
+// accessor); -1 for both past the last fitting read.  want_gpos selects
+// which one is computed.
+template <typename P, typename Sa>
+__device__ int slot_value(const Seeds<P>& s, const int* __restrict__ read_end, const Sa& sa,
+                          int H, int j, bool want_gpos) {
   int a, k, off;
   if (!find_slot(s, read_end, H, j, a, k, off)) return -1;
   if (!want_gpos)
     return static_cast<int>(seed_field(s, a, 0, k)) | (static_cast<int>(seed_field(s, a, 1, k)) << 16);
-  return __ldg(sa_full + static_cast<int>(seed_field(s, a, 2, k)) + off);
+  return sa.at(static_cast<int>(seed_field(s, a, 2, k)) + off);
 }
 
 __device__ __forceinline__ unsigned meta16(int meta) {
@@ -241,19 +265,22 @@ __device__ __forceinline__ unsigned meta16(int meta) {
 }
 
 // The read of every slot (-1 past the last fitting read) and its row; with
-// an int64 full SA (sa_full given) the position itself instead of the row.
-template <typename P>
-__global__ void rows_kernel(Seeds<P> s, const int* __restrict__ read_end, int H,
-                            const P* __restrict__ sa_full, P* __restrict__ rows,
-                            int* __restrict__ slot_read, P* __restrict__ gpos) {
+// `gather` (a full SA, flat or through the shard table) the position itself
+// instead of the row.
+template <typename P, typename Sa>
+__global__ void rows_kernel(Seeds<P> s, const int* __restrict__ read_end, int H, Sa sa,
+                            bool gather, P* __restrict__ rows, int* __restrict__ slot_read,
+                            P* __restrict__ gpos) {
+  extern __shared__ int smem[];
+  sa.stage(smem);
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= H) return;
   int a, k, off;
   const bool valid = find_slot(s, read_end, H, j, a, k, off);
   slot_read[j] = valid ? a : -1;
   const P row = valid ? seed_field(s, a, 2, k) + off : P(0);
-  if (sa_full)
-    gpos[j] = valid ? __ldg(sa_full + row) : P(-1);
+  if (gather)
+    gpos[j] = valid ? sa.at(row) : P(-1);
   else
     rows[j] = row;
 }
@@ -274,11 +301,13 @@ __global__ void flag_kernel(const int* __restrict__ read_end, const int* __restr
 }
 
 // The count words, the meta words and, with_gpos (the full SA of an int32
-// index), the position words.
-template <typename P>
+// index, flat or through the shard table), the position words.
+template <typename P, typename Sa>
 __global__ void emit_kernel(Seeds<P> s, const int* __restrict__ read_end,
-                            const int* __restrict__ cnts, const int* __restrict__ sa_full,
-                            int H, int pack16, int with_gpos, int* __restrict__ out) {
+                            const int* __restrict__ cnts, Sa sa, int H, int pack16,
+                            int with_gpos, int* __restrict__ out) {
+  extern __shared__ int smem[];
+  sa.stage(smem);
   const int nc = pack16 ? s.B / 2 : s.B;
   const int nm = pack16 ? H / 2 : H;
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
@@ -290,14 +319,14 @@ __global__ void emit_kernel(Seeds<P> s, const int* __restrict__ read_end,
   } else if (w < nc + nm) {
     const int i = w - nc;
     if (pack16) {
-      const unsigned m0 = meta16(slot_value(s, read_end, sa_full, H, 2 * i, false));
-      const unsigned m1 = meta16(slot_value(s, read_end, sa_full, H, 2 * i + 1, false));
+      const unsigned m0 = meta16(slot_value(s, read_end, sa, H, 2 * i, false));
+      const unsigned m1 = meta16(slot_value(s, read_end, sa, H, 2 * i + 1, false));
       v = (int)(m0 | (m1 << 16));
     } else {
-      v = slot_value(s, read_end, sa_full, H, i, false);
+      v = slot_value(s, read_end, sa, H, i, false);
     }
   } else {
-    v = slot_value(s, read_end, sa_full, H, w - nc - nm, true);
+    v = slot_value(s, read_end, sa, H, w - nc - nm, true);
   }
   out[w] = v;
 }
@@ -337,32 +366,48 @@ cudaError_t totals(const Seeds<P>& s, int H, void* read_end, void* cnts, void* s
   return cudaGetLastError();
 }
 
-// The emit pass: the count and meta words and, through an int32 full SA,
-// the position words.
-template <typename P>
+// The emit pass: the count and meta words and, with_gpos (through an int32
+// full SA, sa), the position words.
+template <typename P, typename Sa>
 cudaError_t emit(const Seeds<P>& s, int H, int pack16, const void* read_end, const void* cnts,
-                 const void* sa_full, void* out, cudaStream_t st) {
-  const long long n_words =
-      (pack16 ? s.B / 2 + H / 2 : s.B + H) + (sa_full ? (long long)H : 0);
+                 const Sa& sa, bool with_gpos, void* out, cudaStream_t st) {
+  const long long n_words = (pack16 ? s.B / 2 + H / 2 : s.B + H) + (with_gpos ? (long long)H : 0);
   if (n_words == 0) return cudaSuccess;
-  emit_kernel<P><<<(unsigned)((n_words + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      s, static_cast<const int*>(read_end), static_cast<const int*>(cnts),
-      static_cast<const int*>(sa_full), H, pack16, sa_full ? 1 : 0, static_cast<int*>(out));
+  const size_t smem = Sa::smem_bytes(sa.n_shards);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  emit_kernel<P, Sa><<<(unsigned)((n_words + kThreads - 1) / kThreads), kThreads, smem, st>>>(
+      s, static_cast<const int*>(read_end), static_cast<const int*>(cnts), sa, H, pack16,
+      with_gpos ? 1 : 0, static_cast<int*>(out));
   return cudaGetLastError();
 }
 
-template <typename P>
-int resolve_rows(const void* packed, int B, int has_ok, int max_seeds, const void* sa_full, int H,
-                 void* read_end, void* cnts, void* scan_state, void* rows, void* slot_read,
+// The memset, totals and rows; with `gather` the rows pass writes each
+// slot's position through sa, else its row.
+template <typename P, typename Sa>
+int resolve_rows(const void* packed, int B, int has_ok, int max_seeds, const Sa& sa, bool gather,
+                 int H, void* read_end, void* cnts, void* scan_state, void* rows, void* slot_read,
                  void* gpos, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Seeds<P> s = seeds_of<P>(packed, B, has_ok, max_seeds);
   cudaError_t err = totals(s, H, read_end, cnts, scan_state, st);
   if (err != cudaSuccess || H == 0) return (int)err;
-  rows_kernel<P><<<(H + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      s, static_cast<const int*>(read_end), H, static_cast<const P*>(sa_full),
-      static_cast<P*>(rows), static_cast<int*>(slot_read), static_cast<P*>(gpos));
+  const size_t smem = Sa::smem_bytes(sa.n_shards);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  rows_kernel<P, Sa><<<(H + kThreads - 1) / kThreads, kThreads, smem, st>>>(
+      s, static_cast<const int*>(read_end), H, sa, gather, static_cast<P*>(rows),
+      static_cast<int*>(slot_read), static_cast<P*>(gpos));
   return (int)cudaGetLastError();
+}
+
+// The full-SA column of a shard table of every shard, ns_local rows a slab.
+template <typename P>
+ShardedSa<P> full_sa_table(const void* table, int n_shards, long long ns_local) {
+  ShardedSa<P> sa;
+  sa.table = static_cast<const ShardSlabs<P>*>(table);
+  sa.n_shards = n_shards;
+  sa.samples = false;
+  sa.set_rows(static_cast<unsigned long long>(ns_local));
+  return sa;
 }
 
 template <typename P>
@@ -378,8 +423,8 @@ int resolve_finish(const void* packed, int B, int has_ok, int max_seeds, int H, 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)emit(seeds_of<P>(packed, B, has_ok, max_seeds), H, pack16, read_end, cnts, nullptr,
-                   out, st);
+  return (int)emit(seeds_of<P>(packed, B, has_ok, max_seeds), H, pack16, read_end, cnts,
+                   FlatSa<int>{nullptr}, false, out, st);
 }
 
 }  // namespace
@@ -396,7 +441,26 @@ extern "C" int kart_resolve_pack(const void* packed, int B, int has_ok, int max_
   const Seeds<int> s = seeds_of<int>(packed, B, has_ok, max_seeds);
   const cudaError_t err = totals(s, H, read_end, cnts, scan_state, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)emit(s, H, pack16, read_end, cnts, sa_full, out, st);
+  return (int)emit(s, H, pack16, read_end, cnts, FlatSa<int>{static_cast<const int*>(sa_full)},
+                   true, out, st);
+}
+
+// kart_resolve_pack of the FM stepper's seeds (no ok column, the 32-bit
+// layout: out (B + 2H,) int32) through the full SA split over the shards of
+// this device: table (n_shards, 4) 64-bit words as kart_sharded_occ4's,
+// every row's sa_full slab pointer set (int32, ns_local rows a slab).  The
+// same memset and two passes, emit reading each position from its owner's
+// slab.
+extern "C" int kart_resolve_pack_table(const void* packed, int B, int max_seeds,
+                                       const void* table, int n_shards, long long ns_local, int H,
+                                       void* read_end, void* cnts, void* scan_state, void* out,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Seeds<int> s = seeds_of<int>(packed, B, 0, max_seeds);
+  const cudaError_t err = totals(s, H, read_end, cnts, scan_state, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)emit(s, H, 0, read_end, cnts, full_sa_table<int>(table, n_shards, ns_local), true,
+                   out, st);
 }
 
 // The passes before the walk (the memset, totals, rows) of a stream that is
@@ -410,16 +474,33 @@ extern "C" int kart_resolve_rows(const void* packed, int B, int has_ok, int max_
                                  const void* sa_full, int H, void* read_end, void* cnts,
                                  void* scan_state, void* rows, void* slot_read, void* gpos,
                                  void* stream) {
-  return resolve_rows<int>(packed, B, has_ok, max_seeds, sa_full, H, read_end, cnts, scan_state,
-                           rows, slot_read, gpos, stream);
+  return resolve_rows<int>(packed, B, has_ok, max_seeds, FlatSa<int>{static_cast<const int*>(sa_full)},
+                           sa_full != nullptr, H, read_end, cnts, scan_state, rows, slot_read,
+                           gpos, stream);
 }
 
 extern "C" int kart_resolve_rows_i64(const void* packed, int B, int has_ok, int max_seeds,
                                      const void* sa_full, int H, void* read_end, void* cnts,
                                      void* scan_state, void* rows, void* slot_read, void* gpos,
                                      void* stream) {
-  return resolve_rows<long long>(packed, B, has_ok, max_seeds, sa_full, H, read_end, cnts,
-                                 scan_state, rows, slot_read, gpos, stream);
+  return resolve_rows<long long>(packed, B, has_ok, max_seeds,
+                                 FlatSa<long long>{static_cast<const long long*>(sa_full)},
+                                 sa_full != nullptr, H, read_end, cnts, scan_state, rows,
+                                 slot_read, gpos, stream);
+}
+
+// kart_resolve_rows_i64 of the FM stepper's int64 seeds (no ok column)
+// through an int64 full SA split over the shards of this device (table and
+// ns_local as kart_resolve_pack_table's): the rows pass writes each slot's
+// position from its owner's slab; kart_resolve_finish_i64 without `done`
+// then writes the counts and meta words.
+extern "C" int kart_resolve_rows_table_i64(const void* packed, int B, int max_seeds,
+                                           const void* table, int n_shards, long long ns_local,
+                                           int H, void* read_end, void* cnts, void* scan_state,
+                                           void* slot_read, void* gpos, void* stream) {
+  return resolve_rows<long long>(packed, B, 0, max_seeds,
+                                 full_sa_table<long long>(table, n_shards, ns_local), true, H,
+                                 read_end, cnts, scan_state, nullptr, slot_read, gpos, stream);
 }
 
 // The passes after the walk: with done (the walk's (H,) bytes) the flag

@@ -109,10 +109,11 @@ extern "C" int kart_sa_walk_i64(const void* occ_cp, const void* bwt_words, const
 }
 
 // The walk on the block-sharded index, every shard on this device: table
-// (n_shards, 3) 64-bit words, shard s's occ_cp, bwt_words and sa_samples
-// slab pointers (none null), nb_local blocks and nsamp_local sampled rows a
-// slab; L2, rows, pos and done as above.  cudaErrorInvalidValue where the
-// table exceeds 48 KB of shared memory (some 2,000 shards).
+// (n_shards, 4) 64-bit words, shard s's occ_cp, bwt_words, sa_samples and
+// sa_full slab pointers (none of the first three null; the walk reads no
+// full SA), nb_local blocks and nsamp_local sampled rows a slab; L2, rows,
+// pos and done as above.  cudaErrorInvalidValue where the table exceeds
+// 48 KB of shared memory (some 1,500 shards).
 extern "C" int kart_sharded_sa_walk(const void* table, int n_shards, long long nb_local,
                                     long long nsamp_local, const void* L2, int primary,
                                     const void* rows, int n, int max_steps, void* pos, void* done,

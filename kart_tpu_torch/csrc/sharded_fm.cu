@@ -10,15 +10,17 @@
 // by a psum.  Here the shards' slabs are tensors on their devices.  Where
 // one device holds every shard, the whole scan and the whole walk are one
 // launch each (fm_seed_scan.cu's and sa_walk.cu's loops through the shard
-// table); the kernels here serve shards spread over
+// table), and a resolve reads the full SA through the table inside
+// resolve_pack.cu's passes; the kernels here serve shards spread over
 // several devices, where the host steps: a scan step is one G1 launch on
 // every other device and one fused step on the first (its own shards'
 // counts, the others' parts, the step); the walk one G3 launch a device a
-// step, summed on the first.  Exactly one shard owns each query, so the sum
-// is exact.  The plain PyTorch versions are sharded_index.py's
-// table_occ4_plain, fused_step_plain (table_occ4_plain, the parts' sum and
-// ops/fm_search.py::seed_scan_step_plain), table_inv_psi_plain and
-// shard_gather_plain.
+// step, summed on the first, then one G4 a device.  Exactly one shard owns
+// each query, so the sum is exact.  The plain PyTorch versions are
+// sharded_index.py's table_occ4_plain, fused_step_plain (table_occ4_plain,
+// the parts' sum and ops/fm_search.py::seed_scan_step_plain),
+// table_inv_psi_plain and table_gather_plain (shard_gather_plain a shard,
+// summed).
 //
 // The shard table (fm_index.cuh's ShardedIndex) has a row for every shard
 // of the index: the pointers of its slabs where it lies on the launching
@@ -52,9 +54,18 @@
 //                           where the table does not hold the owner; the
 //                           first device's launch also counts the step of
 //                           every row not at a sample.
-//   sharded_gather_kernel   a thread a row: slab[(row >> shift) - lo] if the
-//                           shard owns it, else 0 (shift 0 for the full SA,
-//                           5 for the sample at a cross-device walk's end).
+//   sharded_gather_kernel   a thread a row, one launch for every shard of
+//                           the device: q = row >> shift, its owner q /
+//                           n_local by fm_index.cuh's ShardedSa (a multiply
+//                           by the reciprocal; for an int64 index, whose rows
+//                           pass 2**32, a multiply and a compare more), then
+//                           the owner's slab at q % n_local where the table
+//                           holds it, else 0 (shift 0: the full-SA column,
+//                           the full-SA lookup of a cross-device resolve and
+//                           sharded_sa_gather; shift 5: the samples at a
+//                           cross-device walk's end).  One launch a device
+//                           where there was one a shard, each writing a
+//                           whole zero-padded part for a sum.
 //
 // What bounds them on this card: dependent loads, not bytes, and above all
 // the host's launches.  A cross-device scan is l_max + 1 rounds of (a G1
@@ -63,6 +74,9 @@
 // independent loads (a 16- or 32-byte checkpoint row and a 32-byte block),
 // so a round costs the latency of N launches for N devices and one load
 // that hits L2.  The walk is one G3 launch a device a step and the sum.
+// G4 reads each row and its slab word once (96,000 rows: some 1.8 MB by
+// distinct sector, 0.5 us at 3.35 TB/s); a launch of it is near the card's
+// floor for a kernel that small, so what it saves is launches and passes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -217,14 +231,18 @@ sharded_inv_psi_kernel(FmWalk<T, ShardedIndex<T>> fm, const T* __restrict__ L2,
   out[i] = v;
 }
 
-template <typename T>
+// Sa: ShardedSa<T>, or a type with its stage and at (a probe's other owner
+// computation).
+// The row's load is issued before the table is staged, so the two overlap.
+template <typename T, typename Sa>
 __global__ void __launch_bounds__(kThreads)
-sharded_gather_kernel(const T* __restrict__ slab, long long lo, long long n_local,
-                      const T* __restrict__ rows, int n, int shift, T* __restrict__ out) {
+sharded_gather_kernel(Sa sa, const T* __restrict__ rows, int n, int shift, T* __restrict__ out) {
+  extern __shared__ int smem[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const T row = i < n ? __ldg(rows + i) : T(0);
+  sa.stage(smem);
   if (i >= n) return;
-  const long long r = static_cast<long long>(__ldg(rows + i) >> shift) - lo;
-  out[i] = r >= 0 && r < n_local ? __ldg(slab + r) : T(0);
+  out[i] = sa.at(row >> shift);
 }
 
 template <typename T>
@@ -282,13 +300,26 @@ int launch_inv_psi(const void* table, int n_shards, long long nb_local, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// The table's full-SA column (shift 0) or its sampled-SA column (shift
+// kSaIntvLog2), n_local rows a slab.
 template <typename T>
-int launch_gather(const void* slab, long long lo, long long n_local, const void* rows, int n,
-                  int shift, void* out, void* stream) {
+ShardedSa<T> table_sa(const void* table, int n_shards, long long n_local, int shift) {
+  ShardedSa<T> sa;
+  sa.table = static_cast<const ShardSlabs<T>*>(table);
+  sa.n_shards = n_shards;
+  sa.samples = shift != 0;
+  sa.set_rows(static_cast<unsigned long long>(n_local));
+  return sa;
+}
+
+template <typename T, typename Sa>
+int launch_gather(Sa sa, const void* rows, int n, int shift, void* out, void* stream) {
   if (n <= 0) return 0;
-  sharded_gather_kernel<T><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(slab), lo, n_local, static_cast<const T*>(rows), n, shift,
-      static_cast<T*>(out));
+  const size_t smem = Sa::smem_bytes(sa.n_shards);
+  if ((shift != 0 && shift != kSaIntvLog2) || sa.n_local < 1 || smem > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sharded_gather_kernel<T, Sa><<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      sa, static_cast<const T*>(rows), n, shift, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -296,12 +327,13 @@ int launch_gather(const void* slab, long long lo, long long n_local, const void*
 
 // Plain C entries for ctypes, one an index type (T int, or long long for the
 // _i64 entries).  Pointers are device pointers of the launching device.
-//   table (n_shards, 3) 64-bit words: shard s's occ_cp (nb_local*4,) T and
-//   bwt_words (nb_local*8,) 32-bit words, both 16-byte aligned, and its
-//   sa_samples slab, or three nulls where shard s lies on another device;
+//   table (n_shards, 4) 64-bit words: shard s's occ_cp (nb_local*4,) T and
+//   bwt_words (nb_local*8,) 32-bit words, both 16-byte aligned, its
+//   sa_samples slab and its sa_full slab (null in the sampled SA mode), or
+//   four nulls where shard s lies on another device;
 //   k (n,) T rows; out (n, 4) T counts, zeros for a row whose owner the
 //   table does not hold.  cudaErrorInvalidValue where the table exceeds 48 KB
-//   of shared memory (some 2,000 shards).
+//   of shared memory (some 1,500 shards).
 extern "C" int kart_sharded_occ4(const void* table, int n_shards, long long nb_local, int primary,
                                  const void* k, int n, void* out, void* stream) {
   return launch_occ4<int>(table, n_shards, nb_local, primary, k, n, out, stream);
@@ -361,15 +393,20 @@ extern "C" int kart_sharded_inv_psi_i64(const void* table, int n_shards, long lo
                                    stream);
 }
 
-//   slab (n_local,) T rows [lo, lo + n_local) of the full or the sampled SA;
-//   rows, out (n,) T.
-extern "C" int kart_sharded_gather(const void* slab, long long lo, long long n_local,
+//   table as kart_sharded_occ4's; rows, out (n,) T: out[i] = the full SA at
+//   rows[i] (shift 0, the table's sa_full column, n_local = ns_local) or the
+//   sampled SA at rows[i] >> 5 (shift 5, sa_samples, n_local = nsamp_local),
+//   0 where the table does not hold the row's owner.  cudaErrorInvalidValue
+//   for another shift.
+extern "C" int kart_sharded_gather(const void* table, int n_shards, long long n_local,
                                    const void* rows, int n, int shift, void* out, void* stream) {
-  return launch_gather<int>(slab, lo, n_local, rows, n, shift, out, stream);
+  return launch_gather<int>(table_sa<int>(table, n_shards, n_local, shift), rows, n, shift, out,
+                            stream);
 }
 
-extern "C" int kart_sharded_gather_i64(const void* slab, long long lo, long long n_local,
+extern "C" int kart_sharded_gather_i64(const void* table, int n_shards, long long n_local,
                                        const void* rows, int n, int shift, void* out,
                                        void* stream) {
-  return launch_gather<long long>(slab, lo, n_local, rows, n, shift, out, stream);
+  return launch_gather<long long>(table_sa<long long>(table, n_shards, n_local, shift), rows, n,
+                                  shift, out, stream);
 }

@@ -388,7 +388,7 @@ extern "C" int kart_stamp_design_walk(int design, int pin, int i64, int stamp, c
 }
 
 // The header's step: on the flat index (table null: occ_cp, bwt4,
-// sa_samples) or through a shard table of every shard (table (n_shards, 3),
+// sa_samples) or through a shard table of every shard (table (n_shards, 4),
 // nb_local, nsamp_local); L2 (5,) of the index type on the device.
 extern "C" int kart_stamp_header_walk(int i64, int stamp, const void* table, int n_shards,
                                       long long nb_local, long long nsamp_local,

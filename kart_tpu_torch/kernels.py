@@ -125,7 +125,7 @@ def _load():
             fn.argtypes = [p, i, ll, p, prim, p, i, p, p, p]
             fn.restype = i
             fn = getattr(lib, "kart_sharded_gather" + name)
-            fn.argtypes = [p, ll, ll, p, i, i, p, p]
+            fn.argtypes = [p, i, ll, p, i, i, p, p]
             fn.restype = i
             fn = getattr(lib, "kart_sorted_occurrences" + name)
             fn.argtypes = [p, i, p, p, ll, i, p, p, p, p, p, p, p, p]
@@ -151,6 +151,12 @@ def _load():
         lib.kart_resolve_finish_i64.restype = i
         lib.kart_resolve_scan_words.argtypes = [i]
         lib.kart_resolve_scan_words.restype = i
+        lib.kart_resolve_pack_table.argtypes = [p, i, i, p, i, ll, i, p, p, p, p, p]
+        lib.kart_resolve_pack_table.restype = i
+        lib.kart_resolve_rows_table_i64.argtypes = [p, i, i, p, i, ll, i, p, p, p, p, p, p]
+        lib.kart_resolve_rows_table_i64.restype = i
+        lib.kart_sorted_occ_state_words.argtypes = [i]
+        lib.kart_sorted_occ_state_words.restype = i
         lib.kart_row_gather.argtypes = [p, p, i, p, p]
         lib.kart_row_gather.restype = i
         lib.kart_cluster_illumina.argtypes = [p, i, p, p, p, p, p, i, i, i, p, p, p, p]
@@ -484,12 +490,14 @@ def resolve_pack(sa_full, packed, *, max_seeds: int, has_ok: bool, occ_budget: i
     return out
 
 
-def _resolve_by_rows(packed, has_ok: bool, max_seeds: int, H: int, pack16: bool, sa_full, fill):
+def _resolve_by_rows(packed, has_ok: bool, max_seeds: int, H: int, pack16: bool, sa_full, fill,
+                     table=None):
     """resolve_pack.cu's passes around an SA lookup: the memset, totals and
-    rows, then the positions (an int64 full SA's gather in the rows pass, or
-    fill(rows, gpos, done), which writes each slot's text position and
-    whether it resolved), then flag (with fill) and emit.  Returns the int32
-    stream, or for int64 seeds the (cnts, meta, gpos) tuple."""
+    rows, then the positions (an int64 full SA's gather in the rows pass,
+    flat or through `table`, (shard table, ns_local), or fill(rows, gpos,
+    done), which writes each slot's text position and whether it resolved),
+    then flag (with fill) and emit.  Returns the int32 stream, or for int64
+    seeds the (cnts, meta, gpos) tuple."""
     dev = packed.device
     B = packed.shape[0]
     wide = packed.dtype == torch.int64
@@ -507,10 +515,17 @@ def _resolve_by_rows(packed, has_ok: bool, max_seeds: int, H: int, pack16: bool,
     done = torch.empty((H,), dtype=torch.bool, device=dev) if fill is not None else None
     sfx = "_i64" if wide else ""
     with torch.cuda.device(dev):
-        rc = getattr(lib, "kart_resolve_rows" + sfx)(
-            *head, None if sa_full is None else sa_full.data_ptr(), H, read_end.data_ptr(),
-            cnts.data_ptr(), scan_state.data_ptr(), None if rows is None else rows.data_ptr(),
-            slot_read.data_ptr(), gpos.data_ptr(), _stream(dev))
+        if table is not None:
+            rc = lib.kart_resolve_rows_table_i64(
+                packed.data_ptr(), B, max_seeds, table[0].data_ptr(), table[0].shape[0],
+                int(table[1]), H,
+                read_end.data_ptr(), cnts.data_ptr(), scan_state.data_ptr(),
+                slot_read.data_ptr(), gpos.data_ptr(), _stream(dev))
+        else:
+            rc = getattr(lib, "kart_resolve_rows" + sfx)(
+                *head, None if sa_full is None else sa_full.data_ptr(), H, read_end.data_ptr(),
+                cnts.data_ptr(), scan_state.data_ptr(), None if rows is None else rows.data_ptr(),
+                slot_read.data_ptr(), gpos.data_ptr(), _stream(dev))
         _raise_on(rc, "resolve_pack")
         if fill is not None and H:
             fill(rows, gpos, done)
@@ -548,6 +563,50 @@ def resolve_stream(packed, fill, *, max_seeds: int, occ_budget: int):
     if isinstance(out, tuple):
         return out
     return out[:B], out[B:B + H], out[B + H:]
+
+
+def resolve_stream_table(table, ns_local: int, packed, *, max_seeds: int, occ_budget: int):
+    """csrc/resolve_pack.cu through the full SA split over the shards of the
+    seeds' device (the resident full-SA resolve): (cnts, meta, gpos) as
+    resolve_stream's, each slot's position read from its owner's slab
+    through the shard table of every shard (table (N, 4) int64, its
+    `has_full_sa`: every row's sa_full slab set; ns_local rows a slab).
+    int32 seeds: the memset, totals and emit, as resolve_pack's flat call
+    (kart_resolve_pack_table); int64: the memset, totals, the rows pass
+    writing the positions, and emit (kart_resolve_rows_table_i64, then
+    kart_resolve_finish_i64).  No SA lookup of the caller's, no sum, no copy.
+    Counted in resolve_pack.launches."""
+    if not (getattr(table, "every_shard", False) and getattr(table, "has_full_sa", False)):
+        raise ValueError("resolve_stream_table: needs the shard table of every shard, each with"
+                         " its full-SA slab (sharded_index.shard_table of all the shards, full SA)")
+    if int(ns_local) < 1:
+        raise ValueError(f"resolve_stream_table: ns_local {ns_local}")
+    dev = packed.device
+    B = packed.shape[0]
+    H = int(occ_budget)
+    pdt = packed.dtype
+    if pdt not in (torch.int32, torch.int64):
+        raise TypeError(f"packed: expected int32 or int64 seeds, got {pdt}")
+    _check("packed", packed, pdt, (B, 1 + 4 * max_seeds), dev)
+    _check("table", table, torch.int64, (table.shape[0], 4), dev, align=16)
+    if pdt == torch.int64:
+        out = _resolve_by_rows(packed, False, max_seeds, H, False, None, None,
+                               table=(table, ns_local))
+    else:
+        out = torch.empty((B + 2 * H,), dtype=torch.int32, device=dev)
+        read_end = torch.empty((B,), dtype=torch.int32, device=dev)
+        cnts = torch.empty((B,), dtype=torch.int32, device=dev)
+        lib = _load()
+        scan_state = torch.empty((lib.kart_resolve_scan_words(B),), dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.kart_resolve_pack_table(packed.data_ptr(), B, max_seeds, table.data_ptr(),
+                                             table.shape[0], int(ns_local), H,
+                                             read_end.data_ptr(), cnts.data_ptr(),
+                                             scan_state.data_ptr(), out.data_ptr(), _stream(dev))
+        _raise_on(rc, "resolve_pack")
+        out = out[:B], out[B:B + H], out[B + H:]
+    resolve_pack.launches += 1
+    return out
 
 
 resolve_pack.launches = 0
@@ -706,7 +765,7 @@ def _count(fn) -> None:
 
 def _check_table(table, L2, seq_len: int, dev, every_shard: bool = False
                  ) -> tuple[torch.dtype, str]:
-    """Check a shard table (N, 3) int64 of slab pointers and the index's L2
+    """Check a shard table (N, 4) int64 of slab pointers and the index's L2
     on dev, with every shard's row filled where `every_shard` (a resident
     kernel reads each row without a look at it; sharded_index.shard_table
     records whether a table is whole); returns the index dtype and the C
@@ -715,7 +774,7 @@ def _check_table(table, L2, seq_len: int, dev, every_shard: bool = False
         raise ValueError("shard table: a resident kernel needs a table of every shard"
                          " (sharded_index.shard_table of all the shards)")
     sfx = _index_sfx(L2)
-    _check("table", table, torch.int64, (table.shape[0], 3), dev, align=16)
+    _check("table", table, torch.int64, (table.shape[0], 4), dev, align=16)
     _check("L2", L2, L2.dtype, (5,), dev)
     if table.shape[0] < 1:
         raise ValueError("shard table: no shards")
@@ -730,9 +789,10 @@ def sharded_seed_scan(table, nb_local: int, L2, primary: int, seq_len: int, read
     """csrc/fm_seed_scan.cu through the shard table (the resident scan):
     packed FastMode seeds (B, 1 + 4*max_seeds) in the index dtype, as
     fm_seed_scan's, for reads (B, l_max) int32 and rlens (B,) int32, with
-    every shard's slabs on the reads' device: table (N, 3) int64, each row a
-    shard's occ_cp, bwt_words and sa_samples pointers there (a table with a
-    null row raises); nb_local blocks a slab.  One launch for the whole
+    every shard's slabs on the reads' device: table (N, 4) int64, each row a
+    shard's occ_cp, bwt_words, sa_samples and sa_full pointers there (a
+    table with a null row raises; sa_full is null in the sampled SA mode);
+    nb_local blocks a slab.  One launch for the whole
     scan."""
     dev = reads.device
     B = reads.shape[0]
@@ -903,22 +963,29 @@ def sharded_inv_psi(table, nb_local: int, L2, primary: int, seq_len: int, k, add
 sharded_inv_psi.launches = 0
 
 
-def sharded_gather(slab, lo: int, rows, shift: int = 0):
-    """csrc/sharded_fm.cu (G4): slab[(rows >> shift) - lo] (n,) for the rows
-    (n,) on the card that one shard's slab (rows [lo, lo + len(slab)) of the
-    full SA, shift 0, or of the sampled SA, shift 5) holds, else 0."""
+def sharded_gather(table, n_local: int, rows, shift: int = 0):
+    """csrc/sharded_fm.cu (G4): one launch for every shard of the rows'
+    device, through its shard table (as sharded_occ4's), rows (n,) of the
+    index dtype: (n,) of that dtype, the full SA at rows (shift 0, the
+    table's sa_full slabs of n_local = ns_local rows) or the sampled SA at
+    rows >> 5 (shift 5, sa_samples, n_local = nsamp_local) where the table
+    holds the row's owner, else 0."""
     dev = rows.device
     n = rows.shape[0]
-    sfx = _index_sfx(slab)
-    _check("slab", slab, slab.dtype, (slab.shape[0],), dev)
-    _check("rows", rows, slab.dtype, (n,), dev)
-    out = torch.empty((n,), dtype=slab.dtype, device=dev)
+    sfx = _index_sfx(rows)
+    if shift not in (0, 5):
+        raise ValueError(f"sharded_gather: shift {shift}, expected 0 (full SA) or 5 (samples)")
+    if int(n_local) < 1:
+        raise ValueError(f"sharded_gather: n_local {n_local}")
+    _check("table", table, torch.int64, (table.shape[0], 4), dev, align=16)
+    _check("rows", rows, rows.dtype, (n,), dev)
+    out = torch.empty((n,), dtype=rows.dtype, device=dev)
     if n == 0:
         return out
     lib = _load()
     with torch.cuda.device(dev):
         rc = getattr(lib, "kart_sharded_gather" + sfx)(
-            slab.data_ptr(), int(lo), slab.shape[0], rows.data_ptr(), n, int(shift),
+            table.data_ptr(), table.shape[0], int(n_local), rows.data_ptr(), n, int(shift),
             out.data_ptr(), _stream(dev))
     _raise_on(rc, "sharded_gather")
     _count(sharded_gather)
@@ -933,6 +1000,26 @@ sharded_gather.launches = 0
 # ---------------------------------------------------------------------------
 
 SORTED_OCC_MAX = 32  # slots a read: a lane a slot, a warp a read at most
+SORTED_OCC_MIN_WORDS = 4096  # state words made at first: B up to some 262,000
+_sorted_occ_state: dict = {}  # device -> the look-back's state words, zero between calls
+
+
+def sorted_occ_state(dev, B: int) -> torch.Tensor:
+    """The look-back state of csrc/sorted_occ.cu on dev, for B reads: int64
+    words made zero once a device (or again, larger, for a larger B); each
+    call leaves them zero.  One set a device, so calls on two streams of a
+    device at once are not supported.  Raises where a larger set would have
+    to be made inside a CUDA graph's capture: run one call outside it
+    first."""
+    need = _load().kart_sorted_occ_state_words(B)
+    st = _sorted_occ_state.get(dev)
+    if st is None or st.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"sorted_occurrences: {need} state words for B {B} on {dev} are to"
+                               f" be made inside a CUDA graph's capture; call it once outside")
+        st = torch.zeros((max(need, SORTED_OCC_MIN_WORDS),), dtype=torch.int64, device=dev)
+        _sorted_occ_state[dev] = st
+    return st
 
 
 def sorted_occurrences(cnts, meta, gpos, B: int, s_occ: int):
@@ -941,7 +1028,8 @@ def sorted_occurrences(cnts, meta, gpos, B: int, s_occ: int):
     slots a read and sorted by (posdiff, rpos), as
     parallel/dp.py::sorted_occurrences_plain: (n_occ (B,) int32, rp, ln
     (B, s_occ) int32, gp (B, s_occ) of gpos's dtype, pd (B, s_occ) int32,
-    present (B, s_occ) bool).  1 <= s_occ <= SORTED_OCC_MAX."""
+    present (B, s_occ) bool).  1 <= s_occ <= SORTED_OCC_MAX.  One launch,
+    no memset: the look-back's state (`sorted_occ_state`) resets itself."""
     dev = meta.device
     H = meta.shape[0]
     if not 1 <= s_occ <= SORTED_OCC_MAX:
@@ -960,11 +1048,11 @@ def sorted_occurrences(cnts, meta, gpos, B: int, s_occ: int):
     present = torch.empty((B, s_occ), dtype=torch.bool, device=dev)
     if B == 0:
         return n_occ, rp, ln, gp, pd, present
-    offs = torch.empty((B,), dtype=i32, device=dev)
+    state = sorted_occ_state(dev, B)
     lib = _load()
     with torch.cuda.device(dev):
         rc = getattr(lib, "kart_sorted_occurrences" + sfx)(
-            cnts.data_ptr(), B, meta.data_ptr(), gpos.data_ptr(), H, s_occ, offs.data_ptr(),
+            cnts.data_ptr(), B, meta.data_ptr(), gpos.data_ptr(), H, s_occ, state.data_ptr(),
             n_occ.data_ptr(), rp.data_ptr(), ln.data_ptr(), gp.data_ptr(), pd.data_ptr(),
             present.data_ptr(), _stream(dev))
     _raise_on(rc, "sorted_occurrences")

@@ -23,6 +23,9 @@ Where one device holds every shard (the resident path):
   sharded_sa_walk     the whole sampled-SA walk in one launch, sa_walk.cu's
                       loop through the table, the sample at a walk's end from
                       its owner's slab (kernels.sharded_sa_walk)
+  the full-SA resolve resolve_pack.cu's passes reading each position from
+                      its owner's full-SA slab through the table
+                      (kernels.resolve_stream_table): no gather of its own
 Where the shards span several devices, the host steps (the cross-device
 path), one launch a device a step, the devices' results gathered on the
 first shard's device (in one process, not a torch.distributed collective):
@@ -34,17 +37,21 @@ first shard's device (in one process, not a torch.distributed collective):
                       step of every lane (ops/fm_search.py::
                       seed_scan_step_plain); N launches a step for N devices
   G3 sharded_inv_psi  one step of the sampled-SA walk, summed
-  G4 shard_gather     masked gather from a slab of the full or the sampled SA
-                      (also the full-SA gather of the resident path)
+  G4 table_gather     the full or the sampled SA at rows, one launch a device
+                      through its table (the samples at a cross-device walk's
+                      end, the full-SA lookup of a cross-device resolve and
+                      sharded_sa_gather), summed
 
 Each kernel has its plain version here (CPU tensors): table_occ4_plain,
-fused_step_plain, table_inv_psi_plain, shard_gather_plain, and
-resident_seed_scan_plain and resident_sa_walk_plain, the cross-device loops
-over them with every shard in one group.  Occurrences are
-expanded and resolved by ops/resolve.py's plain version, or on the card by
-csrc/resolve_pack.cu's passes around the sharded lookup
-(kernels.resolve_stream).  Nothing falls back to another path, to the
-replicated index or to the CPU: a kernel that fails to build or launch, a
+fused_step_plain, table_inv_psi_plain, table_gather_plain (shard_gather_plain
+a shard, summed), and resident_seed_scan_plain, resident_sa_walk_plain and
+resident_sa_gather_plain, the cross-device loops and the gather over them
+with every shard in one group.  Occurrences are expanded and resolved by
+ops/resolve.py's plain version, or on the card by csrc/resolve_pack.cu's
+passes: through the table where one device holds every shard's full SA,
+else around the sharded lookup (kernels.resolve_stream).  Nothing falls
+back to another path, to the replicated index or to the CPU: a kernel
+that fails to build or launch, a
 shard on an unsupported device and a resident call on shards that are not
 all on its device raise.
 """
@@ -290,11 +297,34 @@ def table_inv_psi_plain(sfm: ShardedFM, shards: list[FMShard], k: torch.Tensor, 
 
 
 def shard_gather_plain(slab: torch.Tensor, lo: int, rows: torch.Tensor, shift: int = 0):
-    """G4's plain version: slab[(rows >> shift) - lo] where the slab holds
-    the row, else 0."""
+    """One shard's part of G4's plain version: slab[(rows >> shift) - lo]
+    where the slab holds the row, else 0."""
     r = (rows >> shift) - lo
     mine = (r >= 0) & (r < slab.shape[0])
     return torch.where(mine, slab[r.clamp(0, slab.shape[0] - 1).long()], 0)
+
+
+def _gather_slabs(sfm: ShardedFM, shards: list[FMShard], shift: int):
+    """(slab, first row) of each of `shards` for the full SA (shift 0) or
+    the sampled SA (shift 5)."""
+    if shift == 0:
+        return [(s.sa_full, s.index * sfm.ns_local) for s in shards]
+    return [(s.sa_samples, s.index * sfm.nsamp_local) for s in shards]
+
+
+def table_gather_plain(sfm: ShardedFM, shards: list[FMShard], rows: torch.Tensor,
+                       shift: int = 0):
+    """G4's plain version: the full SA at rows (shift 0) or the sampled SA
+    at rows >> 5 (shift 5) where the row's owner is one of `shards`, else 0:
+    shard_gather_plain of each, summed."""
+    return combine([shard_gather_plain(slab, lo, rows, shift)
+                    for slab, lo in _gather_slabs(sfm, shards, shift)], rows.device)
+
+
+def resident_sa_gather_plain(sfm: ShardedFM, rows: torch.Tensor):
+    """The plain version of the full-SA lookup that the resident resolve
+    makes through the table: sa_full[rows], every shard in one group."""
+    return table_gather_plain(sfm, sfm.shards, rows, 0)
 
 
 def resident_seed_scan_plain(sfm: ShardedFM, reads, rlens, min_seed_len, *, max_seeds: int,
@@ -320,23 +350,26 @@ def _on(dev: torch.device) -> str:
 
 
 def shard_table(sfm: ShardedFM, shards: list[FMShard]) -> torch.Tensor:
-    """The shard table of `shards`, which lie on one device: (N, 3) int64
-    there, row s the data pointers of shard s's occ_cp, bwt_words and
-    sa_samples slabs where shard s is one of `shards`, zeros elsewhere.
-    Made once per ShardedFM, device and set of slabs; its `every_shard` says
-    whether it holds every shard of the index, which the resident kernels
-    ask of the table they read."""
+    """The shard table of `shards`, which lie on one device: (N, 4) int64
+    there, row s the data pointers of shard s's occ_cp, bwt_words,
+    sa_samples and sa_full slabs (sa_full 0 in the sampled SA mode) where
+    shard s is one of `shards`, zeros elsewhere.  Made once per ShardedFM,
+    device and set of slabs; its `every_shard` says whether it holds every
+    shard of the index, which the resident kernels ask of the table they
+    read, and `has_full_sa` whether its rows hold the full SA's slabs."""
     dev = shards[0].device
     for s in shards:
         if s.device != dev:
             raise ValueError(f"shard table: shard {s.index} on {s.device}, the table's on {dev}")
-    ptrs = {s.index: (s.occ_cp.data_ptr(), s.bwt_words.data_ptr(), s.sa_samples.data_ptr())
+    ptrs = {s.index: (s.occ_cp.data_ptr(), s.bwt_words.data_ptr(), s.sa_samples.data_ptr(),
+                      0 if s.sa_full is None else s.sa_full.data_ptr())
             for s in shards}
     key = (dev, tuple(sorted(ptrs.items())))
     if key not in sfm.tables:
-        rows = [ptrs.get(i, (0, 0, 0)) for i in range(len(sfm.shards))]
+        rows = [ptrs.get(i, (0, 0, 0, 0)) for i in range(len(sfm.shards))]
         table = torch.tensor(rows, dtype=torch.int64).to(dev)
         table.every_shard = len(ptrs) == len(sfm.shards)
+        table.has_full_sa = all(s.sa_full is not None for s in shards)
         sfm.tables[key] = table
     return sfm.tables[key]
 
@@ -389,14 +422,27 @@ def table_inv_psi(sfm: ShardedFM, shards: list[FMShard], k: torch.Tensor, add=No
     return _inv_psi_of(sfm, shards, table, k, add)
 
 
-def shard_gather(slab: torch.Tensor, lo: int, rows: torch.Tensor, shift: int = 0):
-    """G4 on the slab's device."""
-    rows = rows.to(slab.device)
-    if _on(slab.device) == "cuda":
-        from .. import kernels
+def _gather_of(sfm: ShardedFM, shards: list[FMShard], table, rows: torch.Tensor, shift: int):
+    """G4 on the device of `shards`, as _occ4_of: the kernel through `table`
+    (one launch for the group), or the plain version where table is None;
+    rows in the index dtype."""
+    rows = rows.to(device=shards[0].device, dtype=sfm.index_dtype)
+    if table is None:
+        return table_gather_plain(sfm, shards, rows, shift)
+    from .. import kernels
 
-        return kernels.sharded_gather(slab, lo, rows, shift)
-    return shard_gather_plain(slab, lo, rows, shift)
+    return kernels.sharded_gather(table, sfm.ns_local if shift == 0 else sfm.nsamp_local, rows,
+                                  shift)
+
+
+def table_gather(sfm: ShardedFM, shards: list[FMShard], rows: torch.Tensor, shift: int = 0):
+    """G4 on the device of `shards`: the full SA at rows (shift 0) or the
+    sampled SA at rows >> 5 (shift 5) where the row's owner is one of
+    `shards`, else 0; the kernel through their table on a CUDA device, else
+    the plain version.  Where one device holds every shard, `combine` of
+    its one part is that part: no sum, no copy."""
+    (_, table), = _group_tables(sfm, [shards])
+    return _gather_of(sfm, shards, table, rows, shift)
 
 
 def combine(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -478,12 +524,18 @@ def sharded_occ4_pair(sfm: ShardedFM, ka: torch.Tensor, kb: torch.Tensor):
     return cnt[: ka.shape[0]], cnt[ka.shape[0]:]
 
 
-def sharded_sa_gather(sfm: ShardedFM, rows: torch.Tensor) -> torch.Tensor:
-    """sa_full[rows] with the full SA split over the shards."""
+def _gather_sum(sfm: ShardedFM, tables, rows: torch.Tensor, shift: int) -> torch.Tensor:
+    return combine([_gather_of(sfm, g, t, rows, shift) for g, t in tables], sfm.device)
+
+
+def sharded_sa_gather(sfm: ShardedFM, rows: torch.Tensor, groups=None) -> torch.Tensor:
+    """sa_full[rows] with the full SA split over the shards, on sfm.device:
+    one G4 a group of shards (by default a device's), summed; one launch
+    and no sum where one device holds every shard."""
     if not sfm.has_full_sa:
         raise ValueError("sharded_sa_gather: the index was split without its full SA")
-    return combine([shard_gather(s.sa_full, s.index * sfm.ns_local, rows) for s in sfm.shards],
-                   sfm.device)
+    tables = _group_tables(sfm, shard_groups(sfm) if groups is None else groups)
+    return _gather_sum(sfm, tables, rows, 0)
 
 
 def sharded_inv_psi_batch(sfm: ShardedFM, k: torch.Tensor, add=None, groups=None) -> torch.Tensor:
@@ -501,11 +553,11 @@ def _stepwise_sa_walk(sfm: ShardedFM, rows: torch.Tensor, *, max_steps: int, gro
     """The cross-device walk: the host steps every group of shards (G3 a
     group a step, summed on sfm.device), looks at the rows every
     WALK_CHECK_EVERY steps (a row at a sample keeps its row), stops after
-    max_steps steps exactly, and gathers each row's sample (G4 a shard).
-    `plain`: the plain versions on whatever device the shards lie."""
+    max_steps steps exactly, and gathers each row's sample (G4 a group,
+    summed).  `plain`: the plain versions on whatever device the shards
+    lie."""
     dev = sfm.device
     tables = _group_tables(sfm, groups, plain)
-    gather = shard_gather_plain if plain else shard_gather
     k = rows.to(device=dev, dtype=sfm.index_dtype)
     add = torch.zeros(k.shape[0], dtype=torch.int32, device=dev)
     mask = (1 << SA_INTV_LOG2) - 1
@@ -513,8 +565,7 @@ def _stepwise_sa_walk(sfm: ShardedFM, rows: torch.Tensor, *, max_steps: int, gro
         if it % WALK_CHECK_EVERY == 0 and not bool(((k & mask) != 0).any()):
             break
         k = _inv_psi_sum(sfm, tables, k, add)
-    samp = combine([gather(s.sa_samples, s.index * sfm.nsamp_local, k.to(s.device), SA_INTV_LOG2)
-                    for s in sfm.shards], dev)
+    samp = _gather_sum(sfm, tables, k, SA_INTV_LOG2)
     return add.to(k.dtype) + samp, (k & mask) == 0
 
 
@@ -601,11 +652,18 @@ def sharded_seed_scan_resolved(sfm: ShardedFM, reads, rlens, min_seed_len, *, ma
     """Sharded seeding, then occurrence expansion and SA resolution through
     the sharded index (the full-SA gather, or the walk in the sampled SA
     mode, where no shard and not the host holds the full SA): the resolved
-    stream (cnts, meta, gpos) of ops/resolve.py, on sfm.device."""
+    stream (cnts, meta, gpos) of ops/resolve.py, on sfm.device.  Where one
+    CUDA device holds every shard's full SA, resolve_pack.cu reads the
+    positions through its shard table (kernels.resolve_stream_table), with
+    no gather, sum or copy of its own."""
     packed = sharded_seed_scan(sfm, reads, rlens, min_seed_len, max_seeds=max_seeds, l_max=l_max)
     lookup = sharded_lookup(sfm)
     if _on(sfm.device) == "cuda":
         from .. import kernels
+
+        if sfm.has_full_sa and len(shard_groups(sfm)) == 1:
+            return kernels.resolve_stream_table(_resident_table(sfm), sfm.ns_local, packed,
+                                                max_seeds=max_seeds, occ_budget=occ_budget)
 
         def fill(rows, gpos, done):
             pos, ok = lookup(rows)

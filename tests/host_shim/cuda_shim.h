@@ -81,7 +81,7 @@ namespace shim {
 
 constexpr int kConcurrentBlocks = 4;
 constexpr int kStallSeconds = 20;
-constexpr size_t kStaticArena = 16 * 1024;
+constexpr size_t kStaticArena = 48 * 1024;  // the most static shared memory a CUDA block has
 
 // A barrier whose wait aborts the process when it stalls.
 class Barrier {
@@ -379,6 +379,8 @@ inline unsigned long long __umul64hi(unsigned long long a, unsigned long long b)
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   return (unsigned)(((((unsigned long long)hi) << 32) | lo) >> (sh & 31));
 }
+
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 inline unsigned atomicOr(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_or(v); }
 inline int atomicMax(int* p, int v) {

@@ -11,8 +11,10 @@ element for element and in dtype.
   `_sorted_occurrences` on tools/simdata's synthetic streams (a flagged
   read whose entries stay in the stream, meta's sign bit, reads past s_occ,
   ties, invalid slots, entries past H, 5,000 mixed reads), gpos int32 and int64 (jax_enable_x64 on, then off
-  after); and `csrc/sorted_occ.cu` on the same streams through the host
-  shim (tests/host_shim), against the plain version.
+  after); and `csrc/sorted_occ.cu` on the same streams and on batches
+  around its tiles of 128 and 64 reads (1 to 32,000, s_occ 16 and 32,
+  flagged reads and the end of H on a tile's edge) through the host shim
+  (tests/host_shim), against the plain version.
 - make_mapping_step at data 1, data 8 and data x idx 2 x 4.
 - make_full_mapping_step, every output array (the flat stream included), at
   data 1 and 4 with the full SA, data 2 sampled, 2 x 2 full and sampled, on
@@ -109,52 +111,95 @@ def sorted_occ_lib(tmp_path_factory):
         fn = getattr(lib, "kart_sorted_occurrences" + sfx)
         fn.argtypes = [p, i, p, p, ll, i, p, p, p, p, p, p, p, p]
         fn.restype = i
+    lib.kart_sorted_occ_state_words.argtypes = [i]
+    lib.kart_sorted_occ_state_words.restype = i
     return lib
 
 
 @pytest.mark.parametrize("dtype", ["int32", "int64"])
 @pytest.mark.parametrize("name", simdata.OCC_STREAMS)
 def test_sorted_occ_kernel_on_host_matches_plain(sorted_occ_lib, name, dtype):
-    """The kernel's two passes (the single-block scan, a lane a slot) on the
-    host, their outputs and scratch starting as garbage."""
+    """The kernel (the tile's scan and look-back, then a lane a slot) on the
+    host, its outputs starting as garbage."""
     cnts, meta, gpos, B, s_occ = simdata.occurrence_stream(name, dtype)
     want = tdp.sorted_occurrences_plain(torch.from_numpy(cnts), torch.from_numpy(meta),
                                         torch.from_numpy(gpos), B, s_occ)
+    state = np.zeros(sorted_occ_lib.kart_sorted_occ_state_words(B), np.uint64)
+    assert_same(host_sorted(sorted_occ_lib, cnts, meta, gpos, B, s_occ, state),
+                [w.numpy() for w in want], name)
+
+
+TILE = 64  # reads a block of csrc/sorted_occ.cu at s_occ 17-32; twice that at s_occ <= 16
+
+
+def tile_edge_stream(B, s_occ, dtype):
+    """A stream of B reads whose edges fall on the kernel's tiles: reads
+    past s_occ, flagged reads at the last and first read of tiles (their
+    entries stay for the reads after them), invalid slots, slen 32768, ties,
+    and H cut inside the entries of a read that starts a tile (the reads
+    after it take nothing).  In int64 half the positions lie past 2**32."""
+    rng = np.random.default_rng(B + 7 * s_occ)
+    cnts = rng.integers(-2, s_occ + 4, B).astype(np.int32)
+    cnts[rng.random(B) < 0.1] = 0
+    for e in range(TILE - 1, B - 1, 5 * TILE):
+        cnts[e], cnts[e + 1] = -int(rng.integers(2, 9)), -1
+    tot = np.maximum(cnts, 0).astype(np.int64)
+    cut = (3 * B // 4) // (2 * TILE) * (2 * TILE) if B > 2 * TILE else B - 1
+    if tot[cut] < 2:
+        cnts[cut], tot[cut] = 5, 5
+    H = int(tot[:cut].sum()) + int(tot[cut]) // 2
+    rp = rng.integers(0, 3 if B % 2 else 150, H)
+    slen = rng.integers(13, 60, H)
+    slen[rng.random(H) < 0.2] = 32768
+    slen[rng.random(H) < 0.2] = 0xFFFF
+    gpos = rp + rng.integers(100, 103 if B % 2 else 5000, H)
+    if dtype == "int64":
+        gpos = np.where(rng.random(H) < 0.5, gpos + (1 << 33), gpos)
+    meta = simdata.meta_of(rp, slen)
+    return cnts, meta, gpos.astype(np.int32 if dtype == "int32" else np.int64)
+
+
+def host_sorted(lib, cnts, meta, gpos, B, s_occ, state):
+    """kart_sorted_occurrences through the host shim, its outputs starting
+    as garbage; `state` the look-back's words, zero before the call."""
     outs = [np.full(B, -7, np.int32)] + [np.full((B, s_occ), -7, d)
                                           for d in (np.int32, np.int32, gpos.dtype, np.int32)]
     outs.append(np.full((B, s_occ), 9, np.uint8))
-    offs = np.full(B, -7, np.int32)
-    sfx = "" if dtype == "int32" else "_i64"
-    rc = getattr(sorted_occ_lib, "kart_sorted_occurrences" + sfx)(
+    sfx = "" if gpos.dtype == np.int32 else "_i64"
+    assert len(state) >= lib.kart_sorted_occ_state_words(B)
+    rc = getattr(lib, "kart_sorted_occurrences" + sfx)(
         cnts.ctypes.data, B, meta.ctypes.data, gpos.ctypes.data, len(meta), s_occ,
-        offs.ctypes.data, *(o.ctypes.data for o in outs), None)
+        state.ctypes.data, *(o.ctypes.data for o in outs), None)
     assert rc == 0
     outs[-1] = outs[-1].astype(bool)
-    assert_same(outs, [w.numpy() for w in want], name)
+    return outs
 
 
-def test_sorted_occ_kernel_on_host_carries_across_scan_tiles(sorted_occ_lib):
-    """A batch of 8,300 reads: the scan's second tile of 8,192 starts from
-    the first one's total."""
-    rng = np.random.default_rng(41)
-    B, s_occ = 8300, 16
-    cnts = rng.integers(-2, 5, B).astype(np.int32)
-    H = int(np.maximum(cnts, 0).sum()) + 9
-    meta = simdata.meta_of(rng.integers(0, 9, H), rng.integers(13, 40, H))
-    meta[H - 9:] = -1
-    gpos = rng.integers(0, 300, H).astype(np.int32)
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("s_occ", [16, 32])
+@pytest.mark.parametrize("B", [1, TILE - 1, TILE, TILE + 1, 2 * TILE - 1, 2 * TILE, 2 * TILE + 1,
+                               8300, 32000])
+def test_sorted_occ_kernel_on_host_carries_across_scan_tiles(sorted_occ_lib, B, s_occ, dtype):
+    """One launch over batches around the kernel's tiles (128 reads at s_occ
+    16, 64 at 32), each tile's offsets from the look-back over the tiles
+    before it, against the plain version; the look-back's state words are
+    zero after the call (the last tile resets them), so a second call on the
+    same words, on another batch, is right too."""
+    cnts, meta, gpos = tile_edge_stream(B, s_occ, dtype)
     want = tdp.sorted_occurrences_plain(torch.from_numpy(cnts), torch.from_numpy(meta),
                                         torch.from_numpy(gpos), B, s_occ)
-    outs = [np.full(B, -7, np.int32)] + [np.full((B, s_occ), -7, np.int32) for _ in range(4)]
-    outs.append(np.full((B, s_occ), 9, np.uint8))
-    offs = np.full(B, -7, np.int32)
-    assert sorted_occ_lib.kart_sorted_occurrences(
-        cnts.ctypes.data, B, meta.ctypes.data, gpos.ctypes.data, H, s_occ, offs.ctypes.data,
-        *(o.ctypes.data for o in outs), None) == 0
-    tot = np.maximum(cnts, 0)
-    np.testing.assert_array_equal(offs, np.cumsum(tot) - tot)
-    outs[-1] = outs[-1].astype(bool)
-    assert_same(outs, [w.numpy() for w in want], "two scan tiles")
+    state = np.zeros(sorted_occ_lib.kart_sorted_occ_state_words(32000), np.uint64)
+    got = host_sorted(sorted_occ_lib, cnts, meta, gpos, B, s_occ, state)
+    assert_same(got, [w.numpy() for w in want], f"B {B}")
+    assert not state.any()
+    if B == 32000:
+        assert (cnts < 0).sum() > 100 and got[0][3 * B // 4 + 1:].sum() == 0
+    c2, m2, g2 = tile_edge_stream(TILE + 1, s_occ, dtype)
+    want2 = tdp.sorted_occurrences_plain(torch.from_numpy(c2), torch.from_numpy(m2),
+                                         torch.from_numpy(g2), TILE + 1, s_occ)
+    assert_same(host_sorted(sorted_occ_lib, c2, m2, g2, TILE + 1, s_occ, state),
+                [w.numpy() for w in want2], "the second call")
+    assert not state.any()
 
 
 def test_sorted_occurrences_kernel_refuses_what_it_cannot_take():

@@ -64,7 +64,7 @@ def host_lib(tmp_path_factory):
                                                                   i, i, i, i, i, p, p, p, p, p, p,
                                                                   p]
         getattr(lib, "kart_sharded_inv_psi" + sfx).argtypes = [p, i, ll, p, prim, p, i, p, p, p]
-        getattr(lib, "kart_sharded_gather" + sfx).argtypes = [p, ll, ll, p, i, i, p, p]
+        getattr(lib, "kart_sharded_gather" + sfx).argtypes = [p, i, ll, p, i, i, p, p]
     lib.kart_resolve_finish.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.kart_resolve_finish_i64.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p]
     lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
@@ -1013,11 +1013,17 @@ def host_inv_psi(lib, sfm, shards, k, add, sfx):
     return torch.from_numpy(out)
 
 
-def host_gather(lib, slab, lo, rows, shift, sfx):
+def host_gather(lib, sfm, shards, rows, shift, sfx):
+    """G4 through the host shim with the table of `shards`: the full SA
+    (shift 0) or the samples (shift 5); its output starts as garbage."""
+    from kart_tpu_torch.parallel import sharded_index as tsi
+
     r = tnp(rows)
     out = np.full(len(r), -7, r.dtype)
-    rc = getattr(lib, "kart_sharded_gather" + sfx)(ptr(tnp(slab)), lo, slab.shape[0], ptr(r),
-                                                  len(r), shift, ptr(out), None)
+    table = tsi.shard_table(sfm, shards)
+    rc = getattr(lib, "kart_sharded_gather" + sfx)(
+        table.data_ptr(), table.shape[0], sfm.ns_local if shift == 0 else sfm.nsamp_local, ptr(r),
+        len(r), shift, ptr(out), None)
     assert rc == 0
     return torch.from_numpy(out)
 
@@ -1238,8 +1244,11 @@ def test_sharded_walk_kernels_on_host_match_plain(host_lib, shim_genome, dtype, 
             parts.append(got)
         np.testing.assert_array_equal(add, want_add.numpy())
         k = tsi.combine(parts, sfm.device)
-    samp = tsi.combine([host_gather(host_lib, s.sa_samples, s.index * sfm.nsamp_local, k, 5, sfx)
-                        for s in sfm.shards], sfm.device)
+    samp = []
+    for g in groups:
+        samp.append(host_gather(host_lib, sfm, g, k, 5, sfx))
+        assert torch.equal(samp[-1], tsi.table_gather_plain(sfm, g, k, 5))
+    samp = tsi.combine(samp, sfm.device)
     pos, done = torch.from_numpy(add).to(k.dtype) + samp, (k & 31) == 0
     for want in (tsi.sharded_sa_walk(sfm, rows, max_steps=max_steps),
                  tsi._stepwise_sa_walk(sfm, rows, max_steps=max_steps, groups=groups),
@@ -1284,8 +1293,11 @@ def test_sharded_sa_walk_kernel_on_host_matches_plain(host_lib, shim_genome, dty
 
 @pytest.mark.parametrize("dtype, n", SHARD_CASES)
 def test_sharded_gather_kernel_on_host_matches_plain(host_lib, shim_genome, dtype, n):
-    """G4 on the full SA's slabs (the last one padded): each shard's masked
-    gather equal to the plain version, and their sum to sa_full[rows]."""
+    """G4 through the shard table on the full SA's slabs (the last one
+    padded) and on the samples', each shard alone, in two groups and all in
+    one table: each launch equal to the plain composition of its shards'
+    masked gathers, and the groups' sum to sa_full[rows] and
+    sa_samples[rows >> 5]."""
     from test_torch_sampled import walk_rows
 
     from kart_tpu_torch.parallel import sharded_index as tsi
@@ -1293,13 +1305,14 @@ def test_sharded_gather_kernel_on_host_matches_plain(host_lib, shim_genome, dtyp
     gidx, _ = shim_genome
     sfm = sharded_index(gidx, dtype, n)
     sfx = "" if dtype == "int32" else "_i64"
-    rows = torch.from_numpy(np.concatenate([[0], walk_rows(gidx, 500)]).astype(
+    rows = torch.from_numpy(np.concatenate([[0, int(gidx.seq_len)], walk_rows(gidx, 500)]).astype(
         np.int32 if dtype == "int32" else np.int64))
-    parts = []
-    for s in sfm.shards:
-        lo = s.index * sfm.ns_local
-        got = host_gather(host_lib, s.sa_full, lo, rows, 0, sfx)
-        assert torch.equal(got, tsi.shard_gather_plain(s.sa_full, lo, rows))
-        parts.append(got)
-    np.testing.assert_array_equal(tsi.combine(parts, sfm.device).numpy(),
-                                  gidx.sa_full[rows.numpy()])
+    samples = np.asarray(gidx.device_arrays["sa_samples"])
+    for shift, want in ((0, gidx.sa_full[rows.numpy()]), (5, samples[rows.numpy() >> 5])):
+        for groups in shard_splits(sfm):
+            parts = []
+            for g in groups:
+                got = host_gather(host_lib, sfm, g, rows, shift, sfx)
+                assert torch.equal(got, tsi.table_gather_plain(sfm, g, rows, shift))
+                parts.append(got)
+            np.testing.assert_array_equal(tsi.combine(parts, sfm.device).numpy(), want)

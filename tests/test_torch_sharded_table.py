@@ -14,20 +14,39 @@ resolved stream through the full SA and through the walk.  Each op runs two
 ways: resident (every shard in one group) and the cross-device formulation
 with the shards split into two groups on the CPU, which must equal the
 resident one.  Then the shard table and the refusals: a resident call on
-shards spread over devices, and a shard on an unsupported device."""
+shards spread over devices, and a shard on an unsupported device.
 
+G4 and the resident full-SA resolve run as host C++ through
+tests/host_shim (csrc/sharded_fm.cu and csrc/resolve_pack.cu): the table
+gather at 1, 2 and 4 shards, every shard in one table and in two groups,
+the full SA and the samples, against its plain composition
+(shard_gather_plain of each shard, summed) and against kart_tpu's masked
+gather with its psum; resolve_pack.cu's passes reading the positions
+through the table of every shard against resolve_pack's plain version on
+the flat full SA and against kart_tpu's sharded_seed_scan_resolved."""
+
+import ctypes
 import dataclasses
+import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh, PartitionSpec as P
 
+import kart_tpu_torch
 from kart_tpu.index import build_index, load_index
+from kart_tpu.parallel import dp as jdp
+from kart_tpu.parallel import sharded_index as jsi
 from kart_tpu_torch import kernels
+from kart_tpu_torch.ops import resolve as tres
 from kart_tpu_torch.parallel import dp as tdp
 from kart_tpu_torch.parallel import sharded_index as tsi
 
 from conftest import make_genome
+from host_shim import translate
 from test_torch_parallel import (B, L_MAX, MAX_SEEDS, MIN_SEED, BUDGET, N_SHARDS, as_dtype,
                                  jax_ops, op_inputs)
 
@@ -131,21 +150,27 @@ def test_table_lookups_answer_only_their_shards(index, n, dtype):
 
 def test_shard_table_rows_and_cache(index):
     """A table has a row for every shard of the index, the slab pointers of
-    the shards in the group and zeros elsewhere; it is made once per
+    the shards in the group (occ_cp, bwt_words, sa_samples, and sa_full,
+    null in the sampled SA mode) and zeros elsewhere; it is made once per
     ShardedFM and set of slabs, and an index placed anew gets its own."""
     sfm = tsi.build_sharded_fm(index, ["cpu"] * 3, "sampled")
     groups = groups_of(sfm, "two_groups")
     t = tsi.shard_table(sfm, groups[1])
-    assert t.dtype == torch.int64 and tuple(t.shape) == (3, 3)
+    assert t.dtype == torch.int64 and tuple(t.shape) == (3, 4)
     assert not t[0].any() and not t[1].any()
     s2 = sfm.shards[2]
     assert t[2].tolist() == [s2.occ_cp.data_ptr(), s2.bwt_words.data_ptr(),
-                             s2.sa_samples.data_ptr()]
+                             s2.sa_samples.data_ptr(), 0]
+    assert not t.has_full_sa
     assert tsi.shard_table(sfm, groups[1]) is t
     assert tsi.shard_table(sfm, sfm.shards) is not t and len(sfm.tables) == 2
     placed = tdp.place_sharded_fm(sfm, ["cpu"] * 3)
     assert placed.tables == {}
     assert tsi.shard_groups(placed) == [placed.shards]
+    full = tsi.build_sharded_fm(index, ["cpu"] * 3, "full")
+    tf = tsi.shard_table(full, full.shards)
+    assert tf[:, 3].tolist() == [s.sa_full.data_ptr() for s in full.shards]
+    assert tf.has_full_sa and tf.every_shard
 
 
 def test_resident_and_unsupported_devices_raise(index):
@@ -221,3 +246,208 @@ def test_resident_kernels_refuse_a_partial_table(index, kernel):
     kw = dict(max_seeds=MAX_SEEDS, l_max=L_MAX) if kernel == "sharded_seed_scan" else {}
     with pytest.raises(ValueError, match="a table of every shard"):
         getattr(kernels, kernel)(part, *args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# G4 and the resident full-SA resolve through the host shim
+# ---------------------------------------------------------------------------
+
+GATHER_SHARDS = (1, 2, 4)
+
+
+@pytest.fixture(scope="module")
+def shim_lib(tmp_path_factory):
+    """csrc/sharded_fm.cu and csrc/resolve_pack.cu compiled as host C++."""
+    so = tmp_path_factory.mktemp("host_shim_table") / "libtable.so"
+    csrc = os.path.join(os.path.dirname(os.path.abspath(kart_tpu_torch.__file__)), "csrc")
+    translate.build(str(so), [os.path.join(csrc, f) for f in ("sharded_fm.cu", "resolve_pack.cu")])
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for sfx in ("", "_i64"):
+        getattr(lib, "kart_sharded_gather" + sfx).argtypes = [p, i, ll, p, i, i, p, p]
+    lib.kart_resolve_pack_table.argtypes = [p, i, i, p, i, ll, i, p, p, p, p, p]
+    lib.kart_resolve_rows_table_i64.argtypes = [p, i, i, p, i, ll, i, p, p, p, p, p, p]
+    lib.kart_resolve_finish_i64.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p]
+    lib.kart_resolve_scan_words.argtypes = [i]
+    return lib
+
+
+def ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def jax_gathers(gidx, n, dtype, rows):
+    """kart_tpu's masked gathers with their psum on an `idx` mesh of n host
+    devices: sharded_sa_gather of the full SA at rows, and the same of the
+    samples at rows >> 5 (the gather at the end of its sharded walk)."""
+    jax.config.update("jax_enable_x64", dtype == "int64")
+    try:
+        sfm_host, geom = jsi.build_sharded_fm(as_dtype(gidx, dtype), n)
+        mesh = Mesh(np.array(jax.devices("cpu")[:n]), ("idx",))
+        sfm = jdp.place_sharded_fm(sfm_host, mesh, "idx")
+
+        def local(s, r):
+            return (jsi.sharded_sa_gather(s.sa_full, geom["ns_local"], "idx", r),
+                    jsi.sharded_sa_gather(s.sa_samples, geom["nsamp_local"], "idx", r >> 5))
+
+        fn = jax.jit(jax.shard_map(local, mesh=mesh, in_specs=(jdp.ShardedFMSpecs("idx"), P()),
+                                   out_specs=P()))
+        return [np.asarray(x) for x in fn(sfm, jnp.asarray(rows))]
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def host_table_gather(lib, sfm, shards, rows, shift):
+    """G4 through the host shim with the table of `shards`; its output
+    starts as garbage."""
+    r = np.ascontiguousarray(rows.numpy())
+    out = np.full(len(r), -7, r.dtype)
+    table = tsi.shard_table(sfm, shards)
+    sfx = "" if r.dtype == np.int32 else "_i64"
+    rc = getattr(lib, "kart_sharded_gather" + sfx)(
+        table.data_ptr(), table.shape[0], sfm.ns_local if shift == 0 else sfm.nsamp_local, ptr(r),
+        len(r), shift, ptr(out), None)
+    assert rc == 0
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("shift", [0, 5])
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("n", GATHER_SHARDS)
+def test_table_gather_kernel_on_host_matches_plain_and_jax(index, shim_lib, n, dtype, split,
+                                                           shift):
+    """G4, one launch a group through its table: each group's gather equal
+    to its plain composition, the groups' sum to kart_tpu's gather (the full
+    SA, or the samples at rows >> 5) and to the port's sharded_sa_gather; a
+    row past the index and row 0 included."""
+    idt = np.int32 if dtype == "int32" else np.int64
+    rows_np = np.concatenate([[0, int(index.seq_len)], op_inputs(index, dtype)["rows"]]).astype(idt)
+    rows = torch.from_numpy(rows_np)
+    sfm = tsi.build_sharded_fm(as_dtype(index, dtype), ["cpu"] * n, "full")
+    parts = []
+    for g in groups_of(sfm, split):
+        got = host_table_gather(shim_lib, sfm, g, rows, shift)
+        assert torch.equal(got, tsi.table_gather_plain(sfm, g, rows, shift))
+        assert torch.equal(got, tsi.combine([tsi.shard_gather_plain(slab, lo, rows, shift)
+                                             for slab, lo in tsi._gather_slabs(sfm, g, shift)],
+                                            sfm.device))
+        parts.append(got)
+    got = tsi.combine(parts, sfm.device).numpy()
+    want = jax_gathers(index, n, dtype, rows_np)[0 if shift == 0 else 1]
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if shift == 0:
+        np.testing.assert_array_equal(got, tsi.sharded_sa_gather(sfm, rows).numpy())
+        np.testing.assert_array_equal(got, tsi.resident_sa_gather_plain(sfm, rows).numpy())
+
+
+def host_resident_resolve(lib, sfm, packed, H):
+    """resolve_pack.cu through the table of every shard, through the host
+    shim, as kernels.resolve_stream_table makes the calls: (cnts, meta,
+    gpos); the outputs and scratch start as garbage."""
+    pk = np.ascontiguousarray(packed.numpy())
+    Bn = pk.shape[0]
+    table = tsi.shard_table(sfm, sfm.shards)
+    read_end, cnts = np.full(Bn, -7, np.int32), np.full(Bn, -7, np.int32)
+    state = np.zeros(lib.kart_resolve_scan_words(Bn), np.int64)
+    tab = (ptr(pk), Bn, MAX_SEEDS, table.data_ptr(), table.shape[0], sfm.ns_local, H)
+    if pk.dtype == np.int32:
+        out = np.full(Bn + 2 * H, -7, np.int32)
+        assert lib.kart_resolve_pack_table(*tab, ptr(read_end), ptr(cnts), ptr(state), ptr(out),
+                                           None) == 0
+        return out[:Bn], out[Bn:Bn + H], out[Bn + H:]
+    out = np.full(Bn + H, -7, np.int32)
+    gpos, slot_read = np.full(H, -7, np.int64), np.full(H, -7, np.int32)
+    assert lib.kart_resolve_rows_table_i64(*tab, ptr(read_end), ptr(cnts), ptr(state),
+                                           ptr(slot_read), ptr(gpos), None) == 0
+    assert lib.kart_resolve_finish_i64(ptr(pk), Bn, 0, MAX_SEEDS, H, ptr(read_end), ptr(cnts),
+                                       ptr(slot_read), None, ptr(gpos), ptr(out), None) == 0
+    return out[:Bn], out[Bn:], gpos
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("n", N_SHARDS)
+def test_resident_resolve_kernel_on_host_matches_flat_and_jax(index, shim_lib, n, dtype):
+    """The resident full-SA resolve: resolve_pack.cu's passes with each
+    position read from its owner's slab through the table of every shard
+    (int32: totals and emit; int64: totals, rows, emit) equal to
+    resolve_pack's plain version on the flat full SA and to kart_tpu's
+    sharded_seed_scan_resolved, reads past the budget flagged."""
+    inp = {k: torch.from_numpy(v) for k, v in op_inputs(index, dtype).items()}
+    g = as_dtype(index, dtype)
+    sfm = tsi.build_sharded_fm(g, ["cpu"] * n, "full")
+    packed = tsi.resident_seed_scan_plain(sfm, inp["reads"], inp["rlens"], MIN_SEED,
+                                          max_seeds=MAX_SEEDS, l_max=L_MAX)
+    got = host_resident_resolve(shim_lib, sfm, packed, BUDGET)
+    flat = tres.resolve_pack_plain(torch.from_numpy(np.asarray(g.sa_full)), packed,
+                                   max_seeds=MAX_SEEDS, has_ok=False, occ_budget=BUDGET,
+                                   pack16=False)
+    if not isinstance(flat, tuple):
+        flat = flat[:B], flat[B:B + BUDGET], flat[B + BUDGET:]
+    want = jax_ops(index, n, dtype)["resolved_full"]
+    for a, f, w in zip(got, flat, want):
+        np.testing.assert_array_equal(a, f.numpy())
+        assert a.dtype == w.dtype
+        np.testing.assert_array_equal(a, w)
+    assert 0 < int((got[0] < 0).sum()) < B
+
+
+OWNER_PROBE = """#include "%s"
+extern "C" void probe_owner(const unsigned long long* q, int n, unsigned long long d, int wide,
+                            unsigned long long* out) {
+  ShardedSa<long long> a;
+  ShardedSa<int> b;
+  a.set_rows(d);
+  b.set_rows(d);
+  for (int i = 0; i < n; ++i) out[i] = wide ? a.owner(q[i]) : b.owner(q[i]);
+}
+"""
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_table_gather_owner_is_the_quotient(tmp_path, wide):
+    """ShardedSa's owner of row q, q / n_local by a multiply by the
+    reciprocal: exact in one step for 32-bit rows and slabs (int32), and
+    in two (the multiply, then a correction) for an int64 index's rows up
+    to 2**37 and slabs of any size, divisors of 2**64 and d = 1 included;
+    the host shim's __umul64hi is the card's."""
+    csrc = os.path.join(os.path.dirname(os.path.abspath(kart_tpu_torch.__file__)), "csrc")
+    src = tmp_path / "owner.cu"
+    src.write_text(OWNER_PROBE % os.path.join(csrc, "fm_index.cuh"))
+    so = tmp_path / "libowner.so"
+    translate.build(str(so), [str(src)])
+    lib = ctypes.CDLL(str(so))
+    lib.probe_owner.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int,
+                                ctypes.c_void_p]
+    rng = np.random.default_rng(3)
+    top = 1 << (37 if wide else 31)
+    ds = [1, 2, 3, 7, 1 << 20, (1 << 31) - 1] + list(rng.integers(2, top, 40))
+    if wide:
+        ds += [(1 << 32) + 1, 1 << 36, (1 << 37) - 1]
+    for d in ds:
+        d = int(d)
+        q = np.concatenate([rng.integers(0, top, 2000), [0, top - 1],
+                            np.arange(1, 6) * d - 1, np.arange(0, 5) * d]).astype(np.uint64)
+        q = q[q < top]
+        out = np.zeros_like(q)
+        lib.probe_owner(q.ctypes.data, len(q), d, int(wide), out.ctypes.data)
+        np.testing.assert_array_equal(out, q // np.uint64(d), err_msg=f"d {d}")
+
+
+def test_table_kernels_refuse_what_they_cannot_take(index):
+    """The resident resolve needs the table of every shard with its full-SA
+    slabs (a sampled index's table, or a group's, raises before any build or
+    launch); the table gather takes shift 0 or 5 only."""
+    sampled = tsi.build_sharded_fm(index, ["cpu"] * 2, "sampled")
+    full = tsi.build_sharded_fm(index, ["cpu"] * 2, "full")
+    packed = torch.zeros((4, 1 + 4 * MAX_SEEDS), dtype=torch.int32)
+    for table in (tsi.shard_table(sampled, sampled.shards), tsi.shard_table(full, full.shards[:1])):
+        with pytest.raises(ValueError, match="full-SA slab"):
+            kernels.resolve_stream_table(table, full.ns_local, packed, max_seeds=MAX_SEEDS,
+                                         occ_budget=8)
+    rows = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shift 3"):
+        kernels.sharded_gather(tsi.shard_table(full, full.shards), full.ns_local, rows, 3)
+    with pytest.raises(ValueError, match="expected a cuda tensor"):
+        kernels.sharded_gather(tsi.shard_table(full, full.shards), full.ns_local, rows, 0)
