@@ -3,9 +3,10 @@
     python3 chip_smoke.py        # from the repository root
     python3 chip_smoke.py --phases 9      # phase 0, the set-up and phase 9 only (exit 4)
     python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
-                                          # funnel, resolve_pack, SensitiveMode kernels, walk,
-                                          # cross-device scan, resident walk and resolve, and
-                                          # F (another
+                                          # clustering, mating, funnel, resolve_pack,
+                                          # SensitiveMode kernels, walk, cross-device scan,
+                                          # resident walk and resolve, F and the candidate
+                                          # tail (another
                                           # commit's, unpacked with git archive into a
                                           # directory of this checkout)
 
@@ -41,8 +42,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      own inputs) and on edge
      batches (B 1, no seeds, 9,000 chromosome keys; C2 70 and 3,100, ties
      and steals), timed by slope and per call with their bounds and chains,
-     and the host seconds of their wrappers beside the host's own clustering
-     and mating on the first chunk;
+     the keys read where they lie (L1) against staged in shared memory
+     (CLUSTER_KEYS_PROBE, also on 9,000 keys), with --compare the other
+     build's two kernels in turns with these, and the host seconds of their
+     wrappers beside the host's own clustering and mating on the first chunk;
   4. the 13-mer funnel, expand/resolve/pack and the FM re-seed against their
      plain versions on the card at the device-pipelined mode's shape: one
      dispatch group of 32,000 reads of 150 bp at l_max 160 (1% substitutions,
@@ -170,7 +173,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      H, ties, invalid slots), timed by slope with its bound counted from the
      stream's own entries, its launches a call by torch.profiler (one kernel,
      no memset); with --compare, the other commit's F in turns and, where it
-     is the two-launch design, each of its launches alone by slope; (b)
+     is the two-launch design, each of its launches alone by slope; H, the
+     candidate tail (csrc/cluster.cu's kart_candidate_tail: clustering, the
+     glue and mating in one launch) against candidate_tail_plain on F's
+     int32 and int64 outputs of those reads and on tools/simdata's edges,
+     timed by slope with its bound beside the plain version and the eager
+     composition (the glue's torch ops around cluster_illumina and
+     pair_candidates), split by phase with clock64 (TAIL_STAMP_PROBE), the
+     device kernels of one block from F on by torch.profiler in a process
+     of its own (F and the tail), cluster_illumina and pair_candidates
+     alone at this block's shape;
+     with --compare, the other build's tail (its own kernel, or its eager
+     composition) and its two kernels in turns with this one's; (b)
      make_full_mapping_step on
      those reads over five meshes (data 1 full SA, data 4, data 2 sampled,
      data x idx 2 x 2 full and sampled): data 1 equal to the plain
@@ -178,7 +192,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      every other mesh's per-read streams, clusters and mates equal to data
      1's; ms a step (event window), reads/s, flagged reads (those over the
      budget, which must be a suffix of each block, and those of a cut walk)
-     and the launches of each kernel; (c) graft_entry's dry run on [cuda:0] * 4,
+     and the launches of each kernel (candidate_tail once a block,
+     cluster_illumina and pair_candidates never); (c) graft_entry's dry run on [cuda:0] * 4,
      entry() equal to its CPU run, and bench_scaling's lines (one card: the
      mesh positions share it, so they measure overhead, not scaling).
 The line before the last is the kernels' JSON record; the last line is
@@ -210,6 +225,7 @@ sys.modules["kart_tpu"] = None
 import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.monotonic()
 DATA = os.path.join(ROOT, "chip_smoke_data")
 TILES = (16, 32, 64, 128)
 N_NW = 4096
@@ -244,15 +260,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_turns(name: str, theirs, ours) -> None:
+def compare_turns(name: str, theirs, ours) -> list[float]:
     """Times of another build's call and this build's on the same inputs, in
-    turns (other, this, this, other), by slope and per call."""
+    turns (other, this, this, other), by slope and per call; returns the
+    slopes in ms."""
     from kart_tpu_torch.tools.bench_kernels import time_both
 
     t = [time_both(theirs), time_both(ours), time_both(ours), time_both(theirs)]
     print(f"compare {name}: other, this, this, other: slope ms "
           + ", ".join(f"{1e3 * a:.4f}" for a, _ in t) + "; per call ms "
           + ", ".join(f"{1e3 * b:.4f}" for _, b in t))
+    return [1e3 * a for a, _ in t]
 
 
 def fragment_pairs(rng, n: int, lm: int) -> list[tuple[bytes, bytes]]:
@@ -644,7 +662,7 @@ def pair_edges(rng):
     return out
 
 
-def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
+def phase_slice(prefix: str, gidx, l2_load_ns: float, other=None) -> dict:
     import copy
 
     import torch
@@ -742,8 +760,8 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
     rng = np.random.default_rng(909)
     cl_args, mg, S = k_cl.first[:6], k_cl.first[6], k_cl.first[1].shape[1]
     err = 0
-    for what, args in {f"chunk B {cl_args[1].shape[0]} S {S}": cl_args,
-                       **cluster_edges(rng, cl_args)}.items():
+    cl_edges = cluster_edges(rng, cl_args)
+    for what, args in {f"chunk B {cl_args[1].shape[0]} S {S}": cl_args, **cl_edges}.items():
         s_ = args[1].shape[1]
         got = kernels.cluster_illumina(*args, mg, max_seeds=s_)
         ref = ops_cluster.cluster_illumina_plain(*args, mg, max_seeds=s_)
@@ -780,6 +798,18 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
     pair = dict(ms=1e3 * t_pk, plain_ms=t_pp, err=pr_err, bound_ms=p_bound, bound_by=p_by,
                 chain_steps=p_steps, chain_ms=p_steps * l2_load_ns / 1e6,
                 shape=f"P {P}, C1 {C1}, C2 {C2} (the first chunk of run (b))")
+    # where the chromosome keys are read best: L1 (the kernel) or shared memory
+    keys_ms = keys_placement_times({f"the chunk's {cl_args[0].numel()} keys": cl_args,
+                                    "9,000 keys, S 100": cl_edges["9,000 keys, S 100"]}, mg)
+    cluster["keys_ms"] = keys_ms
+    if other is not None:
+        cluster["compare_ms"] = compare_turns(
+            f"cluster_illumina phase 3 chunk (B {B}, S {S})",
+            lambda: other.cluster_illumina(*cl_args, mg, max_seeds=S),
+            lambda: kernels.cluster_illumina(*cl_args, mg, max_seeds=S))
+        pair["compare_ms"] = compare_turns(
+            f"pair_candidates phase 3 chunk (P {P}, C1 {C1}, C2 {C2})",
+            lambda: other.pair_candidates(*pr_args), lambda: kernels.pair_candidates(*pr_args))
 
     # the wrappers' host seconds beside the host's own clustering and mating,
     # on the first chunk's seeds and candidates
@@ -824,7 +854,9 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
         f" {1e3 * t_cw:.4f} ms, plain {t_cp:.4f} ms, bound {c_bound:.4f} ms ({c_by}), chain"
         f" {c_steps} steps x {l2_load_ns:.1f} ns = {cluster['chain_ms']:.4f} ms; host seconds of the"
         f" chunk: wrapper {t_wc:.4f} s (run (b), both chunks: {w_cl.seconds:.4f} s), host"
-        f" gen_candidates_illumina {t_hc:.4f} s"
+        f" gen_candidates_illumina {t_hc:.4f} s; the keys read from L1 (the kernel) against"
+        f" staged in shared memory, slope ms: "
+        + "; ".join(f"{k}: {a:.4f} against {b:.4f}" for k, (a, b) in keys_ms.items())
     )
     print(
         f"phase 3 pair_candidates: equal to the plain version at the chunk's shape ({pair['shape']})"
@@ -835,6 +867,60 @@ def phase_slice(prefix: str, gidx, l2_load_ns: float) -> dict:
         f" check_paired_candidates {t_hp:.4f} s"
     )
     return dict(launches=launches, launches_b=launches_b, cluster=cluster, pair=pair)
+
+
+# This build's clustering with the chromosome keys staged in shared memory
+# (launch_cluster<true>), beside the kernel's reads from L1
+CLUSTER_KEYS_PROBE = """#include "%s"
+extern "C" int kart_probe_cluster_smem_keys(const void* chr_keys, int K, const void* pd,
+                                            const void* gp, const void* ln, const void* n_seeds,
+                                            const void* thr0, int max_gaps, int B, int S,
+                                            void* cluster_id, void* accept, void* scores,
+                                            void* stream) {
+  return launch_cluster<true>(chr_keys, K, pd, gp, ln, n_seeds, thr0, max_gaps, B, S, cluster_id,
+                              accept, scores, static_cast<cudaStream_t>(stream));
+}
+"""
+
+
+def keys_placement_times(cases: dict, max_gaps: int) -> dict:
+    """name -> (slope ms of kernels.cluster_illumina, which reads the keys
+    where they lie (L1), slope ms with the keys staged in shared memory
+    (CLUSTER_KEYS_PROBE)), each byte-equal to the plain version."""
+    import ctypes
+
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.ops import cluster as ops_cluster
+    from kart_tpu_torch.tools.bench_kernels import time_both
+
+    lib = probe_library("probe_cluster_keys", CLUSTER_KEYS_PROBE % os.path.join(
+        ROOT, "kart_tpu_torch", "csrc", "cluster.cu"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.kart_probe_cluster_smem_keys.argtypes = [p, i, p, p, p, p, p, i, i, i, p, p, p, p]
+    out = {}
+    for name, args in cases.items():
+        keys, pd = args[0], args[1]
+        B, S = pd.shape
+        res = [torch.empty((B, S), dtype=dt, device=pd.device)
+               for dt in (torch.int32, torch.bool, torch.int32)]
+
+        def staged(args=args, res=res, B=B, S=S):
+            if lib.kart_probe_cluster_smem_keys(
+                    args[0].data_ptr(), args[0].numel(), *(a.data_ptr() for a in args[1:]),
+                    max_gaps, B, S, *(r.data_ptr() for r in res),
+                    torch.cuda.current_stream(pd.device).cuda_stream):
+                raise RuntimeError("the cluster keys probe failed to launch")
+
+        staged()
+        for g, w, nm in zip(res, ops_cluster.cluster_illumina_plain(*args, max_gaps, max_seeds=S),
+                            ("cluster_id", "accept", "scores")):
+            require_equal(g, w, f"cluster_illumina with staged keys, {nm}, {name}")
+        out[name] = (1e3 * time_both(lambda: kernels.cluster_illumina(*args, max_gaps,
+                                                                      max_seeds=S))[0],
+                     1e3 * time_both(staged)[0])
+    return out
 
 
 def require_equal(got, want, what: str) -> int:
@@ -1503,11 +1589,13 @@ def phase_pacbio_slice(prefix: str, pb: str) -> dict:
             raise AssertionError("PacBio: the SAM with KART_KMER_GATE=0 differs from the funnel run's")
         if launches0["kmer_funnel"] != 0 or launches0["fm_sensitive_scan"] == 0:
             raise AssertionError(f"KART_KMER_GATE=0 did not seed with the FM stepper: {launches0}")
-        # run (a) again under the profiler: the card's busy share
+        # run (a) again under the profiler: the card's busy share (a lost
+        # record would only shrink it, so the session need not hold every launch)
         cpu_fq = os.path.join(DATA, "pb_cpu.fq")
         prof_log: list = []
         spans = device_spans(lambda: prof_log.append(run_cli([*base, "-f", pb, "-o", sam["prof"]])),
-                             warm=lambda: run_cli([*base, "-f", cpu_fq, "-o", sam["cpu"] + ".warm"]))
+                             warm=lambda: run_cli([*base, "-f", cpu_fq, "-o", sam["cpu"] + ".warm"]),
+                             exact=False)
         prof_map = times(prof_log[0])[1]
     finally:
         del os.environ["KART_SEED_MODE"]
@@ -1909,11 +1997,12 @@ def phase_sampled_slice(prefix: str, pb: str, full_sam: str | None) -> dict:
             pbh = head_fastq(pb, os.path.join(DATA, "pb_sampled.fq"), PB_SAMPLED_READS)
             log_pb, launches_pb = run(["-f", pbh, "-pacbio"], sam["pb_dev"])
             pb_map = times(log_pb)[1]
-            # run (a) again under the profiler: the card's busy share
+            # run (a) again under the profiler: the card's busy share (not exact,
+            # as in phase 8)
             prof_log: list = []
             spans = device_spans(lambda: prof_log.append(run_cli([*base, *pe, "-o", sam["prof"]])),
                                  warm=lambda: run_cli([*base, "-f", c1, "-f2", c2, "-o",
-                                                       sam["cpu"] + ".warm"]))
+                                                       sam["cpu"] + ".warm"]), exact=False)
             prof_map = times(prof_log[0])[1]
         finally:
             del os.environ["KART_SEED_MODE"]
@@ -2007,10 +2096,8 @@ def phase_tools(gidx, prefix: str) -> dict:
         torch.cuda.empty_cache()
 
     # (b) one funnel group under torch.profiler, 3 reps, by the tool's own
-    # command in a process of its own, once: in this process, after the
-    # earlier phases' profiler sessions, every second session loses the
-    # device's records (PERF.md, section 7), and device_trace refuses such a
-    # trace
+    # command in a process of its own, once; device_trace refuses a trace
+    # that lost the device's records (PERF.md, section 7)
     trace_dir = os.path.join(DATA, "trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
     cmd = [sys.executable, "-m", "kart_tpu_torch.tools.analyze_trace", "--top", str(TRACE_TOP),
@@ -2802,7 +2889,7 @@ DP_MESHES = (("data 1, replicated, full SA", 1, 1, "full"),
              ("data x idx 2 x 2, sampled SA", 2, 2, "sampled"))
 DP_KERNELS = ("fm_seed_scan", "resolve_pack", "sa_walk", "sharded_seed_scan", "sharded_sa_walk",
               "sharded_occ4", "sharded_fused_step", "sharded_inv_psi", "sharded_gather",
-              "sorted_occurrences", "cluster_illumina", "pair_candidates")
+              "sorted_occurrences", "candidate_tail", "cluster_illumina", "pair_candidates")
 
 
 def sorted_occ_bound(stream, s_occ: int) -> dict:
@@ -2881,6 +2968,252 @@ def replaced(module, **attrs):
             setattr(module, k, v)
 
 
+def eager_tail(k):
+    """The glue's torch ops around k's cluster_illumina and pair_candidates
+    (k a kernels module): the composition candidate_tail replaces."""
+    from kart_tpu_torch.parallel import dp as tdp
+
+    def run(*a):
+        with replaced(tdp, cluster_illumina_plain=k.cluster_illumina,
+                      pair_candidates_plain=k.pair_candidates):
+            return tdp.candidate_tail_plain(*a)
+    return run
+
+
+def block_kernels(path: str, eager: bool) -> list[str]:
+    """The device kernels of one dp block from F on (`front_tail`; with
+    `eager`, the glue's torch ops around the two kernels in place of
+    candidate_tail) on the block saved at `path`, by torch.profiler in a
+    process of its own: in this one, after phase 12 (a)'s timings, a session
+    can record the launches of the block and none of its kernels (PERF.md,
+    section 7)."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--block-kernels", path,
+           *(["--eager"] if eager else [])]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"block_kernels exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def block_kernels_main(path: str, eager: bool) -> int:
+    """`--block-kernels PATH [--eager]`: print block_kernels' list as JSON."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.parallel import dp as tdp
+
+    d = torch.load(path)
+    stream = [x.cuda() for x in d["stream"]]
+    rlens, keys = d["rlens"].cuda(), d["keys"].cuda()
+
+    def run():
+        return tdp.front_tail(*stream, rlens, keys, d["B"], d["S"], d["max_gaps"], d["est"])
+    with replaced(tdp, **({"_candidate_tail": eager_tail(kernels)} if eager else {})):
+        print(json.dumps(kernel_names(run)))
+    return 0
+
+
+def kernel_names(fn) -> list[str]:
+    """The device kernels (and copies) of one fn() in order, by
+    torch.profiler (`device_spans`)."""
+    from kart_tpu_torch.tools.bench_kernels import device_spans
+
+    return [short(n) for _, _, n in device_spans(fn, warm=fn)]
+
+
+def cluster_pair_bounds(cl_args, pr_args) -> tuple:
+    """(bound ms, by) of clustering and of mating on these inputs, as phase 3
+    counts them: clustering moves the keys, three (B, S) arrays and two (B,)
+    in and 9 bytes a slot out at some twenty operations a slot; mating its
+    four inputs in, its links and flags out, some ten operations for each
+    read-2 slot a live read-1 slot sweeps."""
+    from kart_tpu_torch.tools.bench_kernels import bound_ms
+
+    B, S = cl_args[1].shape
+    c = bound_ms(cl_args[0].nbytes + 3 * B * S * 4 + 2 * B * 4 + B * S * 9, 20 * B * S)
+    P, C1 = pr_args[0].shape
+    C2 = pr_args[2].shape[1]
+    live = int((pr_args[0] > 0).sum())
+    p = bound_ms(2 * P * C1 * 4 + 2 * P * C2 * 4 + P * (C1 + C2) * 4 + P, 10 * live * C2)
+    return c, p
+
+
+# The tail kernel with its KART_TAIL_STAMP hooks recording clock64() at the
+# end of each phase, thread 0 of each block
+TAIL_STAMP_PROBE = """#include <cuda_runtime.h>
+__device__ long long* kart_stamp_out;
+#define KART_TAIL_STAMP(k) \\
+  if (threadIdx.x == 0) kart_stamp_out[blockIdx.x * 8 + (k)] = clock64();
+#include "%s"
+extern "C" int kart_probe_tail_stamps(const void* chr_keys, int K, const void* n_occ,
+                                      const void* ln, const void* gp, const void* pd,
+                                      const void* present, const void* rlens, int max_gaps,
+                                      int est, int B, int S, void* cluster_id, void* accept,
+                                      void* scores, void* paired1, void* paired2, void* pairing,
+                                      void* stamps, void* stream) {
+  const cudaError_t e = cudaMemcpyToSymbol(kart_stamp_out, &stamps, sizeof(stamps));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_tail<int>(chr_keys, K, n_occ, ln, gp, pd, present, rlens, max_gaps, est, B, S,
+                          cluster_id, accept, scores, paired1, paired2, pairing,
+                          static_cast<cudaStream_t>(stream));
+}
+"""
+TAIL_PHASES = ("stage in", "cluster walk", "stage out", "choose mates", "decide mates",
+               "links out")
+
+
+def tail_stamps(args, max_gaps: int, est: int, want) -> dict:
+    """The tail's phases (TAIL_STAMP_PROBE) on int32 inputs `args` (the
+    tail's first seven arguments): mean clock64 cycles a block of each phase
+    and of the whole, over the blocks of one launch; its outputs held to
+    `want`."""
+    import ctypes
+
+    import torch
+
+    lib = probe_library("probe_tail_stamps", TAIL_STAMP_PROBE % os.path.join(
+        ROOT, "kart_tpu_torch", "csrc", "cluster.cu"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.kart_probe_tail_stamps.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i] + [p] * 8
+    keys, n_occ, ln, gp, pd, present, rlens = args
+    B, S = pd.shape
+    dev = pd.device
+    outs = [torch.empty((B, S), dtype=dt, device=dev) for dt in (torch.int32, torch.bool,
+                                                                  torch.int32)]
+    outs += [torch.empty((B // 2, S), dtype=torch.int32, device=dev) for _ in range(2)]
+    outs.append(torch.empty((B // 2,), dtype=torch.bool, device=dev))
+    n_blocks = -(-B // 32)
+    stamps = torch.zeros((n_blocks, 8), dtype=torch.int64, device=dev)
+    for _ in range(2):  # the second launch is the one read
+        rc = lib.kart_probe_tail_stamps(
+            keys.data_ptr(), keys.numel(), n_occ.data_ptr(), ln.data_ptr(), gp.data_ptr(),
+            pd.data_ptr(), present.data_ptr(), rlens.data_ptr(), max_gaps, est, B, S,
+            *(o.data_ptr() for o in outs), stamps.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"the tail stamp probe failed to launch ({rc})")
+    for g, w in zip(outs, [x for grp in want for x in grp]):
+        require_equal(g, w, "candidate_tail with its stamps")
+    d = (stamps[:, 1:7] - stamps[:, 0:6]).double().mean(dim=0).tolist()
+    out = dict(zip(TAIL_PHASES, d))
+    out["whole"] = float((stamps[:, 6] - stamps[:, 0]).double().mean())
+    return out
+
+
+def phase_dp_tail(fouts: dict, stream, keys, rlens, lines: list, other=None) -> dict:
+    """Phase 12 (a)'s H: kernels.candidate_tail (one launch: clustering, the
+    glue, mating) against dp.candidate_tail_plain, byte-equal, on F's int32
+    and int64 outputs of the step's block and on tools/simdata's edges;
+    timed by slope with its bound, beside the plain version and the eager
+    composition (the glue's torch ops around this build's cluster_illumina
+    and pair_candidates); the device kernels of one block from F on
+    (torch.profiler), fused and eager; cluster_illumina and pair_candidates
+    alone at the dp shape.  With `other` (another build's kernels module),
+    its eager composition and its two kernels in turns with this build's."""
+    import torch
+
+    from kart_tpu_torch import kernels
+    from kart_tpu_torch.parallel import dp as tdp
+    from kart_tpu_torch.tools import simdata
+    from kart_tpu_torch.tools.bench_kernels import bound_ms, time_both
+
+    mg, est = 5, 1500  # make_full_mapping_step's max_gaps and est_distance
+    names = ("cluster_id", "accept", "scores", "paired1", "paired2", "pairing")
+    dev = keys.device
+
+    def check(got, want, what):
+        for g, w, nm in zip([x for grp in got for x in grp], [x for grp in want for x in grp],
+                            names):
+            require_equal(g, w, f"candidate_tail {nm}, {what}")
+
+    def clone(a):
+        return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+
+    A = None
+    for dtype, f in fouts.items():
+        args = (keys, f[0], f[2], f[3], f[4], f[5], rlens)
+        with Spy(tdp, "cluster_illumina_plain", clone) as k_cl, \
+                Spy(tdp, "pair_candidates_plain", clone) as k_pr:
+            want = tdp.candidate_tail_plain(*args, mg, est)
+        check(kernels.candidate_tail(*args, mg, est), want, f"F's {dtype} outputs")
+        if A is None:
+            A, want32, cl_args, pr_args = args, want, k_cl.first[:6], k_pr.first[:5]
+    B, S = A[4].shape
+    for name in simdata.TAIL_CASES:
+        a = simdata.tail_inputs(name)
+        t = tuple(torch.from_numpy(x).to(dev) for x in a[:7])
+        check(kernels.candidate_tail(*t, *a[7:]), tdp.candidate_tail_plain(*t, *a[7:]),
+              f"the edge {name!r}")
+    check(eager_tail(kernels)(*A, mg, est), want32, "the eager composition")
+    lines.append(f"(a) candidate_tail equal to candidate_tail_plain on F's int32 and int64 outputs"
+                 f" (B {B}, s_occ {S}: {int(want32[1][2].sum())} of {B // 2} pairs mated) and on"
+                 f" the edges of tools/simdata ({', '.join(simdata.TAIL_CASES)}); the eager"
+                 f" composition with this build's cluster_illumina and pair_candidates equal too")
+
+    def fused():
+        return kernels.candidate_tail(*A, mg, est)
+
+    t_f = time_both(fused)
+    t_e = time_both(lambda: eager_tail(kernels)(*A, mg, est))
+    plain = cuda_ms(lambda: tdp.candidate_tail_plain(*A, mg, est), 3)
+    isz = A[3].element_size()
+    n_bytes = (keys.nbytes + 4 * B + B * S * (4 + isz + 4 + 1) + 4 * B  # in
+               + B * S * (4 + 1 + 4) + (B // 2) * S * 8 + B // 2)  # out
+    c_b, p_b = cluster_pair_bounds(cl_args, pr_args)
+    t_b, by = bound_ms(n_bytes, 20 * B * S + 10 * int((pr_args[0] > 0).sum()) * S)
+    rec = dict(ms=1e3 * t_f[0], per_call_ms=1e3 * t_f[1], plain_ms=plain, err=0, bound_ms=t_b,
+               bound_by=by, eager_ms=1e3 * t_e[0], shape=f"B {B}, s_occ {S}, F's int32 outputs")
+    lines.append(f"(a) candidate_tail (B {B}, s_occ {S}): slope {rec['ms']:.4f} ms, per call"
+                 f" {rec['per_call_ms']:.4f} ms, plain {plain:.4f} ms; the eager composition"
+                 f" with this build's two kernels: slope {rec['eager_ms']:.4f} ms, per call"
+                 f" {1e3 * t_e[1]:.4f} ms; {n_bytes} bytes: bound {t_b:.4f} ms ({by})")
+    rec["stamp_cycles"] = st = tail_stamps(A, mg, est, want32)
+    lines.append("(a) candidate_tail by phase (clock64, TAIL_STAMP_PROBE), mean cycles a block of"
+                 " 32 reads: " + ", ".join(f"{k} {v:.0f}" for k, v in st.items()))
+    cnts = stream[0]
+    block = os.path.join(DATA, "dp_block.pt")
+    torch.save(dict(stream=[x.cpu() for x in stream], rlens=rlens.cpu(), keys=keys.cpu(),
+                    B=B, S=S, max_gaps=mg, est=est), block)
+    fused_k, eager_k = block_kernels(block, eager=False), block_kernels(block, eager=True)
+    if len(fused_k) != 2 or "sorted_occ" not in fused_k[0] or "candidate_tail" not in fused_k[1]:
+        raise AssertionError(f"(a) one block from F on ran {fused_k}, expected F and the tail")
+    rec["block_kernels"], rec["eager_block_kernels"] = fused_k, eager_k
+    lines.append(f"(a) device kernels of one block from F on (torch.profiler, B {cnts.numel()}):"
+                 f" fused {len(fused_k)}: {', '.join(fused_k)}; the eager composition"
+                 f" {len(eager_k)}: {', '.join(eager_k)}")
+    # clustering and mating alone at the dp shape, on this block's inputs
+    t_c = time_both(lambda: kernels.cluster_illumina(*cl_args, mg, max_seeds=S))
+    t_p = time_both(lambda: kernels.pair_candidates(*pr_args))
+    P = pr_args[0].shape[0]
+    cl_dp = dict(ms=1e3 * t_c[0], per_call_ms=1e3 * t_c[1], bound_ms=c_b[0], bound_by=c_b[1])
+    pr_dp = dict(ms=1e3 * t_p[0], per_call_ms=1e3 * t_p[1], bound_ms=p_b[0], bound_by=p_b[1])
+    lines.append(f"(a) at the dp shape, on this block's inputs: cluster_illumina (B {B}, S {S})"
+                 f" slope {cl_dp['ms']:.4f} ms, per call {cl_dp['per_call_ms']:.4f} ms, bound"
+                 f" {c_b[0]:.4f} ms ({c_b[1]}); pair_candidates (P {P}, C1 {S}, C2 {S}) slope"
+                 f" {pr_dp['ms']:.4f} ms, per call {pr_dp['per_call_ms']:.4f} ms, bound"
+                 f" {p_b[0]:.4f} ms ({p_b[1]})")
+    if other is not None:
+        # the other build's tail: its own kernel where it has one, else its
+        # eager composition (its two kernels and the glue's torch ops)
+        if hasattr(other, "candidate_tail"):
+            theirs, kind = (lambda: other.candidate_tail(*A, mg, est)), "its candidate_tail"
+        else:
+            theirs, kind = (lambda: eager_tail(other)(*A, mg, est)), "its eager composition"
+        check(theirs(), want32, f"the other build's tail ({kind})")
+        rec["compare_ms"] = compare_turns(f"H, the candidate tail (B {B}, s_occ {S}; other:"
+                                          f" {kind})", theirs, fused)
+        cl_dp["compare_ms"] = compare_turns(
+            f"cluster_illumina dp shape (B {B}, S {S})",
+            lambda: other.cluster_illumina(*cl_args, mg, max_seeds=S),
+            lambda: kernels.cluster_illumina(*cl_args, mg, max_seeds=S))
+        pr_dp["compare_ms"] = compare_turns(
+            f"pair_candidates dp shape (P {P}, C1 {S}, C2 {S})",
+            lambda: other.pair_candidates(*pr_args), lambda: kernels.pair_candidates(*pr_args))
+    rec["cluster_dp"], rec["pair_dp"] = cl_dp, pr_dp
+    return rec
+
+
 def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
     """Phase 12: the multi-device front half (kart_tpu_torch/parallel/dp.py)
     with every mesh position on cuda:0.  (a) F (csrc/sorted_occ.cu) against
@@ -2899,9 +3232,7 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
     import torch
 
     from kart_tpu_torch import graft_entry, kernels
-    from kart_tpu_torch.ops import cluster as tcl
     from kart_tpu_torch.ops import fm_search as tfm
-    from kart_tpu_torch.ops import pairing as tpr
     from kart_tpu_torch.ops import resolve as tres
     from kart_tpu_torch.parallel import dp as tdp
     from kart_tpu_torch.pipeline.mapper import compute_min_seed_length
@@ -2927,7 +3258,7 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
     H = 4 * B_DP
     fm32 = tfm.FMIndexTensors.from_genome_index(gidx, dev)
     sa32 = fm32.sa_full.to(dev)
-    streams, got32 = {}, None
+    streams, fouts, got32 = {}, {}, None
     for dtype, fm, sa in (("int32", fm32, sa32), ("int64", fm_int64(fm32), sa32.long())):
         seeds = kernels.fm_seed_scan(fm, reads, rlens, msl, max_seeds=ms, l_max=L)
         out = kernels.resolve_pack(sa, seeds, max_seeds=ms, has_ok=False, occ_budget=H,
@@ -2938,6 +3269,7 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
         for g, w, nm in zip(got, tdp.sorted_occurrences_plain(*stream, B_DP, S_OCC),
                             ("n_occ", "rp", "ln", "gp", "pd", "present")):
             require_equal(g, w, f"F {nm} ({dtype}, B {B_DP}, H {H})")
+        fouts[dtype] = got
         if got32 is None:
             got32 = got
         else:  # pd's fill narrows to -1 from int64, so pd is held where present
@@ -3003,6 +3335,10 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
                      " TILE_PROBE), slope ms: " + ", ".join(f"{k} reads {v:.4f}"
                                                             for k, v in tiles.items()))
 
+    # (a) H, the candidate tail, on F's outputs of the step's width and on the edges
+    keys = torch.from_numpy(np.ascontiguousarray(gidx.chr_map[0].astype(np.int32))).to(dev)
+    tail = phase_dp_tail(fouts, streams["int32"], keys, rlens, lines, other)
+
     # (b) the whole front half over five meshes
     kw = dict(min_seed_len=msl, max_seeds=ms, l_max=L, s_occ=S_OCC)
     total = {k: 0 for k in DP_KERNELS}
@@ -3022,14 +3358,16 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
         launches = {k: getattr(kernels, k).launches for k in DP_KERNELS}
         for k in DP_KERNELS:
             total[k] += launches[k]
-        need = ["resolve_pack", "sorted_occurrences", "cluster_illumina", "pair_candidates"]
+        need = ["resolve_pack", "sorted_occurrences", "candidate_tail"]
         need += ["fm_seed_scan"] if n_idx == 1 else ["sharded_seed_scan"]
         need += ["sa_walk"] if (n_idx, sa_mode) == (1, "sampled") else []
         need += ["sharded_sa_walk"] if (n_idx, sa_mode) == (2, "sampled") else []
         if any(launches[k] == 0 for k in need) or any(launches[k] for k in STEP_KERNELS) \
-                or launches["sharded_gather"]:
-            raise AssertionError(f"(b) {name}: a kernel of the step never launched, or G4 or a"
-                                 f" step kernel of the cross-device path did: {launches}")
+                or launches["sharded_gather"] or launches["cluster_illumina"] \
+                or launches["pair_candidates"]:
+            raise AssertionError(f"(b) {name}: a kernel of the step never launched, or G4, a"
+                                 f" step kernel of the cross-device path, cluster_illumina or"
+                                 f" pair_candidates did: {launches}")
         step_ms = cuda_ms(lambda: step(r, rl_), 3)
         flagged = flagged_reads(out[0], n_data)
         if ref is None:
@@ -3038,8 +3376,7 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
                 getattr(kernels, k).launches = 0
             with replaced(tdp, seed_scan=tfm.seed_scan_plain, resolve_pack=tres.resolve_pack_plain,
                           _sorted_occurrences=tdp.sorted_occurrences_plain,
-                          cluster_illumina=tcl.cluster_illumina_plain,
-                          pair_candidates=tpr.pair_candidates_plain):
+                          _candidate_tail=tdp.candidate_tail_plain):
                 plain_out = step(r, rl_)
             torch.cuda.synchronize()
             plain_launches = {k: getattr(kernels, k).launches for k in DP_KERNELS}
@@ -3081,7 +3418,7 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
               for ln in buf.getvalue().strip().splitlines()]
     for ln in lines:
         print("phase 12 " + ln)
-    return dict(sorted_occ=dict(rec["int32"], int64=rec["int64"], per_call_ms=rec["int32"]["per_call_ms"],
+    return dict(tail=tail, sorted_occ=dict(rec["int32"], int64=rec["int64"], per_call_ms=rec["int32"]["per_call_ms"],
                                 shape=f"B {B_DP}, H {H}, s_occ {S_OCC}, int32"),
                 launches=total, runs=runs)
 
@@ -3236,13 +3573,16 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", metavar="DIR", default=None,
                     help="a checkout of another commit whose NW, FM stepper, funnel and"
-                         " resolve_pack phases 1, 2 and 4, whose SensitiveMode funnel and FM"
-                         " stepper phase 7, whose walk phase 9, whose cross-device scan,"
-                         " resident walk and resident full-SA resolve phase 11, and whose F"
+                         " resolve_pack phases 1, 2 and 4, whose clustering and mating phase 3,"
+                         " whose SensitiveMode funnel and FM stepper phase 7, whose walk phase"
+                         " 9, whose cross-device scan, resident walk and resident full-SA"
+                         " resolve phase 11, and whose F, candidate tail, clustering and mating"
                          " phase 12, time beside this one's")
     ap.add_argument("--phases", metavar="LIST", default=None,
                     help="run only these phases beside phase 0 and the set-up, e.g. 7,8 (a partial"
                          " run prints no kernels record and no result line, and exits 4)")
+    ap.add_argument("--block-kernels", metavar="PATH", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--eager", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",")}
 
@@ -3251,6 +3591,8 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.block_kernels is not None:
+        return block_kernels_main(args.block_kernels, args.eager)
     sys.path.insert(0, ROOT)
     from kart_tpu_torch import kernels
     from kart_tpu_torch.index import load_index
@@ -3304,7 +3646,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"setup: funnel tables built or loaded in {time.perf_counter() - t0:.1f} s"
           f" (max 13-mer multiplicity {tb.max_mult})")
     if want(3):
-        slice3 = phase_slice(prefix, gidx, fm["l2_ns"])
+        slice3 = phase_slice(prefix, gidx, fm["l2_ns"], other)
     if want(4):
         funnel = phase_funnel(gidx, tb, other, fm["l2_ns"])
     del tb
@@ -3345,7 +3687,9 @@ def main(argv: list[str] | None = None) -> int:
                                    "design_chain_ms", "per_call_ms",
                                    "slab_paths", "int64", "resolve_pack_sampled_ms",
                                    "resolve_pack_int64_ms", "resolve_pack_full_ms",
-                                   "fm_seed_scan_int64_ms", "fm_sensitive_scan_int64_ms")
+                                   "fm_seed_scan_int64_ms", "fm_sensitive_scan_int64_ms",
+                                   "keys_ms", "compare_ms", "dp_shape", "eager_ms",
+                                   "block_kernels", "eager_block_kernels", "stamp_cycles")
                  if k in r}
         return dict(name=name, route="cuda", source=f"kart_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=n_launches, max_abs_err=r["err"], ms=r["ms"],
@@ -3356,6 +3700,7 @@ def main(argv: list[str] | None = None) -> int:
     # library_ms: table[rid] for the row gather and slab[rows] for the sharded
     # gather; no one PyTorch call computes
     # an FM backward search (windowed or not), an NW traceback plane, the
+    # candidate tail's clustering and mating in one pass, the
     # funnel's rounds in either mode, the budgeted expansion into a packed
     # stream, the 2-bit unpack, an inverse-Psi walk, a clustering whose
     # breaks and threshold run in order along the seeds, or a mate choice
@@ -3388,9 +3733,10 @@ def main(argv: list[str] | None = None) -> int:
         entry("row_gather", "row_gather.cu", "tools/bench_gather.py:208", gather["launches"],
               gather, gather["library_ms"]),
         entry("cluster_illumina", "cluster.cu", "kart_tpu/ops/cluster.py:27",
-              launches_b["cluster_illumina"], slice3["cluster"]),
+              launches_b["cluster_illumina"],
+              dict(slice3["cluster"], dp_shape=dp["tail"]["cluster_dp"])),
         entry("pair_candidates", "pairing.cu", "kart_tpu/ops/pairing.py:22",
-              launches_b["pair_candidates"], slice3["pair"]),
+              launches_b["pair_candidates"], dict(slice3["pair"], dp_shape=dp["tail"]["pair_dp"])),
         entry("sharded_seed_scan", "fm_seed_scan.cu",
               "kart_tpu/parallel/sharded_index.py:230 with kart_tpu/parallel/sharded_index.py:138",
               sharded_slice["total"]["sharded_seed_scan"], sharded["sharded_seed_scan"]),
@@ -3413,7 +3759,14 @@ def main(argv: list[str] | None = None) -> int:
               sharded["sharded_gather"]["library_ms"]),
         entry("sorted_occurrences", "sorted_occ.cu", "kart_tpu/parallel/dp.py:115",
               dp["launches"]["sorted_occurrences"], dp["sorted_occ"]),
+        entry("candidate_tail", "cluster.cu", "kart_tpu/parallel/dp.py:223",
+              dp["launches"]["candidate_tail"], dp["tail"]),
     ]}
+    from kart_tpu_torch.tools.bench_kernels import PROFILER_OFFSETS
+
+    print(f"torch.profiler: {len(PROFILER_OFFSETS)} sessions with a launch; launch to kernel, us"
+          f" (seconds into the run: least..most): "
+          + ", ".join(f"{t - T_START:.0f} s {lo:.1f}..{hi:.1f}" for t, lo, hi in PROFILER_OFFSETS))
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

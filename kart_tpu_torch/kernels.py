@@ -130,6 +130,9 @@ def _load():
             fn = getattr(lib, "kart_sorted_occurrences" + name)
             fn.argtypes = [p, i, p, p, ll, i, p, p, p, p, p, p, p, p]
             fn.restype = i
+            fn = getattr(lib, "kart_candidate_tail" + name)
+            fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p]
+            fn.restype = i
         lib.kart_nw_planes.argtypes = [p, p, i, i, p, p]
         lib.kart_nw_planes.restype = i
         lib.kart_kmer_funnel.argtypes = [p, p, p, p, i, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
@@ -710,10 +713,14 @@ def cluster_illumina(chr_keys, pd, gp, ln, n_seeds, thr0, max_gaps: int, *, max_
 cluster_illumina.launches = 0
 
 
+PAIR_SMEM_MAX = 227 * 1024  # kSmemMax of csrc/pairing.cu
+
+
 def pair_candidates(score1, pd1, score2, pd2, est: int):
     """csrc/pairing.cu: (paired1 (P, C1) int32, paired2 (P, C2) int32,
     pairing (P,) bool) of the paired-end mating, for score1/pd1 (P, C1) and
-    score2/pd2 (P, C2) int32 on the card: a warp a pair."""
+    score2/pd2 (P, C2) int32 on the card: a warp a pair.  Raises where one
+    pair's state (3 * C1 + C2 ints) does not fit a block's shared memory."""
     dev = score1.device
     P, C1 = score1.shape
     C2 = score2.shape[1]
@@ -721,6 +728,9 @@ def pair_candidates(score1, pd1, score2, pd2, est: int):
     _check("pd1", pd1, torch.int32, (P, C1), dev)
     _check("score2", score2, torch.int32, (P, C2), dev)
     _check("pd2", pd2, torch.int32, (P, C2), dev)
+    if 4 * (3 * C1 + C2) > PAIR_SMEM_MAX:
+        raise ValueError(f"pair_candidates: C1 {C1}, C2 {C2}: one pair's state of 3 * C1 + C2"
+                         f" ints does not fit a block's {PAIR_SMEM_MAX} bytes of shared memory")
     paired1 = torch.empty((P, C1), dtype=torch.int32, device=dev)
     paired2 = torch.empty((P, C2), dtype=torch.int32, device=dev)
     pairing = torch.empty((P,), dtype=torch.bool, device=dev)
@@ -1061,3 +1071,60 @@ def sorted_occurrences(cnts, meta, gpos, B: int, s_occ: int):
 
 
 sorted_occurrences.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The front half's candidate tail: clustering, the glue and mating in one
+# launch (csrc/cluster.cu)
+# ---------------------------------------------------------------------------
+
+TAIL_MAX = 32  # slots a read, as F's s_occ
+
+
+def candidate_tail(chr_keys, n_occ, ln, gp, pd, present, rlens, max_gaps: int, est: int):
+    """csrc/cluster.cu's kart_candidate_tail: parallel/dp.py's candidate
+    stretch of a block of B reads (B even, rows 2p and 2p + 1 are pair p)
+    from F's outputs on the card (n_occ (B,) int32; ln, pd (B, S) int32; gp
+    (B, S) int32 or int64; present (B, S) bool), rlens (B,) int32 and
+    chr_keys (K,) int32 sorted, 1 <= S <= TAIL_MAX: ((cluster_id (B, S)
+    int32, accept (B, S) bool, scores (B, S) int32), (paired1 (B/2, S) int32,
+    paired2 (B/2, S) int32, pairing (B/2,) bool)), as
+    parallel/dp.py::candidate_tail_plain.  One launch."""
+    dev = pd.device
+    B, S = pd.shape
+    if B % 2:
+        raise ValueError(f"candidate_tail: a block of {B} reads; mates are (even, odd) rows")
+    if not 1 <= S <= TAIL_MAX:
+        raise ValueError(f"candidate_tail: {S} slots a read, the kernel takes 1 to {TAIL_MAX}")
+    if gp.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"gp: expected int32 or int64 positions, got {gp.dtype}")
+    K = chr_keys.shape[0]
+    _check("chr_keys", chr_keys, torch.int32, (K,), dev)
+    _check("n_occ", n_occ, torch.int32, (B,), dev)
+    _check("rlens", rlens, torch.int32, (B,), dev)
+    for name, t, dt in (("ln", ln, torch.int32), ("gp", gp, gp.dtype), ("pd", pd, torch.int32),
+                        ("present", present, torch.bool)):
+        _check(name, t, dt, (B, S), dev, align=t.element_size())
+    i32 = torch.int32
+    cid = torch.empty((B, S), dtype=i32, device=dev)
+    accept = torch.empty((B, S), dtype=torch.bool, device=dev)
+    scores = torch.empty((B, S), dtype=i32, device=dev)
+    paired1 = torch.empty((B // 2, S), dtype=i32, device=dev)
+    paired2 = torch.empty((B // 2, S), dtype=i32, device=dev)
+    pairing = torch.empty((B // 2,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return (cid, accept, scores), (paired1, paired2, pairing)
+    sfx = "" if gp.dtype == torch.int32 else "_i64"
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "kart_candidate_tail" + sfx)(
+            chr_keys.data_ptr(), K, n_occ.data_ptr(), ln.data_ptr(), gp.data_ptr(), pd.data_ptr(),
+            present.data_ptr(), rlens.data_ptr(), int(max_gaps), int(est), B, S, cid.data_ptr(),
+            accept.data_ptr(), scores.data_ptr(), paired1.data_ptr(), paired2.data_ptr(),
+            pairing.data_ptr(), _stream(dev))
+    _raise_on(rc, "candidate_tail")
+    _count(candidate_tail)
+    return (cid, accept, scores), (paired1, paired2, pairing)
+
+
+candidate_tail.launches = 0

@@ -7,9 +7,11 @@ candidate j with the unique best score among those with score > 0, posdiff
 at or past its own and less than `est` past it (a tie gives no mate).  It
 takes j if j is free, or steals j from its owner if its own score is
 strictly greater than the owner's; the owner is then left without a mate.
-Slots of score 0 are absent.  `pair_candidates` returns the same arrays as
-the JAX function; on CPU tensors it runs the plain version below, on CUDA
-tensors the hand-written kernel `csrc/pairing.cu` (kernels.pair_candidates).
+Slots of score 0 are absent.  A pair is `pairing` where a slot took a mate,
+and, as kart_tpu's carry starts, where its first read-1 score is negative.
+`pair_candidates` returns the same arrays as the JAX function; on CPU
+tensors it runs the plain version below, on CUDA tensors the hand-written
+kernel `csrc/pairing.cu` (kernels.pair_candidates).
 `pair_chunk_on_device` writes the mates back into the Candidate objects, as
 kart_tpu's wrapper does.  (`pipeline/pairing.py` is the host version of the
 same step.)
@@ -34,7 +36,9 @@ def pair_candidates_plain(score1, pd1, score2, pd2, est):
     i32 = torch.int32
     paired1 = torch.full((P, C1), -1, dtype=i32, device=dev)
     paired2 = torch.full((P, C2), -1, dtype=i32, device=dev)
-    pairing = torch.zeros(P, dtype=torch.bool, device=dev)
+    # kart_tpu's carry starts as score1[:, 0] < 0: a pair whose first read-1
+    # score is negative is `pairing` whether or not a slot takes a mate
+    pairing = score1[:, 0] < 0 if C1 else torch.zeros(P, dtype=torch.bool, device=dev)
     if P == 0 or C2 == 0:
         return paired1, paired2, pairing
     ar = torch.arange(P, device=dev)

@@ -20,9 +20,11 @@ shard's device itself (`place_sharded_fm`).
 
 `_sorted_occurrences`, the PosDiff sort of the front half, is a kernel:
 `csrc/sorted_occ.cu` on CUDA tensors (kernels.sorted_occurrences), its plain
-version `sorted_occurrences_plain` on CPU tensors.  The candidate glue
-between clustering and mating (a scatter-min and a few elementwise ops)
-stays torch ops on either device.
+version `sorted_occurrences_plain` on CPU tensors.  So is the rest of the
+front half after it, `_candidate_tail` (clustering, the candidate glue of a
+scatter-min and a few elementwise ops, and mating): one launch of
+`csrc/cluster.cu`'s tail on CUDA tensors (kernels.candidate_tail), its plain
+version `candidate_tail_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -33,10 +35,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.cluster import cluster_illumina
+from ..ops.cluster import cluster_illumina_plain
 from ..ops.fm_search import FMIndexTensors, seed_scan
 from ..ops.int32 import check_int32_index
-from ..ops.pairing import pair_candidates
+from ..ops.pairing import pair_candidates_plain
 from ..ops.resolve import resolve_pack
 from .sharded_index import (
     FMShard,
@@ -277,8 +279,67 @@ def _sorted_occurrences(cnts, meta, gpos, B: int, s_occ: int):
 
 
 # ---------------------------------------------------------------------------
+# H: clustering, the candidate glue and mating
+# ---------------------------------------------------------------------------
+
+
+def candidate_tail_plain(keys, n_occ, ln_s, gp_s, pd_s, present, rlens, max_gaps: int,
+                         est_distance: int):
+    """kart_tpu's front half after the PosDiff sort, in torch ops: F's
+    outputs of a block of B reads (B even; rows 2p and 2p + 1 are pair p),
+    rlens (B,) and the chromosome keys (K,) int32 -> ((cluster_id, accept,
+    scores) (B, s_occ), (paired1, paired2) (B/2, s_occ) and pairing (B/2,)).
+    The threshold min(rlen * 2 // 10, 50), cluster_illumina_plain on the
+    padded posdiffs, each candidate's posdiff the least of its member seeds'
+    (clamped at 0) and its score where accepted, else 0, then
+    pair_candidates_plain over the (even, odd) rows."""
+    B, s_occ = pd_s.shape
+    dev = pd_s.device
+    thr0 = ((rlens.to(device=dev, dtype=torch.int32) * 2) // 10).clamp(max=50)
+    pd_in = torch.where(present, pd_s, _BIG32)
+    cid, accept, scores = cluster_illumina_plain(keys, pd_in, gp_s.to(torch.int32), ln_s, n_occ,
+                                                 thr0, int(max_gaps), max_seeds=s_occ)
+    # a candidate's posdiff: the least of its member seeds' (the first, as the
+    # seeds are PosDiff-sorted), clamped at 0; column s_occ takes the seeds of
+    # no cluster
+    first_pd = torch.full((B, s_occ + 1), _BIG32, dtype=torch.int32, device=dev)
+    first_pd.scatter_reduce_(1, torch.where(cid >= 0, cid, s_occ).long(), pd_in, "amin")
+    cand_pd = torch.where(accept, first_pd[:, :s_occ], 0).clamp(min=0)
+    cand_sc = torch.where(accept, scores, 0)
+    pairs = pair_candidates_plain(cand_sc[0::2].contiguous(), cand_pd[0::2].contiguous(),
+                                  cand_sc[1::2].contiguous(), cand_pd[1::2].contiguous(),
+                                  int(est_distance))
+    return (cid, accept, scores), pairs
+
+
+def _candidate_tail(keys, n_occ, ln_s, gp_s, pd_s, present, rlens, max_gaps: int,
+                    est_distance: int):
+    """candidate_tail_plain's outputs: the kernel (one launch) on CUDA
+    tensors, the plain version on CPU tensors."""
+    if pd_s.device.type == "cuda":
+        from .. import kernels
+
+        return kernels.candidate_tail(keys, n_occ, ln_s, gp_s, pd_s, present, rlens, max_gaps,
+                                      est_distance)
+    if pd_s.device.type != "cpu":
+        raise ValueError(f"_candidate_tail: unsupported device {pd_s.device}")
+    return candidate_tail_plain(keys, n_occ, ln_s, gp_s, pd_s, present, rlens, max_gaps,
+                                est_distance)
+
+
+# ---------------------------------------------------------------------------
 # The whole front half
 # ---------------------------------------------------------------------------
+
+
+def front_tail(cnts, meta, gpos, rlens, keys, B: int, s_occ: int, max_gaps: int,
+               est_distance: int):
+    """The front half of a block after the resolve: F (`_sorted_occurrences`)
+    then H (`_candidate_tail`), two launches on the card.  -> ((cluster_id,
+    accept, scores), (paired1, paired2, pairing))."""
+    n_occ, _, ln_s, gp_s, pd_s, present = _sorted_occurrences(cnts, meta, gpos, B, s_occ)
+    return _candidate_tail(keys, n_occ, ln_s, gp_s, pd_s, present, rlens, max_gaps,
+                           est_distance)
 
 
 def make_full_mapping_step(mesh: DataMesh, gidx, *, idx_axis: str | None = None,
@@ -338,24 +399,12 @@ def make_full_mapping_step(mesh: DataMesh, gidx, *, idx_axis: str | None = None,
             raise ValueError(f"make_full_mapping_step: a block of {B} reads; mates are (even,"
                              f" odd) rows, so a block's batch must be even")
         cnts, meta, gpos = resolved(r, reads, rlens, 4 * B)
-        n_occ, rp_s, ln_s, gp_s, pd_s, present = _sorted_occurrences(cnts, meta, gpos, B, s_occ)
         dev = cnts.device
         if dev not in keys_on:
             keys_on[dev] = torch.from_numpy(keys).to(dev)
-        thr0 = ((rlens.to(device=dev, dtype=torch.int32) * 2) // 10).clamp(max=50)
-        pd_in = torch.where(present, pd_s, _BIG32)
-        cid, accept, scores = cluster_illumina(keys_on[dev], pd_in, gp_s.to(torch.int32), ln_s,
-                                               n_occ, thr0, int(max_gaps), max_seeds=s_occ)
-        # a candidate's posdiff: its first member seed's, clamped at 0; column
-        # s_occ takes the seeds of no cluster
-        first_pd = torch.full((B, s_occ + 1), _BIG32, dtype=torch.int32, device=dev)
-        first_pd.scatter_reduce_(1, torch.where(cid >= 0, cid, s_occ).long(), pd_in, "amin")
-        cand_pd = torch.where(accept, first_pd[:, :s_occ], 0).clamp(min=0)
-        cand_sc = torch.where(accept, scores, 0)
-        pairs = pair_candidates(cand_sc[0::2].contiguous(), cand_pd[0::2].contiguous(),
-                                cand_sc[1::2].contiguous(), cand_pd[1::2].contiguous(),
-                                int(est_distance))
-        return (cnts, meta, gpos), (cid, accept, scores), pairs
+        clusters, pairs = front_tail(cnts, meta, gpos, rlens.to(device=dev, dtype=torch.int32),
+                                     keys_on[dev], B, s_occ, max_gaps, est_distance)
+        return (cnts, meta, gpos), clusters, pairs
 
     place_reads = _place_reads(mesh)
     out_dev = mesh.devices[0][0]

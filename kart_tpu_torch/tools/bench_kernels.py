@@ -26,15 +26,31 @@ import json
 import os
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.trace import DEVICE_CATS, trace_spans
 from . import bench_gather
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 OPS_PER_S = 67e12  # float32 rate outside the tensor cores, taken for 32-bit integer work too
+# seconds the device idles on each side of a torch.profiler session's active
+# step: the profiler places a kernel on the host's clock away from its launch
+# and drops one that lands outside the step's window, so a step that launches
+# at once can lose its records (tools/profiler_probe.py measures it)
+PROFILER_PAD_S = 0.5
+# sessions device_spans takes before it gives up on lost records: late in a
+# long process even a padded session loses them now and then (PERF.md,
+# section 7)
+PROFILER_TRIES = 3
+# the runtime and driver calls that launch one kernel each
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+# (time.monotonic() at its end, least and most us from a launch to its
+# kernel's start) of every device_spans session of this process with a launch
+PROFILER_OFFSETS: list[tuple[float, float, float]] = []
 
 
 def time_both(fn, reps: int = 32, n_small: int = 8, n_big: int = 136) -> tuple[float, float]:
@@ -56,20 +72,8 @@ def time_both(fn, reps: int = 32, n_small: int = 8, n_big: int = 136) -> tuple[f
 
 def device_us_by_kernel(fn, reps: int = 10) -> dict[str, float]:
     """Device microseconds per call of fn(), by kernel or copy name, from
-    `torch.profiler` over `reps` eager calls (`device_spans`).  A session
-    that recorded no device event (on an H100 a process that has run many
-    sessions loses the device's records of some; PERF.md, section 7) is
-    taken once more, and says so on stderr; raises if that one lost them
-    too."""
-    for attempt in range(2):
-        try:
-            spans = device_spans(lambda: [fn() for _ in range(reps)], warm=fn)
-            break
-        except RuntimeError:
-            if attempt:
-                raise
-            print("device_us_by_kernel: the torch.profiler session recorded no device event;"
-                  " taken once more", file=sys.stderr)
+    `torch.profiler` over `reps` eager calls (`device_spans`)."""
+    spans = device_spans(lambda: [fn() for _ in range(reps)], warm=fn)
     out: dict[str, float] = {}
     for t0, t1, name in spans:
         out[name] = out.get(name, 0.0) + (t1 - t0) / reps
@@ -132,32 +136,83 @@ def dependent_load_ns(n: int = 1 << 26, steps: int = 20000, seed: int = 0, *,
     return (run(steps) - run(steps // 10)) / (steps - steps // 10)
 
 
-def device_spans(fn, warm) -> list[tuple[float, float, str]]:
+class LostRecords(RuntimeError):
+    """A torch.profiler session lost device records of its step."""
+
+
+def launch_offsets(trace: dict) -> tuple[int, list[float]]:
+    """(the kernel launches of a Chrome trace (LAUNCH_CALLS) that have no
+    device event of their correlation, the us from each other launch's start
+    to its kernel's)."""
+    start: dict = {}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATS:
+            c = ev.get("args", {}).get("correlation")
+            start[c] = min(start.get(c, float("inf")), float(ev["ts"]))
+    missing, offsets = 0, []
+    for ev in trace.get("traceEvents", []):
+        if (ev.get("ph") == "X" and ev.get("cat") in ("cuda_runtime", "cuda_driver")
+                and ev.get("name") in LAUNCH_CALLS):
+            c = ev.get("args", {}).get("correlation")
+            if c in start:
+                offsets.append(start[c] - float(ev["ts"]))
+            else:
+                missing += 1
+    return missing, offsets
+
+
+def device_spans(fn, warm, pad: float = PROFILER_PAD_S, exact: bool = True,
+                 tries: int = PROFILER_TRIES) -> list[tuple[float, float, str]]:
     """fn() once under `torch.profiler`: the (start us, end us, name) of every
     kernel, copy and set the device ran, in order of start, read from the
     session's Chrome trace (`utils.trace.trace_spans`).  warm() runs first as
     the profiler's warm-up step, whose events are dropped: a profiler started
-    cold can lose the device's first events.  Raises if the profiler saw no
-    device activity."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    cold can lose the device's first events.  The device idles `pad` seconds
+    before and after the active step opens and before it closes, so that no
+    kernel of fn() or warm() is placed on the wrong side of its edges
+    (PROFILER_PAD_S); the session's launch-to-kernel offsets go to
+    PROFILER_OFFSETS.  A session that saw no device activity, or, where
+    `exact`, in which a kernel launched in the step has no device event, is
+    taken again, up to `tries` sessions in all, each loss said on stderr;
+    raises if the last one lost records too."""
+    for attempt in range(tries):
+        try:
+            return _device_spans_once(fn, warm, pad, exact)
+        except LostRecords as e:
+            if attempt == tries - 1:
+                raise
+            print(f"device_spans: {e}; taken again", file=sys.stderr)
 
-    from ..utils.trace import trace_spans
+
+def _device_spans_once(fn, warm, pad: float, exact: bool) -> list[tuple[float, float, str]]:
+    """One session of device_spans."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         warm()
         torch.cuda.synchronize()
+        time.sleep(pad)
         prof.step()
+        time.sleep(pad)
         fn()
         torch.cuda.synchronize()
+        time.sleep(pad)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            spans = [s for s in trace_spans(json.load(f)) if s[1] > s[0]]
-    if not spans:
-        raise RuntimeError("torch.profiler recorded no device activity")
+            trace = json.load(f)
+    spans = [s for s in trace_spans(trace) if s[1] > s[0]]
+    missing, offsets = launch_offsets(trace)
+    if offsets:
+        PROFILER_OFFSETS.append((time.monotonic(), min(offsets), max(offsets)))
+    if not spans or (exact and missing):
+        raise LostRecords(f"torch.profiler recorded no device event of {missing} of"
+                           f" {missing + len(offsets)} kernel launches"
+                           + (f" (the rest {min(offsets):.1f} to {max(offsets):.1f} us after"
+                              f" their launches)" if offsets else ""))
     return spans
 
 

@@ -239,3 +239,90 @@ def occurrence_stream(name: str, dtype: str):
     if dtype == "int64":
         gpos[rng.random(H) < 0.5] += 2**32 + 7  # pd narrows to its low 32 bits
     return cnts, meta, gpos.astype(idt), B, s_occ
+
+
+# F's outputs on the edges of the front half's candidate tail
+# (parallel/dp.py::candidate_tail_plain): the tests hold the plain version
+# to kart_tpu's lines and the kernel (through the host shim) to the plain
+# version on them, chip_smoke.py the kernel on the card.
+TAIL_CASES = ("random", "unsorted_pd", "accepted_empty", "absent_inside", "negative_pd",
+              "s_occ_1", "s_occ_32", "gp_int64", "crafted")
+TAIL_MAX_GAPS, TAIL_EST = 5, 1500
+
+
+def tail_inputs(name: str):
+    """(keys, n_occ, ln, gp, pd, present, rlens, max_gaps, est) of the case
+    `name` of TAIL_CASES, laid out as F leaves them: B reads (an even count,
+    rows 2p and 2p + 1 a pair, read 2's posdiffs a few hundred past read
+    1's) of S slots (16; 1 and 32 for the s_occ cases), each read's first
+    n_occ slots PosDiff-sorted seeds (lengths 13-60, some 32768, gpos across
+    the 6 chromosome keys of 3 chromosomes), the rest F's fill (pd 2**31 - 1,
+    present False, ln and gp 0).  Edges: posdiffs that fall inside a cluster
+    (its least member is not its first), reads whose threshold is negative
+    (rlens -7 to -400, so empty cluster slots are accepted), present False
+    inside n_occ (pd there F's int64 fill narrowed, -1), negative posdiffs,
+    gpos int64 past 2**32 (narrowed), and `crafted`'s four pairs: a cluster
+    whose least posdiff, not its first, reaches the mate; a threshold of
+    floor(-14 / 10) = -2 that accepts a score of -1; two read-1 clusters of
+    one score on one mate (the second does not steal); and a higher score
+    that steals."""
+    if name == "crafted":
+        return _crafted_tail()
+    rng = np.random.default_rng(TAIL_CASES.index(name) + 101)
+    S = {"s_occ_1": 1, "s_occ_32": 32}.get(name, 16)
+    B = {"random": 256, "s_occ_32": 128}.get(name, 64)
+    keys = np.array([3000, 8000, 10000, 12000, 14000, 20000], np.int32)
+    n_occ = rng.integers(0, S + 1, B).astype(np.int32)
+    base = rng.integers(-50, 19000, B // 2)
+    base = np.stack([base, base + rng.integers(150, 450, B // 2)], axis=1).reshape(-1)
+    step = np.where(rng.random((B, S)) < 0.7, rng.integers(0, 4, (B, S)),
+                    rng.integers(4, 900, (B, S)))
+    pd = (base[:, None] + np.cumsum(step, axis=1)).astype(np.int64)
+    if name == "unsorted_pd":  # small steps down inside a run of breaks
+        pd -= np.where(rng.random((B, S)) < 0.4, rng.integers(1, 4, (B, S)), 0)
+    if name == "negative_pd":
+        pd -= rng.integers(0, 400, (B, 1))
+    rp = rng.integers(0, 150, (B, S))
+    gp = pd + rp
+    ln = rng.integers(13, 61, (B, S))
+    ln[rng.random((B, S)) < 0.05] = 32768
+    present = np.ones((B, S), bool)
+    if name == "absent_inside":
+        present = rng.random((B, S)) >= 0.2
+    rlens = np.where(rng.random(B) < 0.9, 150, rng.integers(0, 151, B))
+    if name == "accepted_empty":
+        rlens[::3] = -rng.integers(7, 401, len(rlens[::3]))
+    fill = np.arange(S)[None, :] >= n_occ[:, None]
+    present &= ~fill
+    pd = np.where(present, pd, np.where(fill, 2**31 - 1, -1))
+    gp = np.where(fill, 0, gp)
+    ln = np.where(fill, 0, ln)
+    if name == "gp_int64":
+        gp = np.where(rng.random((B, S)) < 0.5, gp + 2**32, gp)
+    gdt = np.int64 if name == "gp_int64" else np.int32
+    return (keys, n_occ, ln.astype(np.int32), gp.astype(gdt), pd.astype(np.int32), present,
+            rlens.astype(np.int32), TAIL_MAX_GAPS, TAIL_EST)
+
+
+def _crafted_tail():
+    """tail_inputs("crafted"): four pairs of reads of 4 slots, each read's
+    seeds as (pd, gp, ln) in slot order."""
+    S = 4
+    reads = [
+        [(1000, 1100, 30), (990, 1092, 30)], [(995, 1100, 40)],  # least, not first, reaches
+        [(100, 160, -1)], [(400, 470, 40)],  # thr0 -2 accepts -1 (truncated -1 would not)
+        [(100, 150, 40), (200, 250, 40)], [(300, 350, 50)],  # a tie on one mate: no steal
+        [(100, 150, 35), (200, 250, 45)], [(300, 350, 50)],  # a higher score steals
+    ]
+    B = len(reads)
+    pd = np.full((B, S), 2**31 - 1, np.int32)
+    gp = np.zeros((B, S), np.int32)
+    ln = np.zeros((B, S), np.int32)
+    present = np.zeros((B, S), bool)
+    n_occ = np.array([len(r) for r in reads], np.int32)
+    for b, seeds in enumerate(reads):
+        for t, (p, g, l) in enumerate(seeds):
+            pd[b, t], gp[b, t], ln[b, t], present[b, t] = p, g, l, True
+    rlens = np.array([150, 150, -7, 150, 150, 150, 150, 150], np.int32)
+    keys = np.array([3000, 8000], np.int32)
+    return keys, n_occ, ln, gp, pd, present, rlens, TAIL_MAX_GAPS, TAIL_EST

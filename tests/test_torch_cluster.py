@@ -117,7 +117,44 @@ def cluster_cases(keys: np.ndarray, two_genome: int) -> dict:
     pd, gp, ln, n, thr0 = to_arrays(seeds_at(rows), [150] * 4)
     thr0[1:3] = (-10, -60)
     cases["threshold_rises"] = (pd, gp, ln, n, thr0)
-    return {k: (keys.astype(np.int32), *v) for k, v in cases.items()}
+    # scores below INT_MIN + 50 taken against a threshold below them (s - 50
+    # wraps: the threshold's rule in order), one from a sum that wraps, among
+    # clusters that close in one chunk; INT_MIN + 50 itself does not wrap
+    lo, big = -(2**31), 2**30 + 7
+    rows = [[(0, 100, lo + 20), (0, 500, 30), (0, 900, 41)],
+            [(0, 100, big), (0, 102, big), (0, 500, 70), (0, 900, 200)],
+            [(0, 100, lo + 50), (0, 500, 10), (0, 900, lo + 60), (0, 1300, 300)],
+            [(0, 100 + 400 * c, lo + x) for c, x in enumerate((100, 60, 55, 51, 20))]
+            + [(0, 2100, 7), (0, 2500, 30)]]
+    pd, gp, ln, n, thr0 = to_arrays(seeds_at(rows), [150] * 4)
+    thr0[:] = lo
+    cases["wrapping_scores"] = (pd, gp, ln, n, thr0)
+    # one posdiff run over three 32-slot chunks whose gpos cross chromosome
+    # keys forward, back and forward again: the running max of the key
+    # index crosses the chunks (a break only where gpos passes the run's
+    # furthest key)
+    k = keys.tolist()
+    cross = [k[0] - 5] * 12 + [k[0] + 1] * 3 + [k[0] - 2] * 20 + [k[0] + 3] * 5 + [k[1] + 1] * 4 \
+        + [k[0] + 2] * 16 + [k[2] + 1] * 10
+    rows = [[(0, g, 13) for g in cross], [(0, g, 13) for g in cross[::-1]]]
+    rows.append([(0, g, 13) for g in cross[:40]] + [(0, g + 700, 13) for g in cross[40:]])
+    pd, gp, ln, n, thr0 = to_arrays(seeds_at(rows), [150] * 3)
+    pd[:] = np.where(np.arange(pd.shape[1]) < n[:, None], 7, pd)  # one posdiff: no gap break
+    pd[2, 40:n[2]] = 7 + 700  # a gap break in the second chunk
+    cases["running_max_across_chunks"] = (pd, gp, ln, n, thr0)
+    out = {name: (keys.astype(np.int32), *v) for name, v in cases.items()}
+    # duplicate chromosome keys (an empty chromosome), seeds on, before and
+    # past each; a left search finds the first of equal keys
+    dup = np.array([4000, 4000, 7000, 7000, 7000, 9000], np.int32)
+    rows = []
+    for key in (4000, 7000, 9000):
+        for first, second in ((key, key + 1), (key - 1, key), (key, key), (key + 1, key + 2),
+                              (key - 2, key + 3)):
+            rows.append([(0, first, 20), (0, second, 20), (0, second + 1, 20)])
+    pd, gp, ln, n, thr0 = to_arrays(seeds_at(rows), [100] * len(rows))
+    pd[:] = np.where(np.arange(pd.shape[1]) < n[:, None], 0, pd)  # one posdiff a read
+    out["duplicate_keys"] = (dup, pd, gp, ln, n, thr0)
+    return out
 
 
 def run_both(args):
@@ -130,7 +167,8 @@ def run_both(args):
 
 
 CASES = ["random_200", "wide_chunks", "no_seeds", "negative_posdiffs", "chromosome_keys",
-         "gap_edges", "one_slot", "threshold_rises"]
+         "gap_edges", "one_slot", "threshold_rises", "wrapping_scores",
+         "running_max_across_chunks", "duplicate_keys"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -153,6 +191,19 @@ def test_cluster_plain_matches_jax(genome, name):
         np.testing.assert_array_equal(cid[:, :3], [[0, 0, 1], [0, 1, 1]])
     if name == "chromosome_keys":
         assert (cid[:, 1] == 1).any() and (cid[:, 1] == 0).any()
+    if name == "wrapping_scores":
+        # a wrapped threshold refuses what follows, empty slots included; a
+        # score of INT_MIN + 50 does not wrap
+        assert accept[0].tolist() == [True] + [False] * 6
+        assert accept[1].tolist() == [True] + [False] * 6
+        assert accept[2, :4].tolist() == [True, True, False, True] and not accept[2, 4:].any()
+        assert accept[3].tolist() == [True, True, True, True, False, True, True]
+    if name == "running_max_across_chunks":
+        # forward: a cluster at each new furthest key; reversed: none past the first
+        assert cid.max(axis=1)[:2].tolist() == [3, 0] and cid[2].max() >= 3
+    if name == "duplicate_keys":
+        # on a key, then on it again, then past it: only the last opens
+        assert cid[0].tolist()[:3] == [0, 1, 1] and cid[2].tolist()[:3] == [0, 0, 1]
 
 
 def seed_copies(lists, seed_cls):

@@ -15,6 +15,11 @@ element for element and in dtype.
   around its tiles of 128 and 64 reads (1 to 32,000, s_occ 16 and 32,
   flagged reads and the end of H on a tile's edge) through the host shim
   (tests/host_shim), against the plain version.
+- H, the candidate tail: `candidate_tail_plain` against kart_tpu's
+  cluster_illumina, the jnp glue of its front half and pair_candidates on
+  tools/simdata's F outputs (TAIL_CASES); the kernel wrapper's refusals
+  (`csrc/cluster.cu`'s tail runs through the host shim in
+  tests/test_torch_host_shim.py).
 - make_mapping_step at data 1, data 8 and data x idx 2 x 4.
 - make_full_mapping_step, every output array (the flat stream included), at
   data 1 and 4 with the full SA, data 2 sampled, 2 x 2 full and sampled, on
@@ -213,6 +218,81 @@ def test_sorted_occurrences_kernel_refuses_what_it_cannot_take():
         kernels.sorted_occurrences(*args, 33)
     with pytest.raises(ValueError, match="expected a cuda tensor"):
         kernels.sorted_occurrences(*args, 16)
+
+
+# ---------------------------------------------------------------------------
+# H: the candidate tail (clustering, the glue, mating) on F's outputs
+# ---------------------------------------------------------------------------
+
+
+def jax_tail(keys, n_occ, ln, gp, pd, present, rlens, max_gaps, est):
+    """kart_tpu's front half after the PosDiff sort: cluster_illumina, the
+    jnp lines of kart_tpu/parallel/dp.py:223-244 (make_full_mapping_step's
+    front_half) and pair_candidates."""
+    from kart_tpu.ops.cluster import cluster_illumina
+    from kart_tpu.ops.pairing import pair_candidates
+
+    B, s_occ = pd.shape
+    with x64(gp.dtype == np.int64):
+        n_occ, ln_s, gp_s, pd_s, present, rlens = (jnp.asarray(a) for a in (n_occ, ln, gp, pd,
+                                                                            present, rlens))
+        thr0 = jnp.minimum((rlens * 2) // 10, 50)
+        pd_in = jnp.where(present, pd_s, jnp.int32(2**31 - 1))
+        cid, accept, scores = cluster_illumina(
+            jnp.asarray(keys), pd_in, gp_s.astype(jnp.int32), ln_s, n_occ, thr0,
+            jnp.int32(max_gaps), max_seeds=s_occ,
+        )
+        first_pd = (
+            jnp.full((B, s_occ), jnp.int32(2**31 - 1))
+            .at[
+                jnp.broadcast_to(jnp.arange(B)[:, None], (B, s_occ)),
+                jnp.where(cid >= 0, cid, s_occ),
+            ]
+            .min(jnp.where(present, pd_s, 2**31 - 1), mode="drop")
+        )
+        cand_pd = jnp.maximum(jnp.where(accept, first_pd, 0), 0)
+        cand_sc = jnp.where(accept, scores, 0)
+        pairs = pair_candidates(cand_sc[0::2], cand_pd[0::2], cand_sc[1::2], cand_pd[1::2],
+                                jnp.int32(est))
+        return [np.asarray(x) for x in (cid, accept, scores, *pairs)]
+
+
+@pytest.mark.parametrize("name", simdata.TAIL_CASES)
+def test_candidate_tail_plain_matches_jax(name):
+    """candidate_tail_plain, and the CPU dispatch of _candidate_tail, against
+    kart_tpu's composition on tools/simdata's F outputs (the host shim holds
+    csrc/cluster.cu's tail to the plain version on the same inputs)."""
+    args = simdata.tail_inputs(name)
+    want = jax_tail(*args)
+    tensors = [torch.from_numpy(a) for a in args[:7]]
+    got = tdp.candidate_tail_plain(*tensors, *args[7:])
+    assert_same([x for grp in got for x in grp], want, name)
+    got = tdp._candidate_tail(*tensors, *args[7:])
+    assert_same([x for grp in got for x in grp], want, f"{name}, dispatched")
+    if args[4].shape[1] > 1:
+        assert want[5].any() and want[1].any()
+
+
+def test_candidate_tail_refuses_what_it_cannot_take():
+    """The kernel's wrapper refuses an odd block, s_occ past a warp and a
+    CPU tensor before any build or launch; the dispatcher refuses a device
+    that is neither CUDA nor the CPU."""
+    from kart_tpu_torch import kernels
+
+    keys, n_occ, ln, gp, pd, present, rlens, mg, est = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in simdata.tail_inputs("random"))
+    with pytest.raises(ValueError, match="a block of 7 reads"):
+        kernels.candidate_tail(keys, n_occ[:7], ln[:7], gp[:7], pd[:7], present[:7], rlens[:7],
+                               mg, est)
+    wide = [torch.cat([a, a, a], dim=1) for a in (ln, gp, pd, present)]
+    with pytest.raises(ValueError, match="48 slots"):
+        kernels.candidate_tail(keys, n_occ, *wide[:3], wide[3], rlens, mg, est)
+    with pytest.raises(ValueError, match="expected a cuda tensor"):
+        kernels.candidate_tail(keys, n_occ, ln, gp, pd, present, rlens, mg, est)
+    meta = [a.to("meta") for a in (keys, n_occ, ln, gp, pd, present, rlens)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdp._candidate_tail(*meta, mg, est)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from kart_tpu_torch.ops import kmer_seed as tks
 from kart_tpu_torch.ops import nw as tnw
 from kart_tpu_torch.ops import pack as tpack
 from kart_tpu_torch.ops import resolve as tres
+from kart_tpu_torch.tools import simdata
 from host_shim import translate
 from test_nw_kernel import random_pairs
 from test_torch_kmer_seed import make_reads
@@ -86,6 +87,10 @@ def host_lib(tmp_path_factory):
     lib.kart_cluster_illumina.restype = i
     lib.kart_pair_candidates.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
     lib.kart_pair_candidates.restype = i
+    for sfx in ("", "_i64"):
+        fn = getattr(lib, "kart_candidate_tail" + sfx)
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p]
+        fn.restype = i
     assert lib.kart_kmer_funnel_cluster() == CLUSTER
     return lib
 
@@ -861,10 +866,14 @@ def cluster_genome(workdir):
 
 @pytest.mark.parametrize("name", ["random_200", "wide_chunks", "no_seeds", "negative_posdiffs",
                                   "chromosome_keys", "gap_edges", "one_slot", "threshold_rises",
-                                  "many_keys"])
+                                  "many_keys", "wrapping_scores", "running_max_across_chunks",
+                                  "duplicate_keys"])
 def test_cluster_kernel_on_host_matches_plain(host_lib, cluster_genome, name):
     """test_torch_cluster's batches (which hold the plain version against
-    kart_tpu), and one with 9,000 chromosome keys, many seeds on a key."""
+    kart_tpu): among them scores below INT_MIN + 50 (the threshold in
+    order), a run of breaks whose running max crosses 32-slot chunks and
+    duplicate keys; and one with 9,000 chromosome keys, many seeds on a
+    key."""
     from test_torch_cluster import MAX_GAPS, cluster_cases
 
     from kart_tpu_torch.ops import cluster as tcl
@@ -905,11 +914,13 @@ def host_pair(lib, s1, d1, s2, d2, est):
 
 
 @pytest.mark.parametrize("name", ["random", "wide", "tie_and_steal", "distance_edges", "empty",
-                                  "past_shared_memory"])
+                                  "past_shared_memory", "chained_steals", "c1_past_warp",
+                                  "negative_scores"])
 def test_pair_kernel_on_host_matches_plain(host_lib, name):
     """test_torch_pairing's batches (which hold the plain version against
-    kart_tpu), and pairs of 40 + 3,100 slots, more than a block's shared
-    memory would hold for its four pairs."""
+    kart_tpu; among them steals that chain and C1 past a warp), and pairs of
+    40 + 3,100 slots, whose inputs a block's 48 KB does not hold beside
+    their state (the sweep reads them from device memory)."""
     from test_torch_pairing import pairing_cases
 
     from kart_tpu_torch.ops import pairing as tpa
@@ -929,6 +940,73 @@ def test_pair_kernel_on_host_matches_plain(host_lib, name):
         np.testing.assert_array_equal(g, w.numpy(), err_msg=what)
     if name == "past_shared_memory":
         assert want[2].all() and (want[0] >= 0).sum() > 50
+
+
+def host_tail(lib, keys, n_occ, ln, gp, pd, present, rlens, max_gaps, est):
+    """csrc/cluster.cu's candidate tail through the host shim; its outputs
+    start as garbage.  -> (rc, ((cluster_id, accept, scores), (paired1,
+    paired2, pairing)))."""
+    B, S = pd.shape
+    outs = [np.full((B, S), -7, np.int32), np.full((B, S), 9, np.uint8),
+            np.full((B, S), -7, np.int32), np.full((B // 2, S), -7, np.int32),
+            np.full((B // 2, S), -7, np.int32), np.full(B // 2, 9, np.uint8)]
+    args = [np.ascontiguousarray(a) for a in (keys, n_occ, ln, gp, pd, present.view(np.uint8),
+                                               rlens)]
+    sfx = "" if gp.dtype == np.int32 else "_i64"
+    rc = getattr(lib, "kart_candidate_tail" + sfx)(ptr(args[0]), len(keys),
+                                                   *(ptr(a) for a in args[1:]), max_gaps, est,
+                                                   B, S, *(ptr(o) for o in outs), None)
+    for k in (1, 5):
+        outs[k] = outs[k].view(bool)
+    return rc, (tuple(outs[:3]), tuple(outs[3:]))
+
+
+@pytest.mark.parametrize("name", simdata.TAIL_CASES)
+def test_candidate_tail_kernel_on_host_matches_plain(host_lib, name):
+    """The fused tail (clustering, the glue, mating: one launch) against
+    parallel/dp.py::candidate_tail_plain on tools/simdata's F outputs:
+    phase-12-like random reads, posdiffs that fall inside a cluster (the
+    segmented min), accepted empty cluster slots, present False inside
+    n_occ, negative posdiffs, s_occ 1, 16 and 32, gpos int64, and the
+    crafted pairs on which a first-member posdiff, a truncated threshold or
+    a steal on a tie would change an output."""
+    from kart_tpu_torch.parallel import dp as tdp
+
+    args = simdata.tail_inputs(name)
+    want = tdp.candidate_tail_plain(*(torch.from_numpy(a) for a in args[:7]), *args[7:])
+    rc, got = host_tail(host_lib, *args)
+    assert rc == 0
+    for g, w, what in zip([x for grp in got for x in grp], [x for grp in want for x in grp],
+                          ("cluster_id", "accept", "scores", "paired1", "paired2", "pairing")):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=what)
+    cid, accept, scores = (x.numpy() for x in want[0])
+    S = cid.shape[1]
+    if S > 1:
+        assert want[1][2].numpy().mean() > 0.3  # pairs mated
+    if name == "unsorted_pd":  # a cluster whose least posdiff is not its first member's
+        pd = args[4]
+        assert any(pd[b, t] < pd[b, list(cid[b]).index(cid[b, t])]
+                   for b in range(len(pd)) for t in range(S) if cid[b, t] >= 0)
+    if name == "accepted_empty":
+        assert (accept & (scores == 0)).any()
+    if name == "absent_inside":
+        assert ((cid >= 0) & ~args[5]).any()
+    if name == "crafted":  # the least posdiff mates, -2 accepts -1, a tie keeps, more steals
+        assert want[1][0].tolist() == [[0, -1, -1, -1], [-1, -1, -1, -1], [0, -1, -1, -1],
+                                       [-1, 0, -1, -1]]
+        assert accept[2, 0] and scores[2, 0] == -1
+
+
+def test_candidate_tail_kernel_on_host_refuses_an_odd_block(host_lib):
+    """An odd block (mates are (even, odd) rows) and s_occ past a warp are
+    refused: the entry launches nothing and returns cudaErrorInvalidValue."""
+    keys, n_occ, ln, gp, pd, present, rlens, mg, est = simdata.tail_inputs("random")
+    rc, got = host_tail(host_lib, keys, n_occ[:7], ln[:7], gp[:7], pd[:7], present[:7],
+                        rlens[:7], mg, est)
+    assert rc == 1 and (got[0][0] == -7).all()
+    wide = [np.concatenate([a, a, a], axis=1) for a in (ln, gp, pd, present)]
+    rc, _ = host_tail(host_lib, keys, n_occ, wide[0], wide[1], wide[2], wide[3], rlens, mg, est)
+    assert rc == 1
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,24 @@ def pairing_cases() -> dict:
         [[(30, 500)], [(30, 500 + EST - 1)], [(30, 500 + EST)], [(30, 499)]])
     # no candidates at all, and all-zero scores
     cases["empty"] = pair_case([[], [(0, 10)]], [[(5, 20)], []])
+    # steals that chain: each higher read-1 score takes the one mate from the
+    # one before, a lower one does not; the unlinked owners stay unmated, and
+    # a second mate in reach of only some
+    cases["chained_steals"] = pair_case(
+        [[(10, 100), (20, 100), (30, 100), (25, 100), (40, 100)],
+         [(10, 100), (20, 100), (30, 900), (5, 100), (31, 100)]],
+        [[(50, 200)], [(50, 200), (9, 1000)]])
+    # negative read-1 scores: kart_tpu's `pairing` starts as score1[:, 0] < 0,
+    # so a pair with a negative first score is pairing though nothing mates
+    cases["negative_scores"] = pair_case(
+        [[(-3, 100)], [(-3, 100), (10, 100)], [(10, 100), (-3, 100)], [(0, 100)]],
+        [[(30, 200)], [(30, 200)], [(5, 50)], [(30, 200)]])
+    # C1 past a warp (lanes stride over the read-1 slots), few distinct scores
+    P, C1, C2 = 24, 80, 20
+    cases["c1_past_warp"] = (rng.integers(0, 5, (P, C1)).astype(np.int32),
+                             rng.integers(0, 300, (P, C1)).astype(np.int32),
+                             rng.integers(0, 5, (P, C2)).astype(np.int32),
+                             rng.integers(0, 400, (P, C2)).astype(np.int32), 150)
     return cases
 
 
@@ -78,7 +96,8 @@ def run_both(args):
     return [np.asarray(x) for x in want], [x.numpy() for x in got]
 
 
-CASES = ["random", "wide", "tie_and_steal", "distance_edges", "empty"]
+CASES = ["random", "wide", "tie_and_steal", "distance_edges", "empty", "chained_steals",
+         "c1_past_warp", "negative_scores"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -96,6 +115,13 @@ def test_pair_plain_matches_jax(name):
         assert p1[2, 2] == -1 and flag.tolist() == [True, False, True, True, True]
     if name == "distance_edges":
         assert p1[:, 0].tolist() == [0, 0, -1, -1]
+    if name == "chained_steals":
+        assert p1.tolist() == [[-1, -1, -1, -1, 0], [-1, -1, 1, -1, 0]]
+        assert p2.tolist() == [[4, -1], [4, 2]] and flag.all()
+    if name == "negative_scores":
+        assert flag.tolist() == [True, True, False, False] and p1[:, 0].tolist() == [-1, -1, -1, -1]
+    if name == "c1_past_warp":
+        assert (p1[:, 32:] >= 0).sum() > 10 and flag.all()
 
 
 def cands(rng, n, cls):
