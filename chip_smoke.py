@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root
     python3 chip_smoke.py --phases 9      # phase 0, the set-up and phase 9 only (exit 4)
+    python3 chip_smoke.py --phases 13     # the bench and the smoke test, each in its own process
     python3 chip_smoke.py --compare DIR   # also time DIR/kart_tpu_torch's NW, FM stepper,
                                           # clustering, mating, funnel, resolve_pack,
                                           # SensitiveMode kernels, walk, cross-device scan,
@@ -196,6 +197,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cluster_illumina and pair_candidates never); (c) graft_entry's dry run on [cuda:0] * 4,
      entry() equal to its CPU run, and bench_scaling's lines (one card: the
      mesh positions share it, so they measure overhead, not scaling).
+ 13. the port's bench and smoke test, each in a process of its own: (a)
+     python -m kart_tpu_torch.tools.bench on phase 6's genome, index and
+     100,000 pairs and phase 8's PacBio reads (bench.py's data): its three
+     lines in bench.py's order, each with a value and phase 0's nvidia-smi
+     line as its device, and the funnel and resolve_pack launched in its
+     timed device passes; (b) bash kart_tpu_torch/run_test.sh (its own
+     index of the seed-7 uniform genome, whose .bwt must be 4,639,752
+     bytes, 1,000 simulated pairs mapped in the native mode and scored by
+     the evaluator, and mapped again with KART_SEED_MODE=device on the
+     card: the same SAM bytes).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero and prints no result.  Every kernel's record carries its launches
@@ -3423,6 +3434,68 @@ def phase_dp(gidx, other=None, other_root: str | None = None) -> dict:
                 launches=total, runs=runs)
 
 
+BENCH_METRICS = ("illumina_pe_reads_per_sec_device_pipelined", "pacbio_reads_per_sec_per_chip",
+                 "illumina_pe_reads_per_sec_per_chip")  # tools/bench.py's lines, in bench.py's order
+BENCH_KERNELS = ("kmer_funnel", "resolve_pack")  # launched in every device-pipelined pass
+# the bench in a process of its own that, like this script, cannot import
+# JAX, kart_tpu or bench.py
+_BENCH_RUN = """
+import runpy, sys
+for m in ("jax", "kart_tpu", "bench"):
+    sys.modules[m] = None
+runpy.run_module("kart_tpu_torch.tools.bench", run_name="__main__")
+"""
+
+
+def phase_bench(prefix: str, pb: str, smi: str) -> None:
+    """Phase 13: (a) tools/bench.py on this script's genome, index, phase 6's
+    reads and the PacBio reads, in a child process; (b) run_test.sh."""
+    r1, r2 = os.path.join(DATA, "dev_r1.fq"), os.path.join(DATA, "dev_r2.fq")
+    if not (os.path.exists(r1) and os.path.exists(r2)):  # phase 6 did not run
+        simulate_pairs(os.path.join(DATA, "genome.fa"), r1, r2, N_DEV_PAIRS)
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KART_")}
+    proc = subprocess.run([sys.executable, "-c", _BENCH_RUN, "--index", prefix, "--reads", r1, r2,
+                           "--pacbio", pb], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(a) the bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    got = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if [r.get("metric") for r in got] != list(BENCH_METRICS):
+        raise AssertionError(f"(a) the bench's lines: {proc.stdout[-3000:]}")
+    bad = [r for r in got if r["value"] is None or r["device"] != smi]
+    if bad:
+        raise AssertionError(f"(a) a line without a value or not on {smi!r}: {bad}")
+    side = json.loads(proc.stderr.strip().splitlines()[-1])
+    idle = [k for k in BENCH_KERNELS if not side["launches"].get(k)]
+    if idle:
+        raise AssertionError(f"(a) no launch of {idle} in the device passes: {side}")
+    print(f"phase 13 (a) tools/bench.py on phase 6's {2 * N_DEV_PAIRS} reads and phase 8's PacBio"
+          f" reads, in a process of its own: exit 0 in {wall:.1f} s")
+    for r in got:
+        print(f"phase 13 (a) {json.dumps(r)}")
+    print(f"phase 13 (a) set-up, groups and launches of the timed device passes: {json.dumps(side)}")
+
+    # (b) the port's smoke test: its own index, native SAM, evaluator, device SAM
+    t0 = time.perf_counter()
+    env["KART_TPU_TEST_DIR"] = os.path.join(DATA, "run_test")
+    env["PYTHON"] = sys.executable
+    proc = subprocess.run(["bash", os.path.join(ROOT, "kart_tpu_torch", "run_test.sh")], cwd=ROOT,
+                          env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    want = ("[Making the index files successfully! (.bwt == 4639752 bytes)]",
+            "[The device-pipelined SAM is byte-equal to the native SAM]", "[End of test]")
+    if proc.returncode != 0 or not all(w in out for w in want):
+        raise AssertionError(f"(b) run_test.sh exited {proc.returncode}: {out[-3000:]}")
+    evaluator = [ln for ln in out.splitlines()
+                 if ln.startswith(("# of reads", "# of mapped", "precision", "recall"))]
+    print(f"phase 13 (b) kart_tpu_torch/run_test.sh: exit 0 in {wall:.1f} s; {want[0]};"
+          f" {'; '.join(evaluator)}; {want[1]} (KART_SEED_MODE=device on the card)")
+
+
 # A two-launch design of F (offsets_kernel, a one-block scan, then
 # launch_sort), its launches exported alone
 SPLIT_PROBE = """#include "%s"
@@ -3673,6 +3746,8 @@ def main(argv: list[str] | None = None) -> int:
         sharded_slice = phase_sharded_slice(prefix)
     if want(12):
         dp = phase_dp(gidx, other, args.compare)
+    if want(13):
+        phase_bench(prefix, pb, smi)
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "kart_tpu", "bench"))
     if loaded:

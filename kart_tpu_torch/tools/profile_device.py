@@ -81,10 +81,15 @@ def device_for(cpu: bool) -> torch.device:
 
 @contextlib.contextmanager
 def environ(env: dict):
-    """os.environ with `env` set inside the block, restored after."""
+    """os.environ with `env` set (a value of None: unset) inside the block,
+    restored after."""
     old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         yield
     finally:
         for k, v in old.items():

@@ -99,16 +99,17 @@ def ensure_assets(data_dir: str) -> tuple[str, str, str]:
         write_genome_fasta(fa, make_repeat_genome(np.random.default_rng(GENOME_SEED)))
     if not (index_files_exist(prefix) and os.path.exists(prefix + ".saf")):
         build_index(fa, prefix, verbose=False)
-
-    def n_reads(path):
-        if not os.path.exists(path):
-            return 0
-        with open(path, "rb") as f:
-            return sum(1 for _ in f) // 4
-
-    if n_reads(r1) != N_PAIRS or n_reads(r2) != N_PAIRS:
+    if count_reads(r1) != N_PAIRS or count_reads(r2) != N_PAIRS:
         simulate_reads(read_genome_fasta(fa), r1, r2, N_PAIRS)
     return prefix, r1, r2
+
+
+def count_reads(path: str) -> int:
+    """FASTQ records in `path` (0 where it is missing)."""
+    if not os.path.exists(path):
+        return 0
+    with open(path, "rb") as f:
+        return sum(1 for _ in f) // 4
 
 
 def simulate_reads(genome: np.ndarray, out1: str, out2: str, n_pairs: int,

@@ -247,7 +247,9 @@ def test_port_sources_do_not_import_jax():
                  "from .simulate_reads import simulate", "from . import profile_device",
                  "from kart_tpu_torch.tools import bench_huge", "from .profile_device import x",
                  "from kart_tpu_torch import graft_entry", "from ..graft_entry import _tiny_index",
-                 "from .bench_scaling import CONFIGS", "from kart_tpu_torch.tools import scaling_curve"):
+                 "from .bench_scaling import CONFIGS", "from kart_tpu_torch.tools import scaling_curve",
+                 "from kart_tpu_torch.tools import bench", "import kart_tpu_torch.tools.bench",
+                 "from kart_tpu_torch.tools.bench import main", "from .tools import bench"):
         assert not pat.search(good), good
     files = sorted((REPO / "kart_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "torch_mh_worker.py"]
@@ -255,6 +257,7 @@ def test_port_sources_do_not_import_jax():
     assert {"sharded_index.py", "distributed.py", "stats_sync.py", "merge.py", "dp.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
     assert {"graft_entry.py", "bench_scaling.py", "scaling_curve.py"} <= {f.name for f in files}
+    assert REPO / "kart_tpu_torch" / "tools" / "bench.py" in files
     assert [str(f) for f in files if pat.search(f.read_text())] == []
 
 

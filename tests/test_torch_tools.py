@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from kart_tpu.utils import trace as jax_trace
-from kart_tpu_torch.tools import analyze_trace, bench_huge, profile_device
+from kart_tpu_torch.tools import analyze_trace, bench, bench_huge, profile_device
 from kart_tpu_torch.tools import evaluate_sam as port_eval
 from kart_tpu_torch.tools import make_huge_genome as port_huge
 from kart_tpu_torch.tools import simulate_reads as port_sim
@@ -376,18 +376,20 @@ def test_bench_huge_cpu_int64(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "bench_h1.fq").read_bytes().count(b"\n") == 4 * 200
 
 
-@pytest.mark.parametrize("tool", ["profile_device", "analyze_trace", "bench_huge"])
+@pytest.mark.parametrize("tool", ["profile_device", "analyze_trace", "bench_huge", "bench"])
 def test_tools_refuse_without_cuda(tool, tools_data, monkeypatch):
     """Without --cpu and without a CUDA device each device tool exits
     non-zero before it measures anything; there is no quiet CPU run."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(bench_huge, "HUGE", str(tools_data))
     main = {"profile_device": profile_device.main, "analyze_trace": analyze_trace.main,
-            "bench_huge": bench_huge.run}[tool]
+            "bench_huge": bench_huge.run, "bench": bench.main}[tool]
     d = tools_data
     args = {"profile_device": profile_args(d, "kmer")[1:],
             "analyze_trace": ["--group", "1", "--index", str(d / "idx"),
                               "--reads", str(d / "r1.fq"), str(d / "r2.fq")],
-            "bench_huge": []}[tool]
+            "bench_huge": [],
+            "bench": ["--index", str(d / "idx"), "--reads", str(d / "r1.fq"), str(d / "r2.fq"),
+                      "--pacbio", str(d / "r1.fq")]}[tool]
     with pytest.raises(SystemExit, match="no CUDA device"):
         main(args)
