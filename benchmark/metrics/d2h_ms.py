@@ -1,0 +1,8 @@
+"""Copies: device milliseconds of Memcpy DtoH a group, in the traced
+stretch (torch.profiler)."""
+
+from benchmark import devtrace
+
+
+def read(ctx):
+    return devtrace.op_ms(ctx.trace, ("Memcpy DtoH",))
