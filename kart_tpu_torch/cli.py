@@ -17,6 +17,11 @@ N` (or KART_IDX_SHARDS) seeds through the FM index split over N devices
 (cuda:0 .. cuda:N-1, or N shards on the CPU with -cpu), as kart_tpu does:
 FastMode seeding in the native and python backends; the device-pipelined
 mode and PacBio seeding keep the replicated index.
+
+KART_TIMERS=1 prints the `kart.*` spans' seconds (utils/trace.span) to
+standard error at the end of a run; KART_TRACE_DIR=DIR writes one Chrome
+trace of the whole mapping into DIR (utils/trace.device_trace), which is
+for small inputs.
 """
 
 from __future__ import annotations
@@ -216,33 +221,37 @@ def main(argv: list[str] | None = None) -> int:
     t_setup = time.time() - t_setup
     nw_before = dict(nw_stats)
     t0 = time.time()
+    from .utils.trace import TIMERS, device_trace
+
     try:
         writer(sam_header(gidx, VERSION))
         sep_library = len(files2) == len(files1) and len(files2) > 0
-        for lib in range(len(files1)):
-            fastq = check_read_format(files1[lib])
-            path2 = None
-            lib_pair = pair_end
-            if sep_library:
-                lib_pair = True
-                if fastq != check_read_format(files2[lib]):
-                    print(f"Error! {files1[lib]} and {files2[lib]} are with different format...")
-                    continue
-                path2 = files2[lib]
+        with device_trace():
+            for lib in range(len(files1)):
+                fastq = check_read_format(files1[lib])
+                path2 = None
+                lib_pair = pair_end
+                if sep_library:
+                    lib_pair = True
+                    if fastq != check_read_format(files2[lib]):
+                        print(f"Error! {files1[lib]} and {files2[lib]} are with different"
+                              " format...")
+                        continue
+                    path2 = files2[lib]
 
-            progress = None
-            if not silent:
-                kind = "paired-end" if lib_pair else "singled-end"
+                progress = None
+                if not silent:
+                    kind = "paired-end" if lib_pair else "singled-end"
 
-                def progress(total, kind=kind):
-                    print(
-                        f"\r{total} {kind} reads have been processed"
-                        f" in {int(time.time() - t0)} seconds...",
-                        end="",
-                        flush=True,
-                    )
+                    def progress(total, kind=kind):
+                        print(
+                            f"\r{total} {kind} reads have been processed"
+                            f" in {int(time.time() - t0)} seconds...",
+                            end="",
+                            flush=True,
+                        )
 
-            mapper.map_stream(files1[lib], path2, lib_pair, fastq, writer, progress)
+                mapper.map_stream(files1[lib], path2, lib_pair, fastq, writer, progress)
     finally:
         closer()
 
@@ -273,17 +282,23 @@ def main(argv: list[str] | None = None) -> int:
             )
         if mapper.group_log:  # the device-pipelined mode's groups, or the sharded index's calls
             log = mapper.group_log
+            up = sum(g.get("upload_bytes", 0) for g in log)  # the device-pipelined mode's
+            down = sum(g.get("stream_bytes", 0) for g in log)
+            n_reads = sum(g["reads"] for g in log)
+            up_line = (f", uploaded {up / n_reads:.1f} and downloaded {down / n_reads:.1f}"
+                       " bytes a read" if up else "")
             print(
                 f"\t# of device seeding groups on {device} = {len(log)},"
                 f" flagged lanes = {sum(g['flagged'] for g in log)},"
                 f" re-seeded on the device = {sum(g['reseeded_device'] for g in log)},"
-                f" on the host = {sum(g['reseeded_host'] for g in log)}\n"
+                f" on the host = {sum(g['reseeded_host'] for g in log)}{up_line}\n"
                 f"\t  per group: reads {[g['reads'] for g in log]},"
                 f" flagged {[g['flagged'] for g in log]},"
                 f" re-seeded on the host {[g['reseeded_host'] for g in log]}"
             )
         print(f"\tset-up {t_setup:.3f} s (index, tables, device arrays), mapping {t_map:.3f} s")
         print(f"Alignment output: {out_name}")
+    TIMERS.report(n_items=total, file=sys.stderr)
     return 0
 
 

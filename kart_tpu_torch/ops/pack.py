@@ -8,7 +8,8 @@ the downloaded stream.  Device half (torch):
 `unpack_reads` (the inverse of the packer), the three scans of packed reads
 (`seed_scan_packed`, `sensitive_scan_packed`, `kmer_seed_scan_packed`), and the
 three resolved entry points, each from packed reads to the packed int32
-stream of ops/resolve.py:
+stream of ops/resolve.py, the scan recorded as the span `kart.funnel` or
+`kart.fm_scan` and the resolve as `kart.resolve` (utils/trace.span):
 
   seed_scan_resolved_packed       FM stepper, then expand/resolve/pack
   sensitive_scan_resolved_packed  SensitiveMode FM stepper, then the same
@@ -29,6 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .fm_search import seed_scan, sensitive_scan
 from .kmer_seed import HIT_BUDGET, SLAB_ROWS, kmer_seed_scan_plain
 from .resolve import pack_stream_plain, resolve_pack  # noqa: F401  (kart_tpu keeps it here)
@@ -188,10 +190,12 @@ def seed_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_seed_
     (sa_full on the reads' device) or, with sa_mode "sampled", through the
     walk over fm's sampled SA, and packed into one int32 stream (the tuple
     (cnts, meta, gpos) on an int64 index)."""
-    packed = seed_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len,
-                              max_seeds=max_seeds, l_max=l_max)
-    return resolve_pack(_resolver(sa_full, sa_mode), packed, max_seeds=max_seeds, has_ok=False,
-                        occ_budget=occ_budget, pack16=pack16, fm=fm)
+    with span("kart.fm_scan"):
+        packed = seed_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len,
+                                  max_seeds=max_seeds, l_max=l_max)
+    with span("kart.resolve"):
+        return resolve_pack(_resolver(sa_full, sa_mode), packed, max_seeds=max_seeds,
+                            has_ok=False, occ_budget=occ_budget, pack16=pack16, fm=fm)
 
 
 def sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds, l_max):
@@ -205,10 +209,12 @@ def sensitive_scan_resolved_packed(fm, sa_full, words, amb_r, amb_p, rlens, min_
                                    max_seeds, l_max, occ_budget, sa_mode="full", pack16=False):
     """SensitiveMode FM-stepper seeding of packed reads, resolved as
     seed_scan_resolved_packed resolves them."""
-    packed = sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len,
-                                   max_seeds=max_seeds, l_max=l_max)
-    return resolve_pack(_resolver(sa_full, sa_mode), packed, max_seeds=max_seeds, has_ok=False,
-                        occ_budget=occ_budget, pack16=pack16, fm=fm)
+    with span("kart.fm_scan"):
+        packed = sensitive_scan_packed(fm, words, amb_r, amb_p, rlens, min_seed_len,
+                                       max_seeds=max_seeds, l_max=l_max)
+    with span("kart.resolve"):
+        return resolve_pack(_resolver(sa_full, sa_mode), packed, max_seeds=max_seeds,
+                            has_ok=False, occ_budget=occ_budget, pack16=pack16, fm=fm)
 
 
 def kmer_seed_scan_packed(tt, words, amb_r, amb_p, rlens, min_seed_len, *, max_seeds, l_max,
@@ -236,9 +242,11 @@ def kmer_seed_scan_resolved_packed(tt, words, amb_r, amb_p, rlens, min_seed_len,
     """13-mer funnel seeding of packed reads (FastMode, or SensitiveMode),
     resolved through the full SA and packed into one int32 stream; lanes
     the funnel flags carry cnts < 0."""
-    packed = kmer_seed_scan_packed(tt, words, amb_r, amb_p, rlens, min_seed_len,
-                                   max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap,
-                                   rounds=rounds, sensitive=sensitive, slab_rows=slab_rows,
-                                   hit_budget=hit_budget)
-    return resolve_pack(tt.sa_full, packed, max_seeds=max_seeds, has_ok=True,
-                        occ_budget=occ_budget, pack16=pack16)
+    with span("kart.funnel"):
+        packed = kmer_seed_scan_packed(tt, words, amb_r, amb_p, rlens, min_seed_len,
+                                       max_seeds=max_seeds, l_max=l_max, hit_cap=hit_cap,
+                                       rounds=rounds, sensitive=sensitive, slab_rows=slab_rows,
+                                       hit_budget=hit_budget)
+    with span("kart.resolve"):
+        return resolve_pack(tt.sa_full, packed, max_seeds=max_seeds, has_ok=True,
+                            occ_budget=occ_budget, pack16=pack16)

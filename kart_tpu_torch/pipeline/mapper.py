@@ -85,6 +85,7 @@ from ..parallel.sharded_index import (
     default_shard_devices,
     sharded_seed_scan_resolved,
 )
+from ..utils.trace import span
 from .candidates import (
     Seed,
     gen_candidates_illumina,
@@ -725,50 +726,62 @@ class TorchKartMapper:
         pinned = [t.pin_memory() for t in host]
         return [t.to(self.device, non_blocking=True) for t in pinned], pinned
 
-    def _seed_resolved(self, words, amb_r, amb_p, rlens, l_max: int, B: int):
+    def _seed_resolved(self, words, amb_r, amb_p, rlens, l_max: int, B: int, seq=None):
         """One group's packed resolved stream on the device: the funnel when
         the tables pass the gate, else the FM stepper; for PacBio reads the
-        SensitiveMode form of either."""
-        kw = dict(max_seeds=self._max_seeds(l_max), l_max=l_max,
-                  occ_budget=self._occ_budget(B, l_max), pack16=self._pack16(l_max))
-        tb = self._get_kmer_tables()
-        if tb is not None:
-            return kmer_seed_scan_resolved_packed(
-                self._device_tables(), words, amb_r, amb_p, rlens, self.min_seed_len,
-                hit_cap=hit_cap_for(tb.max_mult), rounds=self._funnel_rounds(l_max),
-                sensitive=self.pacbio, **kw,
-            )
-        fn = sensitive_scan_resolved_packed if self.pacbio else seed_scan_resolved_packed
-        return fn(self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len,
-                  sa_mode=self._device_sa_mode(), **kw)
+        SensitiveMode form of either.  Recorded as the span `kart.seed`
+        (tagged with the group's sequence number `seq`)."""
+        with span("kart.seed", seq):
+            kw = dict(max_seeds=self._max_seeds(l_max), l_max=l_max,
+                      occ_budget=self._occ_budget(B, l_max), pack16=self._pack16(l_max))
+            tb = self._get_kmer_tables()
+            if tb is not None:
+                return kmer_seed_scan_resolved_packed(
+                    self._device_tables(), words, amb_r, amb_p, rlens, self.min_seed_len,
+                    hit_cap=hit_cap_for(tb.max_mult), rounds=self._funnel_rounds(l_max),
+                    sensitive=self.pacbio, **kw,
+                )
+            fn = sensitive_scan_resolved_packed if self.pacbio else seed_scan_resolved_packed
+            return fn(self.fm, self._device_sa(), words, amb_r, amb_p, rlens, self.min_seed_len,
+                      sa_mode=self._device_sa_mode(), **kw)
 
-    def _dispatch_seed_async(self, reads_i8, rl, l_max):
+    def _dispatch_seed_async(self, reads_i8, rl, l_max, seq=None):
         """Pack a (B, l_max) int8 group to 2 bits and seed it.  On a CUDA
         device everything is queued on the mapper's stream (pinned uploads,
         the kernels, a pinned download) and an event marks its end; on the
-        CPU the plain versions run now.  Returns the pending entry."""
-        words, amb_r, amb_p = pack_reads_2bit(reads_i8)
+        CPU the plain versions run now.  Returns the pending entry, with
+        `upload_bytes`, the bytes of the arrays handed to _to_device.  The
+        stages are the spans `kart.pack`, `kart.upload`, `kart.seed` and
+        `kart.download`, tagged with the group's sequence number `seq`."""
+        with span("kart.pack", seq):
+            arrays = pack_reads_2bit(reads_i8) + (rl,)
+        up = sum(a.nbytes for a in arrays)
         B = reads_i8.shape[0]
         if self.device.type != "cuda":
-            (w, ar, ap, r), _ = self._to_device((words, amb_r, amb_p, rl))
-            return dict(host=self._seed_resolved(w, ar, ap, r, l_max, B), event=None, keep=())
+            with span("kart.upload", seq):
+                (w, ar, ap, r), _ = self._to_device(arrays)
+            return dict(host=self._seed_resolved(w, ar, ap, r, l_max, B, seq), event=None,
+                        keep=(), seq=seq, upload_bytes=up)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._device_sa()  # the tables' uploads precede the first group
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
-            (w, ar, ap, r), pinned = self._to_device((words, amb_r, amb_p, rl))
-            stream = self._seed_resolved(w, ar, ap, r, l_max, B)
-            # one int32 array, or an int64 index's (cnts, meta, gpos)
-            parts = stream if isinstance(stream, tuple) else (stream,)
-            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts)
-            for h, t in zip(host, parts):
-                h.copy_(t, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
+            with span("kart.upload", seq):
+                (w, ar, ap, r), pinned = self._to_device(arrays)
+            stream = self._seed_resolved(w, ar, ap, r, l_max, B, seq)
+            with span("kart.download", seq):
+                # one int32 array, or an int64 index's (cnts, meta, gpos)
+                parts = stream if isinstance(stream, tuple) else (stream,)
+                host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts)
+                for h, t in zip(host, parts):
+                    h.copy_(t, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
         if not isinstance(stream, tuple):
             host = host[0]
-        return dict(host=host, event=event, keep=(pinned, w, ar, ap, r, stream))
+        return dict(host=host, event=event, keep=(pinned, w, ar, ap, r, stream), seq=seq,
+                    upload_bytes=up)
 
     def _host_fm(self):
         """The host FM model (ops/fm_ref.py, sampled SA), made at first use."""
@@ -829,19 +842,30 @@ class TorchKartMapper:
     def _finalize_seed(self, entry, n, reads_i8, rl, l_max):
         """Wait for a dispatched group and decode its stream -> (tot, offs,
         rpos, slen, gpos, overrides): flat per-occurrence arrays plus the
-        exact re-seeds of flagged reads."""
+        exact re-seeds of flagged reads.  The group's group_log entry counts
+        its reads, flagged lanes, re-seeds, `upload_bytes` and the
+        downloaded stream's `stream_bytes`.  The stages are the spans
+        `kart.wait`, `kart.decode` and `kart.reseed`."""
+        seq = entry.get("seq")
         if entry["event"] is not None:
-            entry["event"].synchronize()
+            with span("kart.wait", seq):
+                entry["event"].synchronize()
         B = reads_i8.shape[0]
-        cnts, meta, gpos = unpack_stream(
-            _host_arrays(entry["host"]), B, self._occ_budget(B, l_max), self._pack16(l_max)
-        )
-        ok, tot, offs = decode_resolved_counts(cnts)
-        rpos = (meta & 0xFFFF).astype(np.int32)
-        slen = ((meta >> 16) & 0xFFFF).astype(np.int32)  # logical: slen 32768 sets the sign bit
-        bad = np.nonzero(~ok[:n])[0]
-        self.group_log.append(dict(reads=n, flagged=len(bad), reseeded_device=0, reseeded_host=0))
-        overrides = self._reseed_device_flat(bad, reads_i8, rl, l_max) if len(bad) else {}
+        with span("kart.decode", seq):
+            arrs = _host_arrays(entry["host"])
+            cnts, meta, gpos = unpack_stream(arrs, B, self._occ_budget(B, l_max),
+                                             self._pack16(l_max))
+            ok, tot, offs = decode_resolved_counts(cnts)
+            rpos = (meta & 0xFFFF).astype(np.int32)
+            slen = ((meta >> 16) & 0xFFFF).astype(np.int32)  # logical: slen 32768 sets the sign bit
+            bad = np.nonzero(~ok[:n])[0]
+        stream_bytes = sum(a.nbytes for a in (arrs if isinstance(arrs, tuple) else (arrs,)))
+        self.group_log.append(dict(reads=n, flagged=len(bad), reseeded_device=0, reseeded_host=0,
+                                   upload_bytes=entry["upload_bytes"], stream_bytes=stream_bytes))
+        overrides = {}
+        if len(bad):
+            with span("kart.reseed", seq):
+                overrides = self._reseed_device_flat(bad, reads_i8, rl, l_max)
         return tot, offs, rpos, slen, gpos, overrides
 
     @staticmethod
@@ -922,32 +946,39 @@ class TorchKartMapper:
                               n_bufs=(depth + 2) * G + 2)
 
         def post(entry):
-            group = entry["group"]
+            group, seq = entry["group"], entry["seq"]
             n_tot = sum(n for n, _ in group)
             res = self._finalize_seed(entry, n_tot, entry["reads"], entry["rlens"], entry["l_max"])
             row = 0
             for n0, ptrs0 in group:
                 if progress is not None:
                     progress(self.stats["total"])
-                cnt, rp, ln, gp = self._chunk_flat(res, row, row + n0)
-                writer(self.native.process_chunk_flat(
-                    n0, pair_end and n0 % 2 == 0 and not self.pacbio, fastq, ptrs0, cnt, rp, ln,
-                    gp, self.stats
-                ))
+                with span("kart.post", seq):
+                    cnt, rp, ln, gp = self._chunk_flat(res, row, row + n0)
+                    text = self.native.process_chunk_flat(
+                        n0, pair_end and n0 % 2 == 0 and not self.pacbio, fastq, ptrs0, cnt, rp,
+                        ln, gp, self.stats
+                    )
+                with span("kart.write", seq):
+                    writer(text)
                 self.stats["total"] += n0
                 row += n0
 
         try:
             pend: list = []
             eof = False
+            seq = 0  # the groups' sequence numbers tag their spans
             while not eof or pend:
                 if not eof:
-                    group = self._read_group(reader, G)
+                    with span("kart.read", seq):
+                        group = self._read_group(reader, G)
                     if group:
-                        reads_i8, rl, l_max = self._encode_group(group, l_buckets, b_buckets)
-                        entry = self._dispatch_seed_async(reads_i8, rl, l_max)
+                        with span("kart.encode", seq):
+                            reads_i8, rl, l_max = self._encode_group(group, l_buckets, b_buckets)
+                        entry = self._dispatch_seed_async(reads_i8, rl, l_max, seq)
                         entry.update(group=group, reads=reads_i8, rlens=rl, l_max=l_max)
                         pend.append(entry)
+                        seq += 1
                     else:
                         eof = True
                 if pend and (eof or len(pend) > depth):

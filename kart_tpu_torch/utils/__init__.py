@@ -1,3 +1,3 @@
-from .trace import StageTimers, device_trace, progress_line
+from .trace import TIMERS, StageTimers, device_trace, progress_line, span
 
-__all__ = ["StageTimers", "device_trace", "progress_line"]
+__all__ = ["TIMERS", "StageTimers", "device_trace", "progress_line", "span"]

@@ -6,6 +6,12 @@ timers (src/BWT_Index/bwtindex.c:93-145).  This module adds:
 
   * StageTimers — lightweight named accumulators for the host pipeline
     stages (read / seed / post / emit), printed as a per-read breakdown;
+  * span — the program's one span recorder: `with span("kart.seed", g)`
+    adds the block's seconds and a count to the module's TIMERS and, under
+    an active torch.profiler session, puts a `kart.seed` event (the group
+    number in its args) into the trace on the profiler's clock.  Off
+    (KART_TIMERS unset at start and no profiler running) it is one check
+    and a shared no-op context;
   * device_trace — context manager around torch.profiler that writes a
     Chrome trace of the enclosed block (CPU and, where there is a CUDA
     device, its kernels and copies) into a directory (KART_TRACE_DIR or
@@ -29,8 +35,15 @@ import sys
 import time
 from collections import defaultdict
 
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
 # the Chrome trace's device lanes: kernels, copies and sets
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# seconds the device idles around a traced block: a profiler places a
+# kernel up to about a millisecond off its launch and drops one outside the
+# session's window (PERF.md, section 7)
+PAD_S = 0.5
 
 
 class StageTimers:
@@ -65,6 +78,51 @@ class StageTimers:
                 line += f" ({1e9 * self.acc[k] / n_items:.0f}ns/item)"
             parts.append(line)
         print("[kart_timers] " + "  ".join(parts), file=file)
+
+
+# the spans' recorder, on for the process with KART_TIMERS=1 at start
+TIMERS = StageTimers()
+_OFF = contextlib.nullcontext()
+_profiling = torch.autograd._profiler_enabled
+
+
+class _Span:
+    """One recording span: seconds and a count into TIMERS on
+    time.perf_counter; under an active profiler also a user-scope record
+    function of the same name, the group number among its keyword values
+    (in the Chrome trace's args where the session records shapes)."""
+
+    __slots__ = ("name", "group", "rec", "t0")
+
+    def __init__(self, name: str, group: int | None):
+        self.name, self.group = name, group
+
+    def __enter__(self):
+        self.rec = None
+        if _profiling():
+            kw = {"scope": "user_scope"}
+            if self.group is not None:
+                kw["group"] = int(self.group)
+            self.rec = _RecordFunctionFast(self.name, keyword_values=kw)
+            self.rec.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        TIMERS.acc[self.name] += time.perf_counter() - self.t0
+        TIMERS.n[self.name] += 1
+        if self.rec is not None:
+            self.rec.__exit__(*exc)
+        return False
+
+
+def span(name: str, group: int | None = None):
+    """A context that records the block as `name` (tagged with `group`, a
+    group's sequence number, where given) while KART_TIMERS=1 was set at
+    start or a torch.profiler session is active; else a shared no-op."""
+    if not (TIMERS.enabled or _profiling()):
+        return _OFF
+    return _Span(name, group)
 
 
 def trace_spans(trace: dict) -> list[tuple[float, float, str]]:
@@ -106,26 +164,31 @@ def _port_launches() -> int:
 def device_trace(trace_dir: str | None = None):
     """Write a torch.profiler Chrome trace of the enclosed block into
     `trace_dir` (made if missing) as `kart_<pid>_<ns>.trace.json`: CPU
-    activity, and the CUDA device's kernels and copies where a CUDA device
-    is available (the block's queued work is synchronised before the trace
-    closes).  Raises if the block queued device work and the trace holds no
-    device event (check_device_events).  No-op unless a directory is given
-    or KART_TRACE_DIR is set."""
+    activity with the block's `kart.*` spans (shapes recorded, so that each
+    span's group number is in its args), and the CUDA device's kernels and
+    copies where a CUDA device is available: the device idles PAD_S before
+    the block and, its queued work synchronised, after it.  Raises if the
+    block queued device work and the trace holds no device event
+    (check_device_events).  No-op unless a directory is given or
+    KART_TRACE_DIR is set."""
     trace_dir = trace_dir or os.environ.get("KART_TRACE_DIR")
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(trace_dir, exist_ok=True)
     launched = _port_launches()
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=True) as prof:
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(PAD_S)
         yield
         if cuda:
             torch.cuda.synchronize()
+            time.sleep(PAD_S)
     path = os.path.join(trace_dir, f"kart_{os.getpid()}_{time.time_ns()}.trace.json")
     prof.export_chrome_trace(path)
     if cuda:
