@@ -286,7 +286,8 @@ def main(argv: list[str] | None = None) -> int:
             down = sum(g.get("stream_bytes", 0) for g in log)
             n_reads = sum(g["reads"] for g in log)
             up_line = (f", uploaded {up / n_reads:.1f} and downloaded {down / n_reads:.1f}"
-                       " bytes a read" if up else "")
+                       " bytes a read, ambiguity entries"
+                       f" {[g['amb_entries'] for g in log]}" if up else "")
             print(
                 f"\t# of device seeding groups on {device} = {len(log)},"
                 f" flagged lanes = {sum(g['flagged'] for g in log)},"

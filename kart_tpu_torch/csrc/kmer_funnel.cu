@@ -21,8 +21,12 @@
 // meet once a round through distributed shared memory.
 //
 //   amb_scatter_kernel  grid-wide, one thread per entry of the sparse
-//             ambiguity list: atomicOr into a zeroed (B, ceil(l_max/32))
-//             bit mask (no order of the list is assumed);
+//             ambiguity list, each entry a run of ambiguous bases of one
+//             row (amb_p = start | (len - 1) << 16; ops/pack.py; kart_tpu's
+//             single positions are runs of one): its bits into a zeroed
+//             (B, ceil(l_max/32)) bit mask, atomicOr on its two edge words
+//             and plain stores, a warp at a time, between them (no order of
+//             the list is assumed, and runs may overlap);
 //   funnel_kernel, per block:
 //   prologue  its lanes' mask words and read words (ambiguous and
 //             past-the-end bases 0) into its own shared memory, where
@@ -102,7 +106,8 @@
 // one outcome load and two barriers a round.
 //
 // unpack_codes_kernel / unpack_amb_kernel: the plain unpack to (B, l_max)
-// int32 codes, for the FM stepper's re-seed batches.
+// int32 codes, for the FM stepper's re-seed batches; the ambiguity list's
+// runs as above, a long one (a re-seed bucket's all-pad row) by a warp.
 
 #include <climits>
 #include <cstdint>
@@ -249,14 +254,50 @@ __device__ __forceinline__ void cluster_share(cg::cluster_group& cluster, int* t
   cluster.sync();
 }
 
+// Entry i of the ambiguity list as the bases [s, e) of row r, clipped to
+// l_max; false for an entry that is dropped (past n_amb, a row out of [0, B),
+// a negative amb_p, a start at or past l_max).
+__device__ __forceinline__ bool amb_run(const int* __restrict__ amb_r,
+                                        const int* __restrict__ amb_p, int i, int n_amb, int B,
+                                        int l_max, int& r, int& s, int& e) {
+  if (i >= n_amb) return false;
+  r = amb_r[i];
+  const int p = amb_p[i];
+  s = p & 0xFFFF;
+  if (r < 0 || r >= B || p < 0 || s >= l_max) return false;
+  e = min(s + ((p >> 16) & 0x7FFF) + 1, l_max);
+  return true;
+}
+
+// A thread an entry, blocks of whole warps.  The run's edge words may be
+// shared with another run of the row: atomicOr.  The words between them
+// are wholly the run's, so whatever else lands there they end all ones: a
+// plain store, the warp going through one run's words at a time.
 __global__ void amb_scatter_kernel(const int* __restrict__ amb_r, const int* __restrict__ amb_p,
                                    int n_amb, int B, int l_max, int nab, unsigned* ambm) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_amb) return;
-  const int r = amb_r[i], q = amb_p[i];
-  // entries out of range are dropped (pads carry row B)
-  if (r < 0 || r >= B || q < 0 || q >= l_max) return;
-  atomicOr(ambm + (size_t)r * nab + (q >> 5), 1u << (q & 31));
+  const int lane = threadIdx.x & 31;
+  int r = 0, s = 0, e = 1;
+  const bool has = amb_run(amb_r, amb_p, i, n_amb, B, l_max, r, s, e);
+  const int w0 = s >> 5, w1 = (e - 1) >> 5;
+  if (has) {
+    unsigned* row = ambm + (size_t)r * nab;
+    const unsigned lo = ~0u << (s & 31), hi = ~0u >> (31 - ((e - 1) & 31));
+    if (w0 == w1) {
+      atomicOr(row + w0, lo & hi);
+    } else {
+      atomicOr(row + w0, lo);
+      atomicOr(row + w1, hi);
+    }
+  }
+  unsigned wide = __ballot_sync(0xFFFFFFFFu, has && w1 - w0 > 1);
+  while (wide) {
+    const int src = __ffs(wide) - 1;
+    wide &= wide - 1;
+    unsigned* row = ambm + (size_t)__shfl_sync(0xFFFFFFFFu, r, src) * nab;
+    const int a = __shfl_sync(0xFFFFFFFFu, w0, src) + 1, b = __shfl_sync(0xFFFFFFFFu, w1, src);
+    for (int w = a + lane; w < b; w += 32) row[w] = ~0u;
+  }
 }
 
 __global__ void __launch_bounds__(kMaxThreads) funnel_kernel(Funnel f) {
@@ -757,12 +798,24 @@ __global__ void unpack_codes_kernel(const unsigned* __restrict__ words, int nwl,
   reads[i] = (__ldg(words + (size_t)b * nwl + (j >> 4)) >> (2 * (j & 15))) & 3u;
 }
 
+// A thread an entry, blocks of whole warps: a run of at most 32 bases by
+// its own thread, a longer one by the warp.
 __global__ void unpack_amb_kernel(const int* __restrict__ amb_r, const int* __restrict__ amb_p,
                                   int n_amb, int B, int l_max, int* __restrict__ reads) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_amb) return;
-  const int r = amb_r[i], q = amb_p[i];
-  if (r >= 0 && r < B && q >= 0 && q < l_max) reads[(size_t)r * l_max + q] = 4;
+  const int lane = threadIdx.x & 31;
+  int r = 0, s = 0, e = 0;
+  const bool has = amb_run(amb_r, amb_p, i, n_amb, B, l_max, r, s, e);
+  if (has && e - s <= 32)
+    for (int q = s; q < e; q++) reads[(size_t)r * l_max + q] = 4;
+  unsigned wide = __ballot_sync(0xFFFFFFFFu, has && e - s > 32);
+  while (wide) {
+    const int src = __ffs(wide) - 1;
+    wide &= wide - 1;
+    int* row = reads + (size_t)__shfl_sync(0xFFFFFFFFu, r, src) * l_max;
+    const int a = __shfl_sync(0xFFFFFFFFu, s, src), b = __shfl_sync(0xFFFFFFFFu, e, src);
+    for (int q = a + lane; q < b; q += 32) row[q] = 4;
+  }
 }
 
 }  // namespace
@@ -771,7 +824,7 @@ __global__ void unpack_amb_kernel(const int* __restrict__ amb_r, const int* __re
 extern "C" int kart_kmer_funnel_cluster() { return kCluster; }
 
 // words: (B, ceil(l_max/16)) uint32, l_max <= 512, or <= 32768 with
-// `sensitive`; amb_r/amb_p: (n_amb,) int32; rlens: (B,) int32; tables as
+// `sensitive`; amb_r/amb_p: (n_amb,) int32 runs; rlens: (B,) int32; tables as
 // KmerTablesTensors; ambm: (B, ceil(l_max/32)) uint32 scratch; out: (B,
 // 2 + 4*max_seeds) int32; hit_budget: hits a row and round (the caller
 // raises it to 4 in SensitiveMode, as kart_tpu does).  A batch
@@ -895,8 +948,9 @@ extern "C" int kart_kmer_funnel(const void* table_lo, const void* sub_tbl, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: (B, ceil(l_max/16)) uint32; amb_r/amb_p: (n_amb,) int32 -> reads
-// (B, l_max) int32 codes, ambiguous bases 4.  Two launches on one stream.
+// words: (B, ceil(l_max/16)) uint32; amb_r/amb_p: (n_amb,) int32 runs ->
+// reads (B, l_max) int32 codes, ambiguous bases 4.  Two launches on one
+// stream.
 extern "C" int kart_unpack_reads(const void* words, const void* amb_r, const void* amb_p,
                                  int n_amb, int B, int l_max, void* reads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

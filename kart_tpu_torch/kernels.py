@@ -335,7 +335,8 @@ def kmer_funnel(tt, words, amb_r, amb_p, rlens, min_seed_len: int, *, max_seeds:
                 sensitive: bool = False):
     """csrc/kmer_funnel.cu: packed funnel seeds (B, 2 + 4*max_seeds) int32
     for 2-bit reads on the card (words (B, ceil(l_max/16)) int32 bits,
-    amb_r/amb_p (n_amb,) int32, rlens (B,) int32), against the tables of a
+    amb_r/amb_p (n_amb,) int32, the runs of ambiguous bases of
+    ops/pack.py's list, rlens (B,) int32), against the tables of a
     KmerTablesTensors: FastMode with l_max <= 512, or SensitiveMode
     (`sensitive`, at least 4 hits a row and round) with l_max <= 32768.
     FastMode runs one thread-block cluster per slab of min(B, slab_rows)
@@ -420,7 +421,8 @@ kmer_funnel.launches = 0
 
 def unpack_reads(words, amb_r, amb_p, *, l_max: int):
     """csrc/kmer_funnel.cu (unpack kernels): (B, l_max) int32 codes,
-    ambiguous bases 4, from 2-bit reads on the card."""
+    ambiguous bases 4, from 2-bit reads on the card and the runs of
+    ambiguous bases of ops/pack.py's list."""
     dev = words.device
     B = words.shape[0]
     _check("words", words, torch.int32, (B, -(-l_max // 16)), dev)

@@ -3612,38 +3612,56 @@ void kart_encode_reads(const uint8_t* seq_concat, const int64_t* seq_off,
 }
 
 // 2-bit-pack an encoded (B x l_max) int8 code matrix into (B x nw) uint32
-// words (16 bases/word, code 0 for ambiguous positions) + a sparse
-// (row, pos) ambiguity list — the device-upload layout of
+// words (16 bases/word, code 0 for ambiguous positions) + a sparse list of
+// the ambiguous bases as runs — the device-upload layout of
 // ops/pack.pack_reads_2bit, built in one pass instead of numpy's
 // shift/reshape pipeline (measured 124 ms per 32k-read group in numpy —
-// the largest serial host stage of the device pipeline).  Returns the
-// ambiguity count; when it exceeds amb_cap the caller must fall back
-// (entries past amb_cap are dropped).
+// the largest serial host stage of the device pipeline).  One entry per
+// maximal run of codes > 3 in a row, in row-major order: amb_r = row,
+// amb_p = start | (len - 1) << 16, a run longer than kAmbRunMax split
+// (the caller keeps l_max <= 65536, so that a start fits its 16 bits).  A
+// read's pad is one entry, where a list of positions held one per base.
+// Returns the entry count; when it exceeds amb_cap the caller must pack
+// again with more room (entries past amb_cap are dropped).
 int64_t kart_pack_reads_2bit(const int8_t* reads, int32_t B, int32_t l_max,
                              uint32_t* words, int32_t nw, int32_t* amb_r,
                              int32_t* amb_p, int64_t amb_cap) {
+  constexpr int32_t kAmbRunMax = 1 << 15;
   int64_t n_amb = 0;
+  auto emit = [&](int32_t row, int32_t start, int32_t len) {
+    if (n_amb < amb_cap) {
+      amb_r[n_amb] = row;
+      amb_p[n_amb] = start | ((len - 1) << 16);
+    }
+    n_amb++;
+  };
   for (int32_t i = 0; i < B; i++) {
     const int8_t* row = reads + (int64_t)i * l_max;
     uint32_t* wrow = words + (int64_t)i * nw;
     int32_t p = 0;
+    int32_t run = -1;  // start of the open run of ambiguous bases
     for (int32_t w = 0; w < nw; w++) {
       uint32_t acc = 0;
       int32_t lim = l_max - p < 16 ? l_max - p : 16;
       for (int32_t j = 0; j < lim; j++, p++) {
         uint32_t c = (uint32_t)(uint8_t)row[p];
         if (c > 3) {
-          if (n_amb < amb_cap) {
-            amb_r[n_amb] = i;
-            amb_p[n_amb] = p;
+          if (run < 0) {
+            run = p;
+          } else if (p - run == kAmbRunMax) {
+            emit(i, run, kAmbRunMax);
+            run = p;
           }
-          n_amb++;
           c = 0;
+        } else if (run >= 0) {
+          emit(i, run, p - run);
+          run = -1;
         }
         acc |= c << (2 * j);
       }
       wrow[w] = acc;
     }
+    if (run >= 0) emit(i, run, l_max - run);
   }
   return n_amb;
 }

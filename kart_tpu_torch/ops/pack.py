@@ -2,9 +2,19 @@
 
 Counterpart of `kart_tpu/ops/pack.py`.  Host half (numpy): `pack_reads_2bit`
 packs (B, l_max) int8 codes 16 bases per uint32 word with a sparse list of
-ambiguous positions (the C++ packer of native/kart_post.cpp;
+the runs of ambiguous bases (the C++ packer of native/kart_post.cpp;
 `pack_reads_2bit_plain` is its numpy version), and `unpack_stream` decodes
-the downloaded stream.  Device half (torch):
+the downloaded stream.
+
+The ambiguity list: entry i covers bases [start, start + len) of row
+amb_r[i], with amb_p[i] = start | (len - 1) << 16 (start < 2**16, len <=
+2**15).  The packer gives one entry per maximal run of codes > 3 in a row,
+row-major, so a read's pad to l_max costs one entry.  kart_tpu's list of
+single positions is the case len 1, and every consumer takes either.
+Consumers clip a run to l_max and drop an entry whose row is outside
+[0, B) (the capacity pads carry row B) or whose amb_p is negative.
+
+Device half (torch):
 `unpack_reads` (the inverse of the packer), the three scans of packed reads
 (`seed_scan_packed`, `sensitive_scan_packed`, `kmer_seed_scan_packed`), and the
 three resolved entry points, each from packed reads to the packed int32
@@ -37,6 +47,8 @@ from .resolve import pack_stream_plain, resolve_pack  # noqa: F401  (kart_tpu ke
 
 # sparse-ambiguity capacity buckets, padded with out-of-range rows (B)
 _AMB_BUCKETS = [0, 256, 4096]
+AMB_RUN_MAX = 1 << 15  # bases of one entry of the ambiguity list at most
+AMB_START_MAX = 1 << 16  # l_max at most: a run's start fits amb_p's low 16 bits
 _M32 = 0xFFFFFFFF
 
 
@@ -49,15 +61,22 @@ def _amb_bucket(n: int) -> int:
 
 def pack_reads_2bit(reads_i8: np.ndarray):
     """(B, l_max) int8 codes (0..3, >3 ambiguous) -> words (B, ceil(L/16))
-    uint32, amb_r and amb_p (int32 coordinates of the ambiguous bases,
-    padded to a capacity bucket with row B), by the C++ packer; a failed
-    build of its library raises."""
+    uint32, amb_r and amb_p (int32 runs of ambiguous bases, as the module's
+    docstring gives them, padded to a capacity bucket with row B), by the
+    C++ packer; a failed build of its library raises."""
+    _check_run_starts(reads_i8.shape[1])
     return _native_pack(np.ascontiguousarray(reads_i8, dtype=np.int8))
+
+
+def _check_run_starts(l_max: int) -> None:
+    if l_max > AMB_START_MAX:
+        raise ValueError(f"l_max {l_max} > {AMB_START_MAX}: a run's start must fit 16 bits")
 
 
 def pack_reads_2bit_plain(reads_i8: np.ndarray):
     """pack_reads_2bit in numpy: the plain version of the C++ packer."""
     B, L = reads_i8.shape
+    _check_run_starts(L)
     nw = -(-L // 16)
     amb_mask = reads_i8 > 3
     codes = np.where(amb_mask, 0, reads_i8).astype(np.uint32)
@@ -65,12 +84,21 @@ def pack_reads_2bit_plain(reads_i8: np.ndarray):
     padded[:, :L] = codes
     shifts = (2 * np.arange(16)).astype(np.uint32)
     words = (padded.reshape(B, nw, 16) << shifts).sum(axis=2, dtype=np.uint32)
-    amb_r, amb_p = np.nonzero(amb_mask)
-    cap = _amb_bucket(len(amb_r))
+    # maximal runs: +1 where one starts, -1 where one ends (exclusive)
+    edges = np.diff(np.pad(amb_mask, ((0, 0), (1, 1))).astype(np.int8), axis=1)
+    rows, starts = np.nonzero(edges == 1)
+    lens = np.nonzero(edges == -1)[1] - starts
+    # a run past AMB_RUN_MAX bases in pieces of AMB_RUN_MAX
+    pieces = -(-lens // AMB_RUN_MAX)
+    run = np.repeat(np.arange(len(lens)), pieces)
+    k = np.arange(len(run)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    starts = starts[run] + k * AMB_RUN_MAX
+    lens = np.minimum(lens[run] - k * AMB_RUN_MAX, AMB_RUN_MAX)
+    cap = _amb_bucket(len(run))
     r = np.full(cap, B, np.int32)
     p = np.zeros(cap, np.int32)
-    r[: len(amb_r)] = amb_r
-    p[: len(amb_p)] = amb_p
+    r[: len(run)] = rows[run]
+    p[: len(run)] = starts | ((lens - 1) << 16)
     return words, r, p
 
 
@@ -141,15 +169,24 @@ def pack_codes_2bit(reads: torch.Tensor):
 
 def unpack_reads_plain(words, amb_r, amb_p, l_max: int):
     """kart_tpu's unpack_reads_device: words (B, nw) int32 (uint32 bits) and
-    the sparse ambiguity list -> (B, l_max) int32 codes, ambiguous bases 4.
-    Entries out of range are dropped (pads carry row B)."""
+    the sparse ambiguity list (runs, or kart_tpu's single positions) ->
+    (B, l_max) int32 codes, ambiguous bases 4."""
     B = words.shape[0]
     j = torch.arange(l_max, device=words.device)
     w = words.long()[:, j >> 4] & _M32
     reads = ((w >> (2 * (j & 15))) & 3).to(torch.int32)
     r, p = amb_r.long(), amb_p.long()
-    keep = (r >= 0) & (r < B) & (p >= 0) & (p < l_max)
-    reads[r[keep], p[keep]] = 4
+    start = p & 0xFFFF
+    end = torch.clamp(start + ((p >> 16) & 0x7FFF) + 1, max=l_max)
+    keep = (r >= 0) & (r < B) & (p >= 0) & (start < l_max)
+    r, start, end = r[keep], start[keep], end[keep]
+    # +1 at each run's start, -1 at its end: a base is ambiguous where the
+    # running sum is positive (runs may overlap)
+    edge = torch.zeros((B, l_max + 1), dtype=torch.int32, device=words.device)
+    one = torch.ones(len(r), dtype=torch.int32, device=words.device)
+    edge.index_put_((r, start), one, accumulate=True)
+    edge.index_put_((r, end), -one, accumulate=True)
+    reads[edge.cumsum(1)[:, :l_max] > 0] = 4
     return reads
 
 

@@ -750,18 +750,20 @@ class TorchKartMapper:
         device everything is queued on the mapper's stream (pinned uploads,
         the kernels, a pinned download) and an event marks its end; on the
         CPU the plain versions run now.  Returns the pending entry, with
-        `upload_bytes`, the bytes of the arrays handed to _to_device.  The
+        `upload_bytes`, the bytes of the arrays handed to _to_device, and
+        `amb_entries`, the ambiguity list's real entries (its runs).  The
         stages are the spans `kart.pack`, `kart.upload`, `kart.seed` and
         `kart.download`, tagged with the group's sequence number `seq`."""
         with span("kart.pack", seq):
             arrays = pack_reads_2bit(reads_i8) + (rl,)
         up = sum(a.nbytes for a in arrays)
         B = reads_i8.shape[0]
+        amb = int(np.count_nonzero(arrays[1] < B))  # the capacity pads carry row B
         if self.device.type != "cuda":
             with span("kart.upload", seq):
                 (w, ar, ap, r), _ = self._to_device(arrays)
             return dict(host=self._seed_resolved(w, ar, ap, r, l_max, B, seq), event=None,
-                        keep=(), seq=seq, upload_bytes=up)
+                        keep=(), seq=seq, upload_bytes=up, amb_entries=amb)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._device_sa()  # the tables' uploads precede the first group
@@ -781,7 +783,7 @@ class TorchKartMapper:
         if not isinstance(stream, tuple):
             host = host[0]
         return dict(host=host, event=event, keep=(pinned, w, ar, ap, r, stream), seq=seq,
-                    upload_bytes=up)
+                    upload_bytes=up, amb_entries=amb)
 
     def _host_fm(self):
         """The host FM model (ops/fm_ref.py, sampled SA), made at first use."""
@@ -843,8 +845,8 @@ class TorchKartMapper:
         """Wait for a dispatched group and decode its stream -> (tot, offs,
         rpos, slen, gpos, overrides): flat per-occurrence arrays plus the
         exact re-seeds of flagged reads.  The group's group_log entry counts
-        its reads, flagged lanes, re-seeds, `upload_bytes` and the
-        downloaded stream's `stream_bytes`.  The stages are the spans
+        its reads, flagged lanes, re-seeds, `upload_bytes`, `amb_entries`
+        and the downloaded stream's `stream_bytes`.  The stages are the spans
         `kart.wait`, `kart.decode` and `kart.reseed`."""
         seq = entry.get("seq")
         if entry["event"] is not None:
@@ -861,7 +863,8 @@ class TorchKartMapper:
             bad = np.nonzero(~ok[:n])[0]
         stream_bytes = sum(a.nbytes for a in (arrs if isinstance(arrs, tuple) else (arrs,)))
         self.group_log.append(dict(reads=n, flagged=len(bad), reseeded_device=0, reseeded_host=0,
-                                   upload_bytes=entry["upload_bytes"], stream_bytes=stream_bytes))
+                                   upload_bytes=entry["upload_bytes"],
+                                   amb_entries=entry["amb_entries"], stream_bytes=stream_bytes))
         overrides = {}
         if len(bad):
             with span("kart.reseed", seq):

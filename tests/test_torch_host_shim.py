@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import kart_tpu_torch
+from kart_tpu.ops import pack as jpack
 from kart_tpu_torch import kernels
 from kart_tpu_torch.index import build_index, load_index
 from kart_tpu_torch.ops import fm_search as tfm
@@ -74,6 +75,8 @@ def host_lib(tmp_path_factory):
                                            p, p]
     lib.kart_fm_sensitive_scan.restype = i
     lib.kart_kmer_funnel.restype = i
+    lib.kart_unpack_reads.argtypes = [p, p, p, i, i, i, p, p]
+    lib.kart_unpack_reads.restype = i
     lib.kart_kmer_funnel_cluster.restype = i
     lib.kart_resolve_pack.argtypes = [p, i, i, i, p, i, i, p, p, p, p, p]
     lib.kart_resolve_pack.restype = i
@@ -184,6 +187,81 @@ def test_funnel_kernel_on_host_matches_plain(host_lib, shim_genome, name):
     assert (reads == 4).any() and want[:, 0].sum() > B // 2
     if name.endswith("flagged"):
         assert (want[:, 1] == 0).sum() > 10
+
+
+def amb_lists(reads):
+    """Ambiguity lists of one batch that every consumer must read alike:
+    kart_tpu's positions, the port's runs in reverse order, and both at
+    once (every run overlapped by its own positions)."""
+    B = reads.shape[0]
+    _, point_r, point_p = jpack.pack_reads_2bit(reads)
+    _, run_r, run_p = tpack.pack_reads_2bit(reads)
+    assert (run_r < B).sum() < (point_r < B).sum() and (run_p >> 16).max() > 0
+    both_r, both_p = np.concatenate([run_r, point_r]), np.concatenate([run_p, point_p])
+    return [(point_r, point_p), (run_r[::-1].copy(), run_p[::-1].copy()),
+            (both_r[::-1].copy(), both_p[::-1].copy())]
+
+
+def host_unpack(lib, words, amb_r, amb_p, l_max):
+    out = np.full((words.shape[0], l_max), -3, np.int32)
+    assert lib.kart_unpack_reads(ptr(words), ptr(amb_r), ptr(amb_p), len(amb_r), words.shape[0],
+                                 l_max, ptr(out), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["funnel", "sensitive_funnel", "unpack"])
+def test_amb_point_and_run_lists_agree_on_host(host_lib, shim_genome, kernel):
+    """The mask scatter (through both funnels) and the unpack give one
+    output for kart_tpu's list of positions, the port's list of runs and
+    the two overlapping; runs cross 16-base and 32-bit words, pad reads to
+    l_max, fill a row, stand alone."""
+    from test_torch_kmer_seed import sensitive_batch
+
+    gidx, tb = shim_genome
+    if kernel == "funnel":
+        l_max = 160
+        reads, rlens = make_reads(gidx, 64, l_max, seed=3)
+    else:
+        l_max = 1024
+        reads, rlens = sensitive_batch(gidx, n=16, rlen=700, l_max=l_max)
+    reads[2, 14:18] = reads[2, 30:34] = reads[2, 60:130] = reads[3, ::7] = 4
+    rlens[2] = max(rlens[2], 140)  # the runs inside the read
+    reads[5] = 4
+    rlens[5] = 0
+    reads = reads.astype(np.int8)
+    words = tpack.pack_reads_2bit(reads)[0]
+    hit_cap = tks.hit_cap_for(tb.max_mult)
+    outs = []
+    for amb_r, amb_p in amb_lists(reads):
+        if kernel == "unpack":
+            outs.append(host_unpack(host_lib, words, amb_r, amb_p, l_max))
+        else:
+            sens = kernel == "sensitive_funnel"
+            outs.append(host_funnel(host_lib, tb, words, amb_r, amb_p, rlens, l_max=l_max,
+                                    hit_cap=hit_cap, slab_rows=4096, hit_budget=8 if sens else 2,
+                                    sensitive=sens, ms=l_max // MIN_SEED + 2,
+                                    rounds=l_max // MIN_SEED + 8))
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
+    if kernel == "unpack":
+        np.testing.assert_array_equal(outs[0], np.where(reads > 3, 4, reads))
+    else:
+        assert outs[0][:, 0].sum() > 16
+
+
+def test_unpack_kernel_on_host_clips_and_drops(host_lib):
+    """A hand-made list (overlapping runs, a run past l_max, rows out of
+    range, a negative amb_p, a start past l_max, a run of more than 32
+    bases) through the kernel, against the plain unpack."""
+    B, l_max = 3, 100
+    words = np.zeros((B, 7), np.uint32)
+    amb_r = np.array([0, 0, 1, 2, 3, -1, 2, 2, 2], np.int32)
+    amb_p = np.array([10 | 9 << 16, 15 | 9 << 16, 90 | 99 << 16, 1, 5, 5, -1, 100,
+                      40 | 40 << 16], np.int32)
+    want = tpack.unpack_reads_plain(torch.from_numpy(words.view(np.int32)),
+                                    torch.from_numpy(amb_r), torch.from_numpy(amb_p), l_max)
+    assert (want.numpy()[2, 40:81] == 4).all() and want.numpy()[0, 25] == 0
+    np.testing.assert_array_equal(host_unpack(host_lib, words, amb_r, amb_p, l_max), want.numpy())
 
 
 def test_funnel_kernel_on_host_refuses_a_block_too_large(host_lib, shim_genome):

@@ -24,6 +24,7 @@ import torch
 
 from kart_tpu.index import build_index, load_index
 from kart_tpu.ops import kmer_seed as jks
+from kart_tpu.ops import pack as jpack
 from kart_tpu_torch.ops import kmer_seed as tks
 from kart_tpu_torch.ops import pack as tpack
 
@@ -208,21 +209,25 @@ def test_kmer_seed_scan_plain_matches(jax_scans, name):
 @pytest.mark.parametrize("name", CASES)
 def test_kmer_seed_scan_resolved_packed_matches(jax_scans, name):
     """The fused CPU path: plain unpack, funnel, expand/resolve and pack16,
-    from the host packer's 2-bit words."""
+    from the host packer's 2-bit words, with the port's list of runs and
+    with kart_tpu's list of positions."""
     tb, results = jax_scans
     c = results[name]
     l_max = c["l_max"]
-    words, amb_r, amb_p = tpack.pack_reads_2bit(c["reads"].astype(np.int8))
+    reads = c["reads"].astype(np.int8)
+    words, amb_r, amb_p = tpack.pack_reads_2bit(reads)
+    _, point_r, point_p = jpack.pack_reads_2bit(reads)
+    assert (amb_r < len(reads)).sum() < (point_r < len(reads)).sum()
     tt = tks.KmerTablesTensors.from_tables(tb, "cpu")
-    got = tpack.kmer_seed_scan_resolved_packed(
-        tt, torch.from_numpy(words.view(np.int32)), torch.from_numpy(amb_r),
-        torch.from_numpy(amb_p), torch.from_numpy(c["rlens"]), MIN_SEED,
-        max_seeds=l_max // 14 + 1, l_max=l_max, hit_cap=c["hit_cap"], rounds=l_max // 10 + 4,
-        occ_budget=2 * len(c["rlens"]), pack16=True, slab_rows=c["slab"],
-        hit_budget=c["hit_budget"],
-    )
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), c["want_stream"])
+    for r, p in ((amb_r, amb_p), (point_r, point_p)):
+        got = tpack.kmer_seed_scan_resolved_packed(
+            tt, torch.from_numpy(words.view(np.int32)), torch.from_numpy(r), torch.from_numpy(p),
+            torch.from_numpy(c["rlens"]), MIN_SEED, max_seeds=l_max // 14 + 1, l_max=l_max,
+            hit_cap=c["hit_cap"], rounds=l_max // 10 + 4, occ_budget=2 * len(c["rlens"]),
+            pack16=True, slab_rows=c["slab"], hit_budget=c["hit_budget"],
+        )
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), c["want_stream"])
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +366,7 @@ import numpy as np
 import torch
 from kart_tpu.index import load_index
 from kart_tpu.ops import kmer_seed as jks
+from kart_tpu.ops import pack as jpack
 from kart_tpu_torch.ops import kmer_seed as tks
 assert (jks._SLAB_ROWS, jks._HIT_BUDGET) == (tks.SLAB_ROWS, tks.HIT_BUDGET) == (96, 1)
 z = np.load(sys.argv[2])

@@ -158,8 +158,9 @@ def test_seed_spans_nest(engine, scan, span_data, timers, monkeypatch, tmp_path)
 def test_group_log_counts_bytes(span_data, monkeypatch):
     """The device-pipelined mode on the CPU, a reader chunk a group: each
     group_log entry's upload_bytes is the packer's three arrays and the
-    lengths of its (B, l_max) batch, and its stream_bytes the pack16
-    stream's B / 2 + H / 2 + H words."""
+    lengths of its (B, l_max) batch, its amb_entries the real entries of
+    the packer's list of runs, and its stream_bytes the pack16 stream's
+    B / 2 + H / 2 + H words."""
     from kart_tpu_torch.index import load_index
     from kart_tpu_torch.ops.pack import pack_reads_2bit_plain
     from kart_tpu_torch.pipeline.mapper import TorchKartMapper
@@ -188,7 +189,10 @@ def test_group_log_counts_bytes(span_data, monkeypatch):
         B = reads_i8.shape[0]
         H = mapper._occ_budget(B, l_max)
         assert mapper._pack16(l_max)
-        assert g["upload_bytes"] == sum(a.nbytes for a in pack_reads_2bit_plain(reads_i8)) + 4 * B
+        arrays = pack_reads_2bit_plain(reads_i8)
+        assert g["upload_bytes"] == sum(a.nbytes for a in arrays) + 4 * B
+        # a run a read at least: the reads are padded to l_max
+        assert g["amb_entries"] == (arrays[1] < B).sum() >= g["reads"]
         assert g["stream_bytes"] == 4 * (B // 2 + H // 2 + H)
 
 
@@ -196,7 +200,7 @@ def test_cli_timers_keep_the_sam(span_data, tmp_path, monkeypatch, capsys):
     """KART_TIMERS=1 on a device-mode CLI run on the CPU: a [kart_timers]
     line on standard error naming the served path's spans, and the same SAM
     bytes as the run without it; both print the bytes uploaded and
-    downloaded a read."""
+    downloaded a read and each group's ambiguity entries."""
     d = span_data
     args = ["-i", str(d / "idx"), "-f", str(d / "r1.fq"), "-f2", str(d / "r2.fq"), "-cpu",
             "-silent"]
@@ -206,7 +210,8 @@ def test_cli_timers_keep_the_sam(span_data, tmp_path, monkeypatch, capsys):
     assert torch_cli.main(["kart-tpu-torch", *args, "-o", str(tmp_path / "off.sam")]) == 0
     out, err = capsys.readouterr()
     assert "[kart_timers]" not in err
-    assert re.search(r"on the host = 0, uploaded \d+\.\d and downloaded \d+\.\d bytes a read", out)
+    assert re.search(r"on the host = 0, uploaded \d+\.\d and downloaded \d+\.\d bytes a read,"
+                     r" ambiguity entries \[\d+(, \d+)*\]", out)
     env = dict(os.environ, KART_TIMERS="1", PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-m", "kart_tpu_torch.cli", *args, "-o",
                            str(tmp_path / "on.sam")], capture_output=True, text=True,
