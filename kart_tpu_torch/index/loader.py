@@ -148,4 +148,10 @@ class GenomeIndex:
 
 
 def load_index(prefix: str) -> GenomeIndex:
-    return GenomeIndex(load_raw_index(prefix))
+    """The index files at `prefix`, read inside the `kart.index.load` set-up
+    span (the full SA and the decoded text are read or made at first use,
+    in whichever span first needs them)."""
+    from ..utils.trace import setup_span
+
+    with setup_span("kart.index.load"):
+        return GenomeIndex(load_raw_index(prefix))

@@ -32,6 +32,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.trace import setup_span
+
 K = 13
 OCC_THR = 50
 BITMAP_KS = (12, 11, 10, 9, 8, 7, 6, 5, 4)
@@ -70,7 +72,13 @@ class KmerSeedTables:
 
 def build_tables(gidx, seg_pad: int = 1024, cache: bool = True) -> KmerSeedTables:
     """Build the funnel's tables, or load them from the `.kmt` sidecar of
-    the index (the file kart_tpu writes and reads)."""
+    the index (the file kart_tpu writes and reads), inside the
+    `kart.index.tables` set-up span."""
+    with setup_span("kart.index.tables"):
+        return _build_tables(gidx, seg_pad, cache)
+
+
+def _build_tables(gidx, seg_pad: int, cache: bool) -> KmerSeedTables:
     prefix = getattr(gidx.raw, "prefix", None)
     kmt = prefix + ".kmt" if prefix else None
     if cache and kmt and os.path.exists(kmt):

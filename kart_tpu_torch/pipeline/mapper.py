@@ -49,6 +49,7 @@ text bases.  An index of 2**31 text bases or more is int64 throughout.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import os
@@ -85,7 +86,7 @@ from ..parallel.sharded_index import (
     default_shard_devices,
     sharded_seed_scan_resolved,
 )
-from ..utils.trace import span
+from ..utils.trace import count, setup_span, span
 from .candidates import (
     Seed,
     gen_candidates_illumina,
@@ -231,9 +232,35 @@ class TorchKartMapper:
     @property
     def fm(self) -> FMIndexTensors:
         if self._fm is None:
-            self._fm = FMIndexTensors.from_genome_index(
-                self.gidx, self.device, with_full_sa=None if self.sa_mode == "full" else False)
+            with self._uploading():
+                self._fm = FMIndexTensors.from_genome_index(
+                    self.gidx, self.device, with_full_sa=None if self.sa_mode == "full" else False)
         return self._fm
+
+    @contextlib.contextmanager
+    def _uploading(self):
+        """The block's device copies of index arrays inside the
+        `kart.index.upload` set-up span (on a card, until they are done);
+        then the `index_device_bytes` counter is set anew."""
+        with setup_span("kart.index.upload"):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        count("index_device_bytes", self.index_device_bytes())
+
+    def index_device_bytes(self) -> int:
+        """Bytes of the index tensors this mapper holds on its device: the FM
+        index, the funnel's tables and the full SA, each storage once where
+        two names share it.  On a card the FM index's copy of the full SA
+        stays on the host, and is not counted."""
+        tensors = [self._sa_dev] + [v for h in (self._fm, self._tables_dev) if h is not None
+                                    for v in vars(h).values()]
+        seen = {}
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.device.type == self.device.type:
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+        return sum(seen.values())
 
     def _get_kmer_tables(self):
         """kart_tpu's gate for the 13-mer funnel: genome at most
@@ -268,7 +295,9 @@ class TorchKartMapper:
 
     def _device_tables(self) -> KmerTablesTensors:
         if self._tables_dev is None:
-            self._tables_dev = KmerTablesTensors.from_tables(self._get_kmer_tables(), self.device)
+            tb = self._get_kmer_tables()
+            with self._uploading():
+                self._tables_dev = KmerTablesTensors.from_tables(tb, self.device)
         return self._tables_dev
 
     def _device_sa_mode(self) -> str:
@@ -284,7 +313,9 @@ class TorchKartMapper:
             if self._get_kmer_tables() is not None and self.fm.index_dtype == torch.int32:
                 self._sa_dev = self._device_tables().sa_full
             else:
-                self._sa_dev = self.fm.sa_full.to(self.device)
+                sa = self.fm.sa_full
+                with self._uploading():
+                    self._sa_dev = sa.to(self.device)
         return self._sa_dev
 
     # ------------------------------------------------------------------

@@ -12,6 +12,10 @@ timers (src/BWT_Index/bwtindex.c:93-145).  This module adds:
     number in its args) into the trace on the profiler's clock.  Off
     (KART_TIMERS unset at start and no profiler running) it is one check
     and a shared no-op context;
+  * setup_span — a span of the process's set-up (the index's load, the
+    funnel's tables, the device copies), recorded whatever the switch,
+    since set-up runs before any profiler session; `count` sets a counter
+    of TIMERS (`index_device_bytes`);
   * device_trace — context manager around torch.profiler that writes a
     Chrome trace of the enclosed block (CPU and, where there is a CUDA
     device, its kernels and copies) into a directory (KART_TRACE_DIR or
@@ -23,7 +27,8 @@ timers (src/BWT_Index/bwtindex.c:93-145).  This module adds:
 
 Enable stage timing with KART_TIMERS=1; the native pipeline's own
 per-stage profile is KART_PROF=1 (kart_post.cpp).  StageTimers and
-progress_line are kart_tpu's, byte for byte in what they print.
+progress_line are kart_tpu's, byte for byte in what they print (a
+StageTimers with no counter set).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ class StageTimers:
         )
         self.acc: dict[str, float] = defaultdict(float)
         self.n: dict[str, int] = defaultdict(int)
+        self.counters: dict[str, int] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -77,6 +83,7 @@ class StageTimers:
             if n_items:
                 line += f" ({1e9 * self.acc[k] / n_items:.0f}ns/item)"
             parts.append(line)
+        parts += [f"{k}={v}" for k, v in sorted(self.counters.items())]
         print("[kart_timers] " + "  ".join(parts), file=file)
 
 
@@ -123,6 +130,20 @@ def span(name: str, group: int | None = None):
     if not (TIMERS.enabled or _profiling()):
         return _OFF
     return _Span(name, group)
+
+
+def setup_span(name: str) -> _Span:
+    """A span of the process's set-up (`kart.index.*`): recorded into TIMERS
+    whether or not the recorder is on, and into the trace under an active
+    profiler.  A handful a process, so the clock reads cost nothing that
+    shows."""
+    return _Span(name, None)
+
+
+def count(name: str, value: int) -> None:
+    """Set TIMERS' counter `name` (a level, not a sum: the last value
+    stands); the report prints it after the spans."""
+    TIMERS.counters[name] = int(value)
 
 
 def trace_spans(trace: dict) -> list[tuple[float, float, str]]:

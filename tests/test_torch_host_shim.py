@@ -128,10 +128,11 @@ def ptr(a: np.ndarray) -> int:
 
 
 def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_rows, hit_budget,
-                sensitive=False, ms=None, rounds=None, tile=None, paths=None):
-    """The funnel through the host shim.  SensitiveMode's scratch holds
-    `tile` rows (all of them by default), of which the kernels use whole
-    slabs; `paths`, a (2,) int32 array, gains the slabs of each path."""
+                sensitive=False, ms=None, rounds=None, tile=None, paths=None, msl=MIN_SEED):
+    """The funnel through the host shim, at the minimum seed length `msl`.
+    SensitiveMode's scratch holds `tile` rows (all of them by default), of
+    which the kernels use whole slabs; `paths`, a (2,) int32 array, gains
+    the slabs of each path."""
     B = words.shape[0]
     ms = ms or l_max // (MIN_SEED + 1) + 1
     rounds = rounds or l_max // 10 + 4
@@ -149,7 +150,7 @@ def host_funnel(lib, tb, words, amb_r, amb_p, rlens, *, l_max, hit_cap, slab_row
     out = np.full((B, 2 + 4 * ms), -7, np.int32)
     rc = lib.kart_kmer_funnel(ptr(table_lo), ptr(sub_tbl), ptr(sa), ptr(text), int(tb.seq_len),
                               ptr(words), ptr(amb_r), ptr(amb_p), len(amb_r), ptr(rlens), B, l_max,
-                              MIN_SEED, ms, hit_cap, rounds, slab_rows, hit_budget, int(sensitive),
+                              msl, ms, hit_cap, rounds, slab_rows, hit_budget, int(sensitive),
                               ptr(ambm), ptr(scr), cap, ptr(totals), ptr(paths), ptr(out), None)
     assert rc == 0
     return out
@@ -323,8 +324,7 @@ def test_sensitive_funnel_kernel_on_host_matches_plain(host_lib, shim_genome, na
         reads, rlens = (np.concatenate(x) for x in zip(
             sensitive_batch(gidx, n=24, rlen=400, l_max=l_max), repeat_batch(gidx, 24, l_max)))
     else:
-        reads, rlens = sensitive_batch(gidx, n=B, rlen=700, l_max=l_max)
-        reads[2, 100:230] = 4  # a run of Ns longer than any window or word
+        reads, rlens = sensitive_batch_n(gidx, B, l_max)
     ms = l_max // MIN_SEED + 2
     rounds = rounds or l_max // MIN_SEED + 8
     hit_cap = tks.hit_cap_for(tb.max_mult)
@@ -351,6 +351,46 @@ def test_sensitive_funnel_kernel_on_host_matches_plain(host_lib, shim_genome, na
     if name.startswith("one_read_l32768"):
         assert want[0, 0] > 250 and want[0, 2 + want[0, 0] - 1] > 32000
         assert (want[1:, 0] == 0).all() and (want[1:, 1] == 1).all()
+
+
+@pytest.mark.parametrize("name", ["b16_ragged", "b16_ragged_chased"])
+def test_sensitive_funnel_kernel_on_host_at_min_seed_14(host_lib, shim_genome, name):
+    """The SensitiveMode kernels at a minimum seed of 14 (a genome of more
+    than 4**13 / 2 bases: C. elegans' size) against the plain version at 14,
+    on both paths; a funnel that kept 13 would differ."""
+    gidx, tb = shim_genome
+    _, B, l_max, slab, hb, _, _, want_paths = SENS_FUNNEL_CASES[name]
+    reads, rlens = sensitive_batch_n(gidx, B, l_max)
+    tt = tks.KmerTablesTensors.from_tables(tb, "cpu")
+    hit_cap = tks.hit_cap_for(tb.max_mult)
+    words, amb_r, amb_p = tpack.pack_reads_2bit(reads.astype(np.int8))
+    outs = {}
+    for msl in (14, 13):
+        ms, rounds = l_max // msl + 2, l_max // msl + 8
+        want = tks.kmer_seed_scan_plain(
+            tt, torch.from_numpy(reads), torch.from_numpy(rlens), msl, max_seeds=ms,
+            l_max=l_max, hit_cap=hit_cap, rounds=rounds, sensitive=True, slab_rows=slab,
+            hit_budget=hb).numpy()
+        outs[msl] = tks.unpack_seed_result(want, ms)
+        if msl == 14:
+            paths = np.full(2, 100, np.int32)
+            got = host_funnel(host_lib, tb, words, amb_r, amb_p, rlens, l_max=l_max,
+                              hit_cap=hit_cap, slab_rows=slab, hit_budget=max(hb, 4),
+                              sensitive=True, ms=ms, rounds=rounds, paths=paths, msl=14)
+            np.testing.assert_array_equal(got, want)
+            assert tuple(paths - 100) == want_paths
+    n14, n13 = outs[14]["n_seeds"], outs[13]["n_seeds"]
+    assert n14.sum() >= 2 * min(B, 8) and not np.array_equal(n14, n13)
+
+
+def sensitive_batch_n(gidx, B, l_max):
+    """SENS_FUNNEL_CASES' "random" batch: B reads of 700 bases, a run of Ns
+    longer than any window or word in the third."""
+    from test_torch_kmer_seed import sensitive_batch
+
+    reads, rlens = sensitive_batch(gidx, n=B, rlen=700, l_max=l_max)
+    reads[2, 100:230] = 4
+    return reads, rlens
 
 
 def test_sensitive_funnel_kernel_on_host_budget_edge(host_lib, shim_genome):

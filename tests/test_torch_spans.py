@@ -198,7 +198,8 @@ def test_group_log_counts_bytes(span_data, monkeypatch):
 
 def test_cli_timers_keep_the_sam(span_data, tmp_path, monkeypatch, capsys):
     """KART_TIMERS=1 on a device-mode CLI run on the CPU: a [kart_timers]
-    line on standard error naming the served path's spans, and the same SAM
+    line on standard error naming the served path's spans, the index's
+    set-up spans and its device-bytes counter, and the same SAM
     bytes as the run without it; both print the bytes uploaded and
     downloaded a read and each group's ambiguity entries."""
     d = span_data
@@ -221,6 +222,8 @@ def test_cli_timers_keep_the_sam(span_data, tmp_path, monkeypatch, capsys):
     assert len(line) == 1, proc.stderr[-3000:]
     named = {part.split("=")[0] for part in line[0].split()[1:] if "=" in part}
     assert set(SERVED_SPANS) <= named and "kart.funnel" in named, line
+    assert {"kart.index.load", "kart.index.tables", "kart.index.upload",
+            "index_device_bytes"} <= named, line
     assert " bytes a read" in proc.stdout
     assert (tmp_path / "on.sam").read_bytes() == (tmp_path / "off.sam").read_bytes()
 
